@@ -7,14 +7,19 @@ Phases (any failure exits nonzero before the result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build both CUDA kernels from ``opencv_facerecognizer_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel);
+   (one ``nvcc`` per source, in parallel) and print each kernel
+   instantiation's registers, spills and barriers from ``-Xptxas -v``;
 3. hold each kernel against its plain PyTorch version on the card:
    the streaming match (kernel A) at Q = 512, D = 256, N = 2^20 bf16 with
-   duplicate and invalid rows, k = 1 and 5, plus a small ragged case with
-   fewer valid rows than k; the fused separable block (kernel B) at the
-   six serving block shapes, B = 512 (and once in f32). Time each beside
-   its plain version and beside one PyTorch call computing the same
-   function;
+   duplicate and invalid rows at k = 1, 5, 16, 17 and 64, on ragged
+   galleries that end mid-tile (bf16 and f32, D = 256 and 64, fewer valid
+   rows than k), and on the 2^20-row gallery stored in f32; the fused
+   separable block (kernel B) at the six serving block shapes, B = 512 and
+   B = 37 (and in f32). Time each at the serving shape: the kernel's
+   device time from a CUDA graph of back-to-back calls (``ms``), the
+   wrapper's time by CUDA events around eager calls (host work
+   included), its plain version and one PyTorch call computing the
+   same function;
 4. serve: a ``RecognizerService`` over ``FakeConnector`` with the serving
    detector and embedder (random weights from ``--seed``), a 2^20-row
    bf16 gallery, batches of 32 256x256 uint8 frames and the fused
@@ -45,8 +50,9 @@ from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
 from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops.sepblock import (
     fused_sep_block, fused_sep_block_plain)
+from opencv_facerecognizer_tpu_torch.ops.sepblock import launch_info as sepblock_launch_info
 from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
-    NEG_INF, streaming_match_topk, streaming_match_topk_plain)
+    NEG_INF, match_smem_bytes, streaming_match_topk, streaming_match_topk_plain)
 from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import (
     RecognitionPipeline, unpack_result)
@@ -75,6 +81,9 @@ HEATMAP_BIAS = 0.0
 SIZE_BIAS = 3.0
 #: kernel A: f32 sums of the same bf16 products in another order
 MATCH_ATOL = 1e-4
+#: kernel A's k checked at the serving shape: the serving top-1, the
+#: one-pass lists (5, 16) and the multi-pass k (17, 64)
+MATCH_KS = (1, 5, 16, 17, 64)
 #: kernel B: bf16 outputs; the kernel and the plain version may round an
 #: intermediate to neighbouring bf16 values: two bf16 ulps of the output
 SEP_RTOL = 2.0 ** -6
@@ -102,8 +111,8 @@ def log(*parts) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms: CUDA events around ``iters`` runs
-    after ``warmup`` runs."""
+    """Mean time of ``fn`` in ms: CUDA events around ``iters`` eager runs
+    after ``warmup`` runs (host work between launches included)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -115,6 +124,75 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Device time of one ``fn`` in ms: ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events (no host work
+    between the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def log_ptxas(name: str) -> None:
+    """One line per kernel instantiation from the build's ``-Xptxas -v``
+    output: registers, barriers, spill stores/loads (dynamic shared memory
+    is per launch and is logged with each kernel's timing)."""
+    entry, spills = None, ""
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = _demangle(line.split("'")[1])
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            log(f"  ptxas {entry}: {line.split('info    :')[-1].strip()}; {spills}")
+            entry, spills = None, ""
+
+
+def _demangle(symbol: str) -> str:
+    """The kernel's name and template arguments, e.g.
+    ``sepblock_kernel<__nv_bfloat16, 256, 8, 8>``."""
+    try:
+        text = subprocess.run(["c++filt", symbol], capture_output=True, text=True,
+                              timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    text = text.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return text.split("(")[0] or symbol
+
+
+def _match_case(q, g, valid, k, what: str) -> float:
+    """Kernel A against its plain version; returns the max sim error."""
+    got_v, got_i = streaming_match_topk(q, g, valid, k=k)
+    want_v, want_i = streaming_match_topk_plain(q, g, valid, k=k)
+    torch.cuda.synchronize()
+    err = (got_v - want_v).abs().max().item()
+    beyond_ties = ((got_i != want_i) & ((got_v - want_v).abs() > MATCH_ATOL)).sum().item()
+    sentinels_ok = torch.equal(got_i == -1, want_i == -1) and bool(
+        (got_v[got_i == -1] == NEG_INF).all())
+    if err > MATCH_ATOL or beyond_ties or not sentinels_ok:
+        raise AssertionError(f"kernel A {what} k={k}: max sim err {err}, {beyond_ties} index "
+                             f"mismatches beyond ties, sentinels equal: {sentinels_ok}")
+    log(f"kernel A {what} k={k} ({streaming_match_topk.last_path} path): max |sim - plain| "
+        f"{err:.3e}, index agreement {(got_i == want_i).float().mean().item():.6f}")
+    return err
 
 
 def check_match(dev, gen) -> dict:
@@ -131,39 +209,42 @@ def check_match(dev, gen) -> dict:
     valid[100000:100256] = False        # half the first plants invalid
     valid[900000:900512] = True
     q, g, valid = q.to(dev), g.to(dev, torch.bfloat16), valid.to(dev)
+    planted = torch.where(valid[100000:100512], 100000, 900000) + torch.arange(512, device=dev)
     max_err = 0.0
-    for k in (1, 5):
-        got_v, got_i = streaming_match_topk(q, g, valid, k=k)
-        want_v, want_i = streaming_match_topk_plain(q, g, valid, k=k)
-        torch.cuda.synchronize()
-        err = (got_v - want_v).abs().max().item()
-        ties_only = ((got_i != want_i) & ((got_v - want_v).abs() > MATCH_ATOL)).sum().item()
-        if err > MATCH_ATOL or ties_only:
-            raise AssertionError(f"kernel A k={k}: max sim err {err}, {ties_only} "
-                                 "index mismatches beyond ties")
-        planted = torch.where(valid[100000:100512], 100000, 900000) + torch.arange(512, device=dev)
+    for k in MATCH_KS:
+        max_err = max(max_err, _match_case(q, g, valid, k, "serving shape"))
+        got_i = streaming_match_topk(q, g, valid, k=k)[1]
         if not torch.equal(got_i[:, 0].long(), planted):
             raise AssertionError(f"kernel A k={k}: planted rows not found at the lowest index")
-        max_err = max(max_err, err)
-        log(f"kernel A k={k}: max |sim - plain| {err:.3e}, index agreement "
-            f"{(got_i == want_i).float().mean().item():.6f}")
-    # ragged, fewer valid rows than k
-    q2 = torch.randn(37, 64, generator=gen).to(dev)
-    g2 = torch.randn(301, 64, generator=gen).to(dev)
-    v2 = torch.zeros(301, dtype=torch.bool, device=dev)
-    v2[[3, 200, 250]] = True
-    for gg in (g2, g2.to(torch.bfloat16)):
-        got_v, got_i = streaming_match_topk(q2, gg, v2, k=5)
-        want_v, want_i = streaming_match_topk_plain(q2, gg, v2, k=5)
-        torch.cuda.synchronize()
-        if not (torch.equal(got_i, want_i) and (got_i[:, 3:] == -1).all()
-                and (got_v[:, 3:] == NEG_INF).all()):
-            raise AssertionError("kernel A ragged case: sentinels or indices differ")
-        max_err = max(max_err, (got_v - want_v).abs().max().item())
-    log("kernel A ragged (Q=37, N=301, 3 valid rows, k=5): indices and -1 sentinels equal")
+    # ragged galleries: N one row past a tile, below one tile; fewer valid
+    # rows than k
+    for n, d, gdt in ((70001, DIM, torch.bfloat16), (70001, DIM, torch.float32),
+                      (301, 64, torch.bfloat16), (301, 64, torch.float32)):
+        q2 = torch.randn(37, d, generator=gen)
+        g2 = torch.randn(n, d, generator=gen)
+        q2 = (q2 / q2.norm(dim=1, keepdim=True)).to(dev)
+        g2 = (g2 / g2.norm(dim=1, keepdim=True)).to(dev, gdt)
+        v2 = (torch.rand(n, generator=gen) > 0.2).to(dev)
+        for k in (1, 17):
+            max_err = max(max_err, _match_case(q2, g2, v2, k, f"ragged N={n} D={d} {gdt}"))
+        v3 = torch.zeros(n, dtype=torch.bool, device=dev)
+        v3[[3, n // 2, n - 1]] = True
+        max_err = max(max_err, _match_case(q2, g2, v3, 5, f"3 valid rows N={n} D={d} {gdt}"))
+    # the same 2^20 rows stored in f32 (the gallery's default store dtype)
+    g32 = g.float()
+    for k in (1, 5):
+        max_err = max(max_err, _match_case(q, g32, valid, k, "f32 gallery"))
+    f32_ms = graph_ms(lambda: streaming_match_topk(q, g32, valid, k=1), iters=5)
+    log(f"kernel A f32 gallery (Q=512, D=256, N=2^20, k=1, "
+        f"{streaming_match_topk.last_path} path): {f32_ms:.4f} ms device time")
+    del g32
 
     k = 1  # the serving top_k
-    ms = cuda_ms(lambda: streaming_match_topk(q, g, valid, k=k))
+    ms = graph_ms(lambda: streaming_match_topk(q, g, valid, k=k))
+    eager_ms = cuda_ms(lambda: streaming_match_topk(q, g, valid, k=k))
+    for kk in MATCH_KS[1:]:
+        log(f"kernel A k={kk} at the serving shape: "
+            f"{graph_ms(lambda: streaming_match_topk(q, g, valid, k=kk), iters=3):.4f} ms")
     plain_ms = cuda_ms(lambda: streaming_match_topk_plain(q, g, valid, k=k), iters=3, warmup=1)
     qb = q.to(torch.bfloat16)
 
@@ -175,6 +256,10 @@ def check_match(dev, gen) -> dict:
     nbytes = q.numel() * 4 + g.numel() * 2 + valid.numel() + q.shape[0] * k * 8
     flops = 2 * q.shape[0] * GALLERY_ROWS * DIM
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    log(f"kernel A k=1 serving shape ({streaming_match_topk.last_path} path, "
+        f"{match_smem_bytes(DIM, 1, streaming_match_topk.last_path)} B shared memory per CTA): "
+        f"{ms:.4f} ms device time, {eager_ms:.4f} ms eager with events, "
+        f"plain {plain_ms:.4f}, matmul + topk {library_ms:.4f}, bound {bound:.4f}")
     return dict(name="streaming_match", route="cuda",
                 source="opencv_facerecognizer_tpu_torch/csrc/streaming_match.cu",
                 replaces="opencv_facerecognizer_tpu/ops/pallas_match.py:99",
@@ -183,67 +268,69 @@ def check_match(dev, gen) -> dict:
                 else "operations", library_ms=library_ms)
 
 
+def _sep_args(gen, c, f, stride, dev):
+    blk = embedder_mod._SepBlock(c, f, stride)
+    with torch.no_grad():
+        blk.dw.weight.copy_(torch.randn(c, 1, 3, 3, generator=gen) * 0.3)
+        blk.pw.weight.copy_(torch.randn(f, c, 1, 1, generator=gen) / c ** 0.5)
+        for gn in (blk.gn1, blk.gn2):
+            gn.weight.copy_(torch.rand(gn.weight.shape, generator=gen) + 0.5)
+            gn.bias.copy_(torch.randn(gn.bias.shape, generator=gen) * 0.1)
+    blk = blk.to(dev).eval()
+    return blk, (blk.dw.weight, blk.gn1.weight, blk.gn1.bias, blk.pw.weight,
+                 blk.gn2.weight, blk.gn2.bias)
+
+
+def _sep_case(x, args, stride, res, what: str) -> float:
+    """Kernel B against its plain version; returns the max error."""
+    got = fused_sep_block(x, *args, stride=stride, residual=res)
+    want = fused_sep_block_plain(x, *args, stride=stride, residual=res)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    if got.dtype != x.dtype or not (err <= SEP_RTOL * want.float().abs().clamp(min=1.0)).all():
+        raise AssertionError(f"kernel B {what}: max err {err.max().item()}")
+    return err.max().item()
+
+
 def check_sepblock(dev, gen) -> dict:
     """Kernel B vs its plain version at the six serving shapes; the entry
     sums one forward's six calls."""
     b = 512
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, t_ops=0.0)
+    tot = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, t_ops=0.0)
     max_err = 0.0
     for h, w, c, f, stride in SERVING_BLOCKS:
         res = stride == 1 and c == f
+        blk, args = _sep_args(gen, c, f, stride, dev)
+        what = f"{h}x{w}x{c}->{h // stride}x{w // stride}x{f} s{stride}"
         x = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
-        blk = embedder_mod._SepBlock(c, f, stride)
-        with torch.no_grad():
-            blk.dw.weight.copy_(torch.randn(c, 1, 3, 3, generator=gen) * 0.3)
-            blk.pw.weight.copy_(torch.randn(f, c, 1, 1, generator=gen) / c ** 0.5)
-            for gn in (blk.gn1, blk.gn2):
-                gn.weight.copy_(torch.rand(gn.weight.shape, generator=gen) + 0.5)
-                gn.bias.copy_(torch.randn(gn.bias.shape, generator=gen) * 0.1)
-        blk = blk.to(dev).eval()
-        args = (blk.dw.weight, blk.gn1.weight, blk.gn1.bias, blk.pw.weight,
-                blk.gn2.weight, blk.gn2.bias)
-        got = fused_sep_block(x, *args, stride=stride, residual=res)
-        want = fused_sep_block_plain(x, *args, stride=stride, residual=res)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        if not (err <= SEP_RTOL * want.float().abs().clamp(min=1.0)).all():
-            raise AssertionError(f"kernel B {h}x{w}x{c}->{f}/s{stride}: max err "
-                                 f"{err.max().item()}")
-        max_err = max(max_err, err.max().item())
+        err = _sep_case(x, args, stride, res, what)
+        err37 = _sep_case(x[:37].contiguous(), args, stride, res, what + " B=37")
+        xf = torch.randn(37, h, w, c, generator=gen).to(dev)
+        err32 = _sep_case(xf, args, stride, res, what + " f32 B=37")
+        max_err = max(max_err, err, err37, err32)
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view: the cuDNN path's input
+        plan = sepblock_launch_info(x, f, stride)
         with torch.no_grad():
-            ms = cuda_ms(lambda: fused_sep_block(x, *args, stride=stride, residual=res))
+            ms = graph_ms(lambda: fused_sep_block(x, *args, stride=stride, residual=res))
+            eager = cuda_ms(lambda: fused_sep_block(x, *args, stride=stride, residual=res))
             plain = cuda_ms(lambda: fused_sep_block_plain(x, *args, stride=stride,
                                                           residual=res), iters=5)
             lib = cuda_ms(lambda: blk(x_nchw, torch.bfloat16), iters=10)
         p = (h // stride) * (w // stride)
-        nbytes = x.numel() * 2 + b * p * f * 2 + (9 * c + 2 * c + 2 * f) * 4 + c * f * 2
+        nbytes = x.numel() * 2 + b * p * f * 2 + (9 * c + 2 * c + 2 * f) * 4 + c * f * 4
         t_ops = 2 * b * p * c * f / BF16_FLOPS + (2 * 9 * b * p * c + 10 * b * p * (c + f)) / F32_FLOPS
-        log(f"kernel B {h}x{w}x{c}->{h // stride}x{w // stride}x{f} s{stride}: "
-            f"max err {err.max().item():.3e}, {ms:.4f} ms (plain {plain:.4f}, "
-            f"cuDNN block {lib:.4f}, bound {max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3:.4f})")
+        log(f"kernel B {what}: max err {err:.3e} (B=37 {err37:.3e}, f32 {err32:.3e}), "
+            f"{ms:.4f} ms device time, {eager:.4f} ms eager (plain {plain:.4f}, cuDNN block "
+            f"{lib:.4f}, bound {max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3:.4f}); {plan}")
         tot["ms"] += ms
+        tot["eager_ms"] += eager
         tot["plain_ms"] += plain
         tot["library_ms"] += lib
         tot["bytes"] += nbytes
         tot["t_ops"] += t_ops
-    # the f32 path (the CPU cross-check's dtype), at the residual block
-    h, w, c, f, stride = SERVING_BLOCKS[1]
-    x = torch.randn(b, h, w, c, generator=gen).to(dev)
-    args = (torch.randn(c, 1, 3, 3, generator=gen) * 0.3, torch.rand(c, generator=gen) + 0.5,
-            torch.randn(c, generator=gen) * 0.1, torch.randn(f, c, 1, 1, generator=gen) / c ** 0.5,
-            torch.rand(f, generator=gen) + 0.5, torch.randn(f, generator=gen) * 0.1)
-    args = tuple(a.to(dev) for a in args)
-    got = fused_sep_block(x, *args, stride=stride, residual=True)
-    want = fused_sep_block_plain(x, *args, stride=stride, residual=True)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    if got.dtype != torch.float32 or not (err <= SEP_RTOL * want.abs().clamp(min=1.0)).all():
-        raise AssertionError(f"kernel B f32 {h}x{w}x{c}: max err {err.max().item()}")
-    max_err = max(max_err, err.max().item())
-    log(f"kernel B f32 {h}x{w}x{c}->{f} s{stride}: max err {err.max().item():.3e}, "
-        f"mean {err.mean().item():.3e}")
     t_bytes = tot["bytes"] / HBM_BYTES_PER_S
+    log(f"kernel B, one forward (six blocks, B=512): {tot['ms']:.4f} ms device time, "
+        f"{tot['eager_ms']:.4f} ms eager with events")
     return dict(name="sepblock", route="cuda",
                 source="opencv_facerecognizer_tpu_torch/csrc/sepblock.cu",
                 replaces="opencv_facerecognizer_tpu/ops/pallas_sepblock.py:150",
@@ -385,6 +472,7 @@ def serve(dev, seed: int, n_frames: int) -> dict:
     serve_s = time.perf_counter() - t_serve
     launches = {"streaming_match": streaming_match_topk.launches,
                 "sepblock": fused_sep_block.launches}
+    log(f"kernel A's path on the serving gallery: {streaming_match_topk.last_path}")
     results = conn.messages(RESULT_TOPIC)
     log(f"served {len(results)} results for {n_frames} frames in {serve_s:.3f} s; "
         f"launches {launches}; ledger {service.ledger()}")
@@ -473,9 +561,7 @@ def main() -> int:
     _build.build_all()
     log(f"built {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        log_ptxas(name)
     gen = torch.Generator().manual_seed(args.seed)
     entries = [check_match(dev, gen), check_sepblock(dev, gen)]
     launches = serve(dev, args.seed, args.frames)

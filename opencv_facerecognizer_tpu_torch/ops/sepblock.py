@@ -3,9 +3,9 @@
 Port of ``opencv_facerecognizer_tpu/ops/pallas_sepblock.py``
 ``fused_sep_block``: dw3x3 -> GroupNorm -> ReLU -> pw1x1 -> GroupNorm ->
 (+ residual) -> ReLU with the activation kept on chip. The CUDA kernel is
-``csrc/sepblock.cu`` (one CTA per sample; its header says what bounds it
-and how the design answers); ``fused_sep_block_plain`` is the same
-function in plain PyTorch.
+``csrc/sepblock.cu`` (persistent CTAs streaming samples; its header says
+what bounds it and how the design answers); ``fused_sep_block_plain`` is
+the same function in plain PyTorch.
 
 Both compute what the Pallas kernel computes, rounding where it rounds:
 depthwise operands to bf16 with f32 accumulation; the activation in f32
@@ -24,14 +24,47 @@ is free); the weights are the port modules' conv layouts, ``w_dw
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from opencv_facerecognizer_tpu_torch.ops import _build
 
-#: dynamic shared memory one CTA may use on the H100
-MAX_SMEM_BYTES = 232448
+#: the kernel's instantiations, as in csrc/sepblock.cu: (threads per CTA,
+#: depthwise pixels per thread, pointwise m16n8 tiles per warp)
+VARIANTS = ((256, 8, 8), (512, 16, 8), (256, 64, 32))
+
+_plans: Dict[tuple, Tuple[int, ...]] = {}
+
+
+def kernel_variant(p: int, c: int, f: int) -> Optional[int]:
+    """The instantiation whose registers hold a block with ``p`` output
+    pixels, ``c`` input and ``f`` output channels: a thread owns a channel
+    pair and every (threads / (c / 2))-th pixel, a warp its share of the
+    (p / 16) x (f / 8) pointwise tiles. None if none does."""
+    for v, (threads, max_pix, max_tiles) in enumerate(VARIANTS):
+        pixlanes = threads // (c // 2)
+        if pixlanes < 1:
+            continue
+        pix = -(-p // pixlanes)
+        tiles = -(-((p // 16) * (f // 8)) // (threads // 32))
+        if pix <= max_pix and tiles <= max_tiles:
+            return v
+    return None
+
+
+def launch_grid(b: int, ctas_per_sm: int, sms: int) -> int:
+    """Persistent CTAs of one launch: as many as the SMs hold, at most one
+    per sample."""
+    return max(1, min(b, ctas_per_sm * sms))
+
+
+def sample_plan(b: int, grid: int) -> List[List[int]]:
+    """The samples each CTA takes, in order: CTA i takes i, i + grid,
+    i + 2 grid, ... (the kernel's loop)."""
+    return [list(range(i, b, grid)) for i in range(grid)]
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -104,8 +137,8 @@ def fused_sep_block(x, w_dw, g1_scale, g1_bias, w_pw, g2_scale, g2_bias, *,
     condition (stride 1 and C == F).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 or f32 x; C, F and OH*OW multiples of 16; the sample in shared
-    memory) or raise."""
+    (bf16 or f32 x; C, F and OH*OW multiples of 16; a sample's input, the
+    pointwise operand and weights in shared memory) or raise."""
     if x.ndim != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -117,36 +150,88 @@ def fused_sep_block(x, w_dw, g1_scale, g1_bias, w_pw, g2_scale, g2_bias, *,
     b, h, w, c, f = _check(x, w_dw, w_pw, stride, residual)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the kernel takes bf16 or f32 activations, got {x.dtype}")
-    lib = _build.load("sepblock")
-    lib.sepblock_smem_bytes.restype = ctypes.c_longlong
-    lib.sepblock_smem_bytes.argtypes = [ctypes.c_int] * 6
-    smem = lib.sepblock_smem_bytes(h, w, c, f, stride, groups)
     oh, ow = h // stride, w // stride
-    if (smem > MAX_SMEM_BYTES or c % 16 or f % 16 or (oh * ow) % 16
-            or c % groups or f % groups):
+    if (c % 16 or f % 16 or (oh * ow) % 16 or c % groups or f % groups
+            or kernel_variant(oh * ow, c, f) is None):
         raise ValueError(
             f"kernel cannot take block {h}x{w}x{c}->{oh}x{ow}x{f}: needs C, F "
-            f"and OH*OW multiples of 16, C and F of groups, and "
-            f"{smem} <= {MAX_SMEM_BYTES} bytes of shared memory")
+            f"and OH*OW multiples of 16, C and F of groups, and a register "
+            f"budget in {VARIANTS}")
     dev = x.device
-    x = x.contiguous()
-    wdw = w_dw.to(dev, torch.float32)[:, 0].permute(1, 2, 0).reshape(9, c).contiguous()
-    wpw = w_pw.to(dev, torch.bfloat16)[:, :, 0, 0].T.contiguous()  # [C, F]
-    params = [t.to(dev, torch.float32).contiguous()
-              for t in (g1_scale, g1_bias, g2_scale, g2_bias)]
+    lib = _lib()
+    nbuf, ctas_per_sm = _plan(lib, dev, h, w, c, f, stride, groups,
+                              x.dtype == torch.bfloat16)[:2]
     out = torch.empty((b, oh, ow, f), dtype=x.dtype, device=dev)
-    fn = lib.sepblock_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), wdw.data_ptr(),
-             params[0].data_ptr(), params[1].data_ptr(), wpw.data_ptr(),
-             params[2].data_ptr(), params[3].data_ptr(), out.data_ptr(), b, h, w,
-             c, f, stride, groups, eps, int(residual),
-             torch.cuda.current_stream(dev).cuda_stream)
+    if b == 0:
+        return out
+    # the kernel reads the modules' own layouts (w_dw [C, 1, 3, 3], w_pw
+    # [F, C, 1, 1]) in f32 and rounds to bf16 as it stages them
+    x, wdw, wpw, s1, b1, s2, b2 = (
+        _aligned(t) for t in (x, *(t.to(dev, torch.float32) for t in (
+            w_dw, w_pw, g1_scale, g1_bias, g2_scale, g2_bias))))
+    grid = launch_grid(b, ctas_per_sm, _sm_count(dev))
+    err = lib.sepblock_forward(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), wdw.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), wpw.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        b, h, w, c, f, stride, groups, eps, int(residual), grid, nbuf,
+        torch.cuda.current_stream(dev).cuda_stream)
     fused_sep_block.launches += 1
     _build.check(err, "sepblock")
     return out
+
+
+def launch_info(x: torch.Tensor, f: int, stride: int, groups: int = 4) -> dict:
+    """How the kernel launches for CUDA input ``x`` [B, H, W, C] and ``f``
+    output channels: input buffers, CTAs per SM, shared memory per CTA,
+    variant, threads per CTA and the persistent grid."""
+    b, h, w, c = x.shape
+    plan = _plan(_lib(), x.device, h, w, c, f, stride, groups, x.dtype == torch.bfloat16)
+    return dict(zip(("buffers", "ctas_per_sm", "smem_bytes", "variant", "threads"), plan),
+                grid=launch_grid(b, plan[1], _sm_count(x.device)))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernel's vector
+    loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(dev: torch.device) -> int:
+    return _sm_count_of(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("sepblock")
+    lib.sepblock_forward.restype = ctypes.c_int
+    lib.sepblock_forward.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.sepblock_plan.restype = ctypes.c_int
+    lib.sepblock_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return lib
+
+
+def _plan(lib, dev, h, w, c, f, stride, groups, bf16: bool) -> Tuple[int, ...]:
+    """(input buffers, CTAs per SM, shared-memory bytes, variant, threads)
+    of one block shape on ``dev``, from the kernel's occupancy; cached."""
+    key = (dev.index, h, w, c, f, stride, groups, bf16)
+    plan = _plans.get(key)
+    if plan is None:
+        buf = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            err = lib.sepblock_plan(h, w, c, f, stride, groups, int(bf16), buf)
+        if err:
+            raise ValueError(f"kernel cannot take block {h}x{w}x{c}->{f} stride "
+                             f"{stride} (cudaError {err}: shape, shared memory "
+                             "or occupancy)")
+        plan = _plans[key] = tuple(buf)
+    return plan
 
 
 #: kernel launches through this wrapper (the serving run reads it to show

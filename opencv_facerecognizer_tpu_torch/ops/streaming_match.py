@@ -20,6 +20,7 @@ Semantics shared by both:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -30,11 +31,23 @@ NEG_INF = -1e30
 #: gallery rows per chunk of the plain version (bounds its [Q, chunk]
 #: score block)
 PLAIN_CHUNK = 65536
-#: the kernel keeps a running top-K per query in registers, K a power of
-#: two up to this
-MAX_K = 16
-#: CTAs to aim for: four per SM on the H100's 132 SMs
-TARGET_CTAS = 4 * 132
+#: one pass of the kernel keeps a running top-K per query in registers, K
+#: a power of two up to ROUND_K; a larger k runs ceil(k / ROUND_K) passes
+ROUND_K = 16
+#: the largest k the kernel takes (MAX_K / ROUND_K passes over the gallery)
+MAX_K = 256
+#: the two kernel paths: "wgmma" (TMA + wgmma; bf16 gallery, D % 64 == 0,
+#: D <= WGMMA_MAX_D) and "wmma" (any gallery dtype, D % 16 == 0); each
+#: path's gallery rows per tile and CTAs per SM
+WGMMA_MAX_D = 256
+BLOCK_N = {"wgmma": 128, "wmma": 64}
+CTAS_PER_SM = {"wgmma": 1, "wmma": 4}
+
+
+def block_q(path: str, k: int) -> int:
+    """Queries per CTA: the "wgmma" path runs four warpgroups of 64
+    queries at k = 1 and two above, the "wmma" path 128."""
+    return (256 if kpad(k) == 1 else 128) if path == "wgmma" else 128
 
 
 def streaming_match_topk_plain(q: torch.Tensor, g: torch.Tensor,
@@ -65,21 +78,88 @@ def streaming_match_topk_plain(q: torch.Tensor, g: torch.Tensor,
     return vals, idx.to(torch.int32)
 
 
-def _kpad(k: int) -> int:
+def kpad(k: int) -> int:
+    """K of the kernel's per-pass lists: the next power of two of k up to
+    ROUND_K, else ROUND_K (and ceil(k / ROUND_K) passes)."""
     kp = 1
-    while kp < k:
+    while kp < min(k, ROUND_K):
         kp *= 2
     return kp
 
 
-def _split(qn: int, n: int, block_q: int, block_n: int) -> Tuple[int, int]:
-    """(splits, rows_per_split): enough N-splits that Q-tiles x splits
-    fill the card, each split a whole number of gallery tiles."""
-    q_tiles = -(-qn // block_q)
+def match_path(g_dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """The kernel path a gallery takes: "wgmma" for a bf16 gallery with
+    D % 64 == 0 and D <= WGMMA_MAX_D (16-byte aligned q and g, which TMA
+    needs), else "wmma"."""
+    if g_dtype == torch.bfloat16 and d % 64 == 0 and d <= WGMMA_MAX_D and aligned:
+        return "wgmma"
+    return "wmma"
+
+
+def launch_plan(qn: int, n: int, path: str, sms: int, k: int = 1) -> Tuple[int, int, int]:
+    """(q_tiles, splits, rows_per_split) of one pass: the grid is q_tiles x
+    splits CTAs; split s streams gallery rows [s * rows_per_split, min(n,
+    (s + 1) * rows_per_split)), a whole number of tiles. Enough splits that
+    the grid fills CTAS_PER_SM[path] CTAs on each of ``sms`` SMs (one CTA
+    per SM for "wgmma", whose grid is then one wave) and no split is
+    empty."""
+    block_n = BLOCK_N[path]
+    target = CTAS_PER_SM[path] * sms
+    q_tiles = -(-qn // block_q(path, k))
     n_tiles = max(1, -(-n // block_n))
-    splits = max(1, min(n_tiles, -(-TARGET_CTAS // q_tiles)))
+    splits = max(1, min(n_tiles, target // q_tiles if path == "wgmma"
+                        else -(-target // q_tiles)))
     rows = -(-n_tiles // splits) * block_n
-    return max(1, -(-n // rows)), rows
+    return q_tiles, max(1, -(-n // rows)), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device: torch.device) -> int:
+    return _sm_count_of(device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
+_checked = False
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, its constants checked against the wrapper's."""
+    global _checked
+    lib = _build.load("streaming_match")
+    if not _checked:
+        for name in ("wgmma_block_q", "wgmma_block_n", "wmma_block_q", "wmma_block_n",
+                     "round_k", "wgmma_max_d"):
+            const = getattr(lib, f"streaming_match_{name}")
+            const.restype = ctypes.c_int
+            const.argtypes = [ctypes.c_int] if name == "wgmma_block_q" else []
+        consts = (lib.streaming_match_wgmma_block_q(1), lib.streaming_match_wgmma_block_q(2),
+                  lib.streaming_match_wgmma_block_n(), lib.streaming_match_wmma_block_q(),
+                  lib.streaming_match_wmma_block_n(), lib.streaming_match_round_k(),
+                  lib.streaming_match_wgmma_max_d())
+        mine = (block_q("wgmma", 1), block_q("wgmma", 2), BLOCK_N["wgmma"],
+                block_q("wmma", 1), BLOCK_N["wmma"], ROUND_K, WGMMA_MAX_D)
+        if consts != mine:
+            raise RuntimeError(f"streaming_match library constants {consts} differ "
+                               f"from the wrapper's {mine}")
+        lib.streaming_match_smem_bytes.restype = ctypes.c_longlong
+        lib.streaming_match_smem_bytes.argtypes = [ctypes.c_int] * 3
+        fn = lib.streaming_match_topk
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        _checked = True
+    return lib
+
+
+def match_smem_bytes(d: int, k: int, path: str) -> int:
+    """Dynamic shared memory of one CTA of the kernel's ``path`` at
+    dimension ``d`` and top-``k``."""
+    return int(_lib().streaming_match_smem_bytes(d, kpad(k), int(path == "wgmma")))
 
 
 def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
@@ -89,7 +169,8 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
     bool -> (sims [Q, k] f32, indices [Q, k] int32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``D`` a multiple of 16, ``k <= 16``) or raise."""
+    (``D`` a multiple of 16, ``k <= MAX_K``) or raise. The path the last
+    launch took is ``streaming_match_topk.last_path``."""
     if q.ndim != 2 or g.ndim != 2 or q.shape[1] != g.shape[1]:
         raise ValueError(f"q [Q, D] and g [N, D] expected, got {tuple(q.shape)}"
                          f" and {tuple(g.shape)}")
@@ -105,28 +186,34 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
     n = g.shape[0]
     if d % 16 or k > MAX_K:
         raise ValueError(f"kernel needs D % 16 == 0 and k <= {MAX_K}; got D={d}, k={k}")
+    if qn == 0 or n == 0:  # nothing to launch: every slot is empty
+        return (torch.full((qn, k), NEG_INF, dtype=torch.float32, device=q.device),
+                torch.full((qn, k), -1, dtype=torch.int32, device=q.device))
     q = q.to(torch.float32).contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     g_bf16 = g.dtype == torch.bfloat16
     g = (g if g_bf16 else g.to(torch.float32)).contiguous()
     valid = valid.to(torch.bool).contiguous()
-    lib = _build.load("streaming_match")
-    fn = lib.streaming_match_topk
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    kp = _kpad(k)
-    splits, rows = _split(qn, n, lib.streaming_match_block_q(),
-                          lib.streaming_match_block_n())
-    part_vals = torch.empty((splits, qn, kp), dtype=torch.float32, device=q.device)
-    part_idx = torch.empty((splits, qn, kp), dtype=torch.int32, device=q.device)
-    vals = torch.empty((qn, k), dtype=torch.float32, device=q.device)
-    idx = torch.empty((qn, k), dtype=torch.int32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    path = match_path(g.dtype, d, aligned=g.data_ptr() % 16 == 0)
+    fn = _lib().streaming_match_topk
+    kp = kpad(k)
+    _q_tiles, splits, rows = launch_plan(qn, n, path, _sm_count(q.device), k)
+    dev = q.device
+    part_vals = torch.empty((splits, qn, kp), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((splits, qn, kp), dtype=torch.int32, device=dev)
+    vals = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    bounds = ((torch.empty(qn, dtype=torch.float32, device=dev),
+               torch.empty(qn, dtype=torch.int32, device=dev)) if k > kp else None)
+    bound_ptrs = (bounds[0].data_ptr(), bounds[1].data_ptr()) if bounds else (None, None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), g.data_ptr(), int(g_bf16), valid.data_ptr(),
              part_vals.data_ptr(), part_idx.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), qn, n, d, k, kp, splits, rows, stream)
+             idx.data_ptr(), *bound_ptrs, qn, n, d, k, kp,
+             int(path == "wgmma"), splits, rows, stream)
     streaming_match_topk.launches += 1
+    streaming_match_topk.last_path = path
     _build.check(err, "streaming_match")
     return vals, idx
 
@@ -134,3 +221,4 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
 #: kernel launches through this wrapper (the serving run reads it to show
 #: the main path went through the kernel)
 streaming_match_topk.launches = 0
+streaming_match_topk.last_path = None

@@ -55,11 +55,23 @@ def _case(name):
         g[200:300] = g[0:100]
         valid = rng.random(384) > 0.1
         return q, g, valid, 2, jnp.bfloat16
+    if name == "k17":  # one past the kernel's one-pass lists; ties at rank 16-17
+        q, g = _normed(rng, (12, 64)), _normed(rng, (384, 64))
+        g[300:340] = g[0:40]
+        g[200:204] = q[0]  # four copies of query 0's own row
+        g[350:354] = q[0]
+        valid = rng.random(384) > 0.1
+        return q, g, valid, 17, np.float32
+    if name == "k64":  # four kernel passes; N ends mid-tile
+        q, g = _normed(rng, (10, 32)), _normed(rng, (300, 32))
+        g[150:200] = g[0:50]
+        valid = rng.random(300) > 0.2
+        return q, g, valid, 64, jnp.bfloat16
     raise ValueError(name)
 
 
 @pytest.mark.parametrize("name", ["duplicate_rows", "fewer_valid_than_k",
-                                  "ragged", "bf16_gallery"])
+                                  "ragged", "bf16_gallery", "k17", "k64"])
 def test_plain_matches_pallas_kernel(name):
     q, g, valid, k, gdt = _case(name)
     want_v, want_i = jax_match(jnp.asarray(q), jnp.asarray(g, gdt),
