@@ -33,16 +33,18 @@
 //     the swizzled layout wgmma reads) and run wgmma m64n128k16 with the
 //     scores in registers. At k = 1 four warpgroups (256 queries, 6 ring
 //     stages) share each gallery tile, so the gallery crosses L2 twice at
-//     Q = 512, not four times; at k > 1 two warpgroups (4 stages and a
-//     score stage) leave registers for the lists;
+//     Q = 512, not four times; at k > 1 two warpgroups (8 stages) leave
+//     registers for the lists;
 //   - each chunk's products are one commit group, and its ring stage goes
 //     back to the producer as soon as they are done;
 //   - each thread folds its 2 rows x 32 columns of a tile into a running
 //     top-K in registers (strictly better, lowest index on ties): at K = 1
-//     straight from the accumulators; past K = 1 from a thread-private
-//     shared-memory copy in a rolled loop, so the K-deep insertion is
-//     compiled once rather than per score (128 inlined copies of it made
-//     the fold's code larger than the instruction cache). The four
+//     by a compare and two selects per score; past K = 1 by a register
+//     filter against the list's K-th entry that marks the few passing
+//     scores, which are then inserted in a loop, so the K-deep insertion
+//     is compiled once rather than per score (128 inlined copies of it
+//     outgrew the instruction cache, and staging the scores through
+//     shared memory made ptxas serialize the wgmma chain). The four
 //     threads of a row merge by shuffles at the end, and one partial per
 //     (query, split) goes out.
 // The f32-gallery path (match_wmma_kernel, also any other D with D % 16
@@ -121,20 +123,16 @@ constexpr int STAGE_BYTES = WN * CHUNK * 2;
 constexpr int MAX_WGMMA_D = 256;
 
 // Per K: consumer warpgroups (64 queries each), queries per CTA, ring
-// stages, threads (the consumers and one producer warp), and the bytes of
-// a per-thread score stage. At K = 1 (the serving top-1) four warpgroups
-// share each gallery tile, so the gallery crosses L2 half as often, and
-// the fold is a compare and two selects per score. Larger K keeps two
-// warpgroups, whose lists need the registers, and folds each tile from a
-// shared-memory copy of its scores in a rolled loop: the K-deep insertion
-// then exists once in the code, not once per score of the tile.
+// stages, threads (the consumers and one producer warp). At K = 1 (the
+// serving top-1) four warpgroups share each gallery tile, so the gallery
+// crosses L2 half as often; larger K keeps two, whose lists need the
+// registers.
 template <int K>
 struct Cfg {
   static constexpr int NWG = K == 1 ? 4 : 2;
   static constexpr int WQ = 64 * NWG;
-  static constexpr int STAGES = K == 1 ? 6 : 4;
+  static constexpr int STAGES = K == 1 ? 6 : 8;
   static constexpr int THREADS = NWG * 128 + 32;
-  static constexpr int SCORE_BYTES = K == 1 ? 0 : NWG * 128 * 64 * 4;
 };
 
 template <int K>
@@ -142,7 +140,6 @@ size_t wgmma_smem_bytes(int d) {
   return 1024                                        // alignment slack
          + (size_t)Cfg<K>::WQ * d * 2                // query tile
          + (size_t)Cfg<K>::STAGES * STAGE_BYTES      // gallery ring
-         + (size_t)Cfg<K>::SCORE_BYTES               // score stage (K > 1)
          + (size_t)Cfg<K>::STAGES * 16               // valid ballots
          + (size_t)2 * Cfg<K>::STAGES * 8;           // full / empty barriers
 }
@@ -243,6 +240,48 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// Score t (column 8 (t / 2) + 2 qd + t % 2) of row half H of a thread's
+// m64n128 accumulators, for a t known only at run time: a switch keeps
+// the accumulators in registers.
+template <int H>
+__device__ __forceinline__ float pick(const float (&acc)[64], int t) {
+  switch (t) {
+    case 0: return acc[0 + 2 * H + 0];
+    case 1: return acc[0 + 2 * H + 1];
+    case 2: return acc[4 + 2 * H + 0];
+    case 3: return acc[4 + 2 * H + 1];
+    case 4: return acc[8 + 2 * H + 0];
+    case 5: return acc[8 + 2 * H + 1];
+    case 6: return acc[12 + 2 * H + 0];
+    case 7: return acc[12 + 2 * H + 1];
+    case 8: return acc[16 + 2 * H + 0];
+    case 9: return acc[16 + 2 * H + 1];
+    case 10: return acc[20 + 2 * H + 0];
+    case 11: return acc[20 + 2 * H + 1];
+    case 12: return acc[24 + 2 * H + 0];
+    case 13: return acc[24 + 2 * H + 1];
+    case 14: return acc[28 + 2 * H + 0];
+    case 15: return acc[28 + 2 * H + 1];
+    case 16: return acc[32 + 2 * H + 0];
+    case 17: return acc[32 + 2 * H + 1];
+    case 18: return acc[36 + 2 * H + 0];
+    case 19: return acc[36 + 2 * H + 1];
+    case 20: return acc[40 + 2 * H + 0];
+    case 21: return acc[40 + 2 * H + 1];
+    case 22: return acc[44 + 2 * H + 0];
+    case 23: return acc[44 + 2 * H + 1];
+    case 24: return acc[48 + 2 * H + 0];
+    case 25: return acc[48 + 2 * H + 1];
+    case 26: return acc[52 + 2 * H + 0];
+    case 27: return acc[52 + 2 * H + 1];
+    case 28: return acc[56 + 2 * H + 0];
+    case 29: return acc[56 + 2 * H + 1];
+    case 30: return acc[60 + 2 * H + 0];
+    case 31: return acc[60 + 2 * H + 1];
+    default: return 0.f;
+  }
+}
+
 template <int K>
 __global__ void __launch_bounds__(Cfg<K>::THREADS, 1)
 match_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
@@ -258,9 +297,7 @@ match_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* qs = smem;                                // [d/64][WQ][128 B]
   unsigned char* ring = qs + (size_t)WQ * d * 2;           // [STAGES][WN][128 B]
-  float* scores = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);  // [64][NWG * 128]
-  uint32_t* vmask = reinterpret_cast<uint32_t*>(ring + STAGES * STAGE_BYTES +
-                                                Cfg<K>::SCORE_BYTES);
+  uint32_t* vmask = reinterpret_cast<uint32_t*>(ring + STAGES * STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(vmask + STAGES * 4);
   uint64_t* empty = full + STAGES;
 
@@ -436,28 +473,34 @@ match_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
         }
       }
     } else {
-      // This thread's 64 scores to its own slots of the stage (value-major,
-      // so a warp's stores and loads touch 32 consecutive words), its 32
-      // columns' valid flags to one word.
-      constexpr int CONS = NWG * 128;
-      float* mine = scores + (threadIdx.x);
+      // Past K = 1: filter in registers against each list's K-th entry as
+      // it stood before the tile, one bit per passing score, then insert
+      // only those, in increasing column order (the insertion re-checks
+      // against the updated list). The K-deep insertion is compiled once
+      // per row half, not once per score.
+      uint32_t pm[2] = {0u, 0u};
 #pragma unroll
-      for (int i = 0; i < 64; ++i) mine[i * CONS] = acc[i];
-      uint32_t vbits = 0;
+      for (int j = 0; j < WN / 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < WN / 8; ++j)
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = (mw[j >> 2] >> (8 * (j & 3) + e)) & 1u;
+          const int col = n0 + 8 * j + 2 * qd + e;
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          vbits |= ((mw[j >> 2] >> (8 * (j & 3) + e)) & 1u) << (2 * j + e);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll 1
-        for (int t = 0; t < 32; ++t) {  // column 8 (t / 2) + 2 qd + t % 2
-          const float v = mine[(4 * (t >> 1) + 2 * h + (t & 1)) * CONS];
-          const int col = n0 + 8 * (t >> 1) + 2 * qd + (t & 1);
-          if (((vbits >> t) & 1u) && admit(bounded, bv[h], bi[h], v, col))
-            insert<K>(tv[h], ti[h], v, col);
+          for (int h = 0; h < 2; ++h) {
+            const float v = acc[4 * j + 2 * h + e];
+            if (ok && admit(bounded, bv[h], bi[h], v, col) &&
+                better(v, col, tv[h][K - 1], ti[h][K - 1]))
+              pm[h] |= 1u << (2 * j + e);
+          }
         }
+      }
+      for (uint32_t m = pm[0]; m; m &= m - 1) {
+        const int t = __ffs(m) - 1;
+        insert<K>(tv[0], ti[0], pick<0>(acc, t), n0 + 8 * (t >> 1) + 2 * qd + (t & 1));
+      }
+      for (uint32_t m = pm[1]; m; m &= m - 1) {
+        const int t = __ffs(m) - 1;
+        insert<K>(tv[1], ti[1], pick<1>(acc, t), n0 + 8 * (t >> 1) + 2 * qd + (t & 1));
       }
     }
   };
