@@ -14,12 +14,14 @@ Phases (any failure exits nonzero before the result line):
    duplicate and invalid rows at k = 1, 5, 16, 17 and 64, on ragged
    galleries that end mid-tile (bf16 and f32, D = 256 and 64, fewer valid
    rows than k), and on the 2^20-row gallery stored in f32; the fused
-   separable block (kernel B) at the six serving block shapes, B = 512 and
-   B = 37 (and in f32). Time each at the serving shape: the kernel's
-   device time from a CUDA graph of back-to-back calls (``ms``), the
-   wrapper's time by CUDA events around eager calls (host work
-   included), its plain version and one PyTorch call computing the
-   same function;
+   separable block (kernel B) at the six serving block shapes, bf16 and
+   f32, at B = 512, 37 and 601 (more than two samples per persistent CTA;
+   these must also equal the same samples run one per CTA, bit for bit),
+   and at blocks with F = 48 and 96 (OTHER_BLOCKS). Time each at the
+   serving shape: the wrapper's time by CUDA events around eager calls,
+   host work included (``ms``), the kernel's device time from a CUDA
+   graph of back-to-back calls (``device_ms``), its plain version and one
+   PyTorch call computing the same function;
 4. serve: a ``RecognizerService`` over ``FakeConnector`` with the serving
    detector and embedder (random weights from ``--seed``), a 2^20-row
    bf16 gallery, batches of 32 256x256 uint8 frames and the fused
@@ -91,6 +93,13 @@ SEP_RTOL = 2.0 ** -6
 SERVING_BLOCKS = [(32, 32, 32, 64, 2), (16, 16, 64, 64, 1),
                   (16, 16, 64, 128, 2), (8, 8, 128, 128, 1),
                   (8, 8, 128, 256, 2), (4, 4, 256, 256, 1)]
+#: other (H, W, C, F, stride) blocks the kernel takes, F / 8 not a multiple
+#: of 8 (F = 48, 96), stride 1 and 2: checked, not timed
+OTHER_BLOCKS = [(32, 32, 32, 48, 2), (16, 16, 48, 48, 1), (16, 16, 48, 96, 2),
+                (8, 8, 96, 96, 1), (16, 16, 96, 96, 1)]
+#: kernel B's batches: the serving 512, fewer samples than CTAs (37), and
+#: more than two per CTA of a full grid (601); none a multiple of the grid
+SEP_BATCHES = (512, 37, 601)
 #: CPU cross-check: the first batch through the same stack computing in
 #: f32 on the card and on the CPU (in bf16 the two devices' convolutions
 #: round at other points, so detection decisions near a boundary differ
@@ -234,17 +243,22 @@ def check_match(dev, gen) -> dict:
     g32 = g.float()
     for k in (1, 5):
         max_err = max(max_err, _match_case(q, g32, valid, k, "f32 gallery"))
-    f32_ms = graph_ms(lambda: streaming_match_topk(q, g32, valid, k=1), iters=5)
+    f32_ms = cuda_ms(lambda: streaming_match_topk(q, g32, valid, k=1), iters=5)
+    f32_dev = graph_ms(lambda: streaming_match_topk(q, g32, valid, k=1), iters=5)
     log(f"kernel A f32 gallery (Q=512, D=256, N=2^20, k=1, "
-        f"{streaming_match_topk.last_path} path): {f32_ms:.4f} ms device time")
+        f"{streaming_match_topk.last_path} path): {f32_ms:.4f} ms eager with events, "
+        f"{f32_dev:.4f} ms device time")
     del g32
 
     k = 1  # the serving top_k
-    ms = graph_ms(lambda: streaming_match_topk(q, g, valid, k=k))
-    eager_ms = cuda_ms(lambda: streaming_match_topk(q, g, valid, k=k))
+    ms = cuda_ms(lambda: streaming_match_topk(q, g, valid, k=k))
+    device_ms = graph_ms(lambda: streaming_match_topk(q, g, valid, k=k))
     for kk in MATCH_KS[1:]:
         log(f"kernel A k={kk} at the serving shape: "
-            f"{graph_ms(lambda: streaming_match_topk(q, g, valid, k=kk), iters=3):.4f} ms")
+            f"{cuda_ms(lambda: streaming_match_topk(q, g, valid, k=kk), iters=5):.4f} ms "
+            f"eager with events, "
+            f"{graph_ms(lambda: streaming_match_topk(q, g, valid, k=kk), iters=3):.4f} ms "
+            f"device time")
     plain_ms = cuda_ms(lambda: streaming_match_topk_plain(q, g, valid, k=k), iters=3, warmup=1)
     qb = q.to(torch.bfloat16)
 
@@ -258,12 +272,13 @@ def check_match(dev, gen) -> dict:
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     log(f"kernel A k=1 serving shape ({streaming_match_topk.last_path} path, "
         f"{match_smem_bytes(DIM, 1, streaming_match_topk.last_path)} B shared memory per CTA): "
-        f"{ms:.4f} ms device time, {eager_ms:.4f} ms eager with events, "
+        f"{ms:.4f} ms eager with events, {device_ms:.4f} ms device time, "
         f"plain {plain_ms:.4f}, matmul + topk {library_ms:.4f}, bound {bound:.4f}")
     return dict(name="streaming_match", route="cuda",
                 source="opencv_facerecognizer_tpu_torch/csrc/streaming_match.cu",
                 replaces="opencv_facerecognizer_tpu/ops/pallas_match.py:99",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                max_abs_err=max_err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=bound,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
                 else "operations", library_ms=library_ms)
 
@@ -292,50 +307,72 @@ def _sep_case(x, args, stride, res, what: str) -> float:
     return err.max().item()
 
 
+def _sep_streams(x, args, stride, res, what: str) -> None:
+    """Kernel B over more samples than two per CTA of its grid against the
+    same samples launched 100 at a time (one per CTA): a sample's
+    arithmetic does not depend on the CTA or turn that runs it, so the two
+    must agree bit for bit."""
+    got = fused_sep_block(x, *args, stride=stride, residual=res)
+    alone = torch.cat([fused_sep_block(x[i:i + 100], *args, stride=stride, residual=res)
+                       for i in range(0, x.shape[0], 100)])
+    if not torch.equal(got, alone):
+        raise AssertionError(f"kernel B {what}: streamed samples differ from samples "
+                             f"run alone (max {(got.float() - alone.float()).abs().max()})")
+
+
 def check_sepblock(dev, gen) -> dict:
-    """Kernel B vs its plain version at the six serving shapes; the entry
-    sums one forward's six calls."""
-    b = 512
-    tot = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, t_ops=0.0)
+    """Kernel B vs its plain version at the six serving shapes and at
+    OTHER_BLOCKS; the entry sums one forward's six calls."""
+    b = SEP_BATCHES[0]
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, t_ops=0.0)
     max_err = 0.0
-    for h, w, c, f, stride in SERVING_BLOCKS:
+    for h, w, c, f, stride in SERVING_BLOCKS + OTHER_BLOCKS:
         res = stride == 1 and c == f
         blk, args = _sep_args(gen, c, f, stride, dev)
         what = f"{h}x{w}x{c}->{h // stride}x{w // stride}x{f} s{stride}"
-        x = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
-        err = _sep_case(x, args, stride, res, what)
-        err37 = _sep_case(x[:37].contiguous(), args, stride, res, what + " B=37")
-        xf = torch.randn(37, h, w, c, generator=gen).to(dev)
-        err32 = _sep_case(xf, args, stride, res, what + " f32 B=37")
-        max_err = max(max_err, err, err37, err32)
+        errs, xs = {}, {}
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            xs[name] = torch.randn(max(SEP_BATCHES), h, w, c, generator=gen).to(dev, dtype)
+            for nb in SEP_BATCHES:
+                errs[f"{name} B={nb}"] = _sep_case(xs[name][:nb], args, stride, res,
+                                                   f"{what} {name} B={nb}")
+            _sep_streams(xs[name], args, stride, res, f"{what} {name} B={max(SEP_BATCHES)}")
+        max_err = max(max_err, *errs.values())
+        x = xs["bf16"][:b]
+        if (h, w, c, f, stride) not in SERVING_BLOCKS:
+            log(f"kernel B {what} (checked only): max err "
+                + ", ".join(f"{t} {e:.3e}" for t, e in errs.items())
+                + f"; {sepblock_launch_info(x, f, stride)}")
+            continue
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view: the cuDNN path's input
         plan = sepblock_launch_info(x, f, stride)
         with torch.no_grad():
-            ms = graph_ms(lambda: fused_sep_block(x, *args, stride=stride, residual=res))
-            eager = cuda_ms(lambda: fused_sep_block(x, *args, stride=stride, residual=res))
+            ms = cuda_ms(lambda: fused_sep_block(x, *args, stride=stride, residual=res))
+            dev_ms = graph_ms(lambda: fused_sep_block(x, *args, stride=stride, residual=res))
             plain = cuda_ms(lambda: fused_sep_block_plain(x, *args, stride=stride,
                                                           residual=res), iters=5)
             lib = cuda_ms(lambda: blk(x_nchw, torch.bfloat16), iters=10)
         p = (h // stride) * (w // stride)
         nbytes = x.numel() * 2 + b * p * f * 2 + (9 * c + 2 * c + 2 * f) * 4 + c * f * 4
         t_ops = 2 * b * p * c * f / BF16_FLOPS + (2 * 9 * b * p * c + 10 * b * p * (c + f)) / F32_FLOPS
-        log(f"kernel B {what}: max err {err:.3e} (B=37 {err37:.3e}, f32 {err32:.3e}), "
-            f"{ms:.4f} ms device time, {eager:.4f} ms eager (plain {plain:.4f}, cuDNN block "
-            f"{lib:.4f}, bound {max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3:.4f}); {plan}")
+        log(f"kernel B {what}: max err " + ", ".join(f"{t} {e:.3e}" for t, e in errs.items())
+            + f"; {ms:.4f} ms eager with events, {dev_ms:.4f} ms device time (plain "
+            f"{plain:.4f}, cuDNN block {lib:.4f}, bound "
+            f"{max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3:.4f}); {plan}")
         tot["ms"] += ms
-        tot["eager_ms"] += eager
+        tot["device_ms"] += dev_ms
         tot["plain_ms"] += plain
         tot["library_ms"] += lib
         tot["bytes"] += nbytes
         tot["t_ops"] += t_ops
     t_bytes = tot["bytes"] / HBM_BYTES_PER_S
-    log(f"kernel B, one forward (six blocks, B=512): {tot['ms']:.4f} ms device time, "
-        f"{tot['eager_ms']:.4f} ms eager with events")
+    log(f"kernel B, one forward (six blocks, B={b}): {tot['ms']:.4f} ms eager with events, "
+        f"{tot['device_ms']:.4f} ms device time")
     return dict(name="sepblock", route="cuda",
                 source="opencv_facerecognizer_tpu_torch/csrc/sepblock.cu",
                 replaces="opencv_facerecognizer_tpu/ops/pallas_sepblock.py:150",
-                max_abs_err=max_err, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=max(t_bytes, tot["t_ops"]) * 1e3,
+                max_abs_err=max_err, ms=tot["ms"], device_ms=tot["device_ms"],
+                plain_ms=tot["plain_ms"], bound_ms=max(t_bytes, tot["t_ops"]) * 1e3,
                 bound_by="bytes" if t_bytes > tot["t_ops"] else "operations",
                 library_ms=tot["library_ms"])
 
@@ -568,7 +605,7 @@ def main() -> int:
     for e in entries:
         e["launches"] = launches[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,8 +42,9 @@
 //     order, with no atomics;
 //   - the epilogue adds the residual from the staged input, rounds once,
 //     stages the bf16 output over the input buffer (16-byte chunks
-//     XOR-swizzled by pixel against bank conflicts), stores it with
-//     16-byte writes and zeroes the halo cells it covered.
+//     XOR-swizzled by pixel within aligned groups of up to 8 that divide
+//     the row, against bank conflicts), stores it with 16-byte writes and
+//     zeroes the halo cells it covered.
 // Shared memory holds no f32 activation: 80-195 KiB at the serving shapes.
 
 #include <cuda_runtime.h>
@@ -462,11 +463,13 @@ sepblock_kernel(const T* __restrict__ x,               // [B, H, W, C]
     }
     // 6. Out, rounded once. bf16: through the input buffer (free once the
     // residual reads are done), 16-byte chunks of a pixel row stored at
-    // chunk ^ (pix % 8) so the fragment writes spread over the banks, then
-    // copied out with 16-byte stores; the halo cells it covered are zeroed
-    // again. f32: straight from registers.
+    // chunk ^ (pix % g), g the largest power of two <= 8 dividing the row's
+    // chunks (so the XOR stays inside the row), to spread the fragment
+    // writes over the banks; then copied out with 16-byte stores; the halo
+    // cells it covered are zeroed again. f32: straight from registers.
     T* ob = out + (size_t)s * p * f;
-    const int fchunks = f / 8, swz = (fchunks < 8 ? fchunks : 8) - 1;
+    const int fchunks = f / 8, low = fchunks & -fchunks;  // the largest power of two dividing it
+    const int swz = (low < 8 ? low : 8) - 1;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) __syncthreads();
 #pragma unroll
     for (int jt = 0; jt < MAXT; ++jt) {

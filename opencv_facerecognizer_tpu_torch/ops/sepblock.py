@@ -24,47 +24,21 @@ is free); the weights are the port modules' conv layouts, ``w_dw
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from opencv_facerecognizer_tpu_torch.ops import _build
-
-#: the kernel's instantiations, as in csrc/sepblock.cu: (threads per CTA,
-#: depthwise pixels per thread, pointwise m16n8 tiles per warp)
-VARIANTS = ((256, 8, 8), (512, 16, 8), (256, 64, 32))
+from opencv_facerecognizer_tpu_torch.utils.device import sm_count
 
 _plans: Dict[tuple, Tuple[int, ...]] = {}
 
 
-def kernel_variant(p: int, c: int, f: int) -> Optional[int]:
-    """The instantiation whose registers hold a block with ``p`` output
-    pixels, ``c`` input and ``f`` output channels: a thread owns a channel
-    pair and every (threads / (c / 2))-th pixel, a warp its share of the
-    (p / 16) x (f / 8) pointwise tiles. None if none does."""
-    for v, (threads, max_pix, max_tiles) in enumerate(VARIANTS):
-        pixlanes = threads // (c // 2)
-        if pixlanes < 1:
-            continue
-        pix = -(-p // pixlanes)
-        tiles = -(-((p // 16) * (f // 8)) // (threads // 32))
-        if pix <= max_pix and tiles <= max_tiles:
-            return v
-    return None
-
-
 def launch_grid(b: int, ctas_per_sm: int, sms: int) -> int:
     """Persistent CTAs of one launch: as many as the SMs hold, at most one
-    per sample."""
+    per sample (CTA i takes samples i, i + grid, i + 2 grid, ...)."""
     return max(1, min(b, ctas_per_sm * sms))
-
-
-def sample_plan(b: int, grid: int) -> List[List[int]]:
-    """The samples each CTA takes, in order: CTA i takes i, i + grid,
-    i + 2 grid, ... (the kernel's loop)."""
-    return [list(range(i, b, grid)) for i in range(grid)]
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -137,8 +111,10 @@ def fused_sep_block(x, w_dw, g1_scale, g1_bias, w_pw, g2_scale, g2_bias, *,
     condition (stride 1 and C == F).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 or f32 x; C, F and OH*OW multiples of 16; a sample's input, the
-    pointwise operand and weights in shared memory) or raise."""
+    (bf16 or f32 x; C, F and OH*OW multiples of 16, C and F of
+    ``groups``; a sample's input, the pointwise operand and weights in
+    shared memory; a thread's share in one instantiation's registers) or
+    raise."""
     if x.ndim != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -151,12 +127,6 @@ def fused_sep_block(x, w_dw, g1_scale, g1_bias, w_pw, g2_scale, g2_bias, *,
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the kernel takes bf16 or f32 activations, got {x.dtype}")
     oh, ow = h // stride, w // stride
-    if (c % 16 or f % 16 or (oh * ow) % 16 or c % groups or f % groups
-            or kernel_variant(oh * ow, c, f) is None):
-        raise ValueError(
-            f"kernel cannot take block {h}x{w}x{c}->{oh}x{ow}x{f}: needs C, F "
-            f"and OH*OW multiples of 16, C and F of groups, and a register "
-            f"budget in {VARIANTS}")
     dev = x.device
     lib = _lib()
     nbuf, ctas_per_sm = _plan(lib, dev, h, w, c, f, stride, groups,
@@ -169,7 +139,7 @@ def fused_sep_block(x, w_dw, g1_scale, g1_bias, w_pw, g2_scale, g2_bias, *,
     x, wdw, wpw, s1, b1, s2, b2 = (
         _aligned(t) for t in (x, *(t.to(dev, torch.float32) for t in (
             w_dw, w_pw, g1_scale, g1_bias, g2_scale, g2_bias))))
-    grid = launch_grid(b, ctas_per_sm, _sm_count(dev))
+    grid = launch_grid(b, ctas_per_sm, sm_count(dev))
     err = lib.sepblock_forward(
         x.data_ptr(), int(x.dtype == torch.bfloat16), wdw.data_ptr(), s1.data_ptr(),
         b1.data_ptr(), wpw.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
@@ -187,7 +157,7 @@ def launch_info(x: torch.Tensor, f: int, stride: int, groups: int = 4) -> dict:
     b, h, w, c = x.shape
     plan = _plan(_lib(), x.device, h, w, c, f, stride, groups, x.dtype == torch.bfloat16)
     return dict(zip(("buffers", "ctas_per_sm", "smem_bytes", "variant", "threads"), plan),
-                grid=launch_grid(b, plan[1], _sm_count(x.device)))
+                grid=launch_grid(b, plan[1], sm_count(x.device)))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -195,15 +165,6 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count_of(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sm_count(dev: torch.device) -> int:
-    return _sm_count_of(dev.index if dev.index is not None else torch.cuda.current_device())
 
 
 def _lib() -> ctypes.CDLL:
@@ -228,8 +189,11 @@ def _plan(lib, dev, h, w, c, f, stride, groups, bf16: bool) -> Tuple[int, ...]:
             err = lib.sepblock_plan(h, w, c, f, stride, groups, int(bf16), buf)
         if err:
             raise ValueError(f"kernel cannot take block {h}x{w}x{c}->{f} stride "
-                             f"{stride} (cudaError {err}: shape, shared memory "
-                             "or occupancy)")
+                             f"{stride} (cudaError {err}): it needs C, F and the "
+                             "output pixels multiples of 16, C and F multiples "
+                             "of groups, a thread's share within one "
+                             "instantiation's registers and a sample within "
+                             "shared memory")
         plan = _plans[key] = tuple(buf)
     return plan
 

@@ -20,12 +20,12 @@ Semantics shared by both:
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
 from opencv_facerecognizer_tpu_torch.ops import _build
+from opencv_facerecognizer_tpu_torch.utils.device import sm_count
 
 NEG_INF = -1e30
 #: gallery rows per chunk of the plain version (bounds its [Q, chunk]
@@ -96,13 +96,13 @@ def match_path(g_dtype: torch.dtype, d: int, aligned: bool = True) -> str:
     return "wmma"
 
 
-def launch_plan(qn: int, n: int, path: str, sms: int, k: int = 1) -> Tuple[int, int, int]:
-    """(q_tiles, splits, rows_per_split) of one pass: the grid is q_tiles x
-    splits CTAs; split s streams gallery rows [s * rows_per_split, min(n,
-    (s + 1) * rows_per_split)), a whole number of tiles. Enough splits that
-    the grid fills CTAS_PER_SM[path] CTAs on each of ``sms`` SMs (one CTA
-    per SM for "wgmma", whose grid is then one wave) and no split is
-    empty."""
+def launch_plan(qn: int, n: int, path: str, sms: int, k: int = 1) -> Tuple[int, int]:
+    """(splits, rows_per_split) of one pass: the grid is ceil(qn /
+    block_q(path, k)) query tiles x splits CTAs; split s streams gallery
+    rows [s * rows_per_split, min(n, (s + 1) * rows_per_split)), a whole
+    number of tiles. Enough splits that the grid fills CTAS_PER_SM[path]
+    CTAs on each of ``sms`` SMs (one CTA per SM for "wgmma", whose grid is
+    then one wave) and no split is empty."""
     block_n = BLOCK_N[path]
     target = CTAS_PER_SM[path] * sms
     q_tiles = -(-qn // block_q(path, k))
@@ -110,17 +110,7 @@ def launch_plan(qn: int, n: int, path: str, sms: int, k: int = 1) -> Tuple[int, 
     splits = max(1, min(n_tiles, target // q_tiles if path == "wgmma"
                         else -(-target // q_tiles)))
     rows = -(-n_tiles // splits) * block_n
-    return q_tiles, max(1, -(-n // rows)), rows
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count_of(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sm_count(device: torch.device) -> int:
-    return _sm_count_of(device.index if device.index is not None
-                        else torch.cuda.current_device())
+    return max(1, -(-n // rows)), rows
 
 
 _checked = False
@@ -198,7 +188,7 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
     path = match_path(g.dtype, d, aligned=g.data_ptr() % 16 == 0)
     fn = _lib().streaming_match_topk
     kp = kpad(k)
-    _q_tiles, splits, rows = launch_plan(qn, n, path, _sm_count(q.device), k)
+    splits, rows = launch_plan(qn, n, path, sm_count(q.device), k)
     dev = q.device
     part_vals = torch.empty((splits, qn, kp), dtype=torch.float32, device=dev)
     part_idx = torch.empty((splits, qn, kp), dtype=torch.int32, device=dev)

@@ -8,6 +8,7 @@ there the kernel wrappers take their plain PyTorch versions.
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -30,6 +31,18 @@ def resolve_device(device: DeviceLike = DEFAULT_DEVICE) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (cached): the
+    kernel wrappers size their grids by it."""
+    return _sm_count_of(device.index if device.index is not None
+                        else torch.cuda.current_device())
 
 
 def disable_tf32() -> None:

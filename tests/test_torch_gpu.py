@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from opencv_facerecognizer_tpu_torch.ops.sepblock import (
-    fused_sep_block, fused_sep_block_plain)
+    fused_sep_block, fused_sep_block_plain, launch_info)
 from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
     MAX_K, NEG_INF, streaming_match_topk, streaming_match_topk_plain)
 from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
@@ -29,6 +29,11 @@ SEP_RTOL = 2.0 ** -6
 SERVING_BLOCKS = [(32, 32, 32, 64, 2), (16, 16, 64, 64, 1),
                   (16, 16, 64, 128, 2), (8, 8, 128, 128, 1),
                   (8, 8, 128, 256, 2), (4, 4, 256, 256, 1)]
+#: kernel B's streaming batch: over twice the largest grid (2 x 132 CTAs)
+SEP_STREAM_B = 601
+#: blocks whose F / 8 is not a multiple of 8 (F = 48, 96), stride 1 and 2
+OTHER_BLOCKS = [(32, 32, 32, 48, 2), (16, 16, 48, 48, 1), (16, 16, 48, 96, 2),
+                (8, 8, 96, 96, 1), (16, 16, 96, 96, 1)]
 
 
 @pytest.fixture
@@ -161,25 +166,77 @@ def test_gallery_match_k17_on_kernel(cuda, store_dtype):
     assert idx[:, 0].tolist() == [5, 60000, 69999]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("h,w,c,f,stride", SERVING_BLOCKS)
-def test_sepblock_kernel_serving_shapes(cuda, h, w, c, f, stride, dtype):
-    """The six serving blocks at B = 37, not a multiple of the persistent
-    CTAs' share."""
-    g = torch.Generator().manual_seed(c + f + stride)
-    x = torch.randn(37, h, w, c, generator=g).to(cuda, dtype)
+def _sep_inputs(cuda, b, h, w, c, f, stride, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g).to(cuda, dtype)
     args = [torch.randn(c, 1, 3, 3, generator=g) * 0.3, torch.rand(c, generator=g) + 0.5,
             torch.randn(c, generator=g) * 0.1, torch.randn(f, c, 1, 1, generator=g) / c ** 0.5,
             torch.rand(f, generator=g) + 0.5, torch.randn(f, generator=g) * 0.1]
-    args = [a.to(cuda) for a in args]
-    res = stride == 1 and c == f
+    return x, [a.to(cuda) for a in args], stride == 1 and c == f
+
+
+def _assert_sep(cuda, b, h, w, c, f, stride, dtype, seed):
+    x, args, res = _sep_inputs(cuda, b, h, w, c, f, stride, dtype, seed)
     got = fused_sep_block(x, *args, stride=stride, residual=res)
     want = fused_sep_block_plain(x, *args, stride=stride, residual=res)
     torch.cuda.synchronize()
     assert got.dtype == dtype
     err = (got.float() - want.float()).abs()
     assert (err <= SEP_RTOL * want.float().abs().clamp(min=1.0)).all(), err.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c,f,stride", SERVING_BLOCKS)
+def test_sepblock_kernel_serving_shapes(cuda, h, w, c, f, stride, dtype):
+    """The six serving blocks at B = 37, fewer samples than CTAs."""
+    _assert_sep(cuda, 37, h, w, c, f, stride, dtype, c + f + stride)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c,f,stride", SERVING_BLOCKS)
+def test_sepblock_kernel_streams_samples(cuda, h, w, c, f, stride, dtype):
+    """B = 601, more than twice the CTAs of a full grid and not a multiple
+    of it: every CTA streams two or more samples (through both buffers in
+    bf16; in f32 restaging its one buffer and reading the residual of
+    samples past its first). A sample's arithmetic does not depend on the
+    CTA or the turn that runs it, so each output must equal, bit for bit,
+    the one the sample gets as the only sample of its CTA (launches of 100
+    samples); in bf16 the output is also held against the plain version."""
+    x, args, res = _sep_inputs(cuda, SEP_STREAM_B, h, w, c, f, stride, dtype,
+                               c + f + stride)
+    got = fused_sep_block(x, *args, stride=stride, residual=res)
+    alone = torch.cat([fused_sep_block(x[i:i + 100], *args, stride=stride, residual=res)
+                       for i in range(0, SEP_STREAM_B, 100)])
+    assert launch_info(x[:100], f, stride)["grid"] == 100
+    assert launch_info(x, f, stride)["grid"] * 2 < SEP_STREAM_B
+    assert torch.equal(got, alone)
+    if dtype == torch.bfloat16:
+        want = fused_sep_block_plain(x, *args, stride=stride, residual=res)
+        err = (got.float() - want.float()).abs()
+        assert (err <= SEP_RTOL * want.float().abs().clamp(min=1.0)).all(), err.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c,f,stride", OTHER_BLOCKS)
+def test_sepblock_kernel_other_widths(cuda, h, w, c, f, stride, dtype):
+    """F = 48 and 96: rows of 6 and 12 eight-channel chunks, which the
+    bf16 output staging must swizzle within the row."""
+    _assert_sep(cuda, SEP_STREAM_B, h, w, c, f, stride, dtype, c + f + stride)
+
+
+@pytest.mark.gpu
+def test_sepblock_kernel_instantiations(cuda):
+    """The library picks the instantiation whose registers hold a block
+    (the two 256- and 512-thread ones at the serving shapes) and refuses
+    a shape none holds."""
+    variants = [launch_info(torch.empty(1, h, w, c, dtype=torch.bfloat16, device=cuda),
+                            f, stride)["variant"] for h, w, c, f, stride in SERVING_BLOCKS]
+    assert variants == [1, 1, 0, 1, 0, 0]
+    with pytest.raises(ValueError, match="cannot take"):
+        launch_info(torch.empty(1, 64, 64, 64, dtype=torch.bfloat16, device=cuda), 64, 1)
 
 
 @pytest.mark.gpu
@@ -187,19 +244,7 @@ def test_sepblock_kernel_serving_shapes(cuda, h, w, c, f, stride, dtype):
 @pytest.mark.parametrize("h,c,f,stride", [(32, 32, 64, 2), (16, 64, 64, 1),
                                           (4, 256, 256, 1)])
 def test_sepblock_kernel_matches_plain(cuda, h, c, f, stride, dtype):
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn(64, h, h, c, generator=g).to(cuda, dtype)
-    args = [torch.randn(c, 1, 3, 3, generator=g) * 0.3, torch.rand(c, generator=g) + 0.5,
-            torch.randn(c, generator=g) * 0.1, torch.randn(f, c, 1, 1, generator=g) / c ** 0.5,
-            torch.rand(f, generator=g) + 0.5, torch.randn(f, generator=g) * 0.1]
-    args = [a.to(cuda) for a in args]
-    res = stride == 1 and c == f
-    got = fused_sep_block(x, *args, stride=stride, residual=res)
-    want = fused_sep_block_plain(x, *args, stride=stride, residual=res)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype
-    err = (got.float() - want.float()).abs()
-    assert (err <= SEP_RTOL * want.float().abs().clamp(min=1.0)).all(), err.max()
+    _assert_sep(cuda, 64, h, h, c, f, stride, dtype, 0)
 
 
 @pytest.mark.gpu

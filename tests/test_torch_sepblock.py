@@ -1,7 +1,8 @@
 """Fused separable block (kernel B) of the PyTorch port against the JAX
 package: the port's plain version on the CPU against the Pallas kernel in
 interpret mode, and against the flax ``_SepBlock`` it re-schedules, on
-the four block shapes of ``tests/test_pallas_sepblock.py``.
+the four block shapes of ``tests/test_pallas_sepblock.py`` and four with
+F = 48 or 96.
 
 Tolerances:
 - vs the Pallas kernel, f32 activations: the same rounding points, so
@@ -33,6 +34,11 @@ CASES = [
     (1, 32, 64, 16),   # channel change, no residual
     (2, 64, 128, 16),  # downsampling stage head
     (2, 32, 32, 8),    # stride without channel change
+    # widths whose 8-channel chunks are not a multiple of 8 (F / 8 = 6, 12)
+    (1, 48, 48, 8),
+    (2, 32, 48, 16),
+    (2, 48, 96, 8),
+    (1, 96, 96, 8),
 ]
 FLIP_ATOL = 2e-2
 MEAN_ATOL = 1e-4
