@@ -30,7 +30,21 @@ Phases (any failure exits nonzero before the result line):
    their own planted gallery rows; the first batch through the same stack
    in f32 must agree with the CPU (smaller gallery; see XCHECK_*);
 5. time the steady-state serving step, fused and unfused embedder in
-   turns, and profile it (device time by kernel, the card's busy share).
+   turns, and profile it (device time by kernel, the card's busy share);
+6. IVF: the same 2^20 rows in a gallery with a ``CoarseQuantizer``
+   attached in mode ``"auto"`` (``default_nlist``, ``nprobe`` 8), as the
+   reference's recognizer serves such a gallery. Build it (nlist,
+   max_cell, spill, the lists' device bytes, the build's stages), enrol the
+   first batch's faces after the build (the incremental path), hold the
+   two-stage match with kernel A as the rerank against the same match
+   with the plain rerank at Q = 512 and 32, k = 1 and 5, serve the frames
+   again (one result each, planted rows found, kernel A launched, every
+   step through the IVF path), time the serving step through IVF, time
+   ``gallery.match`` through IVF (split into stage 1, bucket, rerank) and
+   through the exact kernel at Q = 512 down to 16 on 2^18, 2^20 and 2^22
+   rows, print the two-stage recall against the exact scan at 2^20, and
+   run the reference's ``bench.py --ivf-smoke`` recall gate (>= 0.99).
+   Its numbers are one ``{"ivf": ...}`` line.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -50,6 +64,8 @@ import torch
 from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
 from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
 from opencv_facerecognizer_tpu_torch.ops import _build
+from opencv_facerecognizer_tpu_torch.ops.ivf_match import (
+    gather_bucket, ivf_match_topk, shortlist_cells, tie_aware_agreement)
 from opencv_facerecognizer_tpu_torch.ops.sepblock import (
     fused_sep_block, fused_sep_block_plain)
 from opencv_facerecognizer_tpu_torch.ops.sepblock import launch_info as sepblock_launch_info
@@ -58,10 +74,13 @@ from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
 from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import (
     RecognitionPipeline, unpack_result)
+from opencv_facerecognizer_tpu_torch.parallel.quantizer import CoarseQuantizer
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, encode_frame)
 from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
     FRAME_TOPIC, RESULT_TOPIC, RecognizerService)
+from opencv_facerecognizer_tpu_torch.utils.metrics import (
+    BATCHES_DISPATCHED, IVF_INCREMENTAL_ROWS, Metrics)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -84,8 +103,8 @@ SIZE_BIAS = 3.0
 #: kernel A: f32 sums of the same bf16 products in another order
 MATCH_ATOL = 1e-4
 #: kernel A's k checked at the serving shape: the serving top-1, the
-#: one-pass lists (5, 16) and the multi-pass k (17, 64)
-MATCH_KS = (1, 5, 16, 17, 64)
+#: one-pass lists (5, 16) and the multi-pass k (17, 64, and 300: 19 passes)
+MATCH_KS = (1, 5, 16, 17, 64, 300)
 #: kernel B: bf16 outputs; the kernel and the plain version may round an
 #: intermediate to neighbouring bf16 values: two bf16 ulps of the output
 SEP_RTOL = 2.0 ** -6
@@ -114,6 +133,25 @@ XCHECK_BOX_PX = 0.05
 XCHECK_SIM = 1e-3
 XCHECK_SCORE = 1e-3
 XCHECK_IOU = 1e-3
+#: IVF phase: the reference recognizer's quantizer (``--match-mode auto``:
+#: nprobe 8, nlist from the row count); the query batches checked (the
+#: serving batch's 512 face slots, and 32) and timed (down to one frame's
+#: 16 slots); k checked; the other gallery sizes timed, match alone (the
+#: reference's IVF threshold 2^18, and 2^22); the queries' noise
+#: (perturbed gallery rows)
+IVF_NPROBE = 8
+IVF_QS = (512, 32)
+IVF_TIME_QS = (512, 128, 32, 16)
+IVF_KS = (1, 5)
+IVF_OTHER_ROWS = (1 << 18, 1 << 22)
+IVF_QUERY_NOISE = 0.05
+#: the reference's ``bench.py --ivf-smoke`` recall gate: rows, dim, nlist,
+#: nprobe, data seed, queries, quantizer seed, k-means iterations and
+#: sample; the two-stage top-1 must agree with the exact scan (modulo
+#: ties) on at least IVF_SMOKE_RECALL of the queries
+IVF_SMOKE = dict(rows=16384, dim=64, nlist=128, nprobe=8, seed=11, n_q=64,
+                 quantizer_seed=5, kmeans_iters=8, train_sample=8192)
+IVF_SMOKE_RECALL = 0.99
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -470,7 +508,57 @@ def profile_step(pipeline, batch, steps: int = 3) -> None:
             f"{e.key[:90]}")
 
 
-def serve(dev, seed: int, n_frames: int) -> dict:
+def run_service(pipeline, frames):
+    """Serve ``frames`` through a ``RecognizerService`` over
+    ``FakeConnector``; the kernels' launch counts and the two-stage match
+    count are set to 0 after the warm-up and read after the drain. Fails
+    unless every frame gets one result and both kernels launched. Returns
+    (results, launches, service, seconds)."""
+    conn = FakeConnector()
+    service = RecognizerService(pipeline, conn, batch_size=BATCH, frame_shape=FRAME,
+                                transfer_dtype=np.uint8, flush_timeout=0.05)
+    service.start(warmup=True)
+    # the path's launches: counted from here to the end of the drain
+    streaming_match_topk.launches = 0
+    fused_sep_block.launches = 0
+    ivf_match_topk.calls = 0
+    t_serve = time.perf_counter()
+    try:
+        for i, frame in enumerate(frames):
+            conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i}})
+        if not service.drain(timeout=300.0):
+            raise AssertionError("service did not drain")
+    finally:
+        service.stop()
+    serve_s = time.perf_counter() - t_serve
+    launches = {"streaming_match": streaming_match_topk.launches,
+                "sepblock": fused_sep_block.launches}
+    results = conn.messages(RESULT_TOPIC)
+    if len(results) != len(frames) or sorted(r["meta"]["i"] for r in results) != list(
+            range(len(frames))):
+        raise AssertionError("not one result per frame")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel did not run on the serving path: {launches}")
+    return results, launches, service, serve_s
+
+
+def check_planted(results, n_plant: int) -> float:
+    """The faces of the first batch found their planted rows (labels
+    0 .. n_plant - 1) at similarity >= 0.99; returns the lowest."""
+    first = sorted((r for r in results if r["meta"]["i"] < BATCH),
+                   key=lambda r: r["meta"]["i"])
+    found = [f for r in first for f in r["faces"]]
+    if len(found) != n_plant or sorted(f["label"] for f in found) != list(range(n_plant)):
+        raise AssertionError("served faces of the first batch did not find their planted rows")
+    if min(f["similarity"] for f in found) < 0.99:
+        raise AssertionError("a planted face matched below similarity 0.99")
+    return min(f["similarity"] for f in found)
+
+
+def serve(dev, seed: int, n_frames: int):
+    """Phases 4-5. Returns the kernels' launches in the serving run and
+    what the IVF phase reuses (the stack, the gallery rows with the
+    planted faces last, the frames)."""
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     rows = rng.standard_normal((GALLERY_ROWS, DIM), dtype=np.float32)
@@ -491,44 +579,15 @@ def serve(dev, seed: int, n_frames: int) -> dict:
     log(f"setup: {GALLERY_ROWS} bf16 gallery rows ({n_plant} planted faces), "
         f"{n_frames} frames, {time.perf_counter() - t0:.1f} s")
 
-    conn = FakeConnector()
-    service = RecognizerService(gpu, conn, batch_size=BATCH, frame_shape=FRAME,
-                                transfer_dtype=np.uint8, flush_timeout=0.05)
-    service.start(warmup=True)
-    # the main path's launches: counted from here to the end of the drain
-    streaming_match_topk.launches = 0
-    fused_sep_block.launches = 0
-    t_serve = time.perf_counter()
-    try:
-        for i, frame in enumerate(frames):
-            conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i}})
-        if not service.drain(timeout=300.0):
-            raise AssertionError("service did not drain")
-    finally:
-        service.stop()
-    serve_s = time.perf_counter() - t_serve
-    launches = {"streaming_match": streaming_match_topk.launches,
-                "sepblock": fused_sep_block.launches}
+    results, launches, service, serve_s = run_service(gpu, frames)
     log(f"kernel A's path on the serving gallery: {streaming_match_topk.last_path}")
-    results = conn.messages(RESULT_TOPIC)
     log(f"served {len(results)} results for {n_frames} frames in {serve_s:.3f} s; "
         f"launches {launches}; ledger {service.ledger()}")
     summary = service.metrics.summary()
     log("service latency p50 ms:", {k: round(v, 3) for k, v in summary.items()
                                     if k.endswith("_p50_ms") and v is not None})
-    if len(results) != n_frames or sorted(r["meta"]["i"] for r in results) != list(range(n_frames)):
-        raise AssertionError("not one result per frame")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel did not run on the serving path: {launches}")
-    first = sorted((r for r in results if r["meta"]["i"] < BATCH),
-                   key=lambda r: r["meta"]["i"])
-    found = [f for r in first for f in r["faces"]]
-    if len(found) != n_plant or sorted(f["label"] for f in found) != list(range(n_plant)):
-        raise AssertionError("served faces of the first batch did not find their planted rows")
-    if min(f["similarity"] for f in found) < 0.99:
-        raise AssertionError("a planted face matched below similarity 0.99")
-    log(f"first batch: all {n_plant} faces matched their planted rows "
-        f"(min sim {min(f['similarity'] for f in found):.5f})")
+    min_sim = check_planted(results, n_plant)
+    log(f"first batch: all {n_plant} faces matched their planted rows (min sim {min_sim:.5f})")
 
     # CPU cross-check of the first batch in f32 (XCHECK_*): the card's stack
     # over the 2^20-row gallery, the CPU's over the planted rows among 4096
@@ -576,7 +635,260 @@ def serve(dev, seed: int, n_frames: int) -> dict:
             f"{BATCH * MAX_FACES * 1e3 / ms:.1f} face slots/s, "
             f"{faces_per_batch * 1e3 / ms:.1f} detected faces/s)")
     profile_step(gpu, batch)
-    return launches
+    return launches, dict(stack=gpu, rows=rows, labels=labels, n_plant=n_plant, frames=frames)
+
+
+def _unit_rows(x: np.ndarray) -> np.ndarray:
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _perturbed(rows: np.ndarray, n: int, rng) -> np.ndarray:
+    """``n`` unit queries: gallery rows at random indices plus noise (the
+    reference's serving-distribution queries)."""
+    pick = rng.choice(len(rows), n, replace=False)
+    return _unit_rows(_unit_rows(rows[pick]) + IVF_QUERY_NOISE * rng.standard_normal(
+        (n, rows.shape[1]), dtype=np.float32)).astype(np.float32)
+
+
+def ivf_recall_gate(device) -> dict:
+    """The reference's ``bench.py --ivf-smoke`` through the port on
+    ``device``: a gallery of IVF_SMOKE rows in mode "ivf", perturbed
+    enrolled rows as queries, the tie-aware recall of the two-stage top-1
+    against the exact scan (f32, ties to the lowest index), and four rows
+    enrolled after the build found at once. The data is the reference
+    script's, from its seed; the k-means init is the port's own."""
+    c = IVF_SMOKE
+    rows, dim, n_q = c["rows"], c["dim"], c["n_q"]
+    rng = np.random.default_rng(c["seed"])
+    emb = rng.normal(size=(rows, dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    gallery = ShardedGallery(rows, dim, device=device)
+    gallery.add(emb, np.arange(rows, dtype=np.int32))
+    quantizer = CoarseQuantizer(nlist=c["nlist"], nprobe=c["nprobe"], seed=c["quantizer_seed"],
+                                kmeans_iters=c["kmeans_iters"], train_sample=c["train_sample"])
+    gallery.attach_quantizer(quantizer, mode="ivf")
+    if not quantizer.rebuild_now():
+        raise AssertionError("IVF smoke gate: the quantizer build failed")
+    queries = emb[:n_q] + 0.05 * rng.normal(size=(n_q, dim)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=-1, keepdims=True)
+    calls = ivf_match_topk.calls  # both matches below must go through IVF
+    _l, sims_i, idx_i = gallery.match(queries, k=1)
+    sims = queries @ emb.T
+    idx_x = np.argmax(sims, axis=1)
+    recall = tie_aware_agreement(sims_i.cpu(), idx_i.cpu(), sims[np.arange(n_q), idx_x], idx_x)
+    new = rng.normal(size=(4, dim)).astype(np.float32)
+    new /= np.linalg.norm(new, axis=-1, keepdims=True)
+    start = gallery.size
+    gallery.add(new, np.arange(rows, rows + 4, dtype=np.int32))
+    _l, _s, idx_new = gallery.match(np.concatenate([new, new]), k=1)
+    return dict(recall=recall, two_stage_calls=ivf_match_topk.calls - calls,
+                incremental_rows_found=bool(np.array_equal(
+                    idx_new[:4, 0].cpu().numpy(), np.arange(start, start + 4))),
+                stats=quantizer.stats())
+
+
+def build_ivf_gallery(dev, rows: np.ndarray, labels: np.ndarray, seed: int, late: int = 0):
+    """A bf16 gallery of ``rows`` with a quantizer attached in mode "auto"
+    (default nlist, IVF_NPROBE) and built; the last ``late`` rows are
+    enrolled after the build, through the incremental path."""
+    n = len(rows) - late
+    gallery = ShardedGallery(len(rows), DIM, store_dtype=torch.bfloat16, device=dev)
+    gallery.add(rows[:n], labels[:n])
+    quantizer = CoarseQuantizer(nlist=CoarseQuantizer.default_nlist(n), nprobe=IVF_NPROBE,
+                                seed=seed, auto_nlist=True, metrics=Metrics())
+    gallery.attach_quantizer(quantizer, mode="auto")
+    t0 = time.perf_counter()
+    if not quantizer.rebuild_now():
+        raise AssertionError("IVF build failed")
+    build_s = time.perf_counter() - t0
+    if late:
+        gallery.add(rows[n:], labels[n:])
+    ivf = gallery._ivf_data(gallery.data)
+    if ivf is None or not gallery._ivf_enabled() or gallery.capacity != len(rows):
+        raise AssertionError(f"the gallery of {len(rows)} rows does not serve through IVF")
+    if quantizer.metrics.counter(IVF_INCREMENTAL_ROWS) != late:
+        raise AssertionError("the late rows did not go through the incremental path")
+    info = dict(rows=len(rows), nlist=ivf.nlist, max_cell=ivf.max_cell, spill_cap=ivf.spill_cap,
+                spill_rows=quantizer.spill_count,
+                list_bytes=sum(t.numel() * t.element_size() for t in ivf[:7]),
+                build_s=build_s, **{f"{k}_s": v for k, v in quantizer.last_build_s.items()})
+    log(f"IVF gallery of {len(rows)} rows: nlist {ivf.nlist}, max_cell {ivf.max_cell}, "
+        f"spill {quantizer.spill_count} of {ivf.spill_cap}, lists {info['list_bytes']} B on "
+        f"the card; build {build_s:.3f} s (" + ", ".join(
+            f"{k} {v:.3f} s" for k, v in quantizer.last_build_s.items())
+        + f"); {late} rows enrolled after the build")
+    return gallery, info
+
+
+def check_ivf(gallery, queries: torch.Tensor) -> float:
+    """The two-stage match with kernel A as the rerank against the same
+    match with the plain rerank, on the gallery's IVFDeviceData: top-1
+    indices equal, the other indices equal except ties within MATCH_ATOL
+    (the rule of phase 3), sims within MATCH_ATOL. Returns the max error."""
+    data = gallery.data
+    ivf = gallery._ivf_data(data)
+    max_err = 0.0
+    for qn in IVF_QS:
+        q = queries[:qn]
+        for k in IVF_KS:
+            got_v, got_i = ivf_match_topk(q, data.valid, ivf, k=k, nprobe=IVF_NPROBE)
+            want_v, want_i = ivf_match_topk(q, data.valid, ivf, k=k, nprobe=IVF_NPROBE,
+                                            rerank=streaming_match_topk_plain)
+            torch.cuda.synchronize()
+            err = (got_v - want_v).abs().max().item()
+            beyond_ties = ((got_i != want_i) & ((got_v - want_v).abs() > MATCH_ATOL)).sum().item()
+            if (err > MATCH_ATOL or beyond_ties
+                    or not torch.equal(got_i[:, 0], want_i[:, 0])):
+                raise AssertionError(f"IVF Q={qn} k={k}: kernel A rerank differs from the "
+                                     f"plain rerank (max sim err {err}, {beyond_ties} index "
+                                     "mismatches beyond ties)")
+            log(f"IVF two-stage Q={qn} k={k}: kernel A rerank vs plain rerank, max |sim| err "
+                f"{err:.3e}, index agreement {(got_i == want_i).float().mean().item():.6f}")
+            max_err = max(max_err, err)
+    return max_err
+
+
+def time_ivf(gallery, q: torch.Tensor, with_plain: bool = False) -> dict:
+    """``gallery.match`` through IVF and through the exact kernel (mode
+    "exact"), k = 1: CUDA events around eager calls (``*_ms``) and the
+    device time of a CUDA graph of the calls (``*_device_ms``); the IVF
+    time split into stage 1, the bucket and the rerank (kernel A), and
+    kernel A's time, bound and library call at the rerank shape."""
+    data = gallery.data
+    ivf = gallery._ivf_data(data)
+    calls = ivf_match_topk.calls
+    out = dict(q=q.shape[0], rows=data.capacity)
+    out["ivf_ms"] = cuda_ms(lambda: gallery.match(q, k=1), iters=10)
+    if ivf_match_topk.calls == calls:
+        raise AssertionError("gallery.match did not take the IVF path")
+    out["ivf_device_ms"] = _graph_ms_or_none(lambda: gallery.match(q, k=1), "IVF match")
+    out["stage1_ms"] = cuda_ms(lambda: shortlist_cells(q, ivf.centroids, IVF_NPROBE), iters=10)
+    sel = shortlist_cells(q, ivf.centroids, IVF_NPROBE)
+    out["bucket_ms"] = cuda_ms(lambda: gather_bucket(sel, data.valid, ivf), iters=10)
+    _ids, bucket, bvalid = gather_bucket(sel, data.valid, ivf)
+    out["rerank_ms"] = cuda_ms(lambda: streaming_match_topk(q, bucket, bvalid, k=1), iters=10)
+    gallery.match_mode = "exact"
+    try:
+        out["exact_ms"] = cuda_ms(lambda: gallery.match(q, k=1), iters=10)
+        out["exact_device_ms"] = _graph_ms_or_none(lambda: gallery.match(q, k=1),
+                                                   "exact match")
+    finally:
+        gallery.match_mode = "auto"
+    n = bucket.shape[0]
+    nbytes = q.numel() * 4 + bucket.numel() * 2 + n + q.shape[0] * 8
+    flops = 2 * q.shape[0] * DIM * n
+    out.update(cells=int((sel < ivf.nlist).sum().item()), union_slots=sel.shape[0],
+               rerank_rows=n, rerank_bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                                  flops / BF16_FLOPS) * 1e3,
+               rerank_bound_by="bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS
+               else "operations")
+    qb = q.to(torch.bfloat16)
+
+    def library():
+        s = torch.matmul(qb, bucket.T)
+        return torch.topk(torch.where(bvalid, s, torch.finfo(s.dtype).min), 1)
+
+    out["rerank_library_ms"] = cuda_ms(library, iters=5, warmup=1)
+    if with_plain:
+        out["rerank_plain_ms"] = cuda_ms(
+            lambda: streaming_match_topk_plain(q, bucket, bvalid, k=1), iters=3, warmup=1)
+    del bucket, bvalid
+    log(f"IVF match timing, {out['rows']} rows, Q={out['q']}: IVF {out['ivf_ms']:.4f} ms "
+        f"(stage 1 {out['stage1_ms']:.4f}, bucket {out['bucket_ms']:.4f}, rerank "
+        f"{out['rerank_ms']:.4f}; device {out['ivf_device_ms']}), exact kernel "
+        f"{out['exact_ms']:.4f} ms (device {out['exact_device_ms']}); {out['cells']} of "
+        f"{ivf.nlist} cells probed, rerank over {n} rows: bound {out['rerank_bound_ms']:.4f} ms "
+        f"({out['rerank_bound_by']}), matmul + topk {out['rerank_library_ms']:.4f} ms"
+        + (f", plain {out['rerank_plain_ms']:.4f} ms" if with_plain else ""))
+    return out
+
+
+def _graph_ms_or_none(fn, what: str):
+    """``graph_ms`` of a few calls, or None (logged) where the calls
+    cannot be captured in a CUDA graph."""
+    try:
+        return graph_ms(fn, iters=3)
+    except RuntimeError as exc:
+        log(f"{what}: device time not measured (CUDA graph capture failed: {exc})")
+        torch.cuda.synchronize()
+        return None
+
+
+def time_random_ivf(dev, n_rows: int, seed: int) -> list:
+    """``time_ivf`` at IVF_TIME_QS on a gallery of ``n_rows`` random unit
+    rows (match alone), built and freed here."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + n_rows)
+    rows = rng.standard_normal((n_rows, DIM), dtype=np.float32)
+    q = torch.from_numpy(_perturbed(rows, max(IVF_TIME_QS), rng)).to(dev)
+    gallery, build = build_ivf_gallery(dev, rows, np.arange(n_rows, dtype=np.int32), seed)
+    del rows
+    log(f"IVF gallery of {n_rows} rows set up in {time.perf_counter() - t0:.1f} s")
+    timing = [time_ivf(gallery, q[:qn]) for qn in IVF_TIME_QS]
+    del gallery
+    torch.cuda.empty_cache()
+    return build, timing
+
+
+def ivf_phase(dev, seed: int, ctx: dict) -> dict:
+    """Phase 6 (module docstring); returns the ``{"ivf": ...}`` numbers."""
+    rows, labels, n_plant = ctx["rows"], ctx["labels"], ctx["n_plant"]
+    gallery, build = build_ivf_gallery(dev, rows, labels, seed, late=n_plant)
+    rng = np.random.default_rng(seed + 1)
+    queries = torch.from_numpy(_perturbed(rows[:-n_plant], max(IVF_TIME_QS), rng)).to(dev)
+    max_err = check_ivf(gallery, queries)
+
+    stack = ctx["stack"]
+    pipeline = RecognitionPipeline(stack.detector, stack.embed_net, gallery,
+                                   face_size=embedder_mod.SERVING_FACE_SIZE,
+                                   fused_embedder=True, device=dev)
+    frames = ctx["frames"]
+    results, launches, service, serve_s = run_service(pipeline, frames)
+    steps = int(service.metrics.counter(BATCHES_DISPATCHED))
+    if not gallery.quantizer.ready or ivf_match_topk.calls != steps or steps < 1:
+        raise AssertionError(f"IVF serving: {ivf_match_topk.calls} two-stage matches in "
+                             f"{steps} steps (quantizer ready: {gallery.quantizer.ready})")
+    min_sim = check_planted(results, n_plant)
+    log(f"IVF serving: {len(results)} results for {len(frames)} frames in {serve_s:.3f} s, "
+        f"{steps} steps all through the two-stage match, launches {launches}; first batch: "
+        f"all {n_plant} faces matched their planted rows (min sim {min_sim:.5f})")
+
+    # two-stage recall against the exact scan on random rows (not gated)
+    _l, sims_i, idx_i = gallery.match(queries, k=1)
+    gallery.match_mode = "exact"
+    _l, sims_x, idx_x = gallery.match(queries, k=1)
+    gallery.match_mode = "auto"
+    recall = tie_aware_agreement(sims_i.cpu(), idx_i.cpu(), sims_x.cpu(), idx_x.cpu())
+    log(f"IVF recall at {GALLERY_ROWS} random rows, {queries.shape[0]} perturbed rows as "
+        f"queries: {recall:.4f} of the exact scan's top-1 (not gated)")
+
+    ivf_step = step_time_ms(pipeline, frames[:BATCH])
+    log(f"IVF steady-state step (fused embedder): {ivf_step:.3f} ms per batch of {BATCH} "
+        "frames, host clock")
+    timing = [time_ivf(gallery, queries[:qn], with_plain=qn == max(IVF_TIME_QS))
+              for qn in IVF_TIME_QS]
+    del gallery, pipeline
+    torch.cuda.empty_cache()
+    builds = [build]
+    for n_rows in IVF_OTHER_ROWS:
+        other_build, other_timing = time_random_ivf(dev, n_rows, seed)
+        builds.append(other_build)
+        timing += other_timing
+    for n_rows in sorted({t["rows"] for t in timing}):
+        wins = [t["q"] for t in timing if t["rows"] == n_rows and t["ivf_ms"] < t["exact_ms"]]
+        log(f"IVF vs exact at {n_rows} rows: IVF faster at Q = {wins or 'none of'} "
+            f"{list(IVF_TIME_QS)}")
+
+    gate = ivf_recall_gate(dev)
+    if gate["recall"] < IVF_SMOKE_RECALL or not gate["incremental_rows_found"] or (
+            gate["two_stage_calls"] != 2):
+        raise AssertionError(f"IVF smoke gate failed: {gate}")
+    log(f"IVF smoke gate ({IVF_SMOKE['rows']} x {IVF_SMOKE['dim']}, nlist "
+        f"{IVF_SMOKE['nlist']}, nprobe {IVF_SMOKE['nprobe']}): recall {gate['recall']:.4f} "
+        f"(gate {IVF_SMOKE_RECALL}), rows enrolled after the build found")
+    return dict(build=builds, max_abs_err=max_err, serve_launches=launches,
+                serve_steps=steps, step_ms=ivf_step, recall_2p20=recall,
+                smoke_recall=gate["recall"], timing=timing)
 
 
 def main() -> int:
@@ -601,9 +913,11 @@ def main() -> int:
         log_ptxas(name)
     gen = torch.Generator().manual_seed(args.seed)
     entries = [check_match(dev, gen), check_sepblock(dev, gen)]
-    launches = serve(dev, args.seed, args.frames)
+    launches, ctx = serve(dev, args.seed, args.frames)
+    ivf = ivf_phase(dev, args.seed, ctx)
     for e in entries:
         e["launches"] = launches[e["name"]]
+    print(json.dumps({"ivf": ivf}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -52,7 +52,7 @@
 // wmma 16x16x16 tiles, scores through shared memory.
 //
 // k: one pass keeps a running top-K in registers, K a power of two up to
-// 16. For 16 < k <= 256 the host runs ceil(k / 16) passes of K = 16: pass
+// 16. For any k > 16 the host runs ceil(k / 16) passes of K = 16: pass
 // r admits only rows strictly worse (in the value-then-index order) than
 // the last row pass r - 1 kept, so its 16 are ranks 16r .. 16r + 15. The
 // merge kernel writes each pass's columns and the bound of the next.

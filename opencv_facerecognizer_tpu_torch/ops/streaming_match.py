@@ -32,10 +32,9 @@ NEG_INF = -1e30
 #: score block)
 PLAIN_CHUNK = 65536
 #: one pass of the kernel keeps a running top-K per query in registers, K
-#: a power of two up to ROUND_K; a larger k runs ceil(k / ROUND_K) passes
+#: a power of two up to ROUND_K; a larger k, any k, runs ceil(k / ROUND_K)
+#: passes over the gallery
 ROUND_K = 16
-#: the largest k the kernel takes (MAX_K / ROUND_K passes over the gallery)
-MAX_K = 256
 #: the two kernel paths: "wgmma" (TMA + wgmma; bf16 gallery, D % 64 == 0,
 #: D <= WGMMA_MAX_D) and "wmma" (any gallery dtype, D % 16 == 0); each
 #: path's gallery rows per tile and CTAs per SM
@@ -159,7 +158,7 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
     bool -> (sims [Q, k] f32, indices [Q, k] int32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``D`` a multiple of 16, ``k <= MAX_K``) or raise. The path the last
+    (``D`` a multiple of 16, any k) or raise. The path the last
     launch took is ``streaming_match_topk.last_path``."""
     if q.ndim != 2 or g.ndim != 2 or q.shape[1] != g.shape[1]:
         raise ValueError(f"q [Q, D] and g [N, D] expected, got {tuple(q.shape)}"
@@ -174,8 +173,8 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
         raise ValueError("q, g and valid must lie on one CUDA device (or the CPU)")
     qn, d = q.shape
     n = g.shape[0]
-    if d % 16 or k > MAX_K:
-        raise ValueError(f"kernel needs D % 16 == 0 and k <= {MAX_K}; got D={d}, k={k}")
+    if d % 16:
+        raise ValueError(f"kernel needs D % 16 == 0; got D={d}")
     if qn == 0 or n == 0:  # nothing to launch: every slot is empty
         return (torch.full((qn, k), NEG_INF, dtype=torch.float32, device=q.device),
                 torch.full((qn, k), -1, dtype=torch.int32, device=q.device))

@@ -5,7 +5,10 @@ Every frame contributes exactly ``max_faces`` slots; empty slots ride
 along as invalid work, so every batch has the same shapes. The step runs
 eagerly (the reference compiles it with ``jax.jit``; CUDA graphs are a
 later change). The outputs leave the device as one packed
-``[B, K, 6 + 2k]`` array with the reference's byte layout.
+``[B, K, 6 + 2k]`` array with the reference's byte layout. The match is
+the gallery's choice: the exact scan, or the two-stage IVF match once the
+gallery's quantizer is ready; the step reads the gallery snapshot and the
+quantizer snapshot once each and pins the choice for the batch.
 """
 
 from __future__ import annotations
@@ -115,8 +118,10 @@ class RecognitionPipeline:
         device."""
         boxes, det_scores, valid, emb = self.embed_frames(frames)
         data = self.gallery.data  # one snapshot read
-        match = self.gallery.match_fn(self.top_k, data.capacity)
-        labels, sims, _ = match(emb, data.embeddings, data.valid, data.labels)
+        ivf = self.gallery._ivf_data(data)  # one epoch-checked quantizer read
+        match = self.gallery.match_fn(self.top_k, data.capacity, use_ivf=ivf is not None)
+        args = (emb, data.embeddings, data.valid, data.labels)
+        labels, sims, _ = match(*args, ivf) if ivf is not None else match(*args)
         b, k = valid.shape
         return RecognitionResult(
             boxes=boxes, det_scores=det_scores, valid=valid,

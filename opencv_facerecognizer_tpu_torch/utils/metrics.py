@@ -1,10 +1,10 @@
 """Serving counters and latency windows.
 
 The part of ``opencv_facerecognizer_tpu/utils/metrics.py`` the port's
-service uses: thread-safe counters, latency observations with
-percentiles, and a summary. Names are the reference's (its
-``utils/metric_names.py``), so a reader can compare the two services'
-counters one to one. A latency window keeps the last ``window`` samples.
+service and IVF quantizer use: thread-safe counters, last-write gauges,
+latency observations with percentiles, and a summary. Names are the
+reference's (its ``utils/metric_names.py``), so a reader can compare the
+two services' counters one to one. A latency window keeps the last ``window`` samples.
 """
 
 from __future__ import annotations
@@ -41,6 +41,19 @@ READY_WAIT = "ready_wait"
 PUBLISH = "publish"
 BATCH_LATENCY = "batch_latency"
 E2E_LATENCY = "e2e_latency"
+# IVF coarse quantizer (parallel.quantizer); IVF_SPILL_ROWS is a gauge. The
+# sidecar names are the reference's, for the state store that writes and
+# loads sidecars (not ported yet).
+IVF_BUILDS = "ivf_builds"
+IVF_BUILD_FAILURES = "ivf_build_failures"
+IVF_RETRAINS_SKIPPED_INFLIGHT = "ivf_retrains_skipped_inflight"
+IVF_INVALIDATIONS = "ivf_invalidations"
+IVF_INCREMENTAL_ROWS = "ivf_incremental_rows"
+IVF_SPILL_ROWS = "ivf_spill_rows"
+IVF_SIDECAR_WRITES = "ivf_sidecar_writes"
+IVF_SIDECAR_LOADS = "ivf_sidecar_loads"
+IVF_SIDECAR_STALE = "ivf_sidecar_stale"
+IVF_SIDECAR_ERRORS = "ivf_sidecar_errors"
 
 #: every way an admitted frame leaves other than published: the ledger
 #: ``frames_admitted == frames_completed + sum(these)`` holds once idle
@@ -50,11 +63,12 @@ LEDGER_DROP_COUNTERS = (FRAMES_MALFORMED, FRAMES_DROPPED_CRASHED,
 
 
 class Metrics:
-    """Thread-safe counters + latency windows."""
+    """Thread-safe counters, gauges and latency windows."""
 
     def __init__(self, window: int = 4096):
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = defaultdict(float)
+        self._gauges: Dict[str, float] = {}
         self._latencies: Dict[str, Deque[float]] = defaultdict(
             lambda: deque(maxlen=window))
 
@@ -66,6 +80,12 @@ class Metrics:
         with self._lock:
             self._latencies[name].append(float(seconds))
 
+    def set_gauge(self, name: str, value: float) -> None:
+        """Last-write-wins instantaneous value, reported as-is in
+        ``summary``."""
+        with self._lock:
+            self._gauges[name] = float(value)
+
     def counter(self, name: str) -> float:
         with self._lock:
             return self._counters.get(name, 0.0)
@@ -75,9 +95,10 @@ class Metrics:
             return dict(self._counters)
 
     def summary(self) -> Dict[str, Optional[float]]:
-        """Counters plus p50/p95/p99 (ms) of every latency window."""
+        """Counters, gauges, and p50/p95/p99 (ms) of every latency window."""
         with self._lock:
             out: Dict[str, Optional[float]] = dict(self._counters)
+            out.update(self._gauges)
             windows = {k: list(v) for k, v in self._latencies.items()}
         for name, samples in windows.items():
             for q in (50, 95, 99):

@@ -1,5 +1,5 @@
-"""Carry weights from the JAX package's flax parameter trees into the
-port's modules.
+"""Carry weights from the JAX package's flax parameter trees, and its IVF
+quantizer state, into the port's modules.
 
 Each function takes the nested flax param dict (``{"Conv_0": {"kernel":
 ...}, ...}``) with numpy (or array-like) leaves and loads it into a port
@@ -10,6 +10,9 @@ module. Layout conversions:
   -> ``[C, 1, h, w]`` (the same permutation);
 - Dense kernel ``[in, out]`` -> ``[out, in]``;
 - GroupNorm scale and bias as they are.
+
+``ivf_data_from_numpy`` takes the reference's ``IVFDeviceData`` (its
+arrays read back as numpy) to the port's, on a device.
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from opencv_facerecognizer_tpu_torch.parallel.quantizer import IVFDeviceData
+from opencv_facerecognizer_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, DeviceLike, resolve_device)
 
 FlaxParams = Mapping[str, Any]
 
@@ -74,3 +81,19 @@ def embedder_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch
             state[f"blocks.{i}.{gn}.weight"] = _t(p[src]["scale"])
             state[f"blocks.{i}.{gn}.bias"] = _t(p[src]["bias"])
     return _load(net, state)
+
+
+#: dtypes of IVFDeviceData's seven arrays, in field order
+_IVF_DTYPES = (np.float32, np.int32, np.int8, np.float32, np.int32, np.int8, np.float32)
+
+
+def ivf_data_from_numpy(ivf, device: DeviceLike = DEFAULT_DEVICE) -> IVFDeviceData:
+    """The JAX package's ``IVFDeviceData`` (or any tuple of its seven
+    arrays, then optionally ``gallery_epoch``), as array-likes, as the
+    port's ``IVFDeviceData`` on ``device``, values unchanged."""
+    dev = resolve_device(device)
+    fields = tuple(ivf)
+    arrays = (torch.from_numpy(np.array(a, dtype=dt)).to(dev)
+              for a, dt in zip(fields[:7], _IVF_DTYPES))
+    epoch = int(fields[7]) if len(fields) > 7 else 0
+    return IVFDeviceData(*arrays, gallery_epoch=epoch)

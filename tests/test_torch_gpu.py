@@ -19,8 +19,10 @@ import torch
 
 from opencv_facerecognizer_tpu_torch.ops.sepblock import (
     fused_sep_block, fused_sep_block_plain, launch_info)
+from opencv_facerecognizer_tpu_torch.ops.ivf_match import ivf_match_topk
 from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
-    MAX_K, NEG_INF, streaming_match_topk, streaming_match_topk_plain)
+    NEG_INF, streaming_match_topk, streaming_match_topk_plain)
+from opencv_facerecognizer_tpu_torch.parallel import quantizer as quant
 from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
 
 SIM_ATOL = 1e-4
@@ -134,11 +136,42 @@ def test_match_kernel_ties_across_passes(cuda):
 
 @pytest.mark.gpu
 def test_match_kernel_refuses_k_past_limit(cuda):
-    q = torch.randn(4, 64, device=cuda)
-    g = torch.randn(300, 64, device=cuda)
-    with pytest.raises(ValueError, match=str(MAX_K)):
-        streaming_match_topk(q, g, torch.ones(300, dtype=torch.bool, device=cuda),
-                             k=MAX_K + 1)
+    """k has no limit on the card any more (257 was one past it): the
+    kernel refuses only what it cannot run, k < 1 and D % 16 != 0."""
+    rng = np.random.default_rng(257)
+    q = torch.tensor(_normed(rng, (4, 64)), device=cuda)
+    g = torch.tensor(_normed(rng, (300, 64)), device=cuda)
+    valid = torch.ones(300, dtype=torch.bool, device=cuda)
+    valid[250:] = False
+    got_v, got_i = _assert_match(cuda, q, g, valid, 257)
+    assert (got_i[:, :250] >= 0).all() and (got_i[:, 250:] == -1).all()
+    assert (got_v[:, 250:] == NEG_INF).all()
+    with pytest.raises(ValueError):
+        streaming_match_topk(q, g, valid, k=0)
+    with pytest.raises(ValueError, match="D % 16"):
+        streaming_match_topk(q[:, :40], g[:, :40], valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
+def test_match_kernel_k300_ties_across_passes(cuda, gdtype):
+    """k = 300 (19 passes of 16) against the plain version: 40 copies of
+    each query put ties across the pass boundaries at ranks 16 and 32, and
+    duplicated gallery rows put ties at the later boundaries."""
+    rng = np.random.default_rng(300)
+    q = torch.tensor(_normed(rng, (8, 256)), device=cuda)
+    g = torch.tensor(_normed(rng, (20000, 256)), device=cuda)
+    g[10000:20000] = g[0:10000]  # every other row twice: ties at every rank
+    copies = torch.tensor(np.sort(rng.choice(20000, size=(8, 40), replace=False), axis=1),
+                          device=cuda)
+    for i in range(8):
+        g[copies[i]] = q[i]
+    g = g.to(gdtype)
+    valid = torch.ones(20000, dtype=torch.bool, device=cuda)
+    got_v, got_i = _assert_match(cuda, q, g, valid, 300)
+    assert torch.equal(got_i[:, :40].long(), copies)
+    tie = got_v[:, 1:] == got_v[:, :-1]  # equal sims: lowest index first
+    assert tie[:, 40:].any() and (got_i[:, 1:] > got_i[:, :-1])[tie].all()
 
 
 @pytest.mark.gpu
@@ -164,6 +197,81 @@ def test_gallery_match_k17_on_kernel(cuda, store_dtype):
     assert torch.allclose(sims, want_v, atol=SIM_ATOL, rtol=0)
     assert not ((idx != want_i) & ((sims - want_v).abs() > SIM_ATOL)).any()
     assert idx[:, 0].tolist() == [5, 60000, 69999]
+
+
+def _ivf_gallery(cuda, rows, nlist=64, seed=0, capacity=None):
+    gal = ShardedGallery(capacity or len(rows), rows.shape[1], store_dtype=torch.bfloat16,
+                         device=cuda)
+    gal.add(rows, np.arange(len(rows), dtype=np.int32))
+    quantizer = quant.CoarseQuantizer(nlist=nlist, nprobe=8, seed=seed, kmeans_iters=5,
+                                      train_sample=16384)
+    gal.attach_quantizer(quantizer, mode="ivf")
+    assert quantizer.rebuild_now()
+    return gal, quantizer
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qn", [512, 32])
+def test_ivf_rerank_kernel_matches_plain_rerank(cuda, qn):
+    """The two-stage match with kernel A as the rerank against the same
+    match with the plain rerank, on one IVFDeviceData."""
+    rng = np.random.default_rng(qn)
+    rows = _normed(rng, (40000, 256))
+    gal, quantizer = _ivf_gallery(cuda, rows)
+    pick = rng.choice(40000, qn, replace=False)
+    q = torch.tensor(_normed(rng, (qn, 256)) * 0.05 + rows[pick], device=cuda)
+    q = q / q.norm(dim=1, keepdim=True)
+    valid = gal.data.valid
+    for k in (1, 5, 17):
+        before = streaming_match_topk.launches
+        got_v, got_i = ivf_match_topk(q, valid, quantizer.data, k=k, nprobe=8)
+        assert streaming_match_topk.launches == before + 1
+        want_v, want_i = ivf_match_topk(q, valid, quantizer.data, k=k, nprobe=8,
+                                        rerank=streaming_match_topk_plain)
+        torch.cuda.synchronize()
+        assert torch.allclose(got_v, want_v, atol=SIM_ATOL, rtol=0)
+        assert not ((got_i != want_i) & ((got_v - want_v).abs() > SIM_ATOL)).any()
+        assert torch.equal(got_i[:, 0], want_i[:, 0])
+    _l, _s, idx = gal.match(q, k=1)
+    assert (idx[:, 0].cpu().numpy() == pick).mean() > 0.95
+
+
+@pytest.mark.gpu
+def test_kmeans_and_rebuild_deterministic_on_card(cuda):
+    """Two builds of the same rows and seed give bit-identical centroids,
+    assignment and lists (no float atomics in the k-means sums)."""
+    rng = np.random.default_rng(1)
+    rows = _normed(rng, (30000, 256))
+    a = quant._kmeans(rows, 256, 5, 3, device=cuda)
+    b = quant._kmeans(rows, 256, 5, 3, device=cuda)
+    np.testing.assert_array_equal(a, b)
+    _g1, q1 = _ivf_gallery(cuda, rows, nlist=128, seed=4)
+    _g2, q2 = _ivf_gallery(cuda, rows, nlist=128, seed=4)
+    np.testing.assert_array_equal(q1._h_centroids, q2._h_centroids)
+    np.testing.assert_array_equal(q1._h_assign, q2._h_assign)
+    for x, y in zip(q1.data[:7], q2.data[:7]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_ivf_insert_while_a_reader_holds_an_older_snapshot(cuda):
+    """An enrolment while a reader holds the older (GalleryData,
+    IVFDeviceData) pair: the reader's arrays and answers do not change; a
+    fresh read finds the new rows through the kernel rerank."""
+    rng = np.random.default_rng(2)
+    gal, quantizer = _ivf_gallery(cuda, _normed(rng, (20000, 256)), capacity=32768)
+    old_data, old_ivf = gal.data, gal._ivf_data(gal.data)
+    frozen = [t.clone() for t in old_ivf[:7]]
+    probe = torch.tensor(_normed(rng, (16, 256)), device=cuda)
+    before = ivf_match_topk(probe, old_data.valid, old_ivf, k=3)
+    gal.add(probe.cpu().numpy(), np.arange(16, dtype=np.int32))
+    after = ivf_match_topk(probe, old_data.valid, old_ivf, k=3)
+    torch.cuda.synchronize()
+    assert quantizer.data is not old_ivf
+    assert all(torch.equal(x, y) for x, y in zip(old_ivf[:7], frozen))
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    _l, sims, idx = gal.match(probe, k=1)
+    assert idx[:, 0].tolist() == list(range(20000, 20016)) and (sims > 0.99).all()
 
 
 def _sep_inputs(cuda, b, h, w, c, f, stride, dtype, seed):

@@ -31,7 +31,10 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     # A subprocess: this test process already imported JAX (conftest).
     mods = _port_modules()
-    assert len(mods) >= 15, mods
+    assert len(mods) >= 17, mods
+    for mod in ("opencv_facerecognizer_tpu_torch.parallel.quantizer",
+                "opencv_facerecognizer_tpu_torch.ops.ivf_match"):
+        assert mod in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,9 +71,10 @@ def test_entry_points_default_to_the_card():
     from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
     from opencv_facerecognizer_tpu_torch.parallel.pipeline import RecognitionPipeline
     from opencv_facerecognizer_tpu_torch.utils import device as device_mod
+    from opencv_facerecognizer_tpu_torch.utils.params import ivf_data_from_numpy
 
     for entry in (CNNFaceDetector, ShardedGallery, RecognitionPipeline,
-                  device_mod.resolve_device):
+                  device_mod.resolve_device, ivf_data_from_numpy):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     assert device_mod.DEFAULT_DEVICE == "cuda"
 

@@ -27,11 +27,14 @@ from opencv_facerecognizer_tpu.models import detector as jax_detector
 from opencv_facerecognizer_tpu.models import embedder as jax_embedder
 from opencv_facerecognizer_tpu.parallel import gallery as jax_gallery
 from opencv_facerecognizer_tpu.parallel import pipeline as jax_pipeline
+from opencv_facerecognizer_tpu.parallel import quantizer as jax_quantizer
 from opencv_facerecognizer_tpu.parallel.mesh import make_mesh
 from opencv_facerecognizer_tpu_torch.models import detector as port_detector
 from opencv_facerecognizer_tpu_torch.models import embedder as port_embedder
+from opencv_facerecognizer_tpu_torch.ops.ivf_match import ivf_match_topk
 from opencv_facerecognizer_tpu_torch.parallel import gallery as port_gallery
 from opencv_facerecognizer_tpu_torch.parallel import pipeline as port_pipeline
+from opencv_facerecognizer_tpu_torch.parallel import quantizer as port_quantizer
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, decode_frame, encode_frame)
 from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
@@ -123,6 +126,29 @@ def test_packed_step_matches_jax(params, fused):
     # the unpacked step carries the same numbers
     res = port.recognize_batch(frames)
     np.testing.assert_array_equal(port_pipeline.pack_result(res).numpy(), got.numpy())
+
+
+def test_packed_step_with_ivf_matches_jax(params):
+    """The step through the two-stage IVF match: both galleries hold the
+    same quantizer state (the JAX package's, carried by its sidecar
+    payload), half the cells probed per face; the port's step takes the
+    IVF path once per batch."""
+    dparams, eparams, frames, rows, labels = params
+    jax_pipe = _jax_pipeline(dparams, eparams, rows, labels, fused=False)
+    jq = jax_quantizer.CoarseQuantizer(nlist=8, nprobe=4, seed=1, kmeans_iters=4,
+                                       train_sample=256)
+    jax_pipe.gallery.attach_quantizer(jq, mode="ivf")
+    assert jq.rebuild_now()
+    want = np.asarray(jax_pipe.recognize_batch_packed(frames))
+    port = _port_pipeline(dparams, eparams, rows, labels, fused=False)
+    pq = port_quantizer.CoarseQuantizer(nlist=8, nprobe=4, seed=1)
+    port.gallery.attach_quantizer(pq, mode="ivf")
+    payload = jax_pipe.gallery.snapshot_quantizer()
+    assert pq.install_from_arrays(payload["centroids"], payload["assign"])
+    before = ivf_match_topk.calls
+    got = port.recognize_batch_packed(frames)
+    assert ivf_match_topk.calls == before + 1
+    _assert_same(got.numpy(), want)
 
 
 def test_install_detector_params_takes_effect(params):
