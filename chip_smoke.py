@@ -44,7 +44,26 @@ Phases (any failure exits nonzero before the result line):
    through the exact kernel at Q = 512 down to 16 on 2^18, 2^20 and 2^22
    rows, print the two-stage recall against the exact scan at 2^20, and
    run the reference's ``bench.py --ivf-smoke`` recall gate (>= 0.99).
-   Its numbers are one ``{"ivf": ...}`` line.
+   Its numbers are one ``{"ivf": ...}`` line;
+7. cli: the serving detector and embedder (the weights of phase 4) written
+   by the port's ``CNNFaceDetector.save`` and ``save_model`` (a
+   ``CNNEmbedding`` in ``PredictableModel(..., NearestNeighbor(
+   CosineDistance()))``), a gallery directory and a frames directory of
+   PGM images (``build/cli_smoke/``); ``apps.recognize.main`` in dir mode
+   on them with a 2^20-row gallery, the exact match and the fused
+   embedder. Every frame must get one result, both kernels must launch,
+   the first batch must agree with a direct ``RecognitionPipeline`` call
+   on the loaded weights (XCHECK_*) and the ledger must close. Then the
+   CLI in jsonl mode in a subprocess (``python -m``): frames, an
+   ``enroll`` command, frames of one scene until ``enrolled`` comes back,
+   more frames of that scene (which must come back with the enrolled
+   name), ``stats``, EOF. Its numbers are one ``{"cli": ...}`` line,
+   each time with the card's name and power limit: the load and embed
+   seconds as the CLI's own loader logs them (the ``startup`` record of
+   ``--metrics-jsonl``), and the dir run's frames/s and the jsonl run's
+   latencies, which are smoke observations (64 frames in two batches,
+   about 20 requests, a gallery of 8-10 rows) and no measure of
+   throughput or latency.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,16 +72,25 @@ The line before the last is the per-kernel JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
+from opencv_facerecognizer_tpu_torch.apps import recognize as recognize_app
 from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
 from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
+from opencv_facerecognizer_tpu_torch.models.classifier import NearestNeighbor
+from opencv_facerecognizer_tpu_torch.models.model import PredictableModel
+from opencv_facerecognizer_tpu_torch.ops.distance import CosineDistance
 from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops.ivf_match import (
     gather_bucket, ivf_match_topk, shortlist_cells, tie_aware_agreement)
@@ -78,7 +106,9 @@ from opencv_facerecognizer_tpu_torch.parallel.quantizer import CoarseQuantizer
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, encode_frame)
 from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
-    FRAME_TOPIC, RESULT_TOPIC, RecognizerService)
+    CONTROL_TOPIC, FRAME_TOPIC, RESULT_TOPIC, STATUS_TOPIC, RecognizerService)
+from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
+from opencv_facerecognizer_tpu_torch.utils import native, serialization
 from opencv_facerecognizer_tpu_torch.utils.metrics import (
     BATCHES_DISPATCHED, IVF_INCREMENTAL_ROWS, Metrics)
 
@@ -152,6 +182,17 @@ IVF_QUERY_NOISE = 0.05
 IVF_SMOKE = dict(rows=16384, dim=64, nlist=128, nprobe=8, seed=11, n_q=64,
                  quantizer_seed=5, kmeans_iters=8, train_sample=8192)
 IVF_SMOKE_RECALL = 0.99
+#: cli phase: gallery subjects and images each (64x64 PGM), frames of the
+#: dir run (two serving batches), the gallery capacity (kernel A's path),
+#: frames of the jsonl run before and after the enroll command, the
+#: enrolled subject's name
+CLI_SUBJECTS = 4
+CLI_IMAGES = 2
+CLI_FRAMES = 2 * BATCH
+CLI_CAPACITY = 1 << 20
+CLI_JSONL_FRAMES = 8
+CLI_ENROL_COUNT = 2
+CLI_NEW_NAME = "enrolled_subject"
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -891,6 +932,246 @@ def ivf_phase(dev, seed: int, ctx: dict) -> dict:
                 smoke_recall=gate["recall"], timing=timing)
 
 
+def write_pgm(path: str, img: np.ndarray) -> None:
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(f"P5\n{w} {h}\n255\n".encode() + img.astype(np.uint8).tobytes())
+
+
+def write_cli_inputs(dev, seed: int, root: str):
+    """The port-written checkpoints of the serving detector and embedder
+    (phase 4's weights), a gallery directory and a frames directory under
+    ``root``; returns (paths, frames)."""
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "frames"))
+    rng = np.random.default_rng(seed + 7)
+    det = detector_mod.CNNFaceDetector(device=dev, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        det.net.heatmap.bias.fill_(HEATMAP_BIAS)
+        det.net.size.bias.fill_(SIZE_BIAS)
+    paths = dict(model=os.path.join(root, "model.ckpt"), det=os.path.join(root, "det.ckpt"),
+                 gallery=os.path.join(root, "gallery"), frames=os.path.join(root, "frames"),
+                 metrics=os.path.join(root, "metrics.jsonl"))
+    det.save(paths["det"])
+    faces = rng.integers(0, 256, (CLI_SUBJECTS * CLI_IMAGES, *embedder_mod.SERVING_FACE_SIZE))
+    emb = embedder_mod.CNNEmbedding(**embedder_mod.SERVING_EMBEDDER_KWARGS,
+                                    input_size=embedder_mod.SERVING_FACE_SIZE,
+                                    train_steps=0, seed=seed + 1, device=dev)
+    model = PredictableModel(emb, NearestNeighbor(CosineDistance(), device=dev))
+    model.compute(faces.astype(np.float32), np.arange(len(faces)) // CLI_IMAGES)
+    serialization.save_model(paths["model"], model)
+    for i, face in enumerate(faces):
+        subject = os.path.join(paths["gallery"], f"subject_{i // CLI_IMAGES}")
+        os.makedirs(subject, exist_ok=True)
+        write_pgm(os.path.join(subject, f"{i}.pgm"), face)
+    frames = rng.integers(0, 256, (CLI_FRAMES, *FRAME), dtype=np.uint8)
+    for i, frame in enumerate(frames):
+        write_pgm(os.path.join(paths["frames"], f"f{i:03d}.pgm"), frame)
+    return paths, frames
+
+
+def cli_args(paths: dict, source: str, dev) -> list:
+    """The CLI's command line; the device stays the CLI's default (the
+    card) unless ``dev`` is the CPU (a rehearsal)."""
+    return ["--model", paths["model"], "--detector", paths["det"], "--gallery",
+            paths["gallery"], "--source", source, "--capacity", str(CLI_CAPACITY),
+            "--match-mode", "exact", "--fused-embedder", "--batch-size", str(BATCH),
+            "--frame-size", str(FRAME[0]), str(FRAME[1]), "--metrics-jsonl", paths["metrics"],
+            *(["--device", "cpu"] if dev.type == "cpu" else [])]
+
+
+def metrics_records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def messages_as_result(messages, max_faces: int):
+    """Published result messages (one frame each, in order) as an unpacked
+    result (boxes yxyx), for ``cross_check_frame``."""
+    n = len(messages)
+    packed = np.zeros((n, max_faces, 8), np.float32)
+    for i, msg in enumerate(messages):
+        for j, face in enumerate(msg["faces"]):
+            x0, y0, x1, y1 = face["box"]
+            packed[i, j, :6] = (y0, x0, y1, x1, face["detection_score"], 1.0)
+            packed[i, j, 6:8] = (face["label"], face["similarity"])
+    return unpack_result(packed, 1)
+
+
+def run_jsonl_cli(paths: dict, frames: np.ndarray, dev) -> dict:
+    """The CLI in jsonl mode in a subprocess (``python -m``), stdin a pipe:
+    CLI_JSONL_FRAMES frames, ``enroll``, frames of scene 0 until
+    ``enrolled`` is published, CLI_JSONL_FRAMES more of scene 0,
+    ``stats``, EOF. Returns the messages it printed and its exit code."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+                             *cli_args(paths, "jsonl", dev)], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    out, err = [], []
+    readers = [threading.Thread(target=lambda: out.extend(json.loads(l) for l in proc.stdout),
+                                daemon=True),
+               threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True)]
+    for r in readers:
+        r.start()
+
+    def send(topic, data):
+        proc.stdin.write(json.dumps({"topic": topic, "data": data}) + "\n")
+        proc.stdin.flush()
+
+    def enrolled():
+        return any(m["topic"] == STATUS_TOPIC and m["data"]["status"] == "enrolled" for m in out)
+
+    seq = 0
+    try:
+        for i in range(CLI_JSONL_FRAMES):
+            send(FRAME_TOPIC, {**encode_frame(frames[i]), "meta": {"seq": seq}})
+            seq += 1
+        send(CONTROL_TOPIC, {"cmd": "enroll", "subject": CLI_NEW_NAME, "count": CLI_ENROL_COUNT})
+        deadline = time.monotonic() + 300
+        while not enrolled() and time.monotonic() < deadline and proc.poll() is None:
+            send(FRAME_TOPIC, {**encode_frame(frames[0]), "meta": {"seq": seq, "scene": 0}})
+            seq += 1
+            time.sleep(0.2)
+        first_after = seq
+        for _ in range(CLI_JSONL_FRAMES):
+            send(FRAME_TOPIC, {**encode_frame(frames[0]), "meta": {"seq": seq, "scene": 0}})
+            seq += 1
+        send(CONTROL_TOPIC, {"cmd": "stats"})
+        proc.stdin.close()
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for r in readers:
+        r.join(timeout=10)
+    if rc != 0:
+        log("".join(err[-40:]))
+    return dict(messages=out, rc=rc, sent=seq, first_after=first_after)
+
+
+def cli_phase(dev, seed: int, card: str) -> dict:
+    """Phase 7 (module docstring); returns the ``{"cli": ...}`` numbers."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_smoke")
+    paths, frames = write_cli_inputs(dev, seed, root)
+    # the native loader's one-time g++ build, timed on its own; the CLI's
+    # _load_stack times the checkpoint load and the gallery embed itself
+    # and logs them as its `startup` record
+    t_build = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native image loader did not build")
+    native_build_s = time.perf_counter() - t_build
+    log(f"cli: native loader built in {native_build_s:.3f} s")
+
+    streaming_match_topk.launches = 0
+    fused_sep_block.launches = 0
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        # batches fill to BATCH (no deadline flush), so the first batch is
+        # the first BATCH files, as the direct call below takes them
+        rc = recognize_app.main(cli_args(paths, "dir", dev)
+                                + ["--dir", paths["frames"], "--flush-ms", "1000"])
+    launches = {"streaming_match": streaming_match_topk.launches,
+                "sepblock": fused_sep_block.launches}
+    results = [json.loads(line) for line in stdout.getvalue().splitlines() if line.startswith("{")]
+    files = sorted(os.listdir(paths["frames"]))
+    if rc != 0 or sorted(r["meta"]["file"] for r in results) != files:
+        raise AssertionError(f"cli dir run: rc {rc}, {len(results)} results for {len(files)} frames")
+    if dev.type == "cuda" and min(launches.values()) < 1:  # the CPU launches no kernel
+        raise AssertionError(f"cli dir run: a kernel did not launch: {launches}")
+    records = {r["event"]: r for r in metrics_records(paths["metrics"])}
+    startup, replay, ledger = records["startup"], records["dir_replay"], \
+        records["shutdown"]["ledger"]
+    if ledger["in_system"] != 0 or ledger["completed"] != len(files):
+        raise AssertionError(f"cli dir run: the ledger does not close: {ledger}")
+    log(f"cli dir run's startup: checkpoints loaded in {startup['checkpoint_load_s']:.4f} s, "
+        f"gallery directory of {startup['gallery_images']} images embedded in "
+        f"{startup['gallery_embed_s']:.4f} s ({card})")
+
+    # the first batch against a direct RecognitionPipeline call on the
+    # same checkpoints and gallery directory, loaded here again
+    model = serialization.load_model(paths["model"], device=dev)
+    det = detector_mod.CNNFaceDetector.load(paths["det"], device=dev)
+    images, labels, _ = dataset_utils.read_images(paths["gallery"],
+                                                  image_size=model.feature.input_size)
+    gallery_emb = model.feature.extract(images).cpu().numpy()
+    gallery = ShardedGallery(CLI_CAPACITY, DIM, store_dtype=torch.bfloat16, device=dev)
+    gallery.add(gallery_emb, labels)
+    direct = RecognitionPipeline(det, model.feature.net, gallery,
+                                 face_size=model.feature.input_size, fused_embedder=True,
+                                 device=dev)
+    by_file = {r["meta"]["file"]: r for r in results}
+    first = [by_file[f] for f in files[:BATCH]]
+    batch = frames[:BATCH].astype(np.float32)
+    want = unpack_result(direct.recognize_batch_packed(batch).cpu().numpy(), 1)
+    # the service's rule: a face below the similarity threshold is label -1
+    threshold = recognize_app.build_parser().get_default("similarity_threshold")
+    want = want._replace(labels=np.where(want.similarities >= threshold, want.labels, -1))
+    got = messages_as_result(first, det.max_faces)
+    worst_box = worst_sim = 0.0
+    n_pairs = n_swaps = 0
+    for i in range(BATCH):
+        pairs, swaps = cross_check_frame(got, want, i, det.score_threshold, det.iou_threshold)
+        n_pairs += len(pairs)
+        n_swaps += swaps
+        for j, m, dbox in pairs:
+            if got.labels[i, j, 0] != want.labels[i, m, 0]:
+                raise AssertionError(f"cli vs direct pipeline: frame {i} labels differ")
+            worst_box = max(worst_box, dbox)
+            worst_sim = max(worst_sim, abs(got.similarities[i, j, 0] - want.similarities[i, m, 0]))
+    if worst_sim > XCHECK_SIM or n_pairs < BATCH:
+        raise AssertionError(f"cli vs direct pipeline: {n_pairs} faces paired, sim diff {worst_sim}")
+    log(f"cli dir run: {len(results)} results for {len(files)} frames, {replay['answered']} "
+        f"answered in {replay['seconds']:.3f} s ({len(files) / replay['seconds']:.1f} frames/s, "
+        f"{card}); launches {launches}; ledger {ledger}; first batch vs the direct pipeline: "
+        f"{n_pairs} faces, labels equal, max box diff {worst_box:.4f} px, max sim diff "
+        f"{worst_sim:.2e}, {n_swaps} boundary swaps")
+    del direct, gallery
+    torch.cuda.empty_cache()
+
+    os.remove(paths["metrics"])
+    run = run_jsonl_cli(paths, frames, dev)
+    out = run["messages"]
+    results = {m["data"]["meta"]["seq"]: m["data"] for m in out if m["topic"] == RESULT_TOPIC}
+    statuses = [m["data"] for m in out if m["topic"] == STATUS_TOPIC]
+    enrolled = [s for s in statuses if s["status"] == "enrolled"]
+    if run["rc"] != 0 or sorted(results) != list(range(run["sent"])):
+        raise AssertionError(f"cli jsonl run: rc {run['rc']}, {len(results)} results for "
+                             f"{run['sent']} frames")
+    if not enrolled or enrolled[0]["subject"] != CLI_NEW_NAME:
+        raise AssertionError(f"cli jsonl run: no enrolment: {statuses}")
+    later = [results[s] for s in range(run["first_after"], run["sent"])]
+    if not all(CLI_NEW_NAME in {f["name"] for f in r["faces"]} for r in later):
+        raise AssertionError("cli jsonl run: the enrolled subject did not come back by name")
+    if not any(s["status"] == "stats" for s in statuses):
+        raise AssertionError("cli jsonl run: no stats reply")
+    records = {r["event"]: r for r in metrics_records(paths["metrics"])}
+    jsonl_startup, shutdown = records["startup"], records["shutdown"]
+    if shutdown["ledger"]["in_system"] != 0:
+        raise AssertionError(f"cli jsonl run: the ledger does not close: {shutdown['ledger']}")
+    e2e_p50 = shutdown["summary"]["e2e_latency_p50_ms"]
+    stages = {k: round(shutdown["summary"][f"{k}_p50_ms"], 3) for k in (
+        "queue_wait", "dispatch", "ready_wait", "publish", "batch_latency")}
+    log(f"cli jsonl run: {len(results)} results for {run['sent']} frames, enrolled "
+        f"{CLI_NEW_NAME!r} as label {enrolled[0]['label']}, named on all {len(later)} later "
+        f"frames of its scene; e2e latency p50 {e2e_p50:.3f} ms, stage p50 ms {stages}; "
+        f"startup in a new process: checkpoints loaded in "
+        f"{jsonl_startup['checkpoint_load_s']:.4f} s, gallery "
+        f"embedded in {jsonl_startup['gallery_embed_s']:.4f} s ({card}); "
+        f"ledger {shutdown['ledger']}")
+    return dict(card=card, native_build_s=native_build_s,
+                checkpoint_load_s=startup["checkpoint_load_s"],
+                gallery_embed_s=startup["gallery_embed_s"],
+                gallery_images=startup["gallery_images"], dir_frames=len(files),
+                dir_seconds=replay["seconds"], dir_frames_per_s=len(files) / replay["seconds"],
+                dir_launches=launches, dir_ledger=ledger, xcheck_faces=n_pairs,
+                xcheck_max_box_px=worst_box, xcheck_max_sim=worst_sim, xcheck_swaps=n_swaps,
+                jsonl_frames=run["sent"], jsonl_e2e_p50_ms=e2e_p50, jsonl_stage_p50_ms=stages,
+                jsonl_checkpoint_load_s=jsonl_startup["checkpoint_load_s"],
+                jsonl_gallery_embed_s=jsonl_startup["gallery_embed_s"],
+                jsonl_enrolled_label=enrolled[0]["label"], jsonl_ledger=shutdown["ledger"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -915,9 +1196,11 @@ def main() -> int:
     entries = [check_match(dev, gen), check_sepblock(dev, gen)]
     launches, ctx = serve(dev, args.seed, args.frames)
     ivf = ivf_phase(dev, args.seed, ctx)
+    cli = cli_phase(dev, args.seed, card)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"ivf": ivf}))
+    print(json.dumps({"cli": cli}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -4,7 +4,10 @@
 A stride-8 anchor-free ("center-heatmap") FCN: conv blocks -> heatmap,
 size and offset heads; ``decode_detections`` turns the maps into exactly
 ``max_faces`` boxes per image (sigmoid, 3x3 max-pool peaks, top-k, box
-assembly, fixed-K NMS, clip). Training stays in the JAX package.
+assembly, fixed-K NMS, clip). ``CNNFaceDetector.save`` / ``load`` write
+and read the JAX package's detector checkpoint (a msgpack blob of
+``header.config_json`` and the flax-layout ``params``). Training stays in
+the JAX package.
 
 Numerics follow the flax module: bf16 compute with float32 parameters,
 the input divided by 255 in the compute dtype, GroupNorm statistics in
@@ -15,6 +18,7 @@ reference's layouts: frames [N, H, W], maps [N, Hs, Ws] and
 
 from __future__ import annotations
 
+import json
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -25,8 +29,11 @@ import torch.nn.functional as F
 from opencv_facerecognizer_tpu_torch.models._layers import (
     ConvSame, GroupNorm, reset_all, space_to_depth_nhwc)
 from opencv_facerecognizer_tpu_torch.ops import nms as nms_ops
+from opencv_facerecognizer_tpu_torch.utils import _msgpack, serialization
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, disable_tf32, resolve_device)
+from opencv_facerecognizer_tpu_torch.utils.params import (
+    detector_params_from_flax, detector_params_to_flax)
 
 STRIDE = 8
 #: the heatmap head's initial bias (flax: constant(-4.0)): an untrained
@@ -176,6 +183,44 @@ class CNNFaceDetector:
         """Load a state dict (``utils.params.detector_params_from_flax``
         turns the JAX package's params into one)."""
         self.net.load_state_dict(params)
+
+    # -- checkpoints: the reference's format, both ways --
+
+    def save(self, path: str) -> None:
+        """Write ``{"header": {"format_version", "config_json"}, "params":
+        flax tree}`` atomically: the JAX package's ``CNNFaceDetector.load``
+        reads it."""
+        payload = {
+            "header": {
+                "format_version": 1,
+                "config_json": json.dumps({
+                    "features": list(self.net.features),
+                    "head_features": self.net.head_features,
+                    "max_faces": self.max_faces,
+                    "score_threshold": self.score_threshold,
+                    "iou_threshold": self.iou_threshold,
+                    "space_to_depth": self.net.space_to_depth,
+                }),
+            },
+            "params": detector_params_to_flax(self.net),
+        }
+        serialization.atomic_write_bytes(path, _msgpack.packb(payload))
+
+    @classmethod
+    def load(cls, path: str, device: DeviceLike = DEFAULT_DEVICE) -> "CNNFaceDetector":
+        """A detector from a checkpoint written by either package, on
+        ``device``; ``space_to_depth`` defaults to 1 for older files."""
+        payload = serialization.read_payload(path)
+        config = json.loads(payload["header"]["config_json"])
+        det = cls(features=tuple(config["features"]),
+                  head_features=config["head_features"],
+                  max_faces=config["max_faces"],
+                  score_threshold=config["score_threshold"],
+                  iou_threshold=config["iou_threshold"],
+                  space_to_depth=config.get("space_to_depth", 1),
+                  device=device)
+        detector_params_from_flax(payload["params"], det.net)
+        return det
 
     @torch.no_grad()
     def detect_batch(self, images):

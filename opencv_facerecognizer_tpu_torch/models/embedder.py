@@ -5,10 +5,14 @@
 stages -> global depthwise conv (GDC) -> linear embedding, L2-normalized.
 ``fused_forward`` runs the same parameters with each stage block fused
 into one kernel launch (``ops.sepblock``, the port of the Pallas
-schedule). Training (ArcFace) stays in the JAX package.
+schedule). ``CNNEmbedding`` puts the net behind the ``AbstractFeature``
+boundary, so ``PredictableModel(CNNEmbedding(...), NearestNeighbor(
+CosineDistance()))`` is the JAX package's CNN model, checkpoints included.
+Training (ArcFace) stays in the JAX package (ROADMAP A.13).
 
-This slice covers the serving configuration: separable blocks, full norm,
-no space-to-depth. Other variants raise ``NotImplementedError``.
+The port covers the serving configuration: separable blocks, full norm,
+no space-to-depth. Other variants raise ``NotImplementedError`` (ROADMAP
+A.9).
 
 Numerics follow flax: bf16 compute with float32 parameters, GroupNorm
 statistics in float32, the embedding normalized in float32.
@@ -16,16 +20,22 @@ statistics in float32, the embedding normalized in float32.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from opencv_facerecognizer_tpu_torch.models._layers import (
     ConvSame, GroupNorm, reset_all)
+from opencv_facerecognizer_tpu_torch.models.feature import AbstractFeature
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.ops.sepblock import fused_sep_block
+from opencv_facerecognizer_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, DeviceLike, resolve_device)
+from opencv_facerecognizer_tpu_torch.utils.params import (
+    embedder_params_from_flax, embedder_params_to_flax)
 
 #: The serving-default embedder of the JAX package (its accuracy-gated
 #: structure at the gated 64x64 input).
@@ -88,7 +98,8 @@ class FaceEmbedNet(nn.Module):
         if block != "separable" or norm != "full" or int(space_to_depth) != 1:
             raise NotImplementedError(
                 "the port covers block='separable', norm='full', "
-                f"space_to_depth=1; got {block!r}, {norm!r}, {space_to_depth}")
+                f"space_to_depth=1; got {block!r}, {norm!r}, {space_to_depth} "
+                "(the other variants: ROADMAP A.9)")
         self.embed_dim = int(embed_dim)
         self.stage_features = tuple(int(f) for f in stage_features)
         self.stage_blocks = tuple(int(b) for b in stage_blocks)
@@ -159,3 +170,148 @@ def normalize_faces(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     mean = x.mean(dim=(-2, -1), keepdim=True)
     std = torch.clamp(x.std(dim=(-2, -1), keepdim=True, correction=0), min=1e-6)
     return (x - mean) / std
+
+
+class CNNEmbedding(AbstractFeature):
+    """The CNN embedder behind the ``AbstractFeature`` boundary: port of the
+    inference and checkpoint side of the JAX package's ``CNNEmbedding``.
+
+    ``extract`` embeds faces (resize to ``input_size`` + standardize, the
+    net, optional flip test-time augmentation) on ``device``. The state is
+    the reference's: flat ``net/<flax path>`` arrays plus the ArcFace
+    ``head``, so a checkpoint written by either package loads in the other.
+    ``compute`` with ``train_steps > 0`` trains in the reference and
+    raises here (ROADMAP A.13); with ``train_steps == 0`` it embeds with
+    the weights it holds. Without loaded weights the net holds the port's
+    own seeded init, which is not flax's init for the same seed.
+    """
+
+    name = "cnn_embedding"
+    sample_ndim = 2
+
+    def __init__(self, embed_dim: int = 128, input_size: Tuple[int, int] = (112, 112),
+                 stem_features: int = 32,
+                 stage_features: Sequence[int] = (64, 128, 128),
+                 stage_blocks: Sequence[int] = (2, 2, 2), block: str = "separable",
+                 space_to_depth: int = 1, norm: str = "full", train_steps: int = 200,
+                 batch_size: int = 64, learning_rate: float = 1e-3, seed: int = 0,
+                 augment: bool = False, lr_schedule: str = "constant",
+                 tta: bool = False, device: DeviceLike = DEFAULT_DEVICE):
+        self.embed_dim = int(embed_dim)
+        self.input_size = tuple(int(v) for v in input_size)
+        self.stem_features = int(stem_features)
+        self.stage_features = tuple(int(v) for v in stage_features)
+        self.stage_blocks = tuple(int(v) for v in stage_blocks)
+        self.block = str(block)
+        self.space_to_depth = int(space_to_depth)
+        self.norm = str(norm)
+        self.train_steps = int(train_steps)
+        self.batch_size = int(batch_size)
+        self.learning_rate = float(learning_rate)
+        self.seed = int(seed)
+        self.augment = bool(augment)
+        self.lr_schedule = str(lr_schedule)
+        self.tta = bool(tta)
+        self.device = resolve_device(device)
+        self.net = FaceEmbedNet(
+            embed_dim=self.embed_dim, stem_features=self.stem_features,
+            stage_features=self.stage_features, stage_blocks=self.stage_blocks,
+            block=self.block, space_to_depth=self.space_to_depth, norm=self.norm,
+            input_size=self.input_size,
+            generator=torch.Generator().manual_seed(self.seed)).to(self.device).eval()
+        #: the ArcFace head [classes, embed_dim] (training scaffold, kept in
+        #: the state); None until weights are loaded or computed
+        self._head: Optional[torch.Tensor] = None
+
+    # -- feature protocol --
+    def compute(self, X, y):
+        if self.train_steps > 0:
+            raise NotImplementedError(
+                "CNNEmbedding.compute trains with ArcFace (train_steps > 0): "
+                "training is not ported yet (ROADMAP A.13); load trained "
+                "weights, or set train_steps=0")
+        if isinstance(X, (list, tuple)):
+            X = np.stack([np.asarray(v) for v in X])
+        classes = np.unique(np.asarray(y, dtype=np.int32))
+        num_classes = max(1, len(classes))
+        if self._head is None or self._head.shape[0] != num_classes:
+            gen = torch.Generator().manual_seed(self.seed + 1)
+            self._head = torch.randn(num_classes, self.embed_dim, generator=gen)
+        return self._extract_batch(torch.as_tensor(np.asarray(X), dtype=torch.float32))
+
+    @torch.no_grad()
+    def _extract_batch(self, X: torch.Tensor) -> torch.Tensor:
+        if self._head is None:
+            raise RuntimeError("CNNEmbedding.extract called before compute()")
+        x = normalize_faces(X.to(self.device), self.input_size)
+        emb = self.net(x)
+        if self.tta:
+            # flip test-time augmentation: average with the mirrored view
+            emb = emb + self.net(x.flip(-1))
+            emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
+                                    min=1e-12)
+        return emb
+
+    def load_params(self, params: Dict[str, Any]) -> None:
+        """Install pretrained ``{"net": flax tree, "head": [C, E]}`` params
+        (the JAX package's layout)."""
+        embedder_params_from_flax(params["net"], self.net)
+        self._head = torch.as_tensor(np.array(params["head"], np.float32))
+
+    # -- serialization protocol --
+    def get_config(self):
+        return {
+            "embed_dim": self.embed_dim, "input_size": list(self.input_size),
+            "stem_features": self.stem_features,
+            "stage_features": list(self.stage_features),
+            "stage_blocks": list(self.stage_blocks), "block": self.block,
+            "space_to_depth": self.space_to_depth, "norm": self.norm,
+            "train_steps": self.train_steps, "batch_size": self.batch_size,
+            "learning_rate": self.learning_rate, "seed": self.seed,
+            "augment": self.augment, "lr_schedule": self.lr_schedule, "tta": self.tta,
+        }
+
+    @classmethod
+    def from_config(cls, config, device: DeviceLike = DEFAULT_DEVICE):
+        """The reference's defaults for keys that older checkpoints lack."""
+        config = dict(config)
+        config["input_size"] = tuple(config.get("input_size", (112, 112)))
+        config["stage_features"] = tuple(config.get("stage_features", (64, 128, 128)))
+        config["stage_blocks"] = tuple(config.get("stage_blocks", (2, 2, 2)))
+        config.setdefault("block", "separable")
+        config.setdefault("space_to_depth", 1)
+        config.setdefault("norm", "full")
+        config.setdefault("augment", False)
+        config.setdefault("lr_schedule", "constant")
+        config.setdefault("tta", False)
+        return cls(**config, device=device)
+
+    def get_state(self):
+        """``{"head": [C, E], "net/<flax path>": array, ...}`` (float32)."""
+        if self._head is None:
+            return {}
+        state = {"head": self._head.detach().float().cpu().numpy()}
+
+        def walk(prefix: str, node) -> None:
+            for key, value in node.items():
+                if isinstance(value, dict):
+                    walk(f"{prefix}/{key}", value)
+                else:
+                    state[f"{prefix}/{key}"] = value
+
+        walk("net", embedder_params_to_flax(self.net))
+        return state
+
+    def set_state(self, state):
+        if not state:
+            return
+        net: Dict[str, Any] = {}
+        for key, leaf in state.items():
+            if key == "head":
+                continue
+            parts = key.split("/")[1:]
+            node = net
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = leaf
+        self.load_params({"net": net, "head": state["head"]})

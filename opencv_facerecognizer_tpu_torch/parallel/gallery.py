@@ -94,8 +94,11 @@ class ShardedGallery:
     def __init__(self, capacity: int, dim: int, labels_pad: int = -1,
                  use_kernel: Optional[bool] = None,
                  store_dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = DEFAULT_DEVICE):
+                 device: DeviceLike = DEFAULT_DEVICE, embedder_version: int = 1):
         self.device = resolve_device(device)
+        #: the embedder version whose space the rows live in: the service
+        #: stamps results and identity-cache entries with it
+        self.embedder_version = int(embedder_version)
         self.capacity = int(capacity)
         self.dim = int(dim)
         self.labels_pad = int(labels_pad)

@@ -5,8 +5,12 @@ batcher.py``.
 - ``put`` validates shape and dtype and drops malformed frames, so one
   camera glitch cannot poison a batch.
 - ``get_batch`` blocks until ``batch_size`` frames are queued or the
-  oldest queued frame is ``flush_timeout`` old, then returns a
-  zero-padded ``[B, H, W]`` batch with its metadata and real count.
+  oldest queued frame is as old as the flush deadline, then returns a
+  zero-padded ``[B, H, W]`` batch with its metadata and real count. The
+  deadline is ``flush_timeout``; with ``target_latency_s`` it adapts to
+  the target less an EWMA of the downstream service time
+  (``report_service_time``), clamped to [``MIN_DEADLINE_S``,
+  ``flush_timeout``].
 - The queue is bounded: beyond ``max_pending`` the oldest frame is
   dropped (a live recognizer wants fresh frames, not a latency debt).
 - ``recycle`` hands a batch's staging array back for reuse once the
@@ -35,11 +39,19 @@ class Batch(NamedTuple):
 
 
 class FrameBatcher:
+    #: floor of the adaptive deadline: back-to-back frames still coalesce
+    MIN_DEADLINE_S = 0.002
+    #: EWMA weight of the newest reported service time
+    SERVICE_TIME_ALPHA = 0.2
+
     def __init__(self, batch_size: int, frame_shape: Tuple[int, int],
                  flush_timeout: float = 0.05, max_pending: int = 256,
                  dtype=np.float32, metrics: Optional[mn.Metrics] = None,
-                 buffer_pool_size: int = 8):
+                 buffer_pool_size: int = 8, target_latency_s: Optional[float] = None):
         self.batch_size = int(batch_size)
+        self.target_latency_s = (None if target_latency_s is None
+                                 else float(target_latency_s))
+        self._service_time_ewma: Optional[float] = None
         self.frame_shape = tuple(frame_shape)
         self.flush_timeout = float(flush_timeout)
         self.max_pending = int(max_pending)
@@ -89,6 +101,28 @@ class FrameBatcher:
             self._closed = True
             self._not_empty.notify_all()
 
+    # ---- adaptive deadline ----
+
+    def report_service_time(self, seconds: float) -> None:
+        """One batch's downstream time (pop -> published) into the EWMA the
+        adaptive deadline subtracts (a float store: atomic in CPython)."""
+        if seconds < 0:
+            return
+        prev = self._service_time_ewma
+        self._service_time_ewma = (seconds if prev is None
+                                   else prev + self.SERVICE_TIME_ALPHA * (seconds - prev))
+
+    def current_flush_deadline(self) -> float:
+        """Seconds the oldest frame may wait before a partial batch flushes."""
+        if self.target_latency_s is None:
+            return self.flush_timeout
+        est = self._service_time_ewma or 0.0
+        deadline = min(self.flush_timeout,
+                       max(self.MIN_DEADLINE_S, self.target_latency_s - est))
+        if self.metrics is not None:
+            self.metrics.set_gauge(mn.BATCHER_FLUSH_DEADLINE_MS, deadline * 1e3)
+        return deadline
+
     def recycle(self, buf: np.ndarray) -> None:
         """Return a batch's staging array once the consumer is done with it
         (readback finished, no views kept). A wrong shape or a full pool
@@ -112,12 +146,13 @@ class FrameBatcher:
                 if n >= self.batch_size:
                     break
                 if n > 0:
+                    deadline = self.current_flush_deadline()
                     age = time.monotonic() - self._frames[0][2]
-                    if age >= self.flush_timeout:
+                    if age >= deadline:
                         break
                     if not block:
                         return None
-                    self._not_empty.wait(timeout=self.flush_timeout - age)
+                    self._not_empty.wait(timeout=deadline - age)
                     continue
                 if self._closed or not block:
                     return None
@@ -149,6 +184,16 @@ class FrameBatcher:
     def pending(self) -> int:
         with self._lock:
             return len(self._frames)
+
+    @property
+    def stats(self) -> dict:
+        """Queue depth and the batcher's drop and flush counts."""
+        c = self.metrics.counters() if self.metrics is not None else {}
+        return {"pending": self.pending,
+                "dropped_malformed": c.get(mn.BATCHER_DROPPED_MALFORMED, 0.0),
+                "dropped_overflow": c.get(mn.BATCHER_DROPPED_OVERFLOW, 0.0),
+                "batches_size": c.get(mn.BATCHER_BATCHES_SIZE, 0.0),
+                "batches_deadline": c.get(mn.BATCHER_BATCHES_DEADLINE, 0.0)}
 
     @property
     def delivered_batches(self) -> int:

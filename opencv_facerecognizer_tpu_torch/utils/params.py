@@ -1,5 +1,5 @@
-"""Carry weights from the JAX package's flax parameter trees, and its IVF
-quantizer state, into the port's modules.
+"""Carry weights between the JAX package's flax parameter trees and the
+port's modules (both ways), and the IVF quantizer state into the port.
 
 Each function takes the nested flax param dict (``{"Conv_0": {"kernel":
 ...}, ...}``) with numpy (or array-like) leaves and loads it into a port
@@ -10,6 +10,10 @@ module. Layout conversions:
   -> ``[C, 1, h, w]`` (the same permutation);
 - Dense kernel ``[in, out]`` -> ``[out, in]``;
 - GroupNorm scale and bias as they are.
+
+``detector_params_to_flax`` and ``embedder_params_to_flax`` are the
+inverses: a port module's weights as the flax tree (numpy float32), which
+the checkpoint writers store in the JAX package's layout.
 
 ``ivf_data_from_numpy`` takes the reference's ``IVFDeviceData`` (its
 arrays read back as numpy) to the port's, on a device.
@@ -81,6 +85,48 @@ def embedder_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch
             state[f"blocks.{i}.{gn}.weight"] = _t(p[src]["scale"])
             state[f"blocks.{i}.{gn}.bias"] = _t(p[src]["bias"])
     return _load(net, state)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy().copy()
+
+
+def _hwio(w: torch.Tensor) -> np.ndarray:
+    """OIHW -> HWIO (also the depthwise and GDC ``[C, 1, h, w]`` ->
+    ``[h, w, 1, C]``)."""
+    return _np(w.permute(2, 3, 1, 0))
+
+
+def detector_params_to_flax(net: torch.nn.Module) -> Dict[str, Any]:
+    """A port ``DetectorNet``'s weights as the flax ``DetectorNet`` tree."""
+    nb = len(net.convs)
+    tree: Dict[str, Any] = {}
+    for i in range(nb):
+        tree[f"Conv_{i}"] = {"kernel": _hwio(net.convs[i].weight)}
+        tree[f"GroupNorm_{i}"] = {"scale": _np(net.norms[i].weight),
+                                  "bias": _np(net.norms[i].bias)}
+    for j, name in enumerate(("head", "heatmap", "size", "offset")):
+        conv = getattr(net, name)
+        tree[f"Conv_{nb + j}"] = {"kernel": _hwio(conv.weight), "bias": _np(conv.bias)}
+    return tree
+
+
+def embedder_params_to_flax(net: torch.nn.Module) -> Dict[str, Any]:
+    """A port ``FaceEmbedNet``'s weights as the flax ``FaceEmbedNet`` tree."""
+    tree: Dict[str, Any] = {
+        "Conv_0": {"kernel": _hwio(net.stem.weight)},
+        "GroupNorm_0": {"scale": _np(net.stem_norm.weight), "bias": _np(net.stem_norm.bias)},
+        "Conv_1": {"kernel": _hwio(net.gdc.weight)},
+        "Dense_0": {"kernel": _np(net.dense.weight.T), "bias": _np(net.dense.bias)},
+    }
+    for i, blk in enumerate(net.blocks):
+        tree[f"_SepBlock_{i}"] = {
+            "Conv_0": {"kernel": _hwio(blk.dw.weight)},
+            "Conv_1": {"kernel": _hwio(blk.pw.weight)},
+            "GroupNorm_0": {"scale": _np(blk.gn1.weight), "bias": _np(blk.gn1.bias)},
+            "GroupNorm_1": {"scale": _np(blk.gn2.weight), "bias": _np(blk.gn2.bias)},
+        }
+    return tree
 
 
 #: dtypes of IVFDeviceData's seven arrays, in field order

@@ -365,3 +365,59 @@ def test_wrappers_count_launches(cuda):
     before = streaming_match_topk.launches
     streaming_match_topk(q.cpu(), g.cpu(), torch.ones(64, dtype=torch.bool))
     assert streaming_match_topk.launches == before  # the plain version launches nothing
+
+
+def _write_pgm(path, img):
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(f"P5\n{w} {h}\n255\n".encode() + img.astype(np.uint8).tobytes())
+
+
+@pytest.mark.gpu
+def test_cli_stack_from_port_checkpoints_launches_both_kernels(cuda, tmp_path, capsys):
+    """Checkpoints written by the port's own writers (serving detector and
+    embedder, seeded weights), a PGM gallery directory and PGM frames:
+    ``apps.recognize.main`` in dir mode on the card with a 2^16-row
+    gallery and the fused embedder answers every frame through kernel A
+    and kernel B."""
+    import json
+
+    from opencv_facerecognizer_tpu_torch.apps import recognize
+    from opencv_facerecognizer_tpu_torch.models.classifier import NearestNeighbor
+    from opencv_facerecognizer_tpu_torch.models.detector import CNNFaceDetector
+    from opencv_facerecognizer_tpu_torch.models.embedder import (
+        SERVING_EMBEDDER_KWARGS, SERVING_FACE_SIZE, CNNEmbedding)
+    from opencv_facerecognizer_tpu_torch.models.model import PredictableModel
+    from opencv_facerecognizer_tpu_torch.ops.distance import CosineDistance
+    from opencv_facerecognizer_tpu_torch.utils.serialization import save_model
+
+    rng = np.random.default_rng(3)
+    det = CNNFaceDetector(device=cuda, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        det.net.heatmap.bias.fill_(0.0)
+        det.net.size.bias.fill_(3.0)
+    det.save(str(tmp_path / "det.ckpt"))
+    faces = rng.integers(0, 256, (6, *SERVING_FACE_SIZE)).astype(np.float32)
+    emb = CNNEmbedding(**SERVING_EMBEDDER_KWARGS, input_size=SERVING_FACE_SIZE,
+                       train_steps=0, device=cuda)
+    model = PredictableModel(emb, NearestNeighbor(CosineDistance(), device=cuda))
+    model.compute(faces, np.arange(6) // 2)
+    save_model(str(tmp_path / "model.ckpt"), model)
+    for i, face in enumerate(faces):
+        (tmp_path / "gallery" / f"s{i // 2}").mkdir(parents=True, exist_ok=True)
+        _write_pgm(tmp_path / "gallery" / f"s{i // 2}" / f"{i}.pgm", face)
+    (tmp_path / "frames").mkdir()
+    for i in range(6):
+        _write_pgm(tmp_path / "frames" / f"f{i}.pgm", rng.integers(0, 256, (256, 256)))
+    streaming_match_topk.launches = 0
+    fused_sep_block.launches = 0
+    assert recognize.main([
+        "--model", str(tmp_path / "model.ckpt"), "--detector", str(tmp_path / "det.ckpt"),
+        "--gallery", str(tmp_path / "gallery"), "--source", "dir", "--dir",
+        str(tmp_path / "frames"), "--capacity", "65536", "--match-mode", "exact",
+        "--fused-embedder", "--batch-size", "8"]) == 0
+    results = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+               if l.startswith("{")]
+    assert sorted(r["meta"]["file"] for r in results) == [f"f{i}.pgm" for i in range(6)]
+    assert sum(len(r["faces"]) for r in results) > 0
+    assert streaming_match_topk.launches > 0 and fused_sep_block.launches > 0

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing any of its modules loads
-neither JAX nor the JAX package, its sources (and ``chip_smoke.py``)
-import neither, and its entry points run on the card by default and
-raise without one."""
+neither JAX, flax, msgpack nor the JAX package (nor cv2 or PIL, which the
+image reader imports only when a file needs them), its sources (and
+``chip_smoke.py``) import none of the first four, and its entry points
+run on the card by default and raise without one."""
 
 import ast
 import inspect
@@ -14,7 +15,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "opencv_facerecognizer_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "opencv_facerecognizer_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "opencv_facerecognizer_tpu"}
+#: optional decoders the port imports only inside the functions that use them
+LAZY = {"cv2", "PIL"}
 
 
 def _port_modules():
@@ -31,15 +34,20 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     # A subprocess: this test process already imported JAX (conftest).
     mods = _port_modules()
-    assert len(mods) >= 17, mods
+    assert len(mods) >= 31, mods
     for mod in ("opencv_facerecognizer_tpu_torch.parallel.quantizer",
-                "opencv_facerecognizer_tpu_torch.ops.ivf_match"):
+                "opencv_facerecognizer_tpu_torch.ops.ivf_match",
+                "opencv_facerecognizer_tpu_torch.utils._msgpack",
+                "opencv_facerecognizer_tpu_torch.utils.serialization",
+                "opencv_facerecognizer_tpu_torch.utils.dataset",
+                "opencv_facerecognizer_tpu_torch.runtime.tracker",
+                "opencv_facerecognizer_tpu_torch.apps.recognize"):
         assert mod in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(set({sorted(FORBIDDEN)!r}) & set(sys.modules))\n"
+        f"bad = sorted(set({sorted(FORBIDDEN | LAZY)!r}) & set(sys.modules))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -73,10 +81,17 @@ def test_entry_points_default_to_the_card():
     from opencv_facerecognizer_tpu_torch.utils import device as device_mod
     from opencv_facerecognizer_tpu_torch.utils.params import ivf_data_from_numpy
 
+    from opencv_facerecognizer_tpu_torch.apps.recognize import build_parser
+    from opencv_facerecognizer_tpu_torch.models.classifier import NearestNeighbor
+    from opencv_facerecognizer_tpu_torch.models.embedder import CNNEmbedding
+    from opencv_facerecognizer_tpu_torch.utils.serialization import load_model
+
     for entry in (CNNFaceDetector, ShardedGallery, RecognitionPipeline,
-                  device_mod.resolve_device, ivf_data_from_numpy):
+                  device_mod.resolve_device, ivf_data_from_numpy, CNNEmbedding,
+                  NearestNeighbor, load_model, CNNFaceDetector.load):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     assert device_mod.DEFAULT_DEVICE == "cuda"
+    assert build_parser().get_default("device") == "cuda"
 
 
 def test_no_card_raises(monkeypatch):
