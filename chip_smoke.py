@@ -64,6 +64,32 @@ Phases (any failure exits nonzero before the result line):
    latencies, which are smoke observations (64 frames in two batches,
    about 20 requests, a gallery of 8-10 rows) and no measure of
    throughput or latency.
+8. durability: phase 4's stack over phase 6's IVF gallery (2^20 bf16 rows,
+   its built quantizer) with a ``StateLifecycle`` (``build/state_smoke/``,
+   ``keep_checkpoints`` 2, WAL fsync ``always``) attached to a
+   ``RecognizerService``: the first checkpoint, 4 subjects enrolled
+   through the control topic (the first grows the gallery to 2^21 rows),
+   a forced checkpoint (2 GiB in flax's chunked form, and the IVF
+   sidecar), 2 more subjects (WAL only), then a "crash" (the WAL closed,
+   no shutdown, no checkpoint) and ``recover`` into a fresh gallery with a
+   fresh quantizer. The recovery must report the checkpoint, 2 replayed
+   records and the loaded sidecar, and give host mirrors, size, capacity
+   and names equal to the crashed service's, and ``gallery.match`` (Q =
+   512, k = 1 and 5) equal indices and sims through kernel A on the exact
+   path and through the two-stage path. Then the frames again through the
+   recovered gallery under ``ServiceSupervisor`` in three waves: a result
+   subscriber raising once (the readback worker dies), then a state tick
+   raising once with a batch in hand (the dispatch loop dies and settles
+   that batch as crashed drops): two restarts, one result per frame
+   outside that batch, a ledger that closes, the planted faces found,
+   both kernels launched after the restarts. Then the CLI with
+   ``--state-dir``: enrol and SIGKILL; a second writer refused while the
+   first lives; a restart names the subject (WAL replay); SIGTERM exits
+   0 with a clean report; a third start recovers that checkpoint with
+   nothing to replay and names the subject. Its numbers are one ``{"durability": ...}`` line: checkpoint
+   and recovery seconds by stage, bytes, peak host RSS, WAL append p50 /
+   max and the CLI's startup seconds, with the card's name and power
+   limit; smoke observations, not measurements.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -77,6 +103,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -107,10 +134,13 @@ from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, encode_frame)
 from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
     CONTROL_TOPIC, FRAME_TOPIC, RESULT_TOPIC, STATUS_TOPIC, RecognizerService)
+from opencv_facerecognizer_tpu_torch.runtime.resilience import ServiceSupervisor
+from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
 from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
 from opencv_facerecognizer_tpu_torch.utils import native, serialization
 from opencv_facerecognizer_tpu_torch.utils.metrics import (
-    BATCHES_DISPATCHED, IVF_INCREMENTAL_ROWS, Metrics)
+    BATCHES_DISPATCHED, FRAMES_DROPPED_CRASHED, IVF_INCREMENTAL_ROWS, LOOP_CRASHES,
+    SUPERVISOR_RESTARTS, Metrics)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -193,6 +223,13 @@ CLI_CAPACITY = 1 << 20
 CLI_JSONL_FRAMES = 8
 CLI_ENROL_COUNT = 2
 CLI_NEW_NAME = "enrolled_subject"
+#: durability phase: subjects enrolled before the forced checkpoint and
+#: after it (WAL only), crops each, the match's query batch and k
+DUR_SUBJECTS_CHECKPOINTED = 4
+DUR_SUBJECTS_WAL = 2
+DUR_ENROL_COUNT = 2
+DUR_Q = 512
+DUR_KS = (1, 5)
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -908,8 +945,8 @@ def ivf_phase(dev, seed: int, ctx: dict) -> dict:
         "frames, host clock")
     timing = [time_ivf(gallery, queries[:qn], with_plain=qn == max(IVF_TIME_QS))
               for qn in IVF_TIME_QS]
-    del gallery, pipeline
-    torch.cuda.empty_cache()
+    ctx.update(ivf_gallery=gallery, queries=queries)  # the durability phase's
+    del pipeline
     builds = [build]
     for n_rows in IVF_OTHER_ROWS:
         other_build, other_timing = time_random_ivf(dev, n_rows, seed)
@@ -1050,10 +1087,12 @@ def run_jsonl_cli(paths: dict, frames: np.ndarray, dev) -> dict:
     return dict(messages=out, rc=rc, sent=seq, first_after=first_after)
 
 
-def cli_phase(dev, seed: int, card: str) -> dict:
-    """Phase 7 (module docstring); returns the ``{"cli": ...}`` numbers."""
+def cli_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 7 (module docstring); returns the ``{"cli": ...}`` numbers and
+    leaves its inputs in ``ctx`` for phase 8."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_smoke")
     paths, frames = write_cli_inputs(dev, seed, root)
+    ctx.update(cli_paths=paths, cli_frames=frames)
     # the native loader's one-time g++ build, timed on its own; the CLI's
     # _load_stack times the checkpoint load and the gallery embed itself
     # and logs them as its `startup` record
@@ -1171,6 +1210,459 @@ def cli_phase(dev, seed: int, card: str) -> dict:
                 jsonl_gallery_embed_s=jsonl_startup["gallery_embed_s"],
                 jsonl_enrolled_label=enrolled[0]["label"], jsonl_ledger=shutdown["ledger"])
 
+class RssPeak:
+    """Peak resident set size of this process while the block runs,
+    sampled from ``/proc/self/statm`` every 5 ms: ``base`` and ``peak``
+    in bytes."""
+
+    PAGE = os.sysconf("SC_PAGE_SIZE")
+
+    @classmethod
+    def now(cls) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * cls.PAGE
+
+    def __enter__(self):
+        self.base = self.peak = self.now()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, self.now())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.now())
+
+    def numbers(self) -> dict:
+        return dict(rss_start_bytes=self.base, rss_peak_bytes=self.peak,
+                    rss_peak_above_start_bytes=self.peak - self.base)
+
+
+def wait_for(pred, timeout: float, what: str, poll: float = 0.05):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(poll)
+
+
+def enrol_through_control(conn, frame: np.ndarray, subject: str) -> None:
+    """``enroll`` on the control topic, then the frame DUR_ENROL_COUNT
+    times; returns once ``enrolled`` names the subject."""
+    conn.inject(CONTROL_TOPIC, {"cmd": "enroll", "subject": subject, "count": DUR_ENROL_COUNT})
+    for j in range(DUR_ENROL_COUNT):
+        conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"enrol": subject, "j": j}})
+    wait_for(lambda: any(m["status"] in ("enrolled", "enroll_failed") and m["subject"] == subject
+                         for m in conn.messages(STATUS_TOPIC) if "subject" in m),
+             300, f"the enrolment of {subject}")
+    if not any(m["status"] == "enrolled" and m.get("subject") == subject
+               for m in conn.messages(STATUS_TOPIC)):
+        raise AssertionError(f"enrolment of {subject} failed: {conn.messages(STATUS_TOPIC)[-3:]}")
+
+
+def timed_wal_appends(state) -> list:
+    """Seconds of each WAL append of ``state`` (its fsync included)."""
+    seconds = []
+    real = state.wal.append_enroll
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        real(*args, **kwargs)
+        seconds.append(time.perf_counter() - t)
+
+    state.wal.append_enroll = timed
+    return seconds
+
+
+def checkpoint_file(state_dir: str) -> str:
+    names = sorted(n for n in os.listdir(os.path.join(state_dir, "checkpoints"))
+                   if n.endswith(".ckpt"))
+    return os.path.join(state_dir, "checkpoints", names[-1])
+
+
+def durable_service(dev, ctx: dict, root: str, card: str) -> dict:
+    """Steps 1-3 of phase 8: checkpoint, enrol, forced checkpoint, enrol,
+    "crash". Returns the crashed service's state and the numbers."""
+    stack, gallery, frames = ctx["stack"], ctx["ivf_gallery"], ctx["frames"]
+    if not gallery.quantizer.ready or gallery.capacity != GALLERY_ROWS:
+        raise AssertionError("durability: phase 6's gallery is not the built 2^20-row one")
+    pipeline = RecognitionPipeline(stack.detector, stack.embed_net, gallery,
+                                   face_size=embedder_mod.SERVING_FACE_SIZE,
+                                   fused_embedder=True, device=dev)
+    names = [f"planted_{i}" for i in range(ctx["n_plant"])]
+    # the thresholds never fire: the phase takes its checkpoints itself
+    state = StateLifecycle(root, keep_checkpoints=2, checkpoint_wal_rows=1 << 30,
+                           checkpoint_every_s=1e9)
+    wal_s = timed_wal_appends(state)
+    conn = FakeConnector()
+    service = RecognizerService(pipeline, conn, batch_size=BATCH, frame_shape=FRAME,
+                                transfer_dtype=np.uint8, flush_timeout=0.05,
+                                subject_names=names, state_store=state)
+    t0 = time.perf_counter()
+    if not state.checkpoint_now(wait=True):
+        raise AssertionError("durability: the first checkpoint failed")
+    first = dict(state.last_checkpoint_s, seconds=time.perf_counter() - t0)
+    subjects = [f"durable_{i}" for i in range(DUR_SUBJECTS_CHECKPOINTED + DUR_SUBJECTS_WAL)]
+    service.start(warmup=True)
+    try:
+        for i, subject in enumerate(subjects[:DUR_SUBJECTS_CHECKPOINTED]):
+            # frames past the first batch: their faces are not planted rows
+            enrol_through_control(conn, frames[BATCH + i], subject)
+        if gallery.capacity != 2 * GALLERY_ROWS:
+            raise AssertionError(f"durability: the gallery did not grow ({gallery.capacity})")
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            if not state.checkpoint_now(wait=True):
+                raise AssertionError("durability: the forced checkpoint failed")
+            ckpt_seconds = time.perf_counter() - t0
+        ckpt_path = checkpoint_file(root)
+        ckpt = dict(state.last_checkpoint_s, seconds=ckpt_seconds,
+                    file_bytes=os.path.getsize(ckpt_path), **rss.numbers())
+        if (not os.path.exists(state.sidecar_path)
+                or ckpt["payload_bytes"] < gallery.capacity * DIM * 4):
+            raise AssertionError(f"durability: checkpoint {ckpt} without its sidecar or rows")
+        for i, subject in enumerate(subjects[DUR_SUBJECTS_CHECKPOINTED:]):
+            enrol_through_control(conn, frames[BATCH + DUR_SUBJECTS_CHECKPOINTED + i], subject)
+        if not service.drain(timeout=300):
+            raise AssertionError("durability: the service did not drain")
+    finally:
+        service.stop()
+    state.wal.close()  # the "crash": no graceful shutdown, no final checkpoint
+    log(f"durability: first checkpoint ({GALLERY_ROWS} rows) {first}; forced checkpoint of "
+        f"{gallery.capacity} rows: {ckpt} ({card})")
+    return dict(gallery=gallery, names=list(service.subject_names), ckpt_path=ckpt_path,
+                first=first, ckpt=ckpt, wal_s=wal_s, subjects=subjects,
+                ledger=service.ledger())
+
+
+def recover_and_compare(dev, seed: int, ctx: dict, root: str, crashed: dict):
+    """Steps 4-5: recover into a fresh gallery and quantizer on the card;
+    hold the mirrors, names and matches to the crashed service's."""
+    gallery = crashed["gallery"]
+    g2 = ShardedGallery(8, DIM, store_dtype=torch.bfloat16, device=dev)
+    g2.attach_quantizer(CoarseQuantizer(nlist=CoarseQuantizer.default_nlist(GALLERY_ROWS),
+                                        nprobe=IVF_NPROBE, seed=seed, auto_nlist=True,
+                                        metrics=Metrics()), mode="auto")
+    names2 = []
+    state2 = StateLifecycle(root, keep_checkpoints=2)
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        report = state2.recover(g2, names2)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    rec = dict(state2.last_recovery_s, seconds=seconds, **rss.numbers())
+    if (report["recovered_checkpoint"] != crashed["ckpt_path"]
+            or report["replayed_records"] != DUR_SUBJECTS_WAL
+            or report.get("quantizer_sidecar") != "loaded"):
+        raise AssertionError(f"durability: recovery report {report}")
+    for what, a, b in zip(("embeddings", "labels", "valid", "size"), gallery.snapshot(),
+                          g2.snapshot()):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"durability: recovered {what} differ")
+    if g2.capacity != gallery.capacity or names2 != crashed["names"]:
+        raise AssertionError(f"durability: capacity {g2.capacity} / names {names2[-8:]} differ")
+    # queries: perturbed gallery rows and the enrolled subjects' own rows
+    n_enrolled = len(crashed["subjects"]) * DUR_ENROL_COUNT
+    size = g2.size
+    enrolled = torch.from_numpy(g2.snapshot()[0][size - n_enrolled:size]).to(dev)
+    q = torch.cat([ctx["queries"][:DUR_Q - n_enrolled], enrolled])
+    streaming_match_topk.launches = 0
+    ivf_match_topk.calls = 0
+    for mode in ("exact", "auto"):
+        for g in (gallery, g2):
+            g.match_mode = mode
+        for k in DUR_KS:
+            la, sa, ia = gallery.match(q, k=k)
+            lb, sb, ib = g2.match(q, k=k)
+            if not (torch.equal(ia, ib) and torch.equal(sa, sb) and torch.equal(la, lb)):
+                raise AssertionError(f"durability: {mode} match k={k} differs after recovery "
+                                     f"({(ia != ib).sum().item()} indices)")
+    launches = dict(streaming_match=streaming_match_topk.launches,
+                    ivf_match_calls=ivf_match_topk.calls)
+    if launches["ivf_match_calls"] != 2 * len(DUR_KS) or (
+            dev.type == "cuda" and launches["streaming_match"] < 4 * len(DUR_KS)):
+        raise AssertionError(f"durability: the matches did not take both paths: {launches}")
+    top = ia[-n_enrolled:, 0].cpu().numpy()
+    if not (top >= size - n_enrolled).all():
+        raise AssertionError("durability: an enrolled row is not its own top-1 after recovery")
+    log(f"durability: recovered {report['recovered_checkpoint']} + {report['replayed_records']} "
+        f"WAL records, sidecar {report.get('quantizer_sidecar')}: {rec}; mirrors, capacity "
+        f"{g2.capacity}, size {size} and {len(names2)} names equal; gallery.match Q={q.shape[0]} "
+        f"k={list(DUR_KS)} equal bit for bit, exact and two-stage; launches {launches}")
+    return g2, names2, state2, report, rec, launches
+
+
+def supervised_serve(dev, ctx: dict, g2, names2, state2) -> dict:
+    """Step 6: the frames again through the recovered gallery under the
+    supervisor, in three waves. Wave 1: a result
+    subscriber raises once, so the readback worker dies. Wave 2: the
+    state tick raises once with the wave's batch in hand, so the dispatch
+    loop dies and settles that batch as crashed drops (the whole wave
+    unless a slow host split it). Wave 3 is served with the launch counts
+    reset."""
+    stack, frames, n_plant = ctx["stack"], ctx["frames"], ctx["n_plant"]
+    if len(frames) < 3 * BATCH:
+        raise AssertionError(f"durability: {len(frames)} frames, fewer than three batches")
+    pipeline = RecognitionPipeline(stack.detector, stack.embed_net, g2,
+                                   face_size=embedder_mod.SERVING_FACE_SIZE,
+                                   fused_embedder=True, device=dev)
+    conn = FakeConnector()
+    raised = []
+
+    def subscriber(_topic, message):
+        # the last frame of wave 1: its result is recorded, then the
+        # readback worker dies
+        if message["meta"]["i"] == BATCH - 1 and "readback" not in raised:
+            raised.append("readback")
+            raise RuntimeError("injected: a result subscriber fails once")
+
+    conn.subscribe(RESULT_TOPIC, subscriber)
+    service = RecognizerService(pipeline, conn, batch_size=BATCH, frame_shape=FRAME,
+                                transfer_dtype=np.uint8, flush_timeout=0.05,
+                                subject_names=names2, state_store=state2)
+    get_batch, tick = service.batcher.get_batch, state2.tick
+    dropped = []
+
+    def failing_tick():
+        state2.tick = tick
+        raised.append("dispatch")
+        raise RuntimeError("injected: the state tick fails once")
+
+    def get_batch_arming(*args, **kwargs):
+        # arms the failing tick once wave 2's batch is in the loop's hands
+        batch = get_batch(*args, **kwargs)
+        if batch is not None and batch.metas[0]["i"] == BATCH:
+            dropped.extend(m["i"] for m in batch.metas[:batch.count])
+            state2.tick = failing_tick
+        return batch
+
+    service.batcher.get_batch = get_batch_arming
+    sup = ServiceSupervisor(service, state=state2, poll_interval_s=0.05)
+    sup.start(warmup=True)
+    try:
+        for wave, (lo, hi) in enumerate(((0, BATCH), (BATCH, 2 * BATCH)), 1):
+            for i in range(lo, hi):
+                conn.inject(FRAME_TOPIC, {**encode_frame(frames[i]), "meta": {"i": i}})
+            wait_for(lambda: service.metrics.counter(SUPERVISOR_RESTARTS) >= wave, 300,
+                     f"the supervisor's restart {wave}")
+            if not service.drain(timeout=300):
+                raise AssertionError(f"durability: wave {wave} did not drain")
+        streaming_match_topk.launches = 0
+        fused_sep_block.launches = 0
+        for i in range(2 * BATCH, len(frames)):
+            conn.inject(FRAME_TOPIC, {**encode_frame(frames[i]), "meta": {"i": i}})
+        if not service.drain(timeout=300):
+            raise AssertionError("durability: wave 3 did not drain")
+        launches = {"streaming_match": streaming_match_topk.launches,
+                    "sepblock": fused_sep_block.launches}
+    finally:
+        sup.stop()
+    g2.quantizer.rebuild_now(wait=True, skip_if_ready=True)  # the restore's retrain
+    results = conn.messages(RESULT_TOPIC)
+    served = [i for i in range(len(frames)) if i not in dropped]
+    if not dropped or sorted(r["meta"]["i"] for r in results) != served:
+        raise AssertionError(f"durability: {len(results)} results for the {len(served)} "
+                             f"frames outside the dropped batch {dropped}")
+    ledger = service.ledger()
+    # the batch the dispatch loop held, and wave 1's frame whose
+    # subscriber raised
+    if (ledger["drops_by_reason"] != {FRAMES_DROPPED_CRASHED: len(dropped) + 1}
+            or ledger["in_system"] != 0 or ledger["admitted"] != len(frames)):
+        raise AssertionError(f"durability: ledger after the crashes {ledger}")
+    crashes = service.metrics.counter(LOOP_CRASHES)
+    if raised != ["readback", "dispatch"] or sup.restarts != 2 or crashes != 2 or (
+            dev.type == "cuda" and min(launches.values()) < 1):  # the CPU launches none
+        raise AssertionError(f"durability: crashes {raised} / {crashes}, restarts "
+                             f"{sup.restarts}, launches after them {launches}")
+    min_sim = check_planted(results, n_plant)
+    log(f"durability: supervised serving on the recovered gallery: {len(results)} results for "
+        f"{len(frames)} frames, 2 loop crashes (readback worker, dispatch loop), 2 restarts, "
+        f"launches after them {launches}; planted faces found (min sim {min_sim:.5f}); "
+        f"ledger {ledger} (the batch the dispatch loop held, {len(dropped)} frames, and the "
+        "raising subscriber's frame are crashed drops)")
+    return dict(restarts=sup.restarts, launches_after_restart=launches, min_planted_sim=min_sim)
+
+
+class CliProcess:
+    """The CLI in jsonl mode in a subprocess (``python -m``) with
+    ``--state-dir``; stdout messages and stderr lines are collected."""
+
+    def __init__(self, paths: dict, dev, state_dir: str):
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+             *cli_args(paths, "jsonl", dev), "--state-dir", state_dir, "--flush-ms", "5"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        self.out, self.err = [], []
+        self.first_result_s = None
+        self._readers = [threading.Thread(target=self._read_out, daemon=True),
+                         threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
+                                          daemon=True)]
+        for r in self._readers:
+            r.start()
+
+    def _read_out(self):
+        for line in self.proc.stdout:
+            msg = json.loads(line)
+            if msg["topic"] == RESULT_TOPIC and self.first_result_s is None:
+                self.first_result_s = time.perf_counter() - self.t0
+            self.out.append(msg)
+
+    def send(self, topic, data):
+        self.proc.stdin.write(json.dumps({"topic": topic, "data": data}) + "\n")
+        self.proc.stdin.flush()
+
+    def results(self):
+        return [m["data"] for m in self.out if m["topic"] == RESULT_TOPIC]
+
+    def named(self, seqs) -> bool:
+        got = {r["meta"]["seq"]: r for r in self.results()}
+        return all(s in got and CLI_NEW_NAME in {f["name"] for f in got[s]["faces"]}
+                   for s in seqs)
+
+    def finish(self, timeout: float = 300) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        for r in self._readers:
+            r.join(timeout=10)
+        return rc
+
+    def stderr(self) -> str:
+        return "".join(self.err)
+
+
+def cli_restarts(dev, ctx: dict, root: str) -> dict:
+    """Step 7: the CLI with ``--state-dir``: SIGKILL after ``enrolled``, a
+    second writer refused, a restart named through WAL replay, SIGTERM
+    clean, a third start from the final checkpoint."""
+    frames = ctx["cli_frames"]
+    state_dir = os.path.join(root, "cli")
+    starts = []
+
+    def start(tag):
+        metrics = os.path.join(root, f"cli_{tag}.jsonl")
+        return CliProcess(dict(ctx["cli_paths"], metrics=metrics), dev, state_dir), metrics
+
+    def startup(proc, metrics, tag):
+        records = {r["event"]: r for r in metrics_records(metrics)}
+        starts.append(dict(start=tag, first_result_s=proc.first_result_s,
+                           checkpoint_load_s=records["startup"]["checkpoint_load_s"],
+                           gallery_embed_s=records["startup"]["gallery_embed_s"],
+                           recovery_s=records["recovery"]["seconds"],
+                           recovery_stages=records["recovery"]["stages"],
+                           replayed_records=records["recovery"]["replayed_records"]))
+
+    def scene(proc, seqs):
+        for s in seqs:
+            proc.send(FRAME_TOPIC, {**encode_frame(frames[0]), "meta": {"seq": s}})
+
+    p1, m1 = start("first")
+    try:
+        scene(p1, range(CLI_JSONL_FRAMES))
+        p1.send(CONTROL_TOPIC, {"cmd": "enroll", "subject": CLI_NEW_NAME,
+                                "count": CLI_ENROL_COUNT})
+        seq = CLI_JSONL_FRAMES
+        deadline = time.monotonic() + 300
+        while not any(m["topic"] == STATUS_TOPIC and m["data"]["status"] == "enrolled"
+                      for m in p1.out):
+            if time.monotonic() > deadline or p1.proc.poll() is not None:
+                raise AssertionError("cli: no 'enrolled' before the kill:\n" + p1.stderr()[-3000:])
+            scene(p1, [seq])
+            seq += 1
+            time.sleep(0.2)
+        try:
+            recognize_app.main(cli_args(ctx["cli_paths"], "jsonl", dev)
+                               + ["--state-dir", state_dir])
+            raise AssertionError("cli: a second writer started on a held state dir")
+        except SystemExit as exc:
+            if "writer lease" not in str(exc):
+                raise AssertionError(f"cli: second writer: {exc}")
+            second_writer = str(exc)
+        p1.proc.send_signal(signal.SIGKILL)
+    finally:
+        p1.finish(60)
+    startup(p1, m1, "first")
+
+    p2, m2 = start("after_sigkill")
+    try:
+        scene(p2, range(CLI_JSONL_FRAMES))
+        wait_for(lambda: p2.named(range(CLI_JSONL_FRAMES)) or p2.proc.poll() is not None, 300,
+                 "the restarted CLI's results")
+        if not p2.named(range(CLI_JSONL_FRAMES)):
+            raise AssertionError("cli: after SIGKILL the subject is not named:\n"
+                                 + p2.stderr()[-3000:])
+        p2.proc.send_signal(signal.SIGTERM)
+        rc2 = p2.finish(300)
+    finally:
+        p2.finish(60)
+    err2 = p2.stderr()
+    if rc2 != 0 or "shutdown: clean" not in err2 or "final checkpoint: written" not in err2:
+        raise AssertionError(f"cli: SIGTERM rc {rc2}:\n{err2[-3000:]}")
+    startup(p2, m2, "after_sigkill")
+
+    p3, m3 = start("after_sigterm")
+    try:
+        scene(p3, range(CLI_JSONL_FRAMES))
+        wait_for(lambda: len(p3.results()) >= CLI_JSONL_FRAMES or p3.proc.poll() is not None,
+                 300, "the third start's results")
+        p3.proc.stdin.close()
+        rc3 = p3.finish(300)
+    finally:
+        p3.finish(60)
+    startup(p3, m3, "after_sigterm")
+    if rc3 != 0 or not p3.named(range(CLI_JSONL_FRAMES)):
+        raise AssertionError(f"cli: third start rc {rc3}, named {p3.named(range(8))}:\n"
+                             + p3.stderr()[-3000:])
+    replayed = [s["replayed_records"] for s in starts]
+    if replayed != [0, 1, 0]:
+        raise AssertionError(f"cli: replayed records by start {replayed}")
+    log(f"durability cli: SIGKILL after 'enrolled', the restart named {CLI_NEW_NAME!r} by WAL "
+        f"replay, SIGTERM exited 0 clean, the third start recovered its checkpoint; second "
+        f"writer refused: {second_writer}; startups {starts}")
+    return dict(starts=starts, second_writer_refused=True)
+
+
+def durability_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 8 (module docstring); returns the ``{"durability": ...}``
+    numbers."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "state_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    steps = {}
+    t = time.perf_counter()
+    crashed = durable_service(dev, ctx, os.path.join(root, "service"), card)
+    steps["service_s"], t = time.perf_counter() - t, time.perf_counter()
+    g2, names2, state2, _report, rec, match_launches = recover_and_compare(
+        dev, seed, ctx, os.path.join(root, "service"), crashed)
+    del crashed["gallery"], ctx["ivf_gallery"]
+    steps["recover_compare_s"], t = time.perf_counter() - t, time.perf_counter()
+    supervised = supervised_serve(dev, ctx, g2, names2, state2)
+    state2.close()
+    del g2
+    torch.cuda.empty_cache()
+    steps["supervised_s"], t = time.perf_counter() - t, time.perf_counter()
+    cli = cli_restarts(dev, ctx, root)
+    steps["cli_s"] = time.perf_counter() - t
+    wal_ms = np.asarray(crashed["wal_s"]) * 1e3
+    return dict(card=card, first_checkpoint=crashed["first"], checkpoint=crashed["ckpt"],
+                recovery=rec, wal_appends=len(wal_ms), wal_append_p50_ms=float(
+                    np.median(wal_ms)), wal_append_max_ms=float(wal_ms.max()),
+                match_launches=match_launches, supervised=supervised, cli=cli,
+                service_ledger=crashed["ledger"], phase_steps=steps)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1196,11 +1688,13 @@ def main() -> int:
     entries = [check_match(dev, gen), check_sepblock(dev, gen)]
     launches, ctx = serve(dev, args.seed, args.frames)
     ivf = ivf_phase(dev, args.seed, ctx)
-    cli = cli_phase(dev, args.seed, card)
+    cli = cli_phase(dev, args.seed, card, ctx)
+    durability = durability_phase(dev, args.seed, card, ctx)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"ivf": ivf}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"durability": durability}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -19,6 +19,18 @@ serves frames:
 - ``--source dir``: replay the images of ``--dir`` once, print one result
   line each, exit.
 
+With ``--state-dir DIR`` the node keeps its gallery durable: it takes the
+writer lease of DIR (a second writer exits naming it), recovers the
+newest checkpoint and replays the enrolment WAL (the first run on an
+empty DIR checkpoints the ``--gallery`` rows instead), appends every
+enrolment to the WAL before it is acknowledged, checkpoints in the
+background (``--checkpoint-every-s``, ``--checkpoint-wal-rows``,
+``--keep-checkpoints``) and watches the disk (``--disk-low-watermark``,
+``--durability-probe-s``). SIGTERM drains, takes a final checkpoint and
+exits 0 with a ``clean`` report. ``--supervised`` restarts a crashed
+serving loop; ``--probe-on-degraded`` probes the card when dispatches keep
+failing. A state dir crosses between the two packages both ways.
+
 The command line is the reference's, so any reference command line
 parses. ``--device`` (default ``cuda``) is the port's own: the CLI runs on
 the card and raises without one, unless ``--device cpu`` names the CPU.
@@ -41,7 +53,6 @@ import numpy as np
 import torch
 
 #: the ROADMAP items that bring the refused flags
-_STATE = "ROADMAP A.8.1 (state store, journal, graceful shutdown, supervisor)"
 _ADMISSION = "ROADMAP A.8.2 (admission, brownout, dead-letter journal)"
 _INGEST = "ROADMAP A.8.3 (ingest staging ring, JPEG decode pool)"
 _OBSERVE = "ROADMAP A.8.4 (tracing, SLO monitor, exposition, profiling)"
@@ -52,10 +63,6 @@ _MULTI_GPU = "ROADMAP A.11 (multi-GPU)"
 
 #: (flag, refused value or None for "any value but the default", item)
 REFUSED = (
-    ("--state-dir", None, _STATE), ("--checkpoint-every-s", None, _STATE),
-    ("--checkpoint-wal-rows", None, _STATE), ("--keep-checkpoints", None, _STATE),
-    ("--disk-low-watermark", None, _STATE), ("--durability-probe-s", None, _STATE),
-    ("--supervised", None, _STATE), ("--probe-on-degraded", None, _STATE),
     ("--max-inflight-frames", None, _ADMISSION), ("--rate-limit-fps", None, _ADMISSION),
     ("--brownout-queue-wait-ms", None, _ADMISSION),
     ("--shed-stale-after-ms", None, _ADMISSION),
@@ -170,25 +177,36 @@ def build_parser() -> argparse.ArgumentParser:
         help="retries per batch on transient dispatch failures (backoff)")
     add("--degraded-after", type=int, default=3,
         help="consecutive dispatch failures before degraded mode is published")
-    add("--probe-on-degraded", action="store_true")
-    add("--supervised", action="store_true")
+    add("--probe-on-degraded", action="store_true",
+        help="in degraded mode, probe the card in a bounded subprocess and publish "
+             "its verdict (backend_usable); there is no CPU fallback")
+    add("--supervised", action="store_true",
+        help="restart a crashed serving loop from the last-known-good gallery "
+             "(ServiceSupervisor)")
     add("--max-inflight-frames", type=int, default=0)
     add("--rate-limit-fps", type=float, default=0.0)
     add("--brownout-queue-wait-ms", type=float, default=0.0)
     add("--shed-stale-after-ms", type=float, default=0.0)
     add("--dead-letter-journal", metavar="PATH")
-    add("--state-dir", metavar="DIR")
+    add("--state-dir", metavar="DIR",
+        help="durable state: checkpoints, the enrolment WAL, the IVF sidecar and the "
+             "registry manifest; recovered at start, checkpointed at SIGTERM")
     add("--embedder-version", type=int, default=0, metavar="N",
         help="the loaded model's embedder version, stamped on results and "
              "identity-cache entries (0 = 1)")
     add("--detector-version", type=int, default=0, metavar="N")
     add("--cascade-version", type=int, default=0, metavar="N")
     add("--registry-swap", metavar="ROLE=VERSION")
-    add("--checkpoint-every-s", type=float, default=300.0)
-    add("--checkpoint-wal-rows", type=int, default=256)
-    add("--keep-checkpoints", type=int, default=3)
-    add("--disk-low-watermark", type=float, default=256.0, metavar="MB")
-    add("--durability-probe-s", type=float, default=5.0)
+    add("--checkpoint-every-s", type=float, default=300.0,
+        help="checkpoint when WAL rows are this old")
+    add("--checkpoint-wal-rows", type=int, default=256,
+        help="checkpoint when this many rows are in the WAL only")
+    add("--keep-checkpoints", type=int, default=3, help="checkpoints retained")
+    add("--disk-low-watermark", type=float, default=256.0, metavar="MB",
+        help="below this much free disk: force a checkpoint and shrink retention; "
+             "below a sixth of it: refuse enrolments (0 disables)")
+    add("--durability-probe-s", type=float, default=5.0,
+        help="interval of the disk checks and of the recovery probe while degraded")
     add("--journal-fsync", choices=["never", "interval", "always"], default="never")
     add("--trace-sample", type=float, default=0.0)
     add("--trace-ring", type=int, default=4096)
@@ -293,14 +311,56 @@ def _load_stack(args, metrics):
     return pipeline, names
 
 
-def _shutdown(service, drain_timeout: float) -> dict:
-    """drain -> stop -> ledger (the reference's ``graceful_shutdown``
-    without a state store)."""
-    drained = service.drain(timeout=drain_timeout)
-    service.stop()
-    ledger = service.ledger()
-    return {"drained": drained, "ledger": ledger,
-            "clean": bool(drained and abs(ledger["in_system"]) < 1e-6)}
+def _registry_fence(registry, args) -> None:
+    """Refuse to start when a declared detector or cascade version is not
+    the one the state dir's manifest serves (a no-op at the defaults)."""
+    for role, declared in (("detector", args.detector_version),
+                           ("cascade", args.cascade_version)):
+        if declared and registry.version(role) != declared:
+            raise SystemExit(
+                f"ocvf-recognize-torch: --{role}-version {declared} declared but the "
+                f"state dir's registry manifest serves {role} v{registry.version(role)}")
+
+
+def _open_state(args, pipeline, names, metrics):
+    """The writer's durable state over ``--state-dir`` (the lease is held
+    already): recovery into the pipeline's gallery and ``names``, the
+    ``--embedder-version`` fence, the registry manifest, the first
+    checkpoint of a fresh dir, the durability monitor. Returns the
+    ``StateLifecycle``."""
+    from opencv_facerecognizer_tpu_torch.runtime.registry import ModelRegistry
+    from opencv_facerecognizer_tpu_torch.runtime.resilience import DurabilityMonitor
+    from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
+
+    state = StateLifecycle(args.state_dir, metrics=metrics,
+                           keep_checkpoints=args.keep_checkpoints,
+                           checkpoint_wal_rows=args.checkpoint_wal_rows,
+                           checkpoint_every_s=args.checkpoint_every_s)
+    t0 = time.perf_counter()
+    report = state.recover(pipeline.gallery, names)
+    recover_s = time.perf_counter() - t0
+    print(f"state recovery: {report}", file=sys.stderr)
+    recovered_version = int(report.get("embedder_version", 1))
+    if args.embedder_version and recovered_version != args.embedder_version:
+        raise SystemExit(
+            f"ocvf-recognize-torch: --embedder-version {args.embedder_version} declared but "
+            f"recovery landed on embedder v{recovered_version}: refusing to serve mixed "
+            f"spaces (the embedder rollout is ROADMAP A.8.8)")
+    if state.registry is None:
+        state.attach_registry(ModelRegistry(args.state_dir, metrics=metrics))
+    state.registry.mirror_embedder(recovered_version)
+    _registry_fence(state.registry, args)
+    if report["recovered_checkpoint"] is None and not report["replayed_records"]:
+        # a fresh dir: the baseline gallery is durable before the first
+        # enrolment
+        state.checkpoint_now(wait=True)
+    metrics.log("recovery", seconds=recover_s, stages=state.last_recovery_s,
+                checkpoint=report["recovered_checkpoint"],
+                replayed_records=report["replayed_records"],
+                gallery_size=report["gallery_size"])
+    DurabilityMonitor(state, metrics=metrics, probe_interval_s=args.durability_probe_s,
+                      low_watermark_bytes=int(args.disk_low_watermark * (1 << 20)))
+    return state
 
 
 def main(argv=None) -> int:
@@ -313,7 +373,11 @@ def main(argv=None) -> int:
         FakeConnector, JSONLConnector, SocketConnector, encode_frame)
     from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
         FRAME_TOPIC, RESULT_TOPIC, RecognizerService)
-    from opencv_facerecognizer_tpu_torch.runtime.resilience import ResiliencePolicy
+    from opencv_facerecognizer_tpu_torch.runtime.replication import (
+        WriterLease, WriterLeaseHeldError)
+    from opencv_facerecognizer_tpu_torch.runtime.resilience import (
+        ResiliencePolicy, ServiceSupervisor)
+    from opencv_facerecognizer_tpu_torch.runtime.state_store import graceful_shutdown
     from opencv_facerecognizer_tpu_torch.runtime.tracker import (
         IdentityTracker, TrackerConfig)
     from opencv_facerecognizer_tpu_torch.utils.metrics import Metrics
@@ -321,11 +385,29 @@ def main(argv=None) -> int:
     transfer_dtype = _ingest_dtype(args)
     metrics_sink = open(args.metrics_jsonl, "a") if args.metrics_jsonl else None
     metrics = Metrics(sink=metrics_sink)
-    pipeline, names = _load_stack(args, metrics)
+    lease = None
+    try:
+        if args.state_dir:
+            # one writer per state dir, taken before anything is loaded or
+            # touched: a second writer fails closed with no side effects
+            lease = WriterLease(args.state_dir, metrics=metrics)
+            try:
+                lease.acquire()
+            except WriterLeaseHeldError as exc:
+                raise SystemExit(f"ocvf-recognize-torch: {exc}")
+        pipeline, names = _load_stack(args, metrics)
+        state = _open_state(args, pipeline, names, metrics) if args.state_dir else None
+    except BaseException:
+        if lease is not None:
+            lease.release()
+        if metrics_sink:
+            metrics_sink.close()
+        raise
     quantizer = pipeline.gallery.quantizer
     if quantizer is not None:
         quantizer.metrics = metrics
         if not quantizer.ready and pipeline.gallery._ivf_wanted():
+            # no sidecar (or no --state-dir): train before serving
             print(f"training IVF coarse quantizer (nlist={quantizer.nlist})...",
                   file=sys.stderr)
             quantizer.rebuild_now(wait=True, skip_if_ready=True)
@@ -356,9 +438,14 @@ def main(argv=None) -> int:
                           else args.target_latency_ms / 1e3),
         resilience=ResiliencePolicy(dispatch_retries=args.dispatch_retries,
                                     readback_deadline_s=args.readback_deadline,
-                                    degraded_after=args.degraded_after),
-        tracker=tracker)
-    service.start()
+                                    degraded_after=args.degraded_after,
+                                    probe_backend_on_degraded=args.probe_on_degraded),
+        tracker=tracker, state_store=state)
+    supervisor = ServiceSupervisor(service, state=state) if args.supervised else None
+    if supervisor is not None:
+        supervisor.start()
+    else:
+        service.start()
     if args.source == "socket":
         print(f"serving on {args.host}:{connector.port}", file=sys.stderr)
 
@@ -403,13 +490,22 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         interrupted = True
     finally:
-        shutdown = _shutdown(service, drain_timeout=0.0 if interrupted else 30.0)
+        shutdown = graceful_shutdown(service, state=state, supervisor=supervisor,
+                                     drain_timeout=0.0 if interrupted else 30.0)
+        if state is not None:
+            print(f"final checkpoint: "
+                  f"{'written' if shutdown['final_checkpoint'] else 'FAILED (previous kept)'}",
+                  file=sys.stderr)
         summary = metrics.summary()
-        metrics.log("shutdown", ledger=shutdown["ledger"], summary=summary)
+        metrics.log("shutdown", ledger=shutdown["ledger"], summary=summary,
+                    clean=shutdown["clean"])
         if summary:
             print(f"metrics: {summary}", file=sys.stderr)
         if shutdown["ledger"]["admitted"]:
             print(f"admission ledger: {shutdown['ledger']}", file=sys.stderr)
+        print(f"shutdown: {'clean' if shutdown['clean'] else 'NOT clean'}", file=sys.stderr)
+        if lease is not None:
+            lease.release()  # last: the final checkpoint ran under it
         if metrics_sink:
             metrics_sink.close()
     return 0

@@ -18,12 +18,17 @@ of ``opencv_facerecognizer_tpu/parallel/gallery.py``.
   top-k of ``match_global``; ``use_kernel=`` overrides the second choice.
 - The quantizer is derived state the gallery drives: ``add`` assigns the
   new rows under the write lock and then triggers a build when one is
-  missing or stale; ``reset`` bumps the epoch and invalidates it. Every
-  ``GalleryData`` carries the epoch, and ``_ivf_data`` pairs a snapshot
-  only with quantizer state of the same epoch.
+  missing or stale; ``reset``, ``load_snapshot`` and ``swap_from`` bump
+  the epoch and invalidate it. Every ``GalleryData`` carries the epoch,
+  and ``_ivf_data`` pairs a snapshot only with quantizer state of the
+  same epoch.
+- The restore paths of the state store and the supervisor:
+  ``snapshot`` (host-mirror copies, the lock wait bounded),
+  ``load_snapshot`` (install a snapshot, adopting its capacity) and
+  ``swap_from`` (install another gallery's contents, cast to this
+  gallery's ``store_dtype``).
 
-Multi-device sharding, asynchronous grow, ``swap_from`` and
-``load_snapshot`` are later slices.
+Multi-device sharding and asynchronous grow are later slices.
 """
 
 from __future__ import annotations
@@ -76,6 +81,10 @@ class GalleryData(NamedTuple):
     @property
     def capacity(self) -> int:
         return int(self.embeddings.shape[0])
+
+
+class EmbeddingDimMismatchError(ValueError):
+    """``swap_from`` was given a gallery of another embedding dim."""
 
 
 class ShardedGallery:
@@ -184,12 +193,72 @@ class ShardedGallery:
             self._host_val[:] = False
             self._install(0)
 
+    #: bounded wait for the write lock in ``snapshot``: a device transfer
+    #: hung inside the locked region must not wedge the caller
+    SNAPSHOT_LOCK_TIMEOUT_S = 5.0
+
     def snapshot(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
         """Copies of the host mirrors (embeddings, labels, valid, size),
-        taken under the write lock (no device readback)."""
-        with self._write_lock:
+        no device readback. Taken under the write lock when it comes
+        within ``SNAPSHOT_LOCK_TIMEOUT_S``, else without it."""
+        acquired = self._write_lock.acquire(timeout=self.SNAPSHOT_LOCK_TIMEOUT_S)
+        try:
             return (self._host_emb.copy(), self._host_lab.copy(),
                     self._host_val.copy(), self.size)
+        finally:
+            if acquired:
+                self._write_lock.release()
+
+    def load_snapshot(self, emb: np.ndarray, lab: np.ndarray, val: np.ndarray, size: int,
+                      embedder_version: Optional[int] = None) -> None:
+        """Install arrays of a prior ``snapshot()`` (or a checkpoint) as
+        the live gallery, adopting their capacity; bumps the epoch,
+        invalidates the quantizer, and re-stamps ``embedder_version`` when
+        given, in the same publish."""
+        emb = np.array(emb, np.float32, copy=True)
+        if emb.ndim != 2 or emb.shape[1] != self.dim:
+            raise ValueError(f"snapshot must be [capacity, {self.dim}], got {emb.shape}")
+        with self._write_lock:
+            if embedder_version is not None:
+                self.embedder_version = int(embedder_version)
+            self._epoch += 1
+            if self.quantizer is not None:
+                self.quantizer.invalidate()
+            self.capacity = emb.shape[0]
+            self._host_emb = emb
+            self._host_lab = np.array(lab, np.int32, copy=True)
+            self._host_val = np.array(val, bool, copy=True)
+            self._install(int(size))
+
+    def swap_from(self, other: "ShardedGallery") -> None:
+        """Install ``other``'s contents (the double-buffered reload): the
+        host mirrors by reference, the device arrays as they are, or
+        rebuilt from the mirrors when ``other`` stores another dtype or
+        lives on another device. Adopts its ``embedder_version``; a dim
+        mismatch raises ``EmbeddingDimMismatchError``."""
+        if other.dim != self.dim:
+            raise EmbeddingDimMismatchError(
+                f"swap_from refused: donor gallery dim {other.dim} != serving dim "
+                f"{self.dim}; a different-D embedder rolls out through the staged "
+                f"re-embed, never a swap")
+        rebuild = other.store_dtype != self.store_dtype or other.device != self.device
+        with self._write_lock:
+            self.embedder_version = int(getattr(other, "embedder_version",
+                                                self.embedder_version))
+            self._epoch += 1
+            if self.quantizer is not None:
+                self.quantizer.invalidate()
+            self.capacity = other.capacity
+            self._host_emb = other._host_emb
+            self._host_lab = other._host_lab
+            self._host_val = other._host_val
+            if rebuild:
+                self._install(other.size)
+            else:
+                # restamped with this gallery's epoch, or the quantizer's
+                # publishes would never pair with it
+                self._data = other._data._replace(epoch=self._epoch)
+        self._poke_quantizer()
 
     # ---- IVF coarse quantizer (parallel.quantizer) ----
 

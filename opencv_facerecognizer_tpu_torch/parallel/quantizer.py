@@ -111,19 +111,21 @@ class IVFDeviceData(NamedTuple):
 
 def pack_inverted_lists(ids: np.ndarray, cells: np.ndarray, q8: np.ndarray,
                         scale: np.ndarray, nlist: int,
-                        cell_slack: float = 2.0, spill_floor: int = 0):
+                        cell_slack: float = 2.0, spill_floor: int = 0,
+                        sizing_rows: Optional[int] = None):
     """Pack assigned rows into the cell-resident structures: ``(cell_rows,
     cell_q8, cell_scale, spill_rows, spill_q8, spill_scale, counts,
     overflow)``. Rows fill their cell in ascending row-id order; rows past
     ``max_cell`` land in the spill, also ascending: the order incremental
-    inserts produce, so a repack from a sidecar's assignment reproduces
-    the live structures bit for bit. The reference's numpy code."""
+    inserts produce. ``max_cell`` is sized from ``sizing_rows`` (default:
+    the rows packed here). The reference's numpy code, plus
+    ``sizing_rows``."""
     ids = np.asarray(ids, np.int32)
     cells = np.asarray(cells, np.int32)
     q8 = np.asarray(q8, np.int8)
     scale = np.asarray(scale, np.float32)
     n, dim = q8.shape
-    mean = max(1.0, n / max(1, nlist))
+    mean = max(1.0, (n if sizing_rows is None else int(sizing_rows)) / max(1, nlist))
     max_cell = max(8, int(np.ceil(cell_slack * mean / 8.0) * 8))
     order = np.lexsort((ids, cells))
     s_ids, s_cells = ids[order], cells[order]
@@ -354,13 +356,13 @@ class CoarseQuantizer:
     # ---- building (bulk) ----
 
     def _pack(self, emb: np.ndarray, val: np.ndarray, assign: np.ndarray,
-              spill_floor: int = 0):
+              spill_floor: int = 0, sizing_rows: Optional[int] = None):
         """Quantize the valid rows and pack them (``pack_inverted_lists``)."""
         ids = np.nonzero(val)[0].astype(np.int32)
         q8, scale = quantize_rows(emb[ids])
         return pack_inverted_lists(ids, assign[ids], q8, scale, self.nlist,
                                    cell_slack=self.CELL_SLACK,
-                                   spill_floor=spill_floor)
+                                   spill_floor=spill_floor, sizing_rows=sizing_rows)
 
     def _device_put(self, centroids, cell_rows, cell_q8, cell_scale,
                     spill_rows, spill_q8, spill_scale) -> IVFDeviceData:
@@ -645,12 +647,21 @@ class CoarseQuantizer:
                                             "embedder_version", 1)),
         }
 
-    def install_from_arrays(self, centroids: np.ndarray,
-                            assign: np.ndarray) -> bool:
+    def install_from_arrays(self, centroids: np.ndarray, assign: np.ndarray,
+                            trained_size: Optional[int] = None) -> bool:
         """Repack from a sidecar's (centroids, assignment) against the
-        gallery's current host mirrors, no k-means, and publish: equal to
-        the state the sidecar captured, bit for bit. False when a pinned
-        ``nlist`` disagrees or the assignment misses a live row."""
+        gallery's current host mirrors, no k-means, and publish. False
+        when a pinned ``nlist`` disagrees or the assignment misses a live
+        row.
+
+        ``trained_size`` is the sidecar's: the rows of the build that
+        sized ``max_cell``. Given it, the repack sizes the cells as that
+        build did and keeps it as ``trained_size``, so rows enrolled after
+        the build sit in the cell or spill slots their incremental inserts
+        took (only the spill's padding may be longer), and a match answers
+        as the live quantizer did. Without it (the reference's repack) the
+        cells are sized from the rows present now, which moves late rows
+        between spill and cells whenever that changes ``max_cell``."""
         if self._gallery is None:
             raise RuntimeError("quantizer not attached to a gallery")
         g = self._gallery
@@ -666,7 +677,9 @@ class CoarseQuantizer:
         assign_full[~val] = -1
         if np.any(val & (assign_full < 0)):
             return False
-        packed = self._pack(emb, val, assign_full)
+        n_valid = int(val.sum())
+        sizing = n_valid if trained_size is None else min(int(trained_size), n_valid)
+        packed = self._pack(emb, val, assign_full, sizing_rows=sizing)
         (cell_rows, cell_q8, cell_scale, spill_rows, spill_q8, spill_scale,
          counts, overflow) = packed
         data = self._device_put(centroids, cell_rows, cell_q8, cell_scale,
@@ -680,7 +693,7 @@ class CoarseQuantizer:
             self._h_counts = counts
             self._spill_count = overflow
             self._assigned_rows = int(ids[-1]) + 1 if len(ids) else 0
-            self.trained_size = int(val.sum())
+            self.trained_size = sizing
             self._data = data._replace(gallery_epoch=g._epoch)
             self.version += 1
 

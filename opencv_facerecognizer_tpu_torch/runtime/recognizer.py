@@ -31,16 +31,31 @@ the batch sliced to the smallest rung of a bucket ladder that holds it)
   them in fixed chunks on the pipeline's device off the serving threads,
   adds them to the gallery and publishes ``enrolled`` (the subject's
   label is kept only if that succeeds); ``{"cmd": "stats"}`` publishes
-  the metrics, the ledger and the gallery size.
+  the metrics, the ledger, the gallery size and the durable state's
+  status.
+- **Durable state** (``state_store=``, a ``runtime.state_store.
+  StateLifecycle``): an enrolment is appended to the WAL before it
+  touches the gallery, so ``enrolled`` promises it survives a crash; the
+  serving loop ticks the checkpoint thresholds and the durability
+  monitor, whose background thread runs between ``start`` and ``stop``.
+  While durability is degraded an ``enroll`` is refused
+  (``rejected``, reason ``durability_degraded``); a failed WAL append
+  publishes ``enroll_failed``. ``commit_hooks`` run after every committed
+  gallery change (an enrolment, ``reload_gallery``).
+- **Supervision**: an exception that kills the dispatch loop or the
+  readback worker sets ``loop_crashed``; ``runtime.resilience.
+  ServiceSupervisor`` restores the gallery and calls ``restart_loop``.
 
 Every admitted frame ends in exactly one counter of
 ``utils.metrics.LEDGER_COMPLETION_COUNTERS`` or ``LEDGER_DROP_COUNTERS``
 (``ledger()``).
 
 Not ported yet (ROADMAP A.8): admission control and brownout, the dead-
-letter journal, the state store (durable enrolment), the ingest staging
-ring and JPEG pool, tracing and SLOs, the cascade, the model registry,
-replication, the supervisor and the CPU fallback.
+letter journal, the ingest staging ring and JPEG pool, tracing and SLOs,
+the cascade, the model registry's swaps and replication. The CPU
+fallback is not ported at all (ROADMAP C): with ``probe_backend_on_degraded``
+a dead card is reported (``backend_usable: false``, ``cpu_fallback:
+false``) and the service stays degraded.
 """
 
 from __future__ import annotations
@@ -50,7 +65,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,7 +77,7 @@ from opencv_facerecognizer_tpu_torch.runtime.batcher import FrameBatcher
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     MiddlewareConnector, decode_frame)
 from opencv_facerecognizer_tpu_torch.runtime.resilience import (
-    ResiliencePolicy, is_transient_error)
+    DurabilityDegradedError, ResiliencePolicy, is_transient_error)
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
 
 FRAME_TOPIC = "ocvfacerec/frames"
@@ -179,7 +194,8 @@ class RecognizerService:
                  drain_poll_s: float = FALLBACK_DRAIN_POLL_S,
                  bucket_sizes: Optional[Sequence[int]] = DEFAULT_BUCKET_SIZES,
                  target_latency_s: Optional[float] = None, tracker=None,
-                 max_pending: int = 256):
+                 max_pending: int = 256, state_store=None, fault_injector=None,
+                 backend_probe_fn: Optional[Callable[[], tuple]] = None):
         if frame_shape is None:
             raise ValueError("frame_shape (H, W) is required (fixed batch shapes)")
         self.pipeline = pipeline
@@ -211,8 +227,29 @@ class RecognizerService:
         self._degraded = False
         self._enrolment: Optional[_Enrolment] = None
         self._enrol_lock = threading.Lock()
+        self._crashed = False
+        #: ``runtime.faults.FaultInjector`` at the dispatch boundary (never
+        #: in production)
+        self._faults = fault_injector
+        #: the degraded-mode probe, injectable for tests; default
+        #: ``utils.backend_probe.probe_for_recovery``
+        self._backend_probe_fn = backend_probe_fn
+        #: called (no arguments, best effort) after every committed gallery
+        #: change; the state store and the supervisor register here
+        self.commit_hooks: List[Callable[[], None]] = []
+        self.state = state_store
+        if self.state is not None:
+            self.state.attach(self)
+        dur = self._durability
+        if dur is not None and dur.publish is None:
+            dur.publish = self._publish_status
         connector.subscribe(FRAME_TOPIC, self._on_frame)
         connector.subscribe(CONTROL_TOPIC, self._on_control)
+
+    @property
+    def _durability(self):
+        """The state store's ``DurabilityMonitor`` (None without one)."""
+        return None if self.state is None else self.state.durability
 
     # ---- admission ledger ----
 
@@ -245,6 +282,17 @@ class RecognizerService:
     def _on_control(self, topic: str, message: Dict[str, Any]) -> None:
         cmd = message.get("cmd")
         if cmd == "enroll":
+            dur = self._durability
+            if dur is not None and dur.degraded:
+                # refused at the door: the crops would only fail their
+                # WAL append
+                self.metrics.incr(mn.ENROLLMENTS_REFUSED_DEGRADED)
+                self._publish_status({
+                    "status": "rejected", "reason": "durability_degraded",
+                    "detail": "enrollment refused: WAL durability is degraded on this "
+                              "writer (serving continues; re-arms automatically when the "
+                              "probe sees the disk recover)"})
+                return
             name = str(message.get("subject", f"subject_{len(self.subject_names)}"))
             count = int(message.get("count", 5))
             with self._enrol_lock:
@@ -257,6 +305,12 @@ class RecognizerService:
                       "gallery_size": self.pipeline.gallery.size}
             if self.tracker is not None:
                 status["tracks"] = self.tracker.stats()
+            if self.state is not None:
+                # the WAL position and the durability monitor's status
+                dur = self._durability
+                status["durability"] = {"wal_seq": self.state.wal_seq,
+                                        "rows_since_checkpoint": self.state.rows_since_checkpoint,
+                                        **(dur.status() if dur is not None else {})}
             self.connector.publish(STATUS_TOPIC, status)
 
     # ---- lifecycle ----
@@ -267,7 +321,11 @@ class RecognizerService:
         if warmup:
             self.warmup()
         self._running = True
+        self._crashed = False
         self.connector.start()
+        dur = self._durability
+        if dur is not None:
+            dur.start()
         if self._use_worker:
             self._blocker = _ReadbackBlocker()
             self._worker = threading.Thread(target=self._readback_thread, daemon=True,
@@ -303,6 +361,9 @@ class RecognizerService:
         """Stop intake and the loop; the readback worker finishes the
         batches already in flight (each bounded by its deadline)."""
         self._running = False
+        dur = self._durability
+        if dur is not None:
+            dur.stop()
         self.batcher.close()
         with self._inflight_cv:
             self._inflight_cv.notify_all()
@@ -323,17 +384,69 @@ class RecognizerService:
                 return b
         return self.batcher.batch_size
 
+    @property
+    def loop_crashed(self) -> bool:
+        """True when an exception killed the dispatch loop or the readback
+        worker (``ServiceSupervisor`` watches it)."""
+        return self._crashed
+
+    def restart_pending(self) -> bool:
+        """The crash flag is up and a serving thread has exited, so
+        ``restart_loop`` would act."""
+        if not self._crashed or not self._running:
+            return False
+        if self._thread is not None and not self._thread.is_alive():
+            return True
+        return self._use_worker and self._worker is not None and not self._worker.is_alive()
+
+    def restart_loop(self) -> None:
+        """Respawn whichever of the dispatch loop and the readback worker
+        died (the supervisor's path); every crash path settled its own
+        batch first."""
+        if not self._running or self._thread is None:
+            return
+        serve_dead = not self._thread.is_alive()
+        worker_dead = (self._use_worker and self._worker is not None
+                       and not self._worker.is_alive())
+        if not serve_dead and not worker_dead:
+            return
+        self._crashed = False
+        if worker_dead:
+            self._blocker = _ReadbackBlocker()
+            self._worker = threading.Thread(target=self._readback_thread, daemon=True,
+                                            name="ocvf-readback")
+            self._worker.start()
+        if serve_dead:
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="ocvf-dispatch")
+            self._thread.start()
+
     def _loop(self) -> None:
         try:
             self._serve_loop()
-        except Exception:  # noqa: BLE001 - flag the crash, announce it
+        except Exception:  # noqa: BLE001 - flag the crash for the supervisor
             log.exception("serving loop crashed")
             self.metrics.incr(mn.LOOP_CRASHES)
+            self._crashed = True
             self._publish_status({"status": "crashed"})
 
     def _serve_loop(self) -> None:
         while self._running:
             batch = self.batcher.get_batch(block=True)
+            if self.state is not None:
+                # cheap threshold checks; a due checkpoint runs on its own
+                # thread, and the monitor's probe only on its own
+                try:
+                    self.state.tick()
+                    dur = self._durability
+                    if dur is not None:
+                        dur.tick()
+                except BaseException:
+                    if batch is not None:
+                        # the batch never reached _serve_one: settle it here
+                        self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, batch.count)
+                        self._mark_completed()
+                    raise
             if batch is None:
                 if not self._use_worker:
                     self._drain()
@@ -413,6 +526,8 @@ class RecognizerService:
         attempt = 0
         while True:
             try:
+                if self._faults is not None:
+                    self._faults.on_dispatch()
                 readback = self._start_readback(self.pipeline.recognize_batch_packed(frames))
             except Exception as exc:  # noqa: BLE001 - classified below
                 self.metrics.incr(mn.DISPATCH_FAILURES)
@@ -455,9 +570,27 @@ class RecognizerService:
     def _enter_degraded(self, exc: BaseException) -> None:
         self._degraded = True
         self.metrics.incr(mn.DEGRADED_TRANSITIONS)
-        self._publish_status({"status": "degraded",
-                              "consecutive_failures": self._consecutive_dispatch_failures,
-                              "error": repr(exc)})
+        status = {"status": "degraded",
+                  "consecutive_failures": self._consecutive_dispatch_failures,
+                  "error": repr(exc)}
+        if self.resilience.probe_backend_on_degraded:
+            usable, reason = self._probe_backend()
+            status["backend_usable"] = usable
+            status["backend_reason"] = reason
+            if not usable:
+                # the reference's state for a CPU fallback that did not
+                # happen: the port has none (ROADMAP C), it stays degraded
+                status["cpu_fallback"] = False
+        self._publish_status(status)
+
+    def _probe_backend(self) -> tuple:
+        """Bounded verdict on the card: the injected fn, else the
+        subprocess probe."""
+        if self._backend_probe_fn is not None:
+            return self._backend_probe_fn()
+        from opencv_facerecognizer_tpu_torch.utils.backend_probe import probe_for_recovery
+
+        return probe_for_recovery()
 
     def _exit_degraded(self) -> None:
         self._degraded = False
@@ -555,9 +688,10 @@ class RecognizerService:
     def _readback_thread(self) -> None:
         try:
             self._readback_loop()
-        except Exception:  # noqa: BLE001 - flag the crash, announce it
+        except Exception:  # noqa: BLE001 - flag the crash for the supervisor
             log.exception("readback worker crashed")
             self.metrics.incr(mn.LOOP_CRASHES)
+            self._crashed = True
             self._publish_status({"status": "crashed"})
 
     def _readback_loop(self) -> None:
@@ -738,6 +872,9 @@ class RecognizerService:
         """Embed the crops, add them to the gallery, publish ``enrolled``;
         off the serving threads."""
         face_size = self.pipeline.face_size
+        # the embedder version these crops are embedded by: the state store
+        # refuses them if a cutover changed the gallery's meanwhile
+        enrol_version = getattr(self.pipeline.gallery, "embedder_version", None)
         crops = np.stack([image_ops.resize(torch.as_tensor(c, dtype=torch.float32),
                                            face_size).numpy() for c in enrolment.crops])
         embeddings = []
@@ -755,14 +892,33 @@ class RecognizerService:
                 self.subject_names.append(enrolment.subject_name)
         gallery = self.pipeline.gallery
         before_grow = gallery.grow_count
+        labels = np.full(len(emb), label, np.int32)
         try:
-            gallery.add(emb, np.full(len(emb), label, np.int32))
-        except Exception:
+            if self.state is not None:
+                # write-ahead: the WAL record (fsynced per policy) lands
+                # before the rows, so ``enrolled`` below promises they
+                # survive a crash; a failed append raises
+                self.state.append_enrollment(emb, labels, subject=enrolment.subject_name,
+                                             label=label,
+                                             apply_fn=lambda: gallery.add(emb, labels),
+                                             embedder_version=enrol_version)
+            else:
+                gallery.add(emb, labels)
+        except Exception as exc:
             # the gallery holds no rows for a name reserved above: drop it
             with self._enrol_lock:
                 if (label == len(self.subject_names) - 1
                         and self.subject_names[label] == enrolment.subject_name):
                     self.subject_names.pop()
+            if isinstance(exc, (DurabilityDegradedError, OSError)):
+                # refused closed, never acknowledged
+                log.warning("enrollment %r refused closed: %r", enrolment.subject_name, exc)
+                self._publish_status({
+                    "status": "enroll_failed", "subject": enrolment.subject_name,
+                    "reason": ("durability_degraded"
+                               if isinstance(exc, DurabilityDegradedError) else "wal_error"),
+                    "error": repr(exc)})
+                return
             raise
         if gallery.grow_count > before_grow:
             self.metrics.incr(mn.GALLERY_GROWN, gallery.grow_count - before_grow)
@@ -771,3 +927,29 @@ class RecognizerService:
                                               "subject": enrolment.subject_name,
                                               "label": label,
                                               "gallery_size": gallery.size})
+        self._run_commit_hooks()
+
+    # ---- reload without drop ----
+
+    def reload_gallery(self, new_gallery) -> None:
+        """Swap in a rebuilt gallery between batches (``swap_from``); the
+        identity cache starts cold, and with a state store a forced
+        checkpoint makes the swap durable (until it lands, a crash
+        recovers the previous gallery plus every acknowledged
+        enrolment)."""
+        self.pipeline.gallery.swap_from(new_gallery)
+        if self.tracker is not None:
+            self.tracker.flush_all()
+        self.connector.publish(STATUS_TOPIC, {"status": "reloaded",
+                                              "gallery_size": self.pipeline.gallery.size})
+        self._run_commit_hooks()
+        if self.state is not None:
+            self.state.maybe_checkpoint(force=True)
+
+    def _run_commit_hooks(self) -> None:
+        """A raising hook costs a log line, never the enrolment or reload."""
+        for hook in list(self.commit_hooks):
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 - watcher bugs stay theirs
+                log.exception("commit hook failed")

@@ -101,31 +101,38 @@ _MAP = (None, b"\xde", b"\xdf")
 _FIXEXT = {1: b"\xd4", 2: b"\xd5", 4: b"\xd6", 8: b"\xd7", 16: b"\xd8"}
 
 
-def _ext(code: int, data: bytes, out: List[bytes]) -> None:
-    n = len(data)
+def _ext(code: int, pieces: List[Any], out: List[Any]) -> None:
+    n = sum(len(p) for p in pieces)
     if n in _FIXEXT:
         out.append(_FIXEXT[n])
     else:
         _header(n, None, 0, (b"\xc7", b"\xc8", b"\xc9"), out)
     out.append(struct.pack(">b", code))
-    out.append(data)
+    out.extend(pieces)
 
 
-def _array_tuple(arr) -> Tuple[tuple, str, bytes]:
-    """(shape, dtype name, C-order bytes) of a numpy array or torch tensor."""
+def _array_tuple(arr) -> Tuple[tuple, str, memoryview]:
+    """(shape, dtype name, C-order bytes) of a numpy array or torch tensor;
+    the bytes are a view of the array's own buffer where it is
+    C-contiguous (no copy)."""
     if isinstance(arr, torch.Tensor):
         t = arr.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            return tuple(t.shape), "bfloat16", t.view(torch.uint16).numpy().tobytes("C")
+            return tuple(t.shape), "bfloat16", _bytes_view(t.view(torch.uint16).numpy())
         arr = t.numpy()
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("Object and structured dtypes not supported "
                          "for serialization of ndarrays.")
-    return arr.shape, arr.dtype.name, arr.tobytes("C")
+    return arr.shape, arr.dtype.name, _bytes_view(arr)
 
 
-def _pack_array_payload(arr) -> bytes:
-    """The inner msgpack of ext 1/3: tuples as arrays, bytes as bin."""
+def _bytes_view(arr: np.ndarray) -> memoryview:
+    return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
+def _array_pieces(arr) -> List[Any]:
+    """The inner msgpack of ext 1/3 (tuples as arrays, bytes as bin): its
+    header bytes, then the array's bytes."""
     shape, name, buf = _array_tuple(arr)
     out: List[bytes] = []
     _header(3, 0x90, 15, _ARRAY, out)
@@ -134,8 +141,7 @@ def _pack_array_payload(arr) -> bytes:
         _int(int(d), out)
     _str(name, out)
     _header(len(buf), None, 0, _BIN, out)
-    out.append(buf)
-    return b"".join(out)
+    return [b"".join(out), buf]
 
 
 def _str(s: str, out: List[bytes]) -> None:
@@ -170,14 +176,14 @@ def _pack(obj: Any, out: List[bytes]) -> None:
             _pack(k, out)
             _pack(v, out)
     elif isinstance(obj, (np.ndarray, torch.Tensor)):
-        _ext(EXT_NDARRAY, _pack_array_payload(obj), out)
+        _ext(EXT_NDARRAY, _array_pieces(obj), out)
     elif isinstance(obj, np.generic):
-        _ext(EXT_NPSCALAR, _pack_array_payload(np.asarray(obj)), out)
+        _ext(EXT_NPSCALAR, _array_pieces(np.asarray(obj)), out)
     elif isinstance(obj, complex):
         inner: List[bytes] = [b"\x92"]
         _pack(float(obj.real), inner)
         _pack(float(obj.imag), inner)
-        _ext(EXT_COMPLEX, b"".join(inner), out)
+        _ext(EXT_COMPLEX, [b"".join(inner)], out)
     else:
         raise TypeError(f"can not serialize {t.__name__!r} object")
 
@@ -225,11 +231,19 @@ def _chunk_leaves(obj: Any) -> Any:
     return obj
 
 
+def pack_pieces(tree: Any) -> List[Any]:
+    """``packb(tree)`` as a list of bytes-like pieces whose concatenation
+    is those bytes: every array's data is a view of its own buffer, so a
+    caller that hashes and writes the pieces one by one never holds a
+    second copy of a large array."""
+    out: List[Any] = []
+    _pack(_chunk_leaves(_sorted_tree(tree)), out)
+    return out
+
+
 def packb(tree: Any) -> bytes:
     """``flax.serialization.msgpack_serialize(tree)``, byte for byte."""
-    out: List[bytes] = []
-    _pack(_chunk_leaves(_sorted_tree(tree)), out)
-    return b"".join(out)
+    return b"".join(pack_pieces(tree))
 
 
 # ---- decoding ----
@@ -280,7 +294,8 @@ def _read(r: _Reader, raw: bool) -> Any:
     if b in _FIXED:
         return r.unpack(_FIXED[b])
     if b in (0xC4, 0xC5, 0xC6):
-        return bytes(r.take(r.unpack(_LEN[1 << (b - 0xC4)])))
+        view = r.take(r.unpack(_LEN[1 << (b - 0xC4)]))
+        return view if raw else bytes(view)
     if b in (0xD9, 0xDA, 0xDB):
         return _text(r.take(r.unpack(_LEN[1 << (b - 0xD9)])), raw)
     if b in (0xDC, 0xDD):
@@ -295,7 +310,7 @@ def _read(r: _Reader, raw: bool) -> Any:
     else:
         raise UnpackError(f"unsupported msgpack type byte 0x{b:02x} at offset {r.pos - 1}")
     code = r.unpack(">b")
-    return _ext_value(code, bytes(r.take(n)))
+    return _ext_value(code, r.take(n))
 
 
 def _text(view: memoryview, raw: bool):
@@ -320,7 +335,7 @@ def _unpack_all(data: bytes, raw: bool) -> Any:
     return obj
 
 
-def _array_from_payload(data: bytes):
+def _array_from_payload(data):
     shape, name, buf = _unpack_all(data, raw=True)
     shape = tuple(int(d) for d in shape)
     if name == b"bfloat16":
@@ -329,7 +344,7 @@ def _array_from_payload(data: bytes):
     return np.frombuffer(buf, dtype=np.dtype(name.decode("ascii"))).reshape(shape, order="C")
 
 
-def _ext_value(code: int, data: bytes) -> Any:
+def _ext_value(code: int, data: memoryview) -> Any:
     if code == EXT_NDARRAY:
         return _array_from_payload(data)
     if code == EXT_COMPLEX:
@@ -361,6 +376,8 @@ def _unchunk_leaves(obj: Any) -> Any:
 
 def unpackb(data: bytes) -> Any:
     """``flax.serialization.msgpack_restore(data)``: the same tree, arrays
-    as numpy arrays (bf16 as ``torch.bfloat16`` tensors). Raises
-    ``UnpackError`` (a ``ValueError``) on truncated or malformed input."""
-    return _unchunk_leaves(_unpack_all(bytes(data), raw=False))
+    as numpy arrays (bf16 as ``torch.bfloat16`` tensors). An array that
+    is not chunked is a read-only view into ``data`` (no copy); ``data``
+    is any bytes-like object. Raises ``UnpackError`` (a ``ValueError``)
+    on truncated or malformed input."""
+    return _unchunk_leaves(_unpack_all(data, raw=False))

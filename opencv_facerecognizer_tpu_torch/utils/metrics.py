@@ -1,7 +1,7 @@
 """Serving counters and latency windows.
 
 The part of ``opencv_facerecognizer_tpu/utils/metrics.py`` the port's
-service, connectors, tracker and IVF quantizer use: thread-safe counters,
+service, connectors, tracker, IVF quantizer and durable state use: thread-safe counters,
 last-write gauges, latency observations with percentiles, a summary, and
 an optional JSONL sink (``log``). The names are the reference's (its
 ``utils/metric_names.py``), so a reader can compare the two services'
@@ -79,9 +79,8 @@ READY_WAIT = "ready_wait"
 PUBLISH = "publish"
 BATCH_LATENCY = "batch_latency"
 E2E_LATENCY = "e2e_latency"
-# IVF coarse quantizer (parallel.quantizer); IVF_SPILL_ROWS is a gauge. The
-# sidecar names are the reference's, for the state store that writes and
-# loads sidecars (not ported yet).
+# IVF coarse quantizer (parallel.quantizer); IVF_SPILL_ROWS is a gauge; the
+# state store writes and loads the sidecars.
 IVF_BUILDS = "ivf_builds"
 IVF_BUILD_FAILURES = "ivf_build_failures"
 IVF_RETRAINS_SKIPPED_INFLIGHT = "ivf_retrains_skipped_inflight"
@@ -92,6 +91,59 @@ IVF_SIDECAR_WRITES = "ivf_sidecar_writes"
 IVF_SIDECAR_LOADS = "ivf_sidecar_loads"
 IVF_SIDECAR_STALE = "ivf_sidecar_stale"
 IVF_SIDECAR_ERRORS = "ivf_sidecar_errors"
+# durable state (runtime.state_store, runtime.journal); WAL_ROWS is a gauge
+JOURNAL_ERRORS = "journal_errors"
+JOURNAL_TORN_TAILS = "journal_torn_tails"
+JOURNAL_SHED = "journal_shed"
+CHECKPOINTS_WRITTEN = "checkpoints_written"
+CHECKPOINTS_CORRUPT = "checkpoints_corrupt"
+CHECKPOINTS_VERSION_SKIPPED = "checkpoints_version_skipped"
+CHECKPOINT_READ_ERRORS = "checkpoint_read_errors"
+CHECKPOINT_FAILURES = "checkpoint_failures"
+CHECKPOINTS_SKIPPED_INFLIGHT = "checkpoints_skipped_inflight"
+CHECKPOINT_GC_ERRORS = "checkpoint_gc_errors"
+WAL_APPENDS = "wal_appends"
+WAL_ROWS_APPENDED = "wal_rows_appended"
+WAL_ABORTS = "wal_aborts"
+WAL_CORRUPT_RECORDS = "wal_corrupt_records"
+WAL_SKIPPED_RECORDS = "wal_skipped_records"
+WAL_REPLAYED_RECORDS = "wal_replayed_records"
+WAL_REPLAYED_ROWS = "wal_replayed_rows"
+WAL_TAIL_REPLAYED_ROWS = "wal_tail_replayed_rows"
+WAL_TORN_TAILS_SEALED = "wal_torn_tails_sealed"
+WAL_OVER_BYTES = "wal_over_bytes"
+WAL_ROWS = "wal_rows"
+WAL_APPEND_ERRORS = "wal_append_errors"
+WAL_REGISTRY_ABORTS = "wal_registry_aborts"
+STATE_RECOVERIES = "state_recoveries"
+ROLLOUT_VERSION_MISMATCHES = "rollout_version_mismatches"
+ROLLOUT_VERSION_SKIPPED_ROWS = "rollout_version_skipped_rows"
+# the model registry's manifest (runtime.registry); a gauge per role
+MODEL_VERSION_PREFIX = "model_version_"
+REGISTRY_SWAPS_COMPLETED_RECOVERY = "registry_swaps_completed_recovery"
+REGISTRY_SWAPS_ABANDONED_RECOVERY = "registry_swaps_abandoned_recovery"
+# the writer lease (runtime.replication)
+REPLICATION_LEASE_ACQUIRED = "replication_lease_acquired"
+REPLICATION_LEASE_CONFLICTS = "replication_lease_conflicts"
+# the durability monitor (runtime.resilience); DURABILITY_STATE,
+# DISK_FREE_BYTES and DISK_PRESSURE_STATE are gauges
+DURABILITY_STATE = "durability_state"
+DURABILITY_DEGRADED_TRANSITIONS = "durability_degraded_transitions"
+DURABILITY_REARMS = "durability_rearms"
+DURABILITY_PROBES = "durability_probes"
+DURABILITY_PROBE_FAILURES = "durability_probe_failures"
+DURABILITY_LEASE_CHECK_FAILURES = "durability_lease_check_failures"
+ENROLLMENTS_REFUSED_DEGRADED = "enrollments_refused_degraded"
+DISK_FREE_BYTES = "disk_free_bytes"
+DISK_PRESSURE_STATE = "disk_pressure_state"
+DISK_PRESSURE_COMPACTIONS = "disk_pressure_compactions"
+DISK_PRESSURE_RETENTION_SHRINKS = "disk_pressure_retention_shrinks"
+# the supervisor (runtime.resilience)
+SUPERVISOR_CHECKPOINTS = "supervisor_checkpoints"
+SUPERVISOR_RESTARTS = "supervisor_restarts"
+SUPERVISOR_STALLS = "supervisor_stalls"
+SUPERVISOR_GAVE_UP = "supervisor_gave_up"
+SUPERVISOR_DURABLE_RESTORES = "supervisor_durable_restores"
 
 #: the admission ledger: once the service is idle, ``frames_admitted ==
 #: sum(LEDGER_COMPLETION_COUNTERS) + sum(LEDGER_DROP_COUNTERS)``, each

@@ -57,17 +57,20 @@ def fsync_directory(path: str) -> None:
         os.close(fd)
 
 
-def atomic_write_bytes(filename: str, blob: bytes, keep_previous: int = 0) -> None:
+def atomic_write_bytes(filename: str, blob, keep_previous: int = 0) -> None:
     """Crash-safe write: a pid-unique tmp in the same directory, flush,
-    fsync, atomic rename, directory fsync. ``keep_previous > 0`` keeps the
-    old content at ``filename.1 .. N`` (``rotate_backups``), after the tmp
-    is durable."""
+    fsync, atomic rename, directory fsync. ``blob`` is one bytes-like
+    object, or a list of them written in order (a large payload need not
+    be joined first). ``keep_previous > 0`` keeps the old content at
+    ``filename.1 .. N`` (``rotate_backups``), after the tmp is durable."""
+    pieces = blob if isinstance(blob, (list, tuple)) else (blob,)
     filename = str(filename)
     directory = os.path.dirname(os.path.abspath(filename))
     tmp = f"{filename}.tmp.{os.getpid()}"
     fh = open(tmp, "wb")
     try:
-        fh.write(blob)
+        for piece in pieces:
+            fh.write(piece)
         fh.flush()
         os.fsync(fh.fileno())
     finally:

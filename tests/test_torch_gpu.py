@@ -421,3 +421,41 @@ def test_cli_stack_from_port_checkpoints_launches_both_kernels(cuda, tmp_path, c
     assert sorted(r["meta"]["file"] for r in results) == [f"f{i}.pgm" for i in range(6)]
     assert sum(len(r["faces"]) for r in results) > 0
     assert streaming_match_topk.launches > 0 and fused_sep_block.launches > 0
+
+
+@pytest.mark.gpu
+def test_state_restore_of_a_2p17_gallery_matches_through_kernel_a(cuda, tmp_path):
+    """A 2^17-row bf16 gallery checkpointed, one enrolment in the WAL (it
+    grows the gallery to 2^18 rows), recovered into a fresh gallery on the
+    card: the host mirrors are equal and kernel A gives both galleries the
+    same indices and sims, bit for bit."""
+    from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
+
+    rng = np.random.default_rng(11)
+    n = 1 << 17
+    rows = _normed(rng, (n, 256))
+    g = ShardedGallery(n, 256, store_dtype=torch.bfloat16, device=cuda)
+    g.add(rows, np.arange(n, dtype=np.int32))
+    st = StateLifecycle(str(tmp_path))
+    st.bind(g, ["rows"])
+    assert st.checkpoint_now(wait=True)
+    extra = _normed(rng, (3, 256))
+    labels = np.full(3, n, np.int32)
+    st.append_enrollment(extra, labels, subject="late", label=1,
+                         apply_fn=lambda: g.add(extra, labels))
+    st.close()
+    g2, names = ShardedGallery(8, 256, store_dtype=torch.bfloat16, device=cuda), []
+    rep = StateLifecycle(str(tmp_path)).recover(g2, names)
+    assert rep["replayed_records"] == 1 and names == ["rows", "late"]
+    assert g2.capacity == g.capacity == 2 * n and g2.size == g.size
+    for a, b in zip(g.snapshot(), g2.snapshot()):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    q = torch.tensor(_normed(rng, (512, 256)), device=cuda)
+    q[:3] = torch.tensor(extra, device=cuda)
+    before = streaming_match_topk.launches
+    for k in (1, 5):
+        la, sa, ia = g.match(q, k=k)
+        lb, sb, ib = g2.match(q, k=k)
+        assert torch.equal(ia, ib) and torch.equal(sa, sb) and torch.equal(la, lb)
+    assert streaming_match_topk.launches == before + 4
+    assert (ia[:3, 0].cpu().numpy() >= n).all()

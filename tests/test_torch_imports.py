@@ -41,7 +41,7 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.utils.serialization",
                 "opencv_facerecognizer_tpu_torch.utils.dataset",
                 "opencv_facerecognizer_tpu_torch.runtime.tracker",
-                "opencv_facerecognizer_tpu_torch.apps.recognize"):
+                "opencv_facerecognizer_tpu_torch.apps.recognize", *DURABILITY_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -54,6 +54,16 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+#: the crash-safe state slice's modules
+DURABILITY_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.faults",
+                      "opencv_facerecognizer_tpu_torch.runtime.journal",
+                      "opencv_facerecognizer_tpu_torch.runtime.state_store",
+                      "opencv_facerecognizer_tpu_torch.runtime.registry",
+                      "opencv_facerecognizer_tpu_torch.runtime.replication",
+                      "opencv_facerecognizer_tpu_torch.runtime.resilience",
+                      "opencv_facerecognizer_tpu_torch.utils.backend_probe")
 
 
 def _imported_top_names(path):
@@ -121,3 +131,27 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         fused_sep_block(torch.empty(1, 4, 4, 8, device=meta),
                         torch.empty(8, 1, 3, 3), torch.empty(8), torch.empty(8),
                         torch.empty(8, 8, 1, 1), torch.empty(8), torch.empty(8))
+
+
+@pytest.mark.parametrize("mod", DURABILITY_MODULES)
+def test_durability_module_imports_only_the_port(mod):
+    """Each module of the crash-safe state imports no JAX, flax or JAX
+    package, and keeps its own copies (it names nothing of the JAX
+    package)."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()
+
+
+def test_state_dir_cli_without_a_card_raises_and_releases_the_lease(tmp_path, monkeypatch):
+    """``--state-dir`` does not change the device rule: without a card the
+    CLI raises, and the writer lease it took is released again."""
+    from opencv_facerecognizer_tpu_torch.apps.recognize import main
+    from opencv_facerecognizer_tpu_torch.runtime.replication import WriterLease
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--model", "m", "--detector", "d", "--gallery", "g", "--source", "dir",
+              "--dir", "f", "--state-dir", str(tmp_path)])
+    WriterLease(str(tmp_path)).acquire().release()

@@ -20,6 +20,7 @@ import functools
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -341,10 +342,14 @@ class _FlakyPipeline:
         return len(sizes)
 
 
-def _serve(pipeline, n, **kw):
+def _serve(pipeline, n, flush_timeout=0.01, **kw):
+    """``n`` frames through a service of batch size 4. A short flush
+    timeout may split them into partial batches; a long one (1 s) makes
+    the batches the frames' groups of 4, in order, however slowly a
+    loaded machine delivers them."""
     conn = FakeConnector()
     service = RecognizerService(pipeline, conn, batch_size=4, frame_shape=(8, 8),
-                                flush_timeout=0.01, bucket_sizes=(), **kw)
+                                flush_timeout=flush_timeout, bucket_sizes=(), **kw)
     service.start()
     try:
         for i in range(n):
@@ -379,7 +384,8 @@ def test_exhausted_or_permanent_dispatch_abandons_the_batch(error, retried):
     frames land in ``frames_failed`` and the ledger still closes."""
     policy = ResiliencePolicy(dispatch_retries=2, degraded_after=100, backoff_base_s=0.001)
     pipeline = _FlakyPipeline(failures=3 if retried else 1, error=error)
-    conn, service = _serve(pipeline, 4, resilience=policy)
+    # the four frames must form one batch: the failures are counted per batch
+    conn, service = _serve(pipeline, 4, flush_timeout=1.0, resilience=policy)
     c = service.metrics.counters()
     assert c[mn.BATCHES_FAILED] == 1 and c[mn.FRAMES_FAILED] == 4
     assert c.get(mn.DISPATCH_RETRIES, 0) == (2 if retried else 0)
@@ -540,3 +546,140 @@ def test_identity_cache_settles_coherent_frames_as_cached():
     ledger = service.ledger()
     assert ledger["completed_cached"] == len(cached)
     assert ledger["completed"] + ledger["completed_cached"] == 12 and ledger["in_system"] == 0
+
+
+# ---------- --state-dir (durable state) ----------
+
+def _start_state_cli(a, state_dir):
+    """The port's CLI in a subprocess, jsonl mode over a pipe, with
+    ``--state-dir``; stdout lines are collected as they come."""
+    cmd = [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+           "--device", "cpu", *_common_args(a), "--source", "jsonl", "--flush-ms", "5",
+           "--no-track-cache", "--state-dir", state_dir]
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=REPO))
+    out = []
+    threading.Thread(target=lambda: out.extend(json.loads(line) for line in proc.stdout),
+                     daemon=True).start()
+    return proc, out
+
+
+def _send(proc, topic, data):
+    proc.stdin.write(json.dumps({"topic": topic, "data": data}) + "\n")
+    proc.stdin.flush()
+
+
+def _enrol_until_acknowledged(proc, out, a, subject):
+    _send(proc, CONTROL_TOPIC, {"cmd": "enroll", "subject": subject, "count": 2})
+    for seq in range(3):
+        _send(proc, FRAME_TOPIC, {**encode_frame(a["scenes"][0]), "meta": {"seq": seq}})
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        if any(m["topic"] == STATUS_TOPIC and m["data"]["status"] == "enrolled" for m in out):
+            return
+        assert proc.poll() is None, proc.stderr.read()
+        time.sleep(0.05)
+    raise AssertionError("no 'enrolled' status")
+
+
+def _restart_in_process(a, state_dir, monkeypatch, capsys):
+    """The CLI again on the same dir, in-process: frames of the enrolled
+    scene and EOF; returns (names per frame, stderr)."""
+    lines = [json.dumps({"topic": FRAME_TOPIC,
+                         "data": {**encode_frame(a["scenes"][0]), "meta": {"seq": i}}})
+             for i in range(2)]
+    monkeypatch.setattr(sys, "stdin", io.StringIO("\n".join(lines) + "\n"))
+    argv = ["--device", "cpu", *_common_args(a), "--source", "jsonl", "--no-track-cache",
+            "--state-dir", state_dir]
+    assert port_app.main(argv) == 0
+    captured = capsys.readouterr()
+    results = [m["data"] for m in _json_lines(captured.out) if m["topic"] == RESULT_TOPIC]
+    assert len(results) == 2
+    return [{f["name"] for f in r["faces"]} for r in results], captured.err
+
+
+def test_state_dir_sigterm_checkpoints_and_the_restart_names_the_subject(
+        artifacts, tmp_path, monkeypatch, capsys):
+    """Enrol, SIGTERM: the CLI drains, takes its final checkpoint and exits
+    0 with a clean report; restarted, it recovers that checkpoint with
+    nothing to replay and still names the subject."""
+    a = artifacts
+    state_dir = str(tmp_path / "state")
+    proc, out = _start_state_cli(a, state_dir)
+    try:
+        _enrol_until_acknowledged(proc, out, a, "newcomer")
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+        err = proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert "final checkpoint: written" in err and "shutdown: clean" in err
+    names, err2 = _restart_in_process(a, state_dir, monkeypatch, capsys)
+    assert all("newcomer" in n for n in names)
+    assert "'replayed_records': 0" in err2 and "ckpt-00000002.ckpt" in err2
+
+
+def test_state_dir_sigkill_restart_replays_the_wal_and_a_second_writer_fails(
+        artifacts, tmp_path, monkeypatch, capsys):
+    """Enrol, then SIGKILL after ``enrolled``: the restart names the subject
+    through WAL replay. While the first writer lives, a second writer on
+    the same dir exits naming the lease, before it loads anything."""
+    a = artifacts
+    state_dir = str(tmp_path / "state")
+    proc, out = _start_state_cli(a, state_dir)
+    try:
+        _enrol_until_acknowledged(proc, out, a, "newcomer")
+        argv = ["--device", "cpu", *_common_args(a), "--source", "jsonl",
+                "--state-dir", state_dir]
+        with pytest.raises(SystemExit, match="writer lease .* is held"):
+            port_app.main(argv)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    names, err = _restart_in_process(a, state_dir, monkeypatch, capsys)
+    assert all("newcomer" in n for n in names)
+    assert "'replayed_records': 1" in err and "ckpt-00000001.ckpt" in err
+
+
+def test_both_clis_on_one_state_dir_in_turn(artifacts, f32_stacks, tmp_path, capsys):
+    """The JAX CLI, then the port's, then the JAX CLI again, on one state
+    dir (dir mode): each recovers the checkpoint the other wrote at its
+    shutdown and answers every frame as the JAX CLI does."""
+    a = artifacts
+    state_dir = str(tmp_path / "state")
+    argv = _common_args(a) + ["--source", "dir", "--dir", a["frames"], "--state-dir", state_dir]
+    runs = []
+    for main, extra in ((jax_app.main, []), (port_app.main, ["--device", "cpu"]),
+                        (jax_app.main, [])):
+        assert main(argv + extra) == 0
+        captured = capsys.readouterr()
+        runs.append((_json_lines(captured.out), captured.err))
+    (jax1, _e1), (port, port_err), (jax2, jax2_err) = runs
+    # the JAX CLI's first run checkpoints the fresh dir (1) and shuts down (2)
+    assert "ckpt-00000002.ckpt" in port_err and "shutdown: clean" in port_err
+    assert "ckpt-00000003.ckpt" in jax2_err
+    _assert_same_results(port, jax1, key=lambda m: m["file"])
+    _assert_same_results(jax2, jax1, key=lambda m: m["file"])
+    assert sorted(os.listdir(os.path.join(state_dir, "checkpoints"))) == [
+        "ckpt-00000002.ckpt", "ckpt-00000003.ckpt", "ckpt-00000004.ckpt"]
+
+
+DURABILITY_FLAGS = ["--state-dir", "--checkpoint-every-s", "--checkpoint-wal-rows",
+                    "--keep-checkpoints", "--disk-low-watermark", "--durability-probe-s",
+                    "--supervised", "--probe-on-degraded"]
+
+
+@pytest.mark.parametrize("flag", DURABILITY_FLAGS)
+def test_durability_flag_is_served_with_the_reference_default(flag):
+    parser = port_app.build_parser()
+    args = parser.parse_args(_refused_argv(parser, flag, None))
+    port_app.refuse_unported(parser, args)  # no longer refused
+    ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
+    dest = flag.lstrip("-").replace("-", "_")
+    assert parser.get_default(dest) == ref[dest]
+    assert flag not in {f for f, _v, _i in port_app.REFUSED}
+    assert ("--replica-role", "reader") in {(f, v) for f, v, _i in port_app.REFUSED}
