@@ -6,7 +6,7 @@
 Phases (any failure exits nonzero before the result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``opencv_facerecognizer_tpu_torch/csrc``
+2. build the three CUDA kernels from ``opencv_facerecognizer_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and print each kernel
    instantiation's registers, spills and barriers from ``-Xptxas -v``;
 3. hold each kernel against its plain PyTorch version on the card:
@@ -21,16 +21,36 @@ Phases (any failure exits nonzero before the result line):
    serving shape: the wrapper's time by CUDA events around eager calls,
    host work included (``ms``), the kernel's device time from a CUDA
    graph of back-to-back calls (``device_ms``), its plain version and one
-   PyTorch call computing the same function;
+   PyTorch call computing the same function. The NMS keep-mask (kernel C)
+   flag for flag against the plain loop at the serving shape [32, 64] and
+   on tie-heavy sets (NMS_TIE_CASES, up to K = 1024), and timed at the
+   serving shape;
 4. serve: a ``RecognizerService`` over ``FakeConnector`` with the serving
    detector and embedder (random weights from ``--seed``), a 2^20-row
    bf16 gallery, batches of 32 256x256 uint8 frames and the fused
-   embedder. Every frame must get one result, both kernels' launch counts
-   must rise during the run, and the faces of the first batch must find
-   their own planted gallery rows; the first batch through the same stack
-   in f32 must agree with the CPU (smaller gallery; see XCHECK_*);
-5. time the steady-state serving step, fused and unfused embedder in
-   turns, and profile it (device time by kernel, the card's busy share);
+   embedder, every ladder rung a CUDA graph captured at warmup. Every
+   frame must get one result, each step must launch kernel C once, kernel
+   B six times and kernel A once (replays counted), and the faces of the
+   first batch must find their own planted gallery rows; the first batch
+   through the same stack in f32 must agree with the CPU (smaller
+   gallery; see XCHECK_*);
+5. time the steady-state serving step four ways in turns, CUDA graphs
+   or eager, fused or unfused embedder: host clock with the result read
+   back per step, host clock back to back, and profiled (device time by
+   kernel, the card's busy share, device operations and graph launches
+   per step); the capture time of each rung and the graph pool's bytes;
+   the graphed and eager steps' outputs compared. One ``{"step": ...}``
+   line;
+9. (run after 5) async grow under load: a 2^20-row bf16 gallery with
+   ``async_grow=True`` filled to GROW_HEADROOM rows short of its tier,
+   steps of the phase-4 stack served back to back on a thread while the
+   faces of one batch are enrolled (overflowing the tier): each step's
+   host-clock ms before, during and after the grow, the grow's stages
+   (``last_grow_info``) and the seconds from ``add`` to ``wait_ready``.
+   Every step must return its frames' results, the subject must then be
+   named at the 2^21 tier through kernels A, B and C, nothing may stay
+   staged. Then adds of 2 rows within the tier (in place) against one
+   whole-gallery upload at that tier. One ``{"async_grow": ...}`` line;
 6. IVF: the same 2^20 rows in a gallery with a ``CoarseQuantizer``
    attached in mode ``"auto"`` (``default_nlist``, ``nprobe`` 8), as the
    reference's recognizer serves such a gallery. Build it (nlist,
@@ -91,8 +111,8 @@ Phases (any failure exits nonzero before the result line):
    max and the CLI's startup seconds, with the card's name and power
    limit; smoke observations, not measurements.
 
-The line before the last is the per-kernel JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the per-kernel JSON (kernels A, B and C); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -121,6 +141,7 @@ from opencv_facerecognizer_tpu_torch.ops.distance import CosineDistance
 from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops.ivf_match import (
     gather_bucket, ivf_match_topk, shortlist_cells, tie_aware_agreement)
+from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask, nms_mask_plain
 from opencv_facerecognizer_tpu_torch.ops.sepblock import (
     fused_sep_block, fused_sep_block_plain)
 from opencv_facerecognizer_tpu_torch.ops.sepblock import launch_info as sepblock_launch_info
@@ -179,6 +200,19 @@ OTHER_BLOCKS = [(32, 32, 32, 48, 2), (16, 16, 48, 48, 1), (16, 16, 48, 96, 2),
 #: kernel B's batches: the serving 512, fewer samples than CTAs (37), and
 #: more than two per CTA of a full grid (601); none a multiple of the grid
 SEP_BATCHES = (512, 37, 601)
+#: kernel C (NMS keep-mask): the serving shape (32 images of K = 64
+#: candidates: 4 x max_faces), tie-heavy sets (boxes on a half-pixel grid,
+#: so IoUs land exactly on the threshold; scores rounded to 0.1) of
+#: (images, K) each (the plain loop's [n, K, K] IoUs bound n at K = 1024),
+#: the detector's thresholds
+NMS_K = 4 * MAX_FACES
+NMS_TIE_CASES = ((4096, 64), (4096, 256), (64, 1024))
+NMS_IOU, NMS_SCORE = 0.4, 0.3
+#: async-grow phase: rows short of the tier when the enrolment comes, steps
+#: timed before the add and after the grow lands, adds timed within a tier
+GROW_HEADROOM = 8
+GROW_STEPS = 20
+GROW_ADDS = 5
 #: CPU cross-check: the first batch through the same stack computing in
 #: f32 on the card and on the CPU (in bf16 the two devices' convolutions
 #: round at other points, so detection decisions near a boundary differ
@@ -493,9 +527,69 @@ def check_sepblock(dev, gen) -> dict:
                 library_ms=tot["library_ms"])
 
 
-def build_stack(device, seed: int, gallery, dtype=torch.bfloat16) -> RecognitionPipeline:
+def _nms_inputs(gen, n_img: int, k: int, dev, grid: bool):
+    """Boxes [n, k, 4] and scores [n, k] on ``dev``: detector-like boxes in
+    a 256x256 canvas, or (``grid``) boxes on a half-pixel grid with scores
+    rounded to 0.1 (exact IoU ties at the threshold, exact score ties)."""
+    if grid:
+        yx = torch.randint(0, 40, (n_img, k, 2), generator=gen) * 0.5
+        hw = torch.randint(1, 12, (n_img, k, 2), generator=gen) * 0.5
+        scores = torch.round(torch.rand(n_img, k, generator=gen) * 10) / 10
+    else:
+        yx = torch.rand(n_img, k, 2, generator=gen) * 224
+        hw = torch.rand(n_img, k, 2, generator=gen) * 40 + 4
+        scores = torch.rand(n_img, k, generator=gen)
+    return torch.cat([yx, yx + hw], -1).to(dev), scores.to(dev)
+
+
+def check_nms(dev, gen) -> dict:
+    """Kernel C vs its plain version (flag for flag) at the serving shape
+    and on the tie-heavy sets; times the wrapper at the serving shape."""
+    mismatches = 0
+    cases = [(BATCH, NMS_K, False)] + [(n, k, True) for n, k in NMS_TIE_CASES]
+    for n_img, k, grid in cases:
+        boxes, scores = _nms_inputs(gen, n_img, k, dev, grid)
+        for iou_thr, score_thr in ((NMS_IOU, NMS_SCORE), (0.5, 0.0)):
+            got = nms_mask(boxes, scores, iou_thr, score_thr)
+            want = nms_mask_plain(boxes, scores, iou_thr, score_thr)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum().item())
+            mismatches += bad
+            log(f"kernel C {n_img} x K={k} ({'grid, ties' if grid else 'random'}) "
+                f"iou {iou_thr} score {score_thr}: {bad} flags differ from the plain loop; "
+                f"{got.float().mean().item():.3f} of candidates kept")
+    if mismatches:
+        raise AssertionError(f"kernel C: {mismatches} keep flags differ from the plain loop")
+    boxes, scores = _nms_inputs(gen, BATCH, NMS_K, dev, grid=False)
+    ms = cuda_ms(lambda: nms_mask(boxes, scores, NMS_IOU, NMS_SCORE))
+    device_ms = graph_ms(lambda: nms_mask(boxes, scores, NMS_IOU, NMS_SCORE))
+    plain_ms = cuda_ms(lambda: nms_mask_plain(boxes, scores, NMS_IOU, NMS_SCORE), iters=5)
+    plain_device_ms = graph_ms(lambda: nms_mask_plain(boxes, scores, NMS_IOU, NMS_SCORE),
+                               iters=3)
+    # the function's bytes (boxes and scores in, the mask out) and its f32
+    # operations (about 12 per IoU pair, K(K-1)/2 pairs an image)
+    nbytes = BATCH * NMS_K * (16 + 4 + 1)
+    t_ops = BATCH * NMS_K * (NMS_K - 1) / 2 * 12 / F32_FLOPS
+    bound = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
+    log(f"kernel C [{BATCH}, {NMS_K}] (sort + gathers + the keep kernel): {ms:.4f} ms eager "
+        f"with events, {device_ms:.4f} ms device time; plain loop {plain_ms:.4f} ms eager, "
+        f"{plain_device_ms:.4f} ms device time; bound {bound:.6f} ms; no single PyTorch call "
+        "computes the greedy keep-mask")
+    return dict(name="nms", route="cuda",
+                source="opencv_facerecognizer_tpu_torch/csrc/nms.cu",
+                replaces="opencv_facerecognizer_tpu/ops/nms.py:34 (lax.fori_loop, no Pallas)",
+                max_abs_err=float(mismatches), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=bound,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S > t_ops else "operations",
+                library_ms=None)
+
+
+def build_stack(device, seed: int, gallery, dtype=torch.bfloat16, fused: bool = True,
+                cuda_graphs: bool = True) -> RecognitionPipeline:
     """The serving stack on ``device``, compute in ``dtype``, weights from
-    ``seed`` (the same weights on every device and dtype), fused embedder."""
+    ``seed`` (the same weights on every device and dtype), the fused
+    embedder unless ``fused`` is False, each step a CUDA graph unless
+    ``cuda_graphs`` is False."""
     det = detector_mod.CNNFaceDetector(device=device, dtype=dtype,
                                        generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
@@ -507,7 +601,19 @@ def build_stack(device, seed: int, gallery, dtype=torch.bfloat16) -> Recognition
                                     generator=torch.Generator().manual_seed(seed + 1))
     return RecognitionPipeline(det, net.to(device), gallery,
                                face_size=embedder_mod.SERVING_FACE_SIZE,
-                               fused_embedder=True, device=device)
+                               fused_embedder=fused, device=device, cuda_graphs=cuda_graphs)
+
+
+def drop_stack(pipeline) -> None:
+    """Unhook a pipeline from its gallery and drop its cached steps (and
+    with them its graphs' pool), so a stack built for one measurement
+    does not outlive it."""
+    g = pipeline.gallery
+    for hooks, fn in ((g.prewarm_hooks, pipeline.prewarm_capacity),
+                      (g.evict_hooks, pipeline.evict_below)):
+        if fn in hooks:
+            hooks.remove(fn)
+    pipeline._step_cache.clear()
 
 
 def bf16_gallery(device, rows: np.ndarray, labels: np.ndarray) -> ShardedGallery:
@@ -564,42 +670,99 @@ def step_time_ms(pipeline, batch, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_step(pipeline, batch, steps: int = 3) -> None:
-    """Device time by kernel over a few serving steps (torch.profiler), and
-    the card's busy share of the profiled wall time."""
+def back_to_back_ms(pipeline, batch, iters: int = 20) -> float:
+    """Host-clock ms per step of ``iters`` steps queued back to back (one
+    synchronize at the end): the card's time per step when the host keeps
+    ahead, the host's when it does not."""
+    for _ in range(3):
+        pipeline.recognize_batch_packed(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pipeline.recognize_batch_packed(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _profiled(fn, steps: int):
+    """(device events averaged over ``steps`` calls of ``fn``, host-clock
+    ms per call, graph launches per call) from ``torch.profiler``. Only
+    device-side events (kernels, copies, sets) count: an operator's row
+    repeats the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipeline.recognize_batch_packed(batch).cpu()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            pipeline.recognize_batch_packed(batch).cpu()
+            fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = prof.key_averages()
+    rows = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
+    launches = sum(e.count for e in events if e.key == "cudaGraphLaunch") / steps
+    return rows, wall_ms, launches
+
+
+def profile_step(pipeline, batch, steps: int = 3, what: str = "") -> dict:
+    """Device time by kernel over a few serving steps (torch.profiler), the
+    card's busy share of the profiled wall time with the result read back
+    per step and with the steps queued back to back, device operations and
+    graph launches per step."""
+    pipeline.recognize_batch_packed(batch).cpu()
+    rows, wall_ms, graph_launches = _profiled(
+        lambda: pipeline.recognize_batch_packed(batch).cpu(), steps)
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-    log(f"profile over {steps} steps: device {device_ms:.3f} ms per step, wall "
+    ops = sum(e.count for e in rows) / steps
+    b2b_rows, b2b_wall_ms, _ = _profiled(lambda: pipeline.recognize_batch_packed(batch),
+                                         2 * steps)
+    b2b_device_ms = sum(e.self_device_time_total for e in b2b_rows) / 1e3 / (2 * steps)
+    log(f"profile {what} over {steps} steps: device {device_ms:.3f} ms per step, wall "
         f"{wall_ms:.3f} ms under the profiler, card busy {device_ms / wall_ms:.1%}; "
-        f"{sum(e.count for e in rows) // steps} device ops per step")
+        f"back to back {b2b_wall_ms:.3f} ms per step, card busy "
+        f"{b2b_device_ms / b2b_wall_ms:.1%}; {ops:.0f} device ops and "
+        f"{graph_launches:.0f} graph launches per step")
     for e in rows[:12]:
         log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms  x{e.count // steps:<5d} "
             f"{e.key[:90]}")
+    return dict(device_ms=device_ms, profiled_wall_ms=wall_ms, busy=device_ms / wall_ms,
+                back_to_back_profiled_wall_ms=b2b_wall_ms,
+                busy_back_to_back=b2b_device_ms / b2b_wall_ms, device_ops=ops,
+                graph_launches=graph_launches)
+
+
+#: (wrapper, attribute, name in the kernels' JSON) of every kernel on the path
+KERNEL_COUNTERS = ((streaming_match_topk, "launches", "streaming_match"),
+                   (fused_sep_block, "launches", "sepblock"),
+                   (nms_mask, "launches", "nms"))
+
+
+def zero_counters() -> None:
+    for fn, attr, _name in KERNEL_COUNTERS:
+        setattr(fn, attr, 0)
+    ivf_match_topk.calls = 0
+
+
+def read_launches() -> dict:
+    return {name: getattr(fn, attr) for fn, attr, name in KERNEL_COUNTERS}
 
 
 def run_service(pipeline, frames):
     """Serve ``frames`` through a ``RecognizerService`` over
     ``FakeConnector``; the kernels' launch counts and the two-stage match
-    count are set to 0 after the warm-up and read after the drain. Fails
-    unless every frame gets one result and both kernels launched. Returns
-    (results, launches, service, seconds)."""
+    count are set to 0 after the warm-up (which captures the ladder's
+    graphs) and read after the drain, replays included. Fails unless every
+    frame gets one result and every step launched kernel C once, kernel B
+    six times with the fused embedder and kernel A once on the exact
+    kernel path. Returns (results, launches, service, seconds)."""
     conn = FakeConnector()
     service = RecognizerService(pipeline, conn, batch_size=BATCH, frame_shape=FRAME,
                                 transfer_dtype=np.uint8, flush_timeout=0.05)
     service.start(warmup=True)
     # the path's launches: counted from here to the end of the drain
-    streaming_match_topk.launches = 0
-    fused_sep_block.launches = 0
-    ivf_match_topk.calls = 0
+    zero_counters()
     t_serve = time.perf_counter()
     try:
         for i, frame in enumerate(frames):
@@ -609,14 +772,21 @@ def run_service(pipeline, frames):
     finally:
         service.stop()
     serve_s = time.perf_counter() - t_serve
-    launches = {"streaming_match": streaming_match_topk.launches,
-                "sepblock": fused_sep_block.launches}
+    launches = read_launches()
     results = conn.messages(RESULT_TOPIC)
     if len(results) != len(frames) or sorted(r["meta"]["i"] for r in results) != list(
             range(len(frames))):
         raise AssertionError("not one result per frame")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel did not run on the serving path: {launches}")
+    steps = int(service.metrics.counter(BATCHES_DISPATCHED))
+    g = pipeline.gallery
+    exact_kernel = g.kernel_enabled(g.data.capacity) and ivf_match_topk.calls == 0
+    want = {"nms": steps, "sepblock": 6 * steps if pipeline.fused_embedder else 0}
+    if exact_kernel:
+        want["streaming_match"] = steps
+    if steps < 1 or pipeline.device.type == "cuda" and (  # the CPU launches no kernel
+            any(launches[k] != n for k, n in want.items()) or min(launches.values()) < 1):
+        raise AssertionError(f"launches {launches} in {steps} steps; each step must launch "
+                             f"{ {k: n // max(steps, 1) for k, n in want.items()} }")
     return results, launches, service, serve_s
 
 
@@ -697,23 +867,55 @@ def serve(dev, seed: int, n_frames: int):
         f"{bool((a.valid == b.valid).all())}")
 
     # steady-state step (host frames in, packed result back on the host),
-    # fused embedder (kernel B) and unfused, in turns
-    batch = frames[:BATCH]
-    step_ms = {True: [], False: []}
-    for fused in (True, False, False, True):
-        gpu.fused_embedder = fused
-        step_ms[fused].append(step_time_ms(gpu, batch))
-    gpu.fused_embedder = True
-    faces_per_batch = n_plant  # the first batch's faces on the serving stack
+    # graphed and eager, fused embedder (kernel B) and unfused, in turns
+    step = time_steps(dev, seed, gpu, frames[:BATCH], n_plant)
+    return launches, dict(stack=gpu, rows=rows, labels=labels, n_plant=n_plant, frames=frames,
+                          step=step)
+
+
+def time_steps(dev, seed: int, gpu, batch, faces_per_batch: int) -> dict:
+    """Phase 5: the serving step over ``gpu``'s gallery four ways (CUDA
+    graphs or eager, fused or unfused embedder; the same weights), each by
+    host clock with the result read back per step (in turns: graphed,
+    eager, eager, graphed), by host clock back to back, and profiled.
+    Also the capture time of each ladder rung and the graph pool's bytes
+    of the serving stack ``gpu``."""
+    stacks = {(True, True): gpu}
+    for graphs, fused in ((True, False), (False, True), (False, False)):
+        stacks[(graphs, fused)] = build_stack(dev, seed, gpu.gallery, fused=fused,
+                                              cuda_graphs=graphs)
+    out = {"capture_ms": {str(k[0]): v for k, v in gpu.capture_ms.items()},
+           "graph_pool_bytes": gpu.graph_pool_bytes(),
+           "memory_reserved_bytes": torch.cuda.memory_reserved()}
     for fused in (True, False):
-        ms = float(np.mean(step_ms[fused]))
-        log(f"steady-state step, {'fused' if fused else 'unfused'} embedder: "
-            f"{[round(t, 3) for t in step_ms[fused]]} ms per batch of {BATCH} frames, "
-            f"host clock ({BATCH * 1e3 / ms:.1f} frames/s, "
-            f"{BATCH * MAX_FACES * 1e3 / ms:.1f} face slots/s, "
-            f"{faces_per_batch * 1e3 / ms:.1f} detected faces/s)")
-    profile_step(gpu, batch)
-    return launches, dict(stack=gpu, rows=rows, labels=labels, n_plant=n_plant, frames=frames)
+        ms = {True: [], False: []}
+        for graphs in (True, False, False, True):
+            ms[graphs].append(step_time_ms(stacks[(graphs, fused)], batch))
+        for graphs in (True, False):
+            p = stacks[(graphs, fused)]
+            what = f"{'graphed' if graphs else 'eager'} {'fused' if fused else 'unfused'}"
+            t = float(np.mean(ms[graphs]))
+            b2b = back_to_back_ms(p, batch)
+            prof = profile_step(p, batch, what=what)
+            out[what.replace(" ", "_")] = dict(host_ms=ms[graphs], back_to_back_ms=b2b,
+                                               **prof)
+            log(f"steady-state step, {what}: {[round(v, 3) for v in ms[graphs]]} ms per batch "
+                f"of {BATCH} frames, host clock ({BATCH * 1e3 / t:.1f} frames/s, "
+                f"{BATCH * MAX_FACES * 1e3 / t:.1f} face slots/s, "
+                f"{faces_per_batch * 1e3 / t:.1f} detected faces/s); back to back "
+                f"{b2b:.3f} ms per step")
+    graphed = stacks[(True, True)].recognize_batch_packed(batch).clone()
+    eager = stacks[(False, True)].recognize_batch_packed(batch)
+    out["graphed_equals_eager"] = bool(torch.equal(graphed, eager))
+    out["graphed_vs_eager_max_abs"] = float((graphed - eager).abs().max().item())
+    log(f"graphed step vs eager step, same frames: equal bit for bit "
+        f"{out['graphed_equals_eager']} (max |diff| {out['graphed_vs_eager_max_abs']:.3e}); "
+        f"capture ms per rung {out['capture_ms']}; graph pool "
+        f"{out['graph_pool_bytes']} bytes")
+    for key, p in stacks.items():
+        if key != (True, True):
+            drop_stack(p)
+    return out
 
 
 def _unit_rows(x: np.ndarray) -> np.ndarray:
@@ -1664,6 +1866,124 @@ def durability_phase(dev, seed: int, card: str, ctx: dict) -> dict:
                 service_ledger=crashed["ledger"], phase_steps=steps)
 
 
+def async_grow_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 9 (module docstring); returns the ``{"async_grow": ...}``
+    numbers."""
+    rows, labels, frames = ctx["rows"], ctx["labels"], ctx["frames"]
+    n0 = GALLERY_ROWS - GROW_HEADROOM
+    gallery = ShardedGallery(GALLERY_ROWS, DIM, store_dtype=torch.bfloat16, device=dev,
+                             async_grow=True)
+    gallery.add(rows[:n0], labels[:n0])
+    stack = ctx["stack"]
+    pipe = RecognitionPipeline(stack.detector, stack.embed_net, gallery,
+                               face_size=embedder_mod.SERVING_FACE_SIZE,
+                               fused_embedder=True, device=dev)
+    pipe.prewarm_batch_shapes([BATCH], FRAME, np.uint8)
+    # the subject: the faces of one batch (its own embeddings on the card)
+    subject = frames[BATCH:2 * BATCH]
+    _b, _s, valid, emb = pipe.embed_frames(subject)
+    faces = emb[valid.reshape(-1)].float().cpu().numpy()
+    label = int(labels.max()) + 1
+    if len(faces) <= GROW_HEADROOM:
+        raise AssertionError(f"only {len(faces)} faces: the enrolment would not overflow")
+
+    steps, served, stop = [], [0], threading.Event()
+    errors = []
+
+    def serve_loop():
+        i = 0
+        try:
+            while not stop.is_set():
+                batch = frames[(i % 4) * BATCH:(i % 4 + 1) * BATCH]
+                t0 = time.perf_counter()
+                out = pipe.recognize_batch_packed(batch).cpu()
+                steps.append((t0, (time.perf_counter() - t0) * 1e3,
+                              pipe.gallery.data.capacity, pipe.last_dispatch_info["cache_hit"]))
+                if out.shape[0] != BATCH:
+                    raise AssertionError(f"a step returned {out.shape[0]} results")
+                served[0] += out.shape[0]
+                i += 1
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    zero_counters()
+    worker = threading.Thread(target=serve_loop, name="grow-phase-serving", daemon=True)
+    worker.start()
+    try:
+        wait_for(lambda: errors or len(steps) >= GROW_STEPS, 120, "steps before the grow")
+        t_add = time.perf_counter()
+        gallery.add(faces, np.full(len(faces), label, np.int32))
+        add_ms = (time.perf_counter() - t_add) * 1e3
+        staged = gallery.pending_rows
+        landed = gallery.wait_ready(timeout=300)
+        ready_s = time.perf_counter() - t_add
+        t_landed = time.perf_counter()
+        n_before_land = len(steps)
+        wait_for(lambda: errors or len(steps) >= n_before_land + GROW_STEPS, 120,
+                 "steps after the grow")
+    finally:
+        stop.set()
+        worker.join(timeout=120)
+    if worker.is_alive() or errors:
+        raise AssertionError(f"serving during the grow failed: {errors}")
+    launches = read_launches()
+    info = dict(gallery.last_grow_info)
+    if not landed or gallery.pending_rows or "error" in info:
+        raise AssertionError(f"the grow did not land: pending {gallery.pending_rows}, {info}")
+    if gallery.data.capacity != 2 * GALLERY_ROWS:
+        raise AssertionError(f"capacity {gallery.data.capacity} after the grow")
+    if served[0] != len(steps) * BATCH:
+        raise AssertionError(f"{served[0]} results for {len(steps)} steps of {BATCH} frames")
+    before = [ms for t, ms, _c, _h in steps if t < t_add]
+    during = [ms for t, ms, _c, _h in steps if t_add <= t < t_landed]
+    after = [ms for t, ms, cap, _h in steps if t >= t_landed and cap == 2 * GALLERY_ROWS]
+    misses = sum(1 for _t, _ms, cap, hit in steps if cap == 2 * GALLERY_ROWS and not hit)
+    # the subject is named at the new tier, through kernels A and B
+    zero_counters()
+    out = unpack_result(pipe.recognize_batch_packed(subject).cpu().numpy(), 1)
+    at_tier = read_launches()
+    named = out.labels[..., 0][out.valid]
+    if not (named == label).all() or out.similarities[..., 0][out.valid].min() < 0.99:
+        raise AssertionError("the enrolled subject's faces are not named after the grow")
+    if dev.type == "cuda" and at_tier != {"streaming_match": 1, "sepblock": 6, "nms": 1}:
+        raise AssertionError(f"launches at the 2^21 tier: {at_tier}")
+    # an add of 2 rows within the tier (in place) against a whole-gallery
+    # upload at the same tier (what every add cost before the in-place path)
+    rng = np.random.default_rng(seed + 9)
+    add2 = []
+    for _ in range(GROW_ADDS):
+        extra = _unit_rows(rng.standard_normal((2, DIM), dtype=np.float32))
+        t = time.perf_counter()
+        gallery.add(extra, np.full(2, label + 1, np.int32))
+        add2.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    with gallery._write_lock:
+        gallery._install(gallery.size)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t) * 1e3
+    result = dict(
+        card=card, rows_before=n0, enrolled_rows=len(faces), staged_rows=staged,
+        add_ms=add_ms, add_to_ready_s=ready_s, grow_info=info, steps=len(steps),
+        step_ms_before=float(np.median(before)),
+        step_ms_during=dict(n=len(during), median=float(np.median(during)) if during else None,
+                            max=max(during, default=None)),
+        step_ms_after=float(np.median(after)), step_ms_max=max(ms for _t, ms, _c, _h in steps),
+        misses_at_new_tier=misses, captures=pipe.captures, recaptures=pipe.recaptures,
+        launches_while_serving=launches, launches_at_new_tier=at_tier,
+        add2_in_place_ms=add2, whole_gallery_upload_ms=whole_ms)
+    log(f"async grow under load ({card}): {len(faces)} rows enrolled into {n0} rows at "
+        f"capacity {GALLERY_ROWS}; add returned in {add_ms:.2f} ms with {staged} rows staged, "
+        f"wait_ready after {ready_s:.3f} s ({info}); steps {len(steps)}: median "
+        f"{result['step_ms_before']:.3f} ms before, {result['step_ms_during']} during, "
+        f"median {result['step_ms_after']:.3f} ms after; cache misses at the new tier "
+        f"{misses}; launches {launches}; the subject named at 2^21 through {at_tier}")
+    log(f"add of 2 rows within the 2^21 tier: {[round(v, 3) for v in add2]} ms in place; "
+        f"a whole-gallery upload at the same tier {whole_ms:.1f} ms")
+    drop_stack(pipe)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1685,13 +2005,16 @@ def main() -> int:
     for name in _build.KERNELS:
         log_ptxas(name)
     gen = torch.Generator().manual_seed(args.seed)
-    entries = [check_match(dev, gen), check_sepblock(dev, gen)]
+    entries = [check_match(dev, gen), check_sepblock(dev, gen), check_nms(dev, gen)]
     launches, ctx = serve(dev, args.seed, args.frames)
+    grow = async_grow_phase(dev, args.seed, card, ctx)
     ivf = ivf_phase(dev, args.seed, ctx)
     cli = cli_phase(dev, args.seed, card, ctx)
     durability = durability_phase(dev, args.seed, card, ctx)
     for e in entries:
         e["launches"] = launches[e["name"]]
+    print(json.dumps({"step": {"card": card, **ctx["step"]}}))
+    print(json.dumps({"async_grow": grow}))
     print(json.dumps({"ivf": ivf}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"durability": durability}))

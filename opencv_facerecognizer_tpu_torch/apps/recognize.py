@@ -58,7 +58,6 @@ _INGEST = "ROADMAP A.8.3 (ingest staging ring, JPEG decode pool)"
 _OBSERVE = "ROADMAP A.8.4 (tracing, SLO monitor, exposition, profiling)"
 _REGISTRY = "ROADMAP A.8.5 (model registry, cascade)"
 _REPLICAS = "ROADMAP A.8.6 (replication, topic router)"
-_HOST = "ROADMAP A.8.7 (host side of the step: async grow, CUDA graphs)"
 _MULTI_GPU = "ROADMAP A.11 (multi-GPU)"
 
 #: (flag, refused value or None for "any value but the default", item)
@@ -87,7 +86,6 @@ REFUSED = (
     ("--router-writer", None, _REPLICAS), ("--router-link-deadline-s", None, _REPLICAS),
     ("--router-hedge-deadline-s", None, _REPLICAS),
     ("--router-dedup-window", None, _REPLICAS),
-    ("--async-grow", None, _HOST),
     ("--parallel", "pp", _MULTI_GPU),
 )
 
@@ -297,7 +295,8 @@ def _load_stack(args, metrics):
     gallery = ShardedGallery(
         max(args.capacity, 2 * len(emb)), emb.shape[1],
         store_dtype=torch.bfloat16 if args.gallery_dtype == "bf16" else torch.float32,
-        device=device, embedder_version=args.embedder_version or 1)
+        device=device, embedder_version=args.embedder_version or 1,
+        async_grow=args.async_grow)
     gallery.add(emb, labels)
     if args.match_mode != "exact":
         # attached after the startup enrolment: main() runs the one build

@@ -7,6 +7,11 @@ numerics: NCHW tensors, float32 parameters, compute in ``dtype``.
 - ``GroupNorm``: ``nn.GroupNorm`` with flax's defaults: epsilon 1e-6,
   statistics in float32 as E[x^2] - E[x]^2 clipped at 0, the scale folded
   into the rsqrt, output cast to the compute dtype.
+- ``cast_param``: a parameter in the compute dtype without a cast per
+  call. The copy is made once and refreshed in place (``copy_``) when the
+  parameter changes, so it keeps its address and a CUDA graph captured
+  over it sees new weights; ``load_state_dict`` refreshes every copy at
+  once (``track_casts``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,45 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
+
+
+def cast_param(owner: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Parameter ``name`` of ``owner`` in ``dtype``: the parameter itself
+    when it has that dtype, else one cached copy. The copy follows the
+    parameter (its identity and version counter), so an in-place change
+    (``copy_``, ``fill_``) or a swapped-in tensor (``functional_call``)
+    refreshes it in place on the next read; a new device or shape makes
+    a new copy."""
+    param = getattr(owner, name)
+    if param.dtype == dtype:
+        return param
+    casts = owner.__dict__.setdefault("_casts", {})
+    entry = casts.get((name, dtype))
+    if entry is None or entry[0].shape != param.shape or entry[0].device != param.device:
+        entry = casts[(name, dtype)] = [param.detach().to(dtype), param._version, param]
+    elif entry[2] is not param or entry[1] != param._version:
+        with torch.no_grad():
+            entry[0].copy_(param)
+        entry[1:] = [param._version, param]
+    return entry[0]
+
+
+def refresh_casts(module: nn.Module) -> None:
+    """Bring every cached cast below ``module`` up to date in place."""
+    for m in module.modules():
+        for (name, dtype) in list(m.__dict__.get("_casts", {})):
+            cast_param(m, name, dtype)
+
+
+def _refresh_after_load(module: nn.Module, _incompatible_keys) -> None:
+    refresh_casts(module)
+
+
+def track_casts(module: nn.Module) -> None:
+    """Refresh ``module``'s cached casts whenever ``load_state_dict``
+    loads it, so weights installed between two graph replays reach the
+    next replay."""
+    module.register_load_state_dict_post_hook(_refresh_after_load)
 
 
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -57,8 +101,8 @@ class ConvSame(nn.Module):
             pw = same_padding(x.shape[3], kw, self.stride)
             if any(ph + pw):
                 x = F.pad(x, (*pw, *ph))
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return F.conv2d(x.to(dtype), self.weight.to(dtype), bias,
+        bias = None if self.bias is None else cast_param(self, "bias", dtype)
+        return F.conv2d(x.to(dtype), cast_param(self, "weight", dtype), bias,
                         stride=self.stride, groups=self.groups)
 
 

@@ -27,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opencv_facerecognizer_tpu_torch.models._layers import (
-    ConvSame, GroupNorm, reset_all, space_to_depth_nhwc)
+    ConvSame, GroupNorm, reset_all, space_to_depth_nhwc, track_casts)
 from opencv_facerecognizer_tpu_torch.ops import nms as nms_ops
 from opencv_facerecognizer_tpu_torch.utils import _msgpack, serialization
 from opencv_facerecognizer_tpu_torch.utils.device import (
@@ -88,6 +88,7 @@ class DetectorNet(nn.Module):
         self.size = ConvSame(self.head_features, 2, (1, 1), bias=True)
         self.offset = ConvSame(self.head_features, 2, (1, 1), bias=True)
         self.reset_parameters(generator)
+        track_casts(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Seeded init (LeCun-normal convs, heatmap bias -4, as flax)."""
@@ -148,10 +149,15 @@ def decode_detections(outputs: Dict[str, torch.Tensor], max_faces: int = 16,
                                              iou_threshold, score_threshold)
     # Clamp to the decoded canvas (exclusive yxyx bounds); invalid slots
     # are zero boxes, unaffected.
-    lim = torch.tensor([hs * STRIDE, ws * STRIDE, hs * STRIDE, ws * STRIDE],
-                       dtype=boxes.dtype, device=boxes.device)
-    boxes = torch.minimum(torch.clamp(boxes, min=0.0), lim)
-    return boxes, scores, valid
+    return clip_boxes(boxes, hs * STRIDE, ws * STRIDE), scores, valid
+
+
+def clip_boxes(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor:
+    """yxyx boxes clamped to [0, height] x [0, width]; the limits are
+    kernel arguments, no tensor is copied to the device."""
+    y = boxes[..., 0::2].clamp(0.0, float(height))
+    x = boxes[..., 1::2].clamp(0.0, float(width))
+    return torch.stack([y[..., 0], x[..., 0], y[..., 1], x[..., 1]], dim=-1)
 
 
 class CNNFaceDetector:
@@ -181,7 +187,9 @@ class CNNFaceDetector:
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Load a state dict (``utils.params.detector_params_from_flax``
-        turns the JAX package's params into one)."""
+        turns the JAX package's params into one) in place: every parameter
+        and its cached compute-dtype copy keep their addresses, so a
+        captured serving step runs the new weights on its next replay."""
         self.net.load_state_dict(params)
 
     # -- checkpoints: the reference's format, both ways --
@@ -237,9 +245,7 @@ class CNNFaceDetector:
         boxes, scores, valid = decode_detections(
             self.net(images), self.max_faces, self.score_threshold,
             self.iou_threshold)
-        lim = torch.tensor([h, w, h, w], dtype=boxes.dtype, device=boxes.device)
-        boxes = torch.minimum(torch.clamp(boxes, min=0.0), lim)
-        return boxes, scores, valid
+        return clip_boxes(boxes, h, w), scores, valid
 
     def detect(self, img):
         """One grayscale image -> [(x0, y0, x1, y1)] ints, x-first."""

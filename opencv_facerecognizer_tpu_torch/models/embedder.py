@@ -28,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opencv_facerecognizer_tpu_torch.models._layers import (
-    ConvSame, GroupNorm, reset_all)
+    ConvSame, GroupNorm, cast_param, reset_all, track_casts)
 from opencv_facerecognizer_tpu_torch.models.feature import AbstractFeature
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.ops.sepblock import fused_sep_block
@@ -124,6 +124,7 @@ class FaceEmbedNet(nn.Module):
         self.dense = nn.Linear(in_ch, self.embed_dim)  # Dense_0
         reset_all(self, generator if generator is not None
                   else torch.Generator().manual_seed(0))
+        track_casts(self)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         """[N, H, W] -> stem output NCHW (channels_last) in the compute dtype."""
@@ -137,8 +138,8 @@ class FaceEmbedNet(nn.Module):
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
-        x = F.linear(x.to(self.dtype), self.dense.weight.to(self.dtype),
-                     self.dense.bias.to(self.dtype)).float()
+        x = F.linear(x.to(self.dtype), cast_param(self.dense, "weight", self.dtype),
+                     cast_param(self.dense, "bias", self.dtype)).float()
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
                                min=1e-12)
 
@@ -158,7 +159,7 @@ def fused_forward(net: FaceEmbedNet, x: torch.Tensor) -> torch.Tensor:
     x = net._stem(x).permute(0, 2, 3, 1)  # NHWC view of channels_last: free
     for blk in net.blocks:
         x = blk.fused(x)
-    gdc = net.gdc.weight.to(net.dtype)[:, 0]  # [C, h, w]
+    gdc = cast_param(net.gdc, "weight", net.dtype)[:, 0]  # [C, h, w]
     x = torch.einsum("nhwc,chw->nc", x.to(net.dtype), gdc)
     return net._head(x)
 

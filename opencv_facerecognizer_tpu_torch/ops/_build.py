@@ -15,6 +15,11 @@ tensor builds it, or ``build_all()`` builds every kernel in parallel (one
 ``nvcc`` process per source) ahead of time. A failed build raises with the
 compiler's output. ``-Xptxas -v`` prints each kernel's registers, shared
 memory and spills into ``<name>-<hash>.log`` beside the library.
+
+Launch accounting: each wrapper calls ``count_launch`` where it launches
+its kernel. Inside ``capture_tally()`` (a CUDA graph capture on this
+thread, which launches nothing) the count goes to the capture's tally
+instead, and the graph adds the tally on every replay.
 """
 
 from __future__ import annotations
@@ -25,13 +30,15 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, Iterator, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-KERNELS = ("streaming_match", "sepblock")
+KERNELS = ("streaming_match", "sepblock", "nms")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -135,3 +142,28 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+_tally = threading.local()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """One launch of ``fn``'s kernel: ``fn.<attr> += 1``, or, while this
+    thread captures a graph, one more in the capture's tally."""
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        tally[(fn, attr)] += 1
+    else:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextmanager
+def capture_tally() -> Iterator[Counter]:
+    """Count this thread's launches into the yielded ``Counter`` of
+    ``(fn, attr)`` instead of the wrappers' counters."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = Counter()
+    try:
+        yield _tally.counts
+    finally:
+        _tally.counts = outer

@@ -26,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops.nms import stable_topk
 from opencv_facerecognizer_tpu_torch.ops.streaming_match import streaming_match_topk
 
@@ -101,7 +102,7 @@ def ivf_match_topk(q: torch.Tensor, valid: torch.Tensor, ivf, *, k: int = 1,
     ids, bucket, bvalid = gather_bucket(sel, valid, ivf)
     vals, lidx = rerank(q, bucket, bvalid, k=k)
     gidx = torch.where(lidx < 0, -1, ids[lidx.clamp(min=0).long()])
-    ivf_match_topk.calls += 1
+    _build.count_launch(ivf_match_topk, "calls")
     return vals, gidx
 
 

@@ -145,7 +145,7 @@ def fused_sep_block(x, w_dw, g1_scale, g1_bias, w_pw, g2_scale, g2_bias, *,
         b1.data_ptr(), wpw.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         b, h, w, c, f, stride, groups, eps, int(residual), grid, nbuf,
         torch.cuda.current_stream(dev).cuda_stream)
-    fused_sep_block.launches += 1
+    _build.count_launch(fused_sep_block)
     _build.check(err, "sepblock")
     return out
 

@@ -201,7 +201,7 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
              part_vals.data_ptr(), part_idx.data_ptr(), vals.data_ptr(),
              idx.data_ptr(), *bound_ptrs, qn, n, d, k, kp,
              int(path == "wgmma"), splits, rows, stream)
-    streaming_match_topk.launches += 1
+    _build.count_launch(streaming_match_topk)
     streaming_match_topk.last_path = path
     _build.check(err, "streaming_match")
     return vals, idx

@@ -4,9 +4,23 @@ of ``opencv_facerecognizer_tpu/parallel/gallery.py``.
 - Fixed ``capacity`` rows; rows beyond ``size`` are invalid and never
   match. ``add`` doubles the capacity when the rows do not fit.
 - Host mirrors (float32, L2-normalized) are the enrolment truth; the
-  device copy is rebuilt from them and published as one ``GalleryData``
-  snapshot (one attribute write), so a reader never sees a mix of old
-  and new arrays.
+  device state is published as one ``GalleryData`` snapshot (one
+  attribute write), so a reader never sees a mix of old and new arrays.
+- Within a tier ``add`` writes the new rows in place into the live
+  embeddings tensor (it keeps its address, so a CUDA graph captured over
+  it stays valid; the rows lie outside every older snapshot's ``valid``)
+  and publishes new ``valid``/``labels`` tensors, so a snapshot a caller
+  holds never changes what it matches. A grow, ``reset``,
+  ``load_snapshot`` and ``swap_from`` publish a new embeddings tensor.
+- ``async_grow=True`` (the serving configuration): an add that overflows
+  the tier stages its rows and returns at once; a worker thread builds
+  the next tier off the serving path (``prewarm_hooks`` capture the
+  pipelines' steps for it, the old tier's rows are copied on the device,
+  the staged rows are normalized, spliced and uploaded in paced chunks
+  from pinned memory on a side stream) and publishes once the tier is
+  resident. ``pending_rows`` and ``wait_ready`` expose the rows in
+  flight; ``evict_hooks`` learn of the replaced tier. An add that fills a
+  tier past ``PREWARM_FILL_FRACTION`` warms the next one early.
 - ``store_dtype=torch.bfloat16`` halves the gallery's device bytes with
   no change to the match: both matchers round the operands to bf16.
 - Matcher selection (``match_fn``) mirrors the reference's: the two-stage
@@ -28,13 +42,16 @@ of ``opencv_facerecognizer_tpu/parallel/gallery.py``.
   ``swap_from`` (install another gallery's contents, cast to this
   gallery's ``store_dtype``).
 
-Multi-device sharding and asynchronous grow are later slices.
+Multi-device sharding is a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import threading
-from typing import NamedTuple, Optional, Tuple
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +62,9 @@ from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
     NEG_INF, streaming_match_topk)
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, resolve_device)
+
+
+log = logging.getLogger(__name__)
 
 
 def take_labels_with_sentinel(labels: torch.Tensor, idx: torch.Tensor,
@@ -83,6 +103,21 @@ class GalleryData(NamedTuple):
         return int(self.embeddings.shape[0])
 
 
+def empty_data(capacity: int, dim: int, store_dtype: torch.dtype, labels_pad: int,
+               device, epoch: int = 0,
+               embeddings: Optional[torch.Tensor] = None) -> GalleryData:
+    """A snapshot of ``capacity`` rows with none valid: zero rows (or
+    ``embeddings``), pad labels. What a step is warmed or captured over
+    before a tier holds its rows."""
+    if embeddings is None:
+        embeddings = torch.zeros((capacity, dim), dtype=store_dtype, device=device)
+    return GalleryData(
+        embeddings=embeddings,
+        labels=torch.full((capacity,), labels_pad, dtype=torch.int32, device=device),
+        valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        size=0, epoch=epoch)
+
+
 class EmbeddingDimMismatchError(ValueError):
     """``swap_from`` was given a gallery of another embedding dim."""
 
@@ -100,10 +135,32 @@ class ShardedGallery:
     #: measurement sets this card's own
     IVF_MIN_CAPACITY = 262144
 
+    #: start warming the next tier once an add fills the gallery past this
+    #: fraction (``async_grow``), so the eventual grow finds its steps
+    #: captured
+    PREWARM_FILL_FRACTION = 0.75
+
+    #: the grow worker gives up waiting for the new tier's upload after this
+    #: long and publishes anyway (availability over stall avoidance)
+    RESIDENCY_TIMEOUT_S = 300.0
+
+    #: grow-worker uploads larger than 2x this go in chunks of this many
+    #: bytes, each awaited before the next is queued, so a serving
+    #: transfer waits behind one chunk at most
+    CHUNK_UPLOAD_BYTES = 32 * 1024 * 1024
+
+    #: per-chunk pacing deadline; an expiry stops pacing for the rest of
+    #: the upload and is flagged in ``last_grow_info["chunk_pacing_timeout"]``
+    CHUNK_PACING_TIMEOUT_S = 60.0
+
+    #: poll interval of the residency and pacing waits (a CUDA event query)
+    _POLL_S = 0.002
+
     def __init__(self, capacity: int, dim: int, labels_pad: int = -1,
                  use_kernel: Optional[bool] = None,
                  store_dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = DEFAULT_DEVICE, embedder_version: int = 1):
+                 device: DeviceLike = DEFAULT_DEVICE, embedder_version: int = 1,
+                 async_grow: bool = False):
         self.device = resolve_device(device)
         #: the embedder version whose space the rows live in: the service
         #: stamps results and identity-cache entries with it
@@ -115,7 +172,29 @@ class ShardedGallery:
         self._use_kernel_cfg = use_kernel
         self._write_lock = threading.Lock()
         self.grow_count = 0
-        self._epoch = 0  # bumped by reset: fences quantizer builds
+        self._epoch = 0  # bumped by reset/load_snapshot/swap_from: fences builds and grows
+        # ---- asynchronous grow (off the serving path) ----
+        self.async_grow = bool(async_grow)
+        #: callables ``hook(capacity, data)`` run before a grow to that
+        #: capacity publishes (on the grow worker or the early-warm thread):
+        #: ``data`` is a ``GalleryData`` over the embeddings tensor the grow
+        #: will publish, so a pipeline captures its steps over it
+        self.prewarm_hooks = []
+        #: callables ``hook(capacity)`` run after a grow publishes: drop
+        #: cached steps of tiers strictly below ``capacity``
+        self.evict_hooks = []
+        self._pending: list = []  # [[rows, labels, normalized?]] staged by add
+        self._pending_count = 0
+        self._growing = False
+        self._grow_thread: Optional[threading.Thread] = None
+        self._grow_done = threading.Event()
+        self._grow_done.set()
+        self._warmed_capacities = set()
+        self._warm_events: Dict[int, threading.Event] = {}
+        #: capacity -> the embeddings tensor a grow to it will fill and
+        #: publish (made by the first warm of that tier)
+        self._next_tier: Dict[int, torch.Tensor] = {}
+        self.last_grow_info: dict = {}
         #: optional IVF coarse quantizer and its mode (``attach_quantizer``)
         self.quantizer = None
         self.match_mode = "exact"
@@ -133,46 +212,133 @@ class ShardedGallery:
     def size(self) -> int:
         return self._data.size
 
+    def _upload_rows(self, rows: np.ndarray) -> torch.Tensor:
+        """Host rows cast to ``store_dtype`` on the host (the transfer
+        carries the narrow bytes), as a new tensor on the device."""
+        return torch.from_numpy(rows).to(self.store_dtype).to(self.device, copy=True)
+
     def _install(self, size: int) -> None:
-        """Upload the host mirrors (cast to store_dtype on the host, so the
-        transfer carries the narrow bytes) and publish one snapshot."""
-        emb = torch.from_numpy(self._host_emb).to(self.store_dtype)
+        """Upload the host mirrors and publish one snapshot over a new
+        embeddings tensor (copies: a snapshot never aliases the mirrors)."""
         self._data = GalleryData(
-            embeddings=emb.to(self.device),
-            labels=torch.from_numpy(self._host_lab).to(self.device),
-            valid=torch.from_numpy(self._host_val).to(self.device),
+            embeddings=self._upload_rows(self._host_emb),
+            labels=torch.from_numpy(self._host_lab).to(self.device, copy=True),
+            valid=torch.from_numpy(self._host_val).to(self.device, copy=True),
             size=size, epoch=self._epoch)
+        self._drop_next_tiers(self.capacity)
+
+    def _append_locked(self, size: int, emb: np.ndarray, lab: np.ndarray) -> None:
+        """Publish rows ``size .. size + n`` of the mirrors within the
+        tier: the rows written in place into the live embeddings tensor,
+        new ``valid``/``labels`` tensors (clone + set, so a held snapshot
+        keeps its own), one snapshot write. Caller holds the write lock."""
+        data = self._data
+        n = len(emb)
+        data.embeddings[size:size + n].copy_(torch.from_numpy(emb).to(self.store_dtype))
+        valid = data.valid.clone()
+        valid[size:size + n] = True
+        labels = data.labels.clone()
+        labels[size:size + n] = torch.from_numpy(lab).to(self.device)
+        if self.device.type == "cuda":
+            # the writes are complete before any reader, on any stream,
+            # can see the snapshot that makes them matchable
+            torch.cuda.current_stream(self.device).synchronize()
+        self._data = GalleryData(data.embeddings, labels, valid, size + n, self._epoch)
+
+    @staticmethod
+    def _normalize_rows(embeddings: np.ndarray) -> np.ndarray:
+        return embeddings / np.maximum(
+            np.linalg.norm(embeddings, axis=-1, keepdims=True), 1e-12)
 
     def add(self, embeddings, labels) -> None:
-        """Append rows (L2-normalized here), doubling capacity on overflow;
-        the rows are matchable on return."""
+        """Append rows (L2-normalized here), doubling capacity on overflow.
+
+        Synchronous (default): the rows are matchable on return; within a
+        tier they are written in place, a grow uploads the new tier.
+        ``async_grow=True``: an add that overflows the tier (or arrives
+        while rows are staged) stages its rows raw and returns at once; the
+        grow worker normalizes, splices and uploads them, and they are
+        matchable once ``wait_ready`` returns True."""
         emb = np.asarray(embeddings, np.float32)
         lab = np.asarray(labels, np.int32)
         if emb.ndim != 2 or emb.shape[1] != self.dim or lab.shape != emb.shape[:1]:
             raise ValueError(f"embeddings [n, {self.dim}] and labels [n] expected, "
                              f"got {emb.shape} and {lab.shape}")
-        emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
         n = emb.shape[0]
+        # Branch predicted outside the lock, so a large synchronous add
+        # normalizes without holding it; a lost race only moves the cost.
+        normalized = not (self.async_grow and (self._growing or self._pending
+                                               or self.size + n > self.capacity))
+        # a private copy either way: a staged buffer the caller refills
+        # after add() returns must not change the staged rows
+        emb = self._normalize_rows(emb) if normalized else np.array(emb, copy=True)
+        start_worker = False
+        evict_below = None
         with self._write_lock:
             size = self.size
-            if size + n > self.capacity:
-                self._grow_locked(size + n)
-            self._host_emb[size:size + n] = emb
-            self._host_lab[size:size + n] = lab
-            self._host_val[size:size + n] = True
-            if self.quantizer is not None:
-                # Under the same lock as the mirrors: the rows reach their
-                # cells (or the spill) before the snapshot below makes
-                # them matchable, so the two-stage path never misses a row
-                # the exact path finds.
-                self.quantizer.on_rows_added(emb, size)
-            self._install(size + n)
-        self._poke_quantizer()  # outside the lock: may start a build
+            if self.async_grow and (self._growing or self._pending
+                                    or size + n > self.capacity):
+                # The worker owns the mirrors while a grow is in flight;
+                # pending rows with no worker are a failed grow's, and
+                # this add restarts the worker to retry them in order.
+                self._pending.append([emb, np.array(lab, copy=True), normalized])
+                self._pending_count += n
+                if not self._growing:
+                    self._growing = True
+                    self._grow_done.clear()
+                    start_worker = True
+            else:
+                if not normalized:  # lost the branch-predict race
+                    emb = self._normalize_rows(emb)
+                grow = size + n > self.capacity
+                if grow:
+                    evict_below = self.capacity  # the tier being replaced
+                    self._grow_locked(size + n)
+                self._host_emb[size:size + n] = emb
+                self._host_lab[size:size + n] = lab
+                self._host_val[size:size + n] = True
+                if self.quantizer is not None:
+                    # Under the same lock as the mirrors: the rows reach
+                    # their cells (or the spill) before the snapshot below
+                    # makes them matchable, so the two-stage path never
+                    # misses a row the exact path finds.
+                    self.quantizer.on_rows_added(emb, size)
+                if grow:
+                    self._install(size + n)
+                else:
+                    self._append_locked(size, emb, lab)
+        if evict_below is not None:
+            self._evict_stale(evict_below)
+        if not self._growing:
+            self._poke_quantizer()  # outside the lock: may start a build
+        if start_worker:
+            self._grow_thread = threading.Thread(target=self._grow_worker, daemon=True,
+                                                 name="gallery-grow")
+            self._grow_thread.start()
+        elif (self.async_grow and not self._growing
+              and self.size >= self.PREWARM_FILL_FRACTION * self.capacity):
+            self._prewarm_async(self._next_capacity(self.capacity + 1))
 
-    def _grow_locked(self, needed: int) -> None:
+    @property
+    def pending_rows(self) -> int:
+        """Rows staged by an asynchronous grow, not yet matchable."""
+        return self._pending_count
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        """Block until the current grow attempt ends (True) or ``timeout``
+        passes (False). After a success ``pending_rows == 0``; a failed
+        attempt leaves the rows staged and its error in
+        ``last_grow_info["error"]``, and the next add retries."""
+        return self._grow_done.wait(timeout)
+
+    def _next_capacity(self, needed: int) -> int:
         new_capacity = max(self.capacity, 1)
         while new_capacity < needed:
             new_capacity *= 2
+        return new_capacity
+
+    def _grow_locked(self, needed: int) -> None:
+        new_capacity = self._next_capacity(needed)
         emb = np.zeros((new_capacity, self.dim), np.float32)
         lab = np.full((new_capacity,), self.labels_pad, np.int32)
         val = np.zeros((new_capacity,), bool)
@@ -183,14 +349,281 @@ class ShardedGallery:
         self.capacity = new_capacity
         self.grow_count += 1
 
+    # ---- warming the next tier ----
+
+    def _next_tier_tensor(self, capacity: int) -> torch.Tensor:
+        """The embeddings tensor a grow to ``capacity`` will fill and
+        publish, made (zeros, in ``store_dtype``) on first use."""
+        with self._write_lock:
+            t = self._next_tier.get(capacity)
+            if t is None:
+                t = self._next_tier[capacity] = torch.zeros(
+                    (capacity, self.dim), dtype=self.store_dtype, device=self.device)
+            return t
+
+    def _drop_next_tiers(self, upto: int) -> None:
+        """Forget warmed tiers of ``upto`` rows or fewer (the gallery is at
+        least that large now): their tensors and warm marks go together."""
+        for cap in [c for c in self._next_tier if c <= upto]:
+            del self._next_tier[cap]
+            self._warmed_capacities.discard(cap)
+
+    def _run_prewarm_hooks(self, capacity: int, info: dict) -> None:
+        """Warm one tier exactly once across threads: the first caller (the
+        early-warm thread or the grow worker) runs the hooks over the
+        tier's future embeddings tensor; a concurrent caller for the same
+        tier waits for it. A raising hook is recorded in
+        ``info["prewarm_errors"]`` (the step is then captured on its first
+        serving call instead)."""
+        with self._write_lock:
+            if capacity in self._warmed_capacities:
+                info["prewarm_s"] = 0.0
+                return
+            ev = self._warm_events.get(capacity)
+            owner = ev is None
+            if owner:
+                ev = self._warm_events[capacity] = threading.Event()
+        if not owner:
+            ev.wait(timeout=600)
+            info["prewarm_s"] = 0.0  # another thread paid for it
+            return
+        t0 = time.perf_counter()
+        try:
+            data = empty_data(capacity, self.dim, self.store_dtype, self.labels_pad,
+                              self.device, self._epoch,
+                              embeddings=self._next_tier_tensor(capacity))
+            for hook in list(self.prewarm_hooks):
+                try:
+                    hook(capacity, data)
+                except Exception as e:  # noqa: BLE001 - recorded; serving captures later
+                    info.setdefault("prewarm_errors", []).append(repr(e))
+        finally:
+            with self._write_lock:
+                self._warmed_capacities.add(capacity)
+                self._warm_events.pop(capacity, None)
+            ev.set()
+        info["prewarm_s"] = round(time.perf_counter() - t0, 3)
+
+    def _prewarm_async(self, capacity: int) -> None:
+        with self._write_lock:
+            started = (capacity in self._warmed_capacities
+                       or capacity in self._warm_events)
+        if started or not self.prewarm_hooks:
+            return
+        threading.Thread(target=self._run_prewarm_hooks, args=(capacity, {}),
+                         daemon=True, name="gallery-prewarm").start()
+
+    # ---- the grow worker ----
+
+    def _wait_event(self, event, deadline: float, cancel=None, info=None) -> bool:
+        """Poll a CUDA event (never a blocking wait) until it completes
+        (True), ``cancel()`` turns True (True: the publish check discards
+        the doomed tier) or ``deadline`` passes (False). A raising query is
+        recorded once in ``info["residency_probe_error"]`` and polling goes
+        on."""
+        while True:
+            if cancel is not None and cancel():
+                return True
+            try:
+                if event is None or event.query():
+                    return True
+            except RuntimeError as e:
+                if info is not None and "residency_probe_error" not in info:
+                    info["residency_probe_error"] = repr(e)
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(self._POLL_S)
+
+    def _await_residency(self, event, timeout_s: float, cancel=None,
+                         info=None) -> bool:
+        """True once the new tier's uploads (recorded by ``event``) are
+        done, or the grow was cancelled; False on timeout."""
+        return self._wait_event(event, time.monotonic() + timeout_s, cancel, info)
+
+    def _upload_grown(self, old: GalleryData, emb: np.ndarray, lab: np.ndarray,
+                      val: np.ndarray, size: int, pos: int, epoch: int,
+                      cancel=None, info=None):
+        """The grown tier on the device, unpublished: (GalleryData, event
+        behind its uploads or None on the CPU). The old tier's rows are
+        copied on the device (they equal the mirrors: nothing writes them
+        in place while a grow is in flight), the rest zeroed, and the
+        spliced rows ``size .. pos`` uploaded from pinned memory in paced
+        chunks of ``CHUNK_UPLOAD_BYTES``, all on a side stream. The tensor
+        is the one the tier was warmed over, when it was."""
+        target = emb.shape[0]
+        with self._write_lock:
+            dst = self._next_tier.pop(target, None)
+        if dst is None:
+            dst = torch.empty((target, self.dim), dtype=self.store_dtype, device=self.device)
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+        ctx = torch.cuda.stream(side) if cuda else contextlib.nullcontext()
+        if cuda:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            dst.record_stream(side)
+        old_cap = old.capacity
+        with ctx:
+            dst[:old_cap].copy_(old.embeddings)
+            dst[old_cap:].zero_()
+            rows_per_chunk = max(1, self.CHUNK_UPLOAD_BYTES
+                                 // (self.dim * dst.element_size()))
+            chunked = (pos - size) * self.dim * dst.element_size() > 2 * self.CHUNK_UPLOAD_BYTES
+            pacing = chunked and cuda
+            for start in range(size, pos, rows_per_chunk):
+                if cancel is not None and cancel():
+                    break
+                end = min(pos, start + rows_per_chunk)
+                chunk = torch.from_numpy(emb[start:end]).to(self.store_dtype)
+                if cuda:
+                    chunk = chunk.pin_memory()
+                dst[start:end].copy_(chunk, non_blocking=cuda)
+                if pacing:
+                    ev = torch.cuda.Event()
+                    ev.record(side)
+                    pacing = self._wait_event(
+                        ev, time.monotonic() + self.CHUNK_PACING_TIMEOUT_S, cancel, info)
+                    if not pacing and info is not None:
+                        info["chunk_pacing_timeout"] = True
+            labels = torch.from_numpy(lab).to(self.device, copy=True)
+            valid = torch.from_numpy(val).to(self.device, copy=True)
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(side)
+        data = GalleryData(embeddings=dst, labels=labels, valid=valid, size=pos, epoch=epoch)
+        return data, event
+
+    def _grow_worker(self) -> None:
+        """Off the serving path: warm the next tier (hooks) -> copy the
+        mirrors -> normalize the staged rows -> splice -> upload -> await
+        residency -> publish atomically. Serving reads the old tier until
+        the new one is resident. ``reset``, ``load_snapshot`` and
+        ``swap_from`` bump the epoch; it is checked at splice and at
+        publish, so they win over an in-flight grow."""
+        info: dict = {}
+        spliced = None  # popped but unpublished entries, restored on failure
+        epoch = None
+        try:
+            while True:
+                spliced = None
+                info.pop("residency_timeout", None)
+                info.pop("residency_probe_error", None)
+                with self._write_lock:
+                    if not self._pending:
+                        self._growing = False
+                        self._grow_done.set()
+                        self.last_grow_info = info
+                        return
+                    epoch = self._epoch
+                    old = self._data
+                    size = old.size
+                    pending_n = self._pending_count
+                    old_emb, old_lab, old_val = self._host_emb, self._host_lab, self._host_val
+                    old_cap = self.capacity
+                target = self._next_capacity(size + pending_n)
+                # capture the new tier's steps before taking rows live
+                self._run_prewarm_hooks(target, info)
+                t0 = time.perf_counter()
+                emb = np.zeros((target, self.dim), np.float32)
+                lab = np.full((target,), self.labels_pad, np.int32)
+                val = np.zeros((target,), bool)
+                emb[:old_cap] = old_emb
+                lab[:old_cap] = old_lab
+                val[:old_cap] = old_val
+                info["copy_s"] = round(time.perf_counter() - t0, 3)
+                # Normalize the staged rows here, not on the enrolling
+                # thread; entries staged after this sweep stay for the
+                # next round (the splice stops at the first raw entry).
+                t0 = time.perf_counter()
+                with self._write_lock:
+                    sweep = list(self._pending)
+                for entry in sweep:
+                    if not entry[2]:
+                        entry[0] = self._normalize_rows(entry[0])
+                        entry[2] = True
+                info["normalize_s"] = round(time.perf_counter() - t0, 3)
+                with self._write_lock:
+                    if self._epoch != epoch:
+                        continue  # superseded by reset/load_snapshot/swap_from
+                    fits = []
+                    n_fit = 0
+                    while self._pending:
+                        entry = self._pending[0]
+                        if not entry[2] or size + n_fit + len(entry[0]) > target:
+                            break
+                        fits.append(entry)
+                        n_fit += len(entry[0])
+                        self._pending.pop(0)
+                    spliced = fits
+                    pos = size
+                    for e_rows, l_rows, _ in fits:
+                        emb[pos:pos + len(e_rows)] = e_rows
+                        lab[pos:pos + len(e_rows)] = l_rows
+                        val[pos:pos + len(e_rows)] = True
+                        pos += len(e_rows)
+                t0 = time.perf_counter()
+                new_data, event = self._upload_grown(
+                    old, emb, lab, val, size, pos, epoch,
+                    cancel=lambda: self._epoch != epoch, info=info)
+                if not self._await_residency(event, self.RESIDENCY_TIMEOUT_S,
+                                             cancel=lambda: self._epoch != epoch,
+                                             info=info):
+                    info["residency_timeout"] = True
+                info["upload_wait_s"] = round(time.perf_counter() - t0, 3)
+                t0 = time.perf_counter()
+                with self._write_lock:
+                    if self._epoch != epoch:
+                        continue  # the spliced rows go, as reset dropped the rest
+                    self._host_emb, self._host_lab, self._host_val = emb, lab, val
+                    self.capacity = target
+                    self.grow_count += 1
+                    self._pending_count -= n_fit
+                    if self.quantizer is not None:
+                        # a splice lands many rows at once: invalidate and
+                        # retrain (poked below) rather than assign them all
+                        # under the lock; serving is exact meanwhile
+                        self.quantizer.invalidate()
+                    self._data = new_data
+                    self._drop_next_tiers(target)
+                    spliced = None
+                info["install_s"] = round(time.perf_counter() - t0, 3)
+                self._evict_stale(old_cap)
+                self._poke_quantizer()
+        except Exception as e:  # noqa: BLE001 - never leave waiters hanging
+            info["error"] = repr(e)
+            with self._write_lock:
+                if spliced and self._epoch == epoch:
+                    # popped but never published: back at the head, in
+                    # enrolment order, for the next add to retry
+                    self._pending[:0] = spliced
+                self._growing = False
+                self._grow_done.set()
+                self.last_grow_info = info
+
+    def _evict_stale(self, below_capacity: int) -> None:
+        """After a grow publishes, with the replaced tier as threshold: the
+        tiers strictly below it are no longer warm, and every
+        ``evict_hooks`` callable drops its cached steps for them (the
+        replaced tier survives for readers still holding its snapshot)."""
+        with self._write_lock:
+            self._warmed_capacities = {c for c in self._warmed_capacities
+                                       if c >= below_capacity}
+        for hook in list(self.evict_hooks):
+            try:
+                hook(below_capacity)
+            except Exception:  # noqa: BLE001 - a cache's bookkeeping, never serving's
+                log.exception("gallery evict hook failed")
+
     def reset(self) -> None:
         with self._write_lock:
-            self._epoch += 1
+            self._epoch += 1  # an in-flight grow is dropped
+            self._pending.clear()
+            self._pending_count = 0
             if self.quantizer is not None:
                 self.quantizer.invalidate()
-            self._host_emb[:] = 0.0
-            self._host_lab[:] = self.labels_pad
-            self._host_val[:] = False
+            self._host_emb = np.zeros((self.capacity, self.dim), np.float32)
+            self._host_lab = np.full((self.capacity,), self.labels_pad, np.int32)
+            self._host_val = np.zeros((self.capacity,), bool)
             self._install(0)
 
     #: bounded wait for the write lock in ``snapshot``: a device transfer
@@ -199,8 +632,9 @@ class ShardedGallery:
 
     def snapshot(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
         """Copies of the host mirrors (embeddings, labels, valid, size),
-        no device readback. Taken under the write lock when it comes
-        within ``SNAPSHOT_LOCK_TIMEOUT_S``, else without it."""
+        no device readback; staged rows are not in them. Taken under the
+        write lock when it comes within ``SNAPSHOT_LOCK_TIMEOUT_S``, else
+        without it."""
         acquired = self._write_lock.acquire(timeout=self.SNAPSHOT_LOCK_TIMEOUT_S)
         try:
             return (self._host_emb.copy(), self._host_lab.copy(),
@@ -212,9 +646,10 @@ class ShardedGallery:
     def load_snapshot(self, emb: np.ndarray, lab: np.ndarray, val: np.ndarray, size: int,
                       embedder_version: Optional[int] = None) -> None:
         """Install arrays of a prior ``snapshot()`` (or a checkpoint) as
-        the live gallery, adopting their capacity; bumps the epoch,
-        invalidates the quantizer, and re-stamps ``embedder_version`` when
-        given, in the same publish."""
+        the live gallery, adopting their capacity; bumps the epoch (an
+        in-flight grow and its staged rows are dropped), invalidates the
+        quantizer, and re-stamps ``embedder_version`` when given, in the
+        same publish."""
         emb = np.array(emb, np.float32, copy=True)
         if emb.ndim != 2 or emb.shape[1] != self.dim:
             raise ValueError(f"snapshot must be [capacity, {self.dim}], got {emb.shape}")
@@ -222,6 +657,8 @@ class ShardedGallery:
             if embedder_version is not None:
                 self.embedder_version = int(embedder_version)
             self._epoch += 1
+            self._pending.clear()
+            self._pending_count = 0
             if self.quantizer is not None:
                 self.quantizer.invalidate()
             self.capacity = emb.shape[0]
@@ -234,8 +671,9 @@ class ShardedGallery:
         """Install ``other``'s contents (the double-buffered reload): the
         host mirrors by reference, the device arrays as they are, or
         rebuilt from the mirrors when ``other`` stores another dtype or
-        lives on another device. Adopts its ``embedder_version``; a dim
-        mismatch raises ``EmbeddingDimMismatchError``."""
+        lives on another device. Adopts its ``embedder_version``; drops an
+        in-flight grow; a dim mismatch raises
+        ``EmbeddingDimMismatchError``."""
         if other.dim != self.dim:
             raise EmbeddingDimMismatchError(
                 f"swap_from refused: donor gallery dim {other.dim} != serving dim "
@@ -246,6 +684,8 @@ class ShardedGallery:
             self.embedder_version = int(getattr(other, "embedder_version",
                                                 self.embedder_version))
             self._epoch += 1
+            self._pending.clear()
+            self._pending_count = 0
             if self.quantizer is not None:
                 self.quantizer.invalidate()
             self.capacity = other.capacity
@@ -258,6 +698,7 @@ class ShardedGallery:
                 # restamped with this gallery's epoch, or the quantizer's
                 # publishes would never pair with it
                 self._data = other._data._replace(epoch=self._epoch)
+                self._drop_next_tiers(self.capacity)
         self._poke_quantizer()
 
     # ---- IVF coarse quantizer (parallel.quantizer) ----

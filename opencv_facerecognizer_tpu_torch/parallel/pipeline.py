@@ -2,29 +2,54 @@
 
 Port of ``opencv_facerecognizer_tpu/parallel/pipeline.py`` on one device.
 Every frame contributes exactly ``max_faces`` slots; empty slots ride
-along as invalid work, so every batch has the same shapes. The step runs
-eagerly (the reference compiles it with ``jax.jit``; CUDA graphs are a
-later change). The outputs leave the device as one packed
-``[B, K, 6 + 2k]`` array with the reference's byte layout. The match is
-the gallery's choice: the exact scan, or the two-stage IVF match once the
-gallery's quantizer is ready; the step reads the gallery snapshot and the
-quantizer snapshot once each and pins the choice for the batch.
+along as invalid work, so every batch has the same shapes. The outputs
+leave the device as one packed ``[B, K, 6 + 2k]`` array with the
+reference's byte layout. The match is the gallery's choice: the exact
+scan, or the two-stage IVF match once the gallery's quantizer is ready;
+each call reads the gallery snapshot and the quantizer snapshot once and
+pins the choice for the batch.
+
+Steps are cached per step key, the reference's tuple (batch, H, W, frame
+dtype, gallery capacity, ``kernel_enabled(capacity)``, IVF shape
+signature or None). On the card a cached step is one captured
+``torch.cuda.CUDAGraph`` of the whole packed step, from the uint8 cast to
+``pack_result``, with static slots: the frames, the gallery's ``valid``
+and ``labels`` (filled from the call's snapshot before each replay, a
+device copy), and the packed output. The graph reads the embeddings
+tensor (and the IVF lists) it was captured over, by address: an entry
+remembers their addresses and is captured again when the call's
+snapshot holds other tensors (a ``reset``, ``load_snapshot``,
+``swap_from``, or a quantizer publish); in-place appends keep the
+address. All graphs of a pipeline share one memory pool: they replay one
+at a time on the serving stream. A graph tallies at capture the launches
+of the kernel wrappers it holds (``ops._build.capture_tally``) and adds
+them to the wrappers' counters on every replay. On
+the CPU (or with ``cuda_graphs=False``) a cached step is the eager
+callable under the same key. A capture or replay that fails raises; no
+path falls back to eager.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+import threading
+import time
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
 from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
+from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
-from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
+from opencv_facerecognizer_tpu_torch.parallel.gallery import (
+    GalleryData, ShardedGallery, empty_data)
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, disable_tf32, resolve_device)
 
+#: eager runs of a new step on the capture stream before its capture, so
+#: cuDNN and cuBLAS choose their algorithms and workspaces outside it
+CAPTURE_WARMUP_RUNS = 2
 
 class RecognitionResult(NamedTuple):
     boxes: torch.Tensor  # [B, K, 4] pixel yxyx
@@ -58,16 +83,68 @@ def unpack_result(packed: np.ndarray, top_k: int) -> RecognitionResult:
     )
 
 
+def _unpack_device(packed: torch.Tensor, top_k: int) -> RecognitionResult:
+    """``unpack_result`` on the device, as new tensors (never views of a
+    graph's static output)."""
+    return RecognitionResult(
+        boxes=packed[..., 0:4].clone(),
+        det_scores=packed[..., 4].clone(),
+        valid=packed[..., 5] > 0.5,
+        labels=packed[..., 6:6 + top_k].to(torch.int32),
+        similarities=packed[..., 6 + top_k:6 + 2 * top_k].clone(),
+    )
+
+
+class _EagerStep:
+    """A cached step that runs eagerly (the CPU, or ``cuda_graphs=False``):
+    it reads whatever snapshot the call brings, so it binds to none."""
+
+    binding = None
+
+    def __init__(self, forward, match):
+        self._forward = forward
+        self._match = match
+
+    def __call__(self, frames: torch.Tensor, data: GalleryData, ivf) -> torch.Tensor:
+        return self._forward(frames, data.embeddings, data.valid, data.labels, ivf,
+                             self._match)
+
+
+class _GraphStep:
+    """A captured step: the graph, its static input slots and output, the
+    snapshot tensors it reads by address (``binding``), and the launches a
+    replay adds to the wrappers' counters (``{(fn, attr): n}``)."""
+
+    def __init__(self, graph, frames, valid, labels, out, binding, deltas):
+        self.graph = graph
+        self.frames = frames
+        self.valid = valid
+        self.labels = labels
+        self.out = out
+        self.binding = binding
+        self.deltas = deltas
+
+    def __call__(self, frames: torch.Tensor, data: GalleryData, ivf) -> torch.Tensor:
+        self.frames.copy_(frames)
+        self.valid.copy_(data.valid)
+        self.labels.copy_(data.labels)
+        self.graph.replay()
+        for (fn, attr), n in self.deltas.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
+        return self.out
+
+
 class RecognitionPipeline:
     """Holds the nets and the gallery and runs the per-batch step on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU), each step key
+    as one captured CUDA graph on the card (``cuda_graphs``)."""
 
     def __init__(self, detector: detector_mod.CNNFaceDetector,
                  embed_net: embedder_mod.FaceEmbedNet,
                  gallery: ShardedGallery,
                  face_size: Tuple[int, int] = embedder_mod.SERVING_FACE_SIZE,
                  top_k: int = 1, fused_embedder: bool = False,
-                 device: DeviceLike = DEFAULT_DEVICE):
+                 device: DeviceLike = DEFAULT_DEVICE, cuda_graphs: bool = True):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()  # the f32 heads, f32 stacks and the crop stay full f32
@@ -83,26 +160,54 @@ class RecognitionPipeline:
         self.top_k = int(top_k)
         # The fused embed schedule (ops.sepblock, one kernel per stage
         # block): same parameters and math, off by default as in the
-        # reference until a measurement on the card says otherwise.
+        # reference. It is part of every cached step: flip it only before
+        # the first step, or clear ``_step_cache``.
         self.fused_embedder = bool(fused_embedder)
+        #: capture each step key as a CUDA graph (on a CUDA device)
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self._step_cache: Dict[Tuple, object] = {}
+        # one capture at a time: graphs share the pool, and the grow
+        # worker's captures race the serving thread's misses
+        self._capture_lock = threading.Lock()
+        self._pool = torch.cuda.graph_pool_handle() if self.cuda_graphs else None
+        #: graphs captured, those that replaced an entry bound to other
+        #: tensors, and each key's latest capture time (ms, host clock)
+        self.captures = 0
+        self.recaptures = 0
+        self.capture_ms: Dict[Tuple, float] = {}
+        #: the last packed call's provenance: {"cache_hit", "mode"}
+        self.last_dispatch_info: dict = {}
+        # The gallery's grow machinery captures this pipeline's steps for
+        # a new tier before it publishes, and drops stale tiers after.
+        gallery.prewarm_hooks.append(self.prewarm_capacity)
+        gallery.evict_hooks.append(self.evict_below)
 
-    def _as_device_frames(self, frames) -> torch.Tensor:
-        """uint8 frames travel as uint8 (4x fewer bytes) and become float32
-        on the device; anything else is float32 already on the host."""
+    def _frames_tensor(self, frames) -> torch.Tensor:
+        """uint8 frames stay uint8 (4x fewer bytes to the device; the cast
+        is in the step); anything else becomes float32."""
         t = torch.as_tensor(frames)
-        if t.dtype != torch.uint8:
-            t = t.to(torch.float32)
-        return t.to(self.device).to(torch.float32)
+        return t if t.dtype == torch.uint8 else t.to(torch.float32)
 
-    @torch.no_grad()
-    def embed_frames(self, frames) -> Tuple[torch.Tensor, ...]:
-        """Detect -> align -> embed: [B, H, W] frames -> (boxes [B, K, 4],
-        det_scores [B, K], valid [B, K], embeddings [B*K, E] unit-norm)."""
-        frames = self._as_device_frames(frames)
+    def _step_key(self, frames: torch.Tensor, data: GalleryData, ivf=None) -> Tuple:
+        """The reference's cache key, from the call's own snapshots: a
+        concurrent grow can never pair one tier's step with another's
+        arrays."""
+        capacity = data.capacity
+        return (*frames.shape, str(frames.dtype).removeprefix("torch."), capacity,
+                self.gallery.kernel_enabled(capacity),
+                None if ivf is None else ivf.shape_signature())
+
+    @staticmethod
+    def _binding(data: GalleryData, ivf) -> Tuple:
+        """The tensors a captured graph reads by address."""
+        return (data.embeddings.data_ptr(),
+                None if ivf is None else tuple(t.data_ptr() for t in tuple(ivf)[:7]))
+
+    def _embed(self, frames: torch.Tensor):
+        """Detect -> align -> embed on float32 device frames."""
         det = self.detector
         boxes, det_scores, valid = detector_mod.decode_detections(
-            det.net(frames), det.max_faces, det.score_threshold,
-            det.iou_threshold)
+            det.net(frames), det.max_faces, det.score_threshold, det.iou_threshold)
         crops = image_ops.batched_crop_resize(frames, boxes, self.face_size)
         faces = embedder_mod.normalize_faces(
             crops.reshape(-1, *self.face_size), self.face_size)
@@ -113,38 +218,166 @@ class RecognitionPipeline:
         return boxes, det_scores, valid, emb
 
     @torch.no_grad()
-    def recognize_batch(self, frames) -> RecognitionResult:
-        """[B, H, W] frames (float32 or uint8) -> RecognitionResult on the
-        device."""
-        boxes, det_scores, valid, emb = self.embed_frames(frames)
-        data = self.gallery.data  # one snapshot read
-        ivf = self.gallery._ivf_data(data)  # one epoch-checked quantizer read
-        match = self.gallery.match_fn(self.top_k, data.capacity, use_ivf=ivf is not None)
-        args = (emb, data.embeddings, data.valid, data.labels)
+    def embed_frames(self, frames) -> Tuple[torch.Tensor, ...]:
+        """Detect -> align -> embed: [B, H, W] frames -> (boxes [B, K, 4],
+        det_scores [B, K], valid [B, K], embeddings [B*K, E] unit-norm)."""
+        frames = self._frames_tensor(frames).to(self.device).to(torch.float32)
+        return self._embed(frames)
+
+    @torch.no_grad()
+    def _forward(self, frames, g_emb, g_valid, g_labels, ivf, match) -> torch.Tensor:
+        """The packed step on device frames (uint8 or float32)."""
+        boxes, det_scores, valid, emb = self._embed(frames.to(torch.float32))
+        args = (emb, g_emb, g_valid, g_labels)
         labels, sims, _ = match(*args, ivf) if ivf is not None else match(*args)
         b, k = valid.shape
-        return RecognitionResult(
+        return pack_result(RecognitionResult(
             boxes=boxes, det_scores=det_scores, valid=valid,
-            labels=labels.reshape(b, k, -1),
-            similarities=sims.reshape(b, k, -1))
+            labels=labels.reshape(b, k, -1), similarities=sims.reshape(b, k, -1)))
+
+    def _build_step(self, key: Tuple, data: GalleryData, ivf):
+        """A new cache entry for ``key`` over the snapshots ``data`` and
+        ``ivf``: a captured graph on the card, else the eager callable."""
+        match = self.gallery.match_fn(self.top_k, data.capacity, use_ivf=ivf is not None)
+        if not self.cuda_graphs:
+            return _EagerStep(self._forward, match)
+        return self._capture(key, data, ivf, match)
+
+    def _capture(self, key: Tuple, data: GalleryData, ivf, match) -> _GraphStep:
+        """Capture the packed step for ``key`` on a side stream
+        (``thread_local`` mode: another thread may allocate or replay
+        meanwhile), after ``CAPTURE_WARMUP_RUNS`` eager runs there."""
+        batch, height, width, dtype_name = key[:4]
+        dev = self.device
+        frames = torch.zeros((batch, height, width), dtype=getattr(torch, dtype_name),
+                             device=dev)
+        valid = data.valid.clone()
+        labels = data.labels.clone()
+
+        def run():
+            return self._forward(frames, data.embeddings, valid, labels, ivf, match)
+
+        with self._capture_lock:
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(CAPTURE_WARMUP_RUNS):
+                    run()
+            graph = torch.cuda.CUDAGraph()
+            # capture_begin/end, not ``torch.cuda.graph``: its entry runs a
+            # device synchronize and ``gc.collect()``, which holds the GIL
+            # and so stalls a serving thread while a grow worker captures.
+            # The capture launches nothing: its counts go to the replays.
+            with _build.capture_tally() as deltas, torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    out = run()
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.captures += 1
+            self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
+        return _GraphStep(graph, frames, valid, labels, out, self._binding(data, ivf),
+                          deltas)
+
+    def _evict_stale_ivf(self, key: Tuple) -> None:
+        """Drop cached steps of the same (batch, frame, capacity, kernel)
+        whose IVF shape signature a retrain superseded (``evict_below``
+        never sees same-capacity churn)."""
+        sig = key[6]
+        if sig is None:
+            return
+        for stale in [k for k in list(self._step_cache)
+                      if k[:6] == key[:6] and k[6] not in (None, sig)]:
+            self._step_cache.pop(stale, None)
+
+    def _step_for(self, frames: torch.Tensor, data: GalleryData, ivf):
+        """(cached step, cache hit) for one call's snapshots; a miss
+        builds (captures) and caches the step."""
+        key = self._step_key(frames, data, ivf)
+        step = self._step_cache.get(key)  # fetch once: a grow may evict it
+        binding = self._binding(data, ivf) if self.cuda_graphs else None
+        if step is not None and step.binding == binding:
+            return step, True
+        if step is not None:
+            self.recaptures += 1
+        self._evict_stale_ivf(key)
+        step = self._step_cache[key] = self._build_step(key, data, ivf)
+        return step, False
 
     def recognize_batch_packed(self, frames) -> torch.Tensor:
-        """The same step, its outputs packed into one [B, K, 6 + 2k] f32
-        array (``pack_result``); decode on the host with
-        ``unpack_result``."""
-        return pack_result(self.recognize_batch(frames))
+        """The serving step: [B, H, W] frames (float32 or uint8) -> one
+        [B, K, 6 + 2k] f32 array on the device (``pack_result``; decode on
+        the host with ``unpack_result``). On the card it is the graph's
+        static output: read it (``_Readback`` copies it on the same
+        stream) before the next call of the same key."""
+        frames = self._frames_tensor(frames)
+        data = self.gallery.data  # one snapshot read
+        ivf = self.gallery._ivf_data(data)  # one epoch-checked quantizer read
+        step, hit = self._step_for(frames, data, ivf)
+        self.last_dispatch_info = {"cache_hit": hit,
+                                   "mode": "ivf" if ivf is not None else "exact"}
+        if not self.cuda_graphs:
+            frames = frames.to(self.device)
+        return step(frames, data, ivf)
+
+    def recognize_batch(self, frames) -> RecognitionResult:
+        """The same step, unpacked on the device into new tensors."""
+        return _unpack_device(self.recognize_batch_packed(frames), self.top_k)
 
     def install_detector_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Publish new detector weights in place (same architecture)."""
+        """Publish new detector weights in place (same architecture): the
+        parameters and their cached casts keep their addresses, so every
+        captured step runs the new weights on its next replay."""
         self.detector.load_params(params)
 
     def prewarm_batch_shapes(self, batch_sizes: Sequence[int], frame_shape,
                              dtype=np.float32) -> int:
-        """Run the packed step once per batch size on zero frames, so the
-        first real batch of each size pays no kernel build or convolution
-        algorithm search. Returns the number of sizes run."""
+        """Build (capture) the step of every batch size up front on zero
+        frames, so no serving batch of these sizes pays a kernel build, an
+        algorithm search or a capture. Returns the number of sizes."""
         sizes = sorted({int(b) for b in batch_sizes})
         for b in sizes:
             out = self.recognize_batch_packed(np.zeros((b, *frame_shape), dtype))
-            out.cpu()  # wait for the step to finish
+            out.cpu()  # warmup precedes serving: wait for the step
         return len(sizes)
+
+    def prewarm_capacity(self, capacity: int, data: Optional[GalleryData] = None) -> None:
+        """Build the steps of every (batch, frame, dtype) this pipeline has
+        served for gallery tier ``capacity``, exact path (a grow's splice
+        invalidates the quantizer, so the first call at the new tier is
+        exact). ``data`` is the snapshot to capture over: the gallery's
+        grow passes one over the tensor it will publish; without it a zero
+        scratch gallery of that tier stands in (its graphs would be
+        captured again at the first serving call)."""
+        g = self.gallery
+        served = {key[:4] for key in list(self._step_cache)}
+        if not served:
+            return
+        if data is None:
+            data = empty_data(capacity, g.dim, g.store_dtype, g.labels_pad, self.device,
+                              g._epoch)
+        binding = self._binding(data, None) if self.cuda_graphs else None
+        for batch, height, width, dtype in served:
+            key = (batch, height, width, dtype, capacity, g.kernel_enabled(capacity), None)
+            step = self._step_cache.get(key)
+            if step is not None and step.binding == binding:
+                continue
+            self._step_cache[key] = self._build_step(key, data, None)
+
+    def evict_below(self, min_capacity: int) -> None:
+        """Drop cached steps of gallery tiers strictly below
+        ``min_capacity`` (the gallery's ``evict_hooks``); an in-flight call
+        already holds its step."""
+        for key in [k for k in list(self._step_cache) if k[4] < min_capacity]:
+            self._step_cache.pop(key, None)
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes of the segments in this pipeline's graph pool
+        (``torch.cuda.memory_snapshot``), None without CUDA graphs."""
+        if self._pool is None:
+            return None
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)

@@ -104,7 +104,10 @@ class _Enrolment:
 
 class _Readback:
     """One batch's packed result on its way to the host: a pinned host
-    copy and, for a CUDA result, the event recorded behind the copy."""
+    copy and, for a CUDA result, the event recorded behind the copy. The
+    copy is queued on the dispatching stream right after the step, so a
+    CUDA graph's static output is read before the next replay rewrites
+    it."""
 
     def __init__(self, packed: torch.Tensor):
         self.host = packed.to("cpu", non_blocking=True)  # pinned for a CUDA source
@@ -228,6 +231,9 @@ class RecognizerService:
         self._enrolment: Optional[_Enrolment] = None
         self._enrol_lock = threading.Lock()
         self._crashed = False
+        #: set by ``warmup``: a step built after it is a capture on the
+        #: serving thread, counted as ``recompiles_post_warmup``
+        self._warmed = False
         #: ``runtime.faults.FaultInjector`` at the dispatch boundary (never
         #: in production)
         self._faults = fault_injector
@@ -335,8 +341,9 @@ class RecognizerService:
         self._thread.start()
 
     def warmup(self) -> None:
-        """Run every rung of the bucket ladder and one enrolment chunk
-        before frames arrive (kernel builds, convolution algorithm search)."""
+        """Build every rung of the bucket ladder (on the card, capture each
+        as a CUDA graph) and run one enrolment chunk before frames arrive
+        (kernel builds, convolution algorithm search)."""
         t0 = time.perf_counter()
         self.pipeline.prewarm_batch_shapes(self._bucket_ladder, self.batcher.frame_shape,
                                            self.batcher.dtype)
@@ -344,6 +351,7 @@ class RecognizerService:
             self._run_embed_chunk(np.zeros((ENROL_CHUNK, *self.pipeline.face_size),
                                            np.float32))
         self.metrics.observe(mn.WARMUP, time.perf_counter() - t0)
+        self._warmed = True
 
     def drain(self, timeout: float = 120.0) -> bool:
         """Block until every accepted frame has been batched, computed and
@@ -510,6 +518,11 @@ class RecognizerService:
             raise
         self.metrics.incr(mn.BATCHES_DISPATCHED)
         self.metrics.incr(mn.FRAMES_PROCESSED, count)
+        # dispatch provenance: a step cache miss after warmup captured (or
+        # re-captured) on the serving thread
+        info = getattr(self.pipeline, "last_dispatch_info", None) or {}
+        if self._warmed and info.get("cache_hit") is False:
+            self.metrics.incr(mn.RECOMPILES_POST_WARMUP)
         if bucket < self.batcher.batch_size:
             self.metrics.incr(mn.BATCHES_BUCKETED)
         if self._use_worker:

@@ -27,8 +27,7 @@
 
 Not ported: ``BrownoutPolicy`` and the shedding of the dead-letter
 journal while degraded (ROADMAP A.8.2), the spans, their shedding and
-the SLO health announcements (A.8.4), the post-commit wait for staged
-rows (A.8.7), and ``rebuild_pipeline_on_cpu``: the port
+the SLO health announcements (A.8.4), and ``rebuild_pipeline_on_cpu``: the port
 has no CPU fallback, so a dead card leaves the service degraded
 (ROADMAP C).
 """
@@ -417,11 +416,15 @@ class ServiceSupervisor:
     no progress for ``stall_warn_s`` publish one ``stalled``."""
 
     def __init__(self, service, max_restarts: int = 5, poll_interval_s: float = 0.2,
-                 restart_backoff_s: float = 0.1, state=None):
+                 restart_backoff_s: float = 0.1, commit_wait_s: float = 30.0,
+                 state=None):
         self.service = service
         self.max_restarts = int(max_restarts)
         self.poll_interval_s = float(poll_interval_s)
         self.restart_backoff_s = float(restart_backoff_s)
+        #: bounded wait for rows an asynchronous grow staged before a
+        #: post-commit checkpoint; on timeout the previous one is kept
+        self.commit_wait_s = float(commit_wait_s)
         self.state = state
         self.stall_warn_s = 60.0
         self.restarts = 0
@@ -472,9 +475,19 @@ class ServiceSupervisor:
         self.service.metrics.incr(mn.SUPERVISOR_CHECKPOINTS)
 
     def _on_commit(self) -> None:
-        """Advance last-known-good after a committed gallery change."""
-        if self._running:
-            self.checkpoint()
+        """Advance last-known-good after a committed gallery change. The
+        committing add may only have staged its rows (``async_grow``): wait
+        (bounded) for them to land, and on timeout keep the previous
+        checkpoint rather than one that misses the rows this commit
+        announced."""
+        if not self._running:
+            return
+        wait_ready = getattr(self.service.pipeline.gallery, "wait_ready", None)
+        if wait_ready is not None and not wait_ready(timeout=self.commit_wait_s):
+            log.warning("post-commit checkpoint skipped: staged rows not landed within "
+                        "%.0f s; keeping the previous snapshot", self.commit_wait_s)
+            return
+        self.checkpoint()
 
     def _monitor(self) -> None:
         from opencv_facerecognizer_tpu_torch.runtime.recognizer import STATUS_TOPIC

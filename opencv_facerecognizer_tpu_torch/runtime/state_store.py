@@ -33,11 +33,14 @@ are hashed and written from the snapshot itself; recovery decodes from
 a view of the file's bytes. ``last_checkpoint_s`` and
 ``last_recovery_s`` keep each stage's seconds.
 
+Rows an asynchronous grow staged (``gallery.pending_rows``): a checkpoint
+waits up to 30 s for them to land, and defers (``checkpoints_deferred_pending``,
+a retry 5 s later) while any are still staged; recovery waits up to 300 s
+for its replayed rows to land.
+
 Not ported: the embedder rollout (``perform_cutover`` and a pending
 ``cutover`` record raise naming ROADMAP A.8.8), registry swaps
-(``perform_registry_cutover``, A.8.5), the tracer spans (A.8.4), and the
-checkpoint's wait for staged rows, which the port's synchronous ``add``
-never leaves (async grow, A.8.7).
+(``perform_registry_cutover``, A.8.5) and the tracer spans (A.8.4).
 """
 
 from __future__ import annotations
@@ -726,9 +729,13 @@ class StateLifecycle:
                 if self.metrics is not None:
                     self.metrics.incr(mn.WAL_REPLAYED_RECORDS)
                     self.metrics.incr(mn.WAL_REPLAYED_ROWS, int(record["n"]))
-            stages["replay"] = time.perf_counter() - t
             self._wal_seq = max(base_seq, highest)
             self._rows_since_ckpt = report["replayed_rows"]
+            # replayed rows an asynchronous grow staged land before serving
+            wait_ready = getattr(gallery, "wait_ready", None)
+            if wait_ready is not None:
+                wait_ready(timeout=300.0)
+            stages["replay"] = time.perf_counter() - t
         self._last_ckpt_t = time.monotonic()
         if self.metrics is not None:
             self.metrics.incr(mn.STATE_RECOVERIES)
@@ -1086,8 +1093,27 @@ class StateLifecycle:
         self._force_pending = False
         try:
             gallery, names = self._targets()
+            # Bounded wait for rows an asynchronous grow staged: a snapshot
+            # taken mid-grow would miss rows whose WAL records this
+            # checkpoint claims to cover.
+            wait_ready = getattr(gallery, "wait_ready", None)
+            if wait_ready is not None:
+                wait_ready(timeout=30.0)
             t0 = time.perf_counter()
             with self._enroll_lock:
+                # Staging happens only inside append_enrollment (under this
+                # lock), so pending can only drain here: zero proves the
+                # snapshot holds every sequenced row. Nonzero (a grow in
+                # flight, wedged, or failed and awaiting a retry): defer,
+                # keep the previous checkpoint and the whole WAL, retry soon.
+                if getattr(gallery, "pending_rows", 0):
+                    if self.metrics is not None:
+                        self.metrics.incr(mn.CHECKPOINTS_DEFERRED_PENDING)
+                    log.warning("checkpoint deferred: %d staged rows not yet landed",
+                                gallery.pending_rows)
+                    self._force_pending = self._force_pending or claimed_force
+                    self._ckpt_retry_at = time.monotonic() + 5.0
+                    return False
                 wal_seq = self._wal_seq
                 rows_at = self._rows_since_ckpt
                 emb, lab, val, size = gallery.snapshot()

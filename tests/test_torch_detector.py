@@ -168,3 +168,32 @@ def test_same_padding_is_xla_same():
     assert same_padding(63, 3, 2) == (1, 1)
     assert same_padding(16, 3, 1) == (1, 1)
     assert same_padding(16, 1, 1) == (0, 0)
+
+
+@pytest.mark.parametrize("iou_threshold, score_threshold", [(0.5, 0.3), (0.45, 0.0)])
+def test_nms_mask_plain_matches_jax_on_ties_and_threshold_ious(iou_threshold,
+                                                               score_threshold):
+    """The plain keep-loop (the CUDA kernel's oracle) equals the reference's
+    ``nms_mask`` on boxes on a half-pixel grid (many IoUs exactly at 0.5)
+    with scores rounded to 0.1 (many exact ties), image by image."""
+    rng = np.random.default_rng(17)
+    n, k = 64, 48
+    y0, x0 = (rng.integers(0, 20, (2, n, k)) * 0.5)
+    h, w = (rng.integers(1, 8, (2, n, k)) * 0.5)
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], -1).astype(np.float32)
+    # candidates 0 and 1 of every image overlap at IoU 2 / 4 = 0.5 exactly
+    boxes[:, 0] = np.tile(boxes[:, 0, :2], 2) + [0.0, 0.0, 3.0, 1.0]
+    boxes[:, 1] = boxes[:, 0] + [1.0, 0.0, 1.0, 0.0]
+    scores = np.round(rng.random((n, k)), 1).astype(np.float32)
+    scores[:, :2] = [0.9, 0.8]
+    got = port_nms.nms_mask_plain(torch.tensor(boxes), torch.tensor(scores),
+                                  iou_threshold, score_threshold).numpy()
+    want = jax.vmap(jax_nms.nms_mask, in_axes=(0, 0, None, None))(
+        jnp.asarray(boxes), jnp.asarray(scores), iou_threshold, score_threshold)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    # the wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(port_nms.nms_mask(
+        torch.tensor(boxes), torch.tensor(scores), iou_threshold, score_threshold).numpy(), got)
+    iou = port_nms.pairwise_iou(torch.tensor(boxes), torch.tensor(boxes))
+    assert (iou[:, 0, 1] == 0.5).all()  # the threshold itself is exercised
+    assert got[:, 1].all() == (iou_threshold >= 0.5)

@@ -459,3 +459,186 @@ def test_state_restore_of_a_2p17_gallery_matches_through_kernel_a(cuda, tmp_path
         assert torch.equal(ia, ib) and torch.equal(sa, sb) and torch.equal(la, lb)
     assert streaming_match_topk.launches == before + 4
     assert (ia[:3, 0].cpu().numpy() >= n).all()
+
+
+# ---- the NMS kernel and the graphed serving step ----
+
+def _nms_case(rng, n_img, k, grid=0.5):
+    """Boxes on a coarse grid (IoUs that land exactly on simple fractions,
+    so on the 0.5 threshold too) and scores rounded to 0.1 (many ties)."""
+    y0 = rng.integers(0, 40, (n_img, k)) * grid
+    x0 = rng.integers(0, 40, (n_img, k)) * grid
+    h = rng.integers(1, 12, (n_img, k)) * grid
+    w = rng.integers(1, 12, (n_img, k)) * grid
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], -1).astype(np.float32)
+    scores = np.round(rng.random((n_img, k)), 1).astype(np.float32)
+    return boxes, scores
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("iou_threshold, score_threshold", [(0.5, 0.3), (0.4, 0.0)])
+def test_nms_kernel_matches_plain(cuda, k, iou_threshold, score_threshold):
+    """4096 random images: the kernel's keep-mask equals the plain loop's,
+    flag for flag (the same f32 IoU arithmetic, ties in the same order)."""
+    from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask, nms_mask_plain
+
+    boxes, scores = _nms_case(np.random.default_rng(k), 4096, k)
+    b, s = torch.tensor(boxes, device=cuda), torch.tensor(scores, device=cuda)
+    before = nms_mask.launches
+    got = nms_mask(b, s, iou_threshold, score_threshold)
+    assert nms_mask.launches == before + 1
+    want = nms_mask_plain(b, s, iou_threshold, score_threshold)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), nms_mask_plain(b.cpu(), s.cpu(), iou_threshold,
+                                                 score_threshold))
+    assert 0 < got.float().mean().item() < 1
+
+
+@pytest.mark.gpu
+def test_nms_kernel_refuses_what_it_cannot_take(cuda):
+    from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask
+
+    with pytest.raises(ValueError, match="1024"):
+        nms_mask(torch.zeros(2, 1025, 4, device=cuda), torch.zeros(2, 1025, device=cuda))
+    with pytest.raises(ValueError, match="f32"):
+        nms_mask(torch.zeros(2, 8, 4, device=cuda, dtype=torch.float64),
+                 torch.zeros(2, 8, device=cuda, dtype=torch.float64))
+
+
+def _serving_pipeline(cuda, rows=1 << 17, cuda_graphs=True, fused=True, gallery=None,
+                      seed=7):
+    """The serving detector and embedder (seeded; a detector that fires on
+    noise) over a bf16 gallery at kernel A's capacity."""
+    from opencv_facerecognizer_tpu_torch.models.detector import CNNFaceDetector
+    from opencv_facerecognizer_tpu_torch.models.embedder import (
+        SERVING_EMBEDDER_KWARGS, SERVING_FACE_SIZE, FaceEmbedNet)
+    from opencv_facerecognizer_tpu_torch.parallel.pipeline import RecognitionPipeline
+
+    det = CNNFaceDetector(device=cuda, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        det.net.heatmap.bias.fill_(0.0)
+        det.net.size.bias.fill_(3.0)
+    net = FaceEmbedNet(**SERVING_EMBEDDER_KWARGS, input_size=SERVING_FACE_SIZE,
+                       generator=torch.Generator().manual_seed(seed + 1)).to(cuda)
+    if gallery is None:
+        gallery = ShardedGallery(rows, 256, store_dtype=torch.bfloat16, device=cuda)
+        rng = np.random.default_rng(seed)
+        filled = rows - 1024  # room for a batch's faces (up to 8 x 16)
+        gallery.add(_normed(rng, (filled, 256)), np.arange(filled, dtype=np.int32))
+    return RecognitionPipeline(det, net, gallery, fused_embedder=fused, device=cuda,
+                               cuda_graphs=cuda_graphs)
+
+
+def _frames(seed, n=8):
+    return np.random.default_rng(seed).integers(0, 256, (n, 256, 256), dtype=np.uint8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_graphed_step_equals_eager(cuda, fused):
+    """The captured packed step gives the eager step's bytes, replay after
+    replay, for other frames each time."""
+    graphed = _serving_pipeline(cuda, fused=fused)
+    eager = _serving_pipeline(cuda, fused=fused, cuda_graphs=False, gallery=graphed.gallery)
+    for i in range(3):
+        frames = _frames(i)
+        want = eager.recognize_batch_packed(frames).clone()
+        got = graphed.recognize_batch_packed(frames).clone()
+        assert torch.equal(got, want), (got - want).abs().max()
+    assert graphed.captures == 1 and graphed.last_dispatch_info["cache_hit"]
+    assert (want[..., 5] > 0.5).any()
+    res = graphed.recognize_batch(_frames(0))
+    assert res.boxes.data_ptr() != graphed.recognize_batch_packed(_frames(1)).data_ptr()
+
+
+@pytest.mark.gpu
+def test_detector_swap_after_capture_reaches_the_next_replay(cuda):
+    pipe = _serving_pipeline(cuda)
+    frames = _frames(3)
+    assert (pipe.recognize_batch_packed(frames)[..., 5] > 0.5).any()
+    params = {k: v.clone() for k, v in pipe.detector.params.items()}
+    params["heatmap.bias"].fill_(-20.0)  # no face survives the 0.3 threshold
+    pipe.install_detector_params(params)
+    assert not (pipe.recognize_batch_packed(frames)[..., 5] > 0.5).any()
+    assert pipe.captures == 1  # the same graph, new weights
+    params["heatmap.bias"].fill_(0.0)
+    params["head.weight"].mul_(0.5)  # a bf16 conv: its cached cast must follow
+    pipe.install_detector_params(params)
+    eager = _serving_pipeline(cuda, cuda_graphs=False, gallery=pipe.gallery)
+    eager.install_detector_params(params)
+    assert torch.equal(pipe.recognize_batch_packed(frames),
+                       eager.recognize_batch_packed(frames))
+
+
+@pytest.mark.gpu
+def test_in_place_append_reaches_the_next_replay(cuda):
+    """Rows added within the tier land in the live tensor (same address, no
+    new capture) and the next replay matches them; a snapshot taken before
+    the add still has its own valid, labels and size."""
+    pipe = _serving_pipeline(cuda)
+    g = pipe.gallery
+    frames = _frames(4)
+    first = pipe.recognize_batch_packed(frames).clone()
+    old = g.data
+    old_valid, old_labels = old.valid.clone(), old.labels.clone()
+    _b, _s, valid, emb = pipe.embed_frames(frames)
+    faces = emb[valid.reshape(-1)].float().cpu().numpy()
+    assert len(faces) > 0
+    g.add(faces, np.arange(len(faces), dtype=np.int32) + 10_000_000)
+    assert g.data.embeddings.data_ptr() == old.embeddings.data_ptr()
+    again = pipe.recognize_batch_packed(frames)
+    assert pipe.captures == 1
+    found = again[..., 6][again[..., 5] > 0.5]
+    assert (found >= 10_000_000).all() and not torch.equal(again, first)
+    assert old.size == g.size - len(faces)
+    assert torch.equal(old.valid, old_valid) and torch.equal(old.labels, old_labels)
+
+
+@pytest.mark.gpu
+def test_capture_on_a_worker_while_the_main_thread_replays(cuda):
+    """A worker captures another batch size while the main thread replays:
+    nothing raises and every replay gives the bytes it gave before."""
+    import threading
+
+    pipe = _serving_pipeline(cuda)
+    frames = _frames(5)
+    want = pipe.recognize_batch_packed(frames).clone()
+    errors = []
+
+    def capture():
+        try:
+            pipe.prewarm_batch_shapes([2, 4], (256, 256), np.uint8)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    worker = threading.Thread(target=capture)
+    worker.start()
+    replays = 0
+    while worker.is_alive() or replays < 20:
+        assert torch.equal(pipe.recognize_batch_packed(frames), want)
+        replays += 1
+    worker.join(timeout=120)
+    assert not worker.is_alive() and not errors, errors
+    assert pipe.captures == 3
+    assert torch.equal(pipe.recognize_batch_packed(frames[:4]),
+                       _serving_pipeline(cuda, cuda_graphs=False, gallery=pipe.gallery)
+                       .recognize_batch_packed(frames[:4]))
+
+
+@pytest.mark.gpu
+def test_replays_add_the_captured_launches(cuda):
+    from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask
+
+    pipe = _serving_pipeline(cuda)
+    frames = _frames(6)
+    pipe.recognize_batch_packed(frames)  # captures
+    step = next(iter(pipe._step_cache.values()))
+    assert dict(step.deltas) == {(fused_sep_block, "launches"): 6,
+                                 (streaming_match_topk, "launches"): 1,
+                                 (nms_mask, "launches"): 1}
+    before = (fused_sep_block.launches, streaming_match_topk.launches, nms_mask.launches)
+    for _ in range(5):
+        pipe.recognize_batch_packed(frames)
+    after = (fused_sep_block.launches, streaming_match_topk.launches, nms_mask.launches)
+    assert [a - b for a, b in zip(after, before)] == [30, 5, 5]

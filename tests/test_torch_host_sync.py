@@ -1,0 +1,87 @@
+"""No host sync on the graphed serving step: an AST scan of the modules
+the step runs through, in place of the ``ocvf-lint`` host-sync rules
+(which scan the JAX package only).
+
+Inside any function of these modules, a call of ``.item()``, ``.cpu()``,
+``.tolist()``, ``.numpy()`` or ``synchronize`` waits for the card, and
+``torch.tensor(..., device=...)`` copies from pageable host memory; both
+are illegal while a CUDA graph captures the step and stall the host when
+it runs eagerly. Host-only helpers that never run on the step are
+allowed by name, each with its reason."""
+
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "opencv_facerecognizer_tpu_torch")
+STEP_MODULES = ("parallel/pipeline.py", "models/detector.py", "models/embedder.py",
+                "models/_layers.py", "ops/image.py", "ops/nms.py",
+                "ops/streaming_match.py", "ops/sepblock.py", "ops/ivf_match.py")
+SYNC_ATTRS = {"item", "cpu", "tolist", "numpy", "synchronize"}
+#: (module, qualified function) -> why it may wait for the card
+ALLOWED = {
+    ("parallel/pipeline.py", "RecognitionPipeline.prewarm_batch_shapes"):
+        "warmup, before serving: it waits for each rung's capture to land",
+    ("models/detector.py", "CNNFaceDetector.detect"):
+        "the one-image host API (Python box tuples), never on the batched step",
+    ("models/embedder.py", "CNNEmbedding.get_state"):
+        "the checkpoint writer: parameters to numpy",
+}
+
+
+def _syncs(path):
+    """(qualified function, what, line) of every host sync in ``path``."""
+    tree = ast.parse(open(path).read(), filename=path)
+    found = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                visit(child, scope + [child.name])
+                continue
+            if isinstance(child, ast.Call) and scope:
+                f = child.func
+                if isinstance(f, ast.Attribute) and f.attr in SYNC_ATTRS:
+                    found.append((".".join(scope), f".{f.attr}()", child.lineno))
+                elif (isinstance(f, ast.Attribute) and f.attr == "tensor"
+                      and isinstance(f.value, ast.Name) and f.value.id == "torch"
+                      and any(k.arg == "device" for k in child.keywords)):
+                    found.append((".".join(scope), "torch.tensor(device=)", child.lineno))
+            visit(child, scope)
+
+    visit(tree, [])
+    return found
+
+
+@pytest.mark.parametrize("module", STEP_MODULES)
+def test_step_module_has_no_host_sync(module):
+    offenders = [(fn, what, line) for fn, what, line in _syncs(os.path.join(PORT, module))
+                 if fn and (module, fn) not in ALLOWED]
+    assert not offenders, f"{module}: host syncs on the step: {offenders}"
+
+
+def test_allowlist_names_live_functions():
+    """Every allowed function exists and still syncs (a stale entry would
+    hide a new sync under an old name)."""
+    for (module, fn), reason in ALLOWED.items():
+        assert reason
+        assert fn in {f for f, _w, _l in _syncs(os.path.join(PORT, module))}, (module, fn)
+
+
+def test_the_scan_finds_what_it_looks_for(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import torch\n"
+                   "class A:\n"
+                   "    def f(self, x):\n"
+                   "        def g():\n"
+                   "            return x.item()\n"
+                   "        torch.cuda.synchronize()\n"
+                   "        return torch.tensor([1.0], device=x.device), x.cpu(), g\n"
+                   "def h(x):\n"
+                   "    return x.tolist(), x.numpy()\n")
+    got = {(fn, what) for fn, what, _line in _syncs(str(src))}
+    assert got == {("A.f.g", ".item()"), ("A.f", ".synchronize()"),
+                   ("A.f", "torch.tensor(device=)"), ("A.f", ".cpu()"),
+                   ("h", ".tolist()"), ("h", ".numpy()")}

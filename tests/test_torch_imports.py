@@ -34,14 +34,16 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     # A subprocess: this test process already imported JAX (conftest).
     mods = _port_modules()
-    assert len(mods) >= 31, mods
+    assert len(mods) >= 33, mods
     for mod in ("opencv_facerecognizer_tpu_torch.parallel.quantizer",
                 "opencv_facerecognizer_tpu_torch.ops.ivf_match",
                 "opencv_facerecognizer_tpu_torch.utils._msgpack",
                 "opencv_facerecognizer_tpu_torch.utils.serialization",
                 "opencv_facerecognizer_tpu_torch.utils.dataset",
                 "opencv_facerecognizer_tpu_torch.runtime.tracker",
-                "opencv_facerecognizer_tpu_torch.apps.recognize", *DURABILITY_MODULES):
+                "opencv_facerecognizer_tpu_torch.apps.recognize",
+                "opencv_facerecognizer_tpu_torch.utils.histogram",
+                "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -95,10 +97,11 @@ def test_entry_points_default_to_the_card():
     from opencv_facerecognizer_tpu_torch.models.classifier import NearestNeighbor
     from opencv_facerecognizer_tpu_torch.models.embedder import CNNEmbedding
     from opencv_facerecognizer_tpu_torch.utils.serialization import load_model
+    from opencv_facerecognizer_tpu_torch.entry import entry as port_entry
 
     for entry in (CNNFaceDetector, ShardedGallery, RecognitionPipeline,
                   device_mod.resolve_device, ivf_data_from_numpy, CNNEmbedding,
-                  NearestNeighbor, load_model, CNNFaceDetector.load):
+                  NearestNeighbor, load_model, CNNFaceDetector.load, port_entry):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     assert device_mod.DEFAULT_DEVICE == "cuda"
     assert build_parser().get_default("device") == "cuda"
@@ -119,10 +122,13 @@ def test_no_card_raises(monkeypatch):
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
     """A wrapper never falls back quietly: a tensor neither on the CPU nor
     on a CUDA card is refused."""
+    from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask
     from opencv_facerecognizer_tpu_torch.ops.sepblock import fused_sep_block
     from opencv_facerecognizer_tpu_torch.ops.streaming_match import streaming_match_topk
 
     meta = torch.device("meta")
+    with pytest.raises(ValueError):
+        nms_mask(torch.empty(2, 8, 4, device=meta), torch.empty(2, 8, device=meta))
     with pytest.raises(ValueError):
         streaming_match_topk(torch.empty(4, 16, device=meta),
                              torch.empty(8, 16, device=meta),

@@ -303,3 +303,37 @@ def test_batcher_flush_overflow_and_recycle():
     b.close()
     assert b.get_batch() is None and not b.put(np.zeros((2, 2)))
     assert m.counter("batcher_dropped_malformed") == 1
+
+
+def test_step_cache_keys_match_reference(params):
+    """The port's step cache (``_step_key``, ``prewarm_capacity``,
+    ``evict_below``) holds the reference's keys: the same served shapes
+    and dtypes, the same tier after a prewarm, the same survivors after an
+    eviction. (Both with the plain matcher: the key carries that choice.)"""
+    dparams, eparams, frames, rows, labels = params
+    port = _port_pipeline(dparams, eparams, rows, labels, fused=False)
+    port.gallery._use_kernel_cfg = False
+    ref = _jax_pipeline(dparams, eparams, rows, labels, fused=False)
+    ref.gallery._use_pallas_cfg = False
+    for batch in (frames[:2], frames[:3].astype(np.float32)):
+        port.recognize_batch_packed(batch)
+        ref.recognize_batch_packed(batch)
+        assert (port._step_key(port._frames_tensor(batch), port.gallery.data)
+                == ref._step_key(jnp.asarray(batch), ref.gallery.data))
+        assert port.last_dispatch_info == ref.last_dispatch_info
+    assert set(port._step_cache) == set(ref._packed_cache)
+    port.prewarm_capacity(2 * CAPACITY)
+    ref.prewarm_capacity(2 * CAPACITY)
+    assert set(port._step_cache) == set(ref._packed_cache)
+    assert {k[4] for k in port._step_cache} == {CAPACITY, 2 * CAPACITY}
+    port.evict_below(2 * CAPACITY)
+    ref.evict_below(2 * CAPACITY)
+    assert set(port._step_cache) == set(ref._packed_cache)
+    assert {k[4] for k in port._step_cache} == {2 * CAPACITY}
+    # a served key hits its entry; the unpacked step carries its numbers
+    port.recognize_batch_packed(frames[:2])
+    assert port.last_dispatch_info == {"cache_hit": False, "mode": "exact"}
+    got = port.recognize_batch_packed(frames[:2])
+    assert port.last_dispatch_info == {"cache_hit": True, "mode": "exact"}
+    np.testing.assert_array_equal(port_pipeline.pack_result(
+        port.recognize_batch(frames[:2])).numpy(), got.numpy())

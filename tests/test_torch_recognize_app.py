@@ -683,3 +683,56 @@ def test_durability_flag_is_served_with_the_reference_default(flag):
     assert parser.get_default(dest) == ref[dest]
     assert flag not in {f for f, _v, _i in port_app.REFUSED}
     assert ("--replica-role", "reader") in {(f, v) for f, v, _i in port_app.REFUSED}
+
+
+def test_async_grow_enrolls_past_capacity(artifacts):
+    """``--async-grow`` is served: an enrolment of 10 crops into a gallery
+    of 9 rows at capacity 18 overflows the tier, ``enrolled`` comes back
+    without waiting for the grow, and once the rows land (the grow worker,
+    off the serving thread) frames of that scene come back named."""
+    a = artifacts
+    cmd = [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+           "--device", "cpu", *_common_args(a), "--source", "jsonl", "--flush-ms", "5",
+           "--no-track-cache", "--async-grow", "--capacity", "8"]
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=REPO))
+    out = []
+    reader = threading.Thread(
+        target=lambda: out.extend(json.loads(line) for line in proc.stdout), daemon=True)
+    reader.start()
+
+    def named(seq):
+        return any(m["topic"] == RESULT_TOPIC and m["data"]["meta"]["seq"] == seq
+                   and "newcomer" in {f["name"] for f in m["data"]["faces"]} for m in out)
+
+    try:
+        _send(proc, CONTROL_TOPIC, {"cmd": "enroll", "subject": "newcomer", "count": 10})
+        seq = 0
+        deadline = time.monotonic() + 120
+        while not any(m["topic"] == STATUS_TOPIC and m["data"]["status"] == "enrolled"
+                      for m in out):
+            assert time.monotonic() < deadline and proc.poll() is None, "no 'enrolled'"
+            _send(proc, FRAME_TOPIC, {**encode_frame(a["scenes"][0]), "meta": {"seq": seq}})
+            seq += 1
+            time.sleep(0.05)
+        first_after = seq
+        while not named(seq - 1) or seq == first_after:
+            assert time.monotonic() < deadline and proc.poll() is None, "never named"
+            _send(proc, FRAME_TOPIC, {**encode_frame(a["scenes"][0]), "meta": {"seq": seq}})
+            seq += 1
+            time.sleep(0.05)
+        _send(proc, CONTROL_TOPIC, {"cmd": "stats"})
+        proc.stdin.close()
+        assert proc.wait(timeout=120) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    reader.join(timeout=10)
+    statuses = [m["data"] for m in out if m["topic"] == STATUS_TOPIC]
+    enrolled = [s for s in statuses if s["status"] == "enrolled"]
+    assert len(enrolled) == 1 and enrolled[0]["label"] == 3
+    stats = [s for s in statuses if s["status"] == "stats"]
+    assert stats and stats[-1]["gallery_size"] == 19
+    results = {m["data"]["meta"]["seq"] for m in out if m["topic"] == RESULT_TOPIC}
+    assert results == set(range(seq))
