@@ -111,6 +111,36 @@ Phases (any failure exits nonzero before the result line):
    max and the CLI's startup seconds, with the card's name and power
    limit; smoke observations, not measurements.
 
+10. (run after 8) overload: the stage table of ``/attribution`` first,
+   per-bucket ms of detect, crop, embed and match at buckets 8 and 32 from
+   ablated prefixes of the graphed step (CUDA graphs of back-to-back
+   calls), written to ``opencv_facerecognizer_tpu_torch/
+   stage_quotes_h100.json`` with the card's name and power limit. Then the
+   CLI (phase 7's checkpoints, ``--capacity 1048576 --match-mode exact
+   --fused-embedder --batch-size 32``) on ``--source socket`` in four
+   subprocesses, fed 256x256 uint8 frames from ``--seed`` as pre-encoded
+   JSONL lines by a producer thread. (a0) untraced: R, answered frames/s
+   over an unpaced burst of 256 frames, then 600 interactive frames at
+   0.5 R. (a) the same with ``--trace-sample 1.0 --trace-jsonl
+   --flight-dir --expo-port 0 --slo --profile-dir --profile-batches 8``:
+   the span split (queue wait, dispatch, ready wait, publish, e2e; p50,
+   p99), ``/attribution``, ``/health`` and a lint of ``/prom`` (0
+   problems), and the profile must name kernels A, B and C. (a1) spans
+   in the rings only (no JSONL), read from ``/spans``: the tracer's cost
+   apart from its sink. (b) 1000 deliveries at 3 R over four connections,
+   one interactive in four, every twentieth repeating an answered
+   ``_fid``, with ``--max-inflight-frames 256 --brownout-queue-wait-ms 20
+   --shed-stale-after-ms 250 --dead-letter-journal --journal-fsync
+   always`` and tracing. Gates: every run's ledger closes and no step is
+   captured after warmup (the ``shutdown`` record of ``--metrics-jsonl``),
+   kernels A, B and C launch in every run; in (b) the results and the
+   journal hold every admitted ``_fid`` once, the dedups equal the
+   repeats, the brownout rises to at least 1 and is back to 0 within 10 s
+   of the burst (its lifecycle spans printed), the intake shed takes no
+   interactive frame, interactive frames complete more often than bulk
+   ones, and the journaled dead letters equal the count. One
+   ``{"overload": ...}`` line with the run's total seconds.
+
 The line before the last is the per-kernel JSON (kernels A, B and C); the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -118,16 +148,20 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import io
 import json
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -139,6 +173,7 @@ from opencv_facerecognizer_tpu_torch.models.classifier import NearestNeighbor
 from opencv_facerecognizer_tpu_torch.models.model import PredictableModel
 from opencv_facerecognizer_tpu_torch.ops.distance import CosineDistance
 from opencv_facerecognizer_tpu_torch.ops import _build
+from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.ops.ivf_match import (
     gather_bucket, ivf_match_topk, shortlist_cells, tie_aware_agreement)
 from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask, nms_mask_plain
@@ -149,16 +184,19 @@ from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
     NEG_INF, match_smem_bytes, streaming_match_topk, streaming_match_topk_plain)
 from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import (
-    RecognitionPipeline, unpack_result)
+    RecognitionPipeline, RecognitionResult, pack_result, unpack_result)
 from opencv_facerecognizer_tpu_torch.parallel.quantizer import CoarseQuantizer
+from opencv_facerecognizer_tpu_torch.runtime import expo as expo_mod
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, encode_frame)
+from opencv_facerecognizer_tpu_torch.runtime.journal import DeadLetterJournal, RotatingJournal
+from opencv_facerecognizer_tpu_torch.runtime.promtext import lint_prometheus_text
 from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
     CONTROL_TOPIC, FRAME_TOPIC, RESULT_TOPIC, STATUS_TOPIC, RecognizerService)
 from opencv_facerecognizer_tpu_torch.runtime.resilience import ServiceSupervisor
 from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
 from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
-from opencv_facerecognizer_tpu_torch.utils import native, serialization
+from opencv_facerecognizer_tpu_torch.utils import native, serialization, tracing
 from opencv_facerecognizer_tpu_torch.utils.metrics import (
     BATCHES_DISPATCHED, FRAMES_DROPPED_CRASHED, IVF_INCREMENTAL_ROWS, LOOP_CRASHES,
     SUPERVISOR_RESTARTS, Metrics)
@@ -264,6 +302,26 @@ DUR_SUBJECTS_WAL = 2
 DUR_ENROL_COUNT = 2
 DUR_Q = 512
 DUR_KS = (1, 5)
+
+#: phase 10: the stage table's buckets and graph depth; the burst that
+#: measures R; the steady run (a) and the overload run (b) as shares of R;
+#: one delivery in OVL_REPEAT_EVERY of (b) repeats an answered ``_fid``
+OVL_QUOTE_BUCKETS = (8, 32)
+OVL_QUOTE_ITERS = 10
+OVL_DISTINCT_FRAMES = 64
+OVL_BURST = 256
+OVL_STEADY = 600
+OVL_STEADY_SHARE = 0.5
+OVL_OVERLOAD = 1000
+OVL_OVERLOAD_SHARE = 3.0
+OVL_REPEAT_EVERY = 20
+OVL_PROFILE_BATCHES = 8
+#: (b)'s producer connections (cameras), deliveries dealt round robin
+OVL_CONNECTIONS = 4
+#: the kernels' CUDA function names, as the profile shows them
+OVL_KERNEL_NAMES = {"streaming_match": "match_wgmma_kernel", "sepblock": "sepblock_kernel",
+                    "nms": "nms_keep_kernel"}
+
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -1984,6 +2042,507 @@ def async_grow_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: overload control and observability of the CLI on the card
+
+
+def _prefix_ms(fn, cuda: bool) -> float:
+    """Device ms of one ``fn`` (a CUDA graph of back-to-back calls), or the
+    host-clock mean on the CPU (a rehearsal)."""
+    if cuda:
+        return graph_ms(fn, iters=OVL_QUOTE_ITERS)
+    fn()
+    t = time.perf_counter()
+    for _ in range(3):
+        fn()
+    return (time.perf_counter() - t) / 3 * 1e3
+
+
+def stage_quotes(dev, card: str, stack, frames: np.ndarray) -> dict:
+    """Per-bucket stage ms of the serving step from ablated prefixes:
+    detect (the detector and its decode), + crop (crop, resize, normalize),
+    + embed (the fused embedder), + match (kernel A and the pack), each
+    prefix timed as a CUDA graph of back-to-back calls; a stage is its
+    prefix less the one before. Written to ``expo.DEFAULT_QUOTES_PATH``
+    in the layout ``expo.load_stage_quotes`` reads."""
+    det, net, gallery = stack.detector, stack.embed_net, stack.gallery
+    data = gallery.data
+    match = gallery.match_fn(stack.top_k, data.capacity, use_ivf=False)
+    face = stack.face_size
+    per_batch, prefix_ms = {}, {}
+    for bucket in OVL_QUOTE_BUCKETS:
+        x = torch.as_tensor(frames[:bucket]).to(dev)
+
+        def run(n, x=x):
+            with torch.no_grad():
+                f = x.to(torch.float32)
+                boxes, scores, valid = detector_mod.decode_detections(
+                    det.net(f), det.max_faces, det.score_threshold, det.iou_threshold)
+                if n == 1:
+                    return boxes
+                crops = image_ops.batched_crop_resize(f, boxes, face)
+                faces = embedder_mod.normalize_faces(crops.reshape(-1, *face), face)
+                if n == 2:
+                    return faces
+                emb = (embedder_mod.fused_forward(net, faces) if stack.fused_embedder
+                       else net(faces))
+                if n == 3:
+                    return emb
+                labels, sims, _ = match(emb, data.embeddings, data.valid, data.labels)
+                b, k = valid.shape
+                return pack_result(RecognitionResult(
+                    boxes=boxes, det_scores=scores, valid=valid,
+                    labels=labels.reshape(b, k, -1), similarities=sims.reshape(b, k, -1)))
+
+        ms = [0.0] + [_prefix_ms(lambda n=n: run(n), dev.type == "cuda") for n in (1, 2, 3, 4)]
+        prefix_ms[bucket] = ms[1:]
+        per_batch[str(bucket)] = {stage: {"ms_per_batch": max(0.0, ms[i + 1] - ms[i])}
+                                  for i, stage in enumerate(expo_mod.DEVICE_STAGES)}
+    table = {"card": card, "gallery_rows": int(data.capacity),
+             "method": "ablated prefixes of the serving step (uint8 frames 256x256, fused "
+                       "embedder, exact match), each a CUDA graph of back-to-back calls; "
+                       "a stage is its prefix less the previous one",
+             "script": "chip_smoke.py phase 10",
+             "stage_attribution": {"per_batch": per_batch}}
+    serialization.atomic_write_json(expo_mod.DEFAULT_QUOTES_PATH, table)
+    log(f"stage quotes ({card}): prefix ms {prefix_ms}; written to "
+        f"{os.path.relpath(expo_mod.DEFAULT_QUOTES_PATH)}")
+    return dict(prefix_ms=prefix_ms, per_batch=per_batch)
+
+
+def _frame_line(b64: str, meta: dict, priority: str) -> bytes:
+    """One pre-encoded JSONL frame message of the socket transport."""
+    return (f'{{"topic": "{FRAME_TOPIC}", "data": {{"__frame__": "{b64}", "shape": '
+            f'[{FRAME[0]}, {FRAME[1]}], "dtype": "uint8", "meta": {json.dumps(meta)}, '
+            f'"priority": "{priority}"}}}}\n').encode()
+
+
+class SocketCli:
+    """The CLI with ``--source socket --port 0`` in a subprocess and one raw
+    TCP client: pre-encoded frame lines go out, result and status lines
+    come back (each result with its host-clock arrival)."""
+
+    def __init__(self, paths: dict, dev, args: list, metrics_path: str):
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.metrics_path = metrics_path
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+             *cli_args(dict(paths, metrics=metrics_path), "socket", dev), "--port", "0",
+             *args], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, env=env)
+        self.err = []
+        self.results, self.statuses = [], []
+        self.answered = {}  # fid -> arrival (perf_counter)
+        self._lock = threading.Lock()
+        threading.Thread(target=lambda: self.err.extend(self.proc.stderr), daemon=True).start()
+        self.port = int(self.stderr_value("serving on ", 300).rsplit(":", 1)[1])
+        self.expo = (int(self.stderr_value("expo endpoint: ", 10).rstrip("/").rsplit(":", 1)[1])
+                     if "--expo-port" in args else None)
+        self.sock = socket.create_connection(("127.0.0.1", self.port), timeout=30)
+        self.sock.settimeout(None)
+        #: more producer connections (cameras): each gets every result too
+        #: (the transport broadcasts), which their readers discard
+        self.extra = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def connect_more(self, n: int) -> None:
+        for _ in range(n):
+            sock = socket.create_connection(("127.0.0.1", self.port), timeout=30)
+            sock.settimeout(None)
+            threading.Thread(target=lambda s=sock: [None for _ in s.makefile("rb")],
+                             daemon=True).start()
+            self.extra.append(sock)
+
+    def stderr_value(self, prefix: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for line in list(self.err):
+                if line.startswith(prefix):
+                    return line[len(prefix):].strip()
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"the CLI printed no {prefix!r} line: {''.join(self.err[-30:])}")
+
+    def _read(self) -> None:
+        for line in self.sock.makefile("r", encoding="utf-8"):
+            msg = json.loads(line)
+            now = time.perf_counter()
+            with self._lock:
+                if msg["topic"] == RESULT_TOPIC:
+                    self.results.append(msg["data"])
+                    self.answered[msg["data"]["meta"]["_fid"]] = now
+                elif msg["topic"] == STATUS_TOPIC:
+                    self.statuses.append(msg["data"])
+
+    def send(self, line: bytes, conn: int = 0) -> None:
+        (self.extra[conn - 1] if conn else self.sock).sendall(line)
+
+    def n_answered(self) -> int:
+        with self._lock:
+            return len(self.answered)
+
+    def get(self, path: str):
+        """(HTTP status, body) of one GET on the exposition."""
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.expo}{path}",
+                                        timeout=10) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as exc:
+            return exc.code, exc.read().decode()
+
+    def get_json(self, path: str):
+        return json.loads(self.get(path)[1])
+
+    def stop(self, timeout: float = 120) -> dict:
+        """SIGTERM; returns the ``shutdown`` record of ``--metrics-jsonl``."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            for sock in (self.sock, *self.extra):
+                sock.close()
+        if rc != 0:
+            raise AssertionError(f"the CLI exited {rc}: {''.join(self.err[-40:])}")
+        return {r["event"]: r for r in metrics_records(self.metrics_path)}["shutdown"]
+
+
+def paced(cli: SocketCli, lines: list, rate: float) -> float:
+    """Send ``lines`` at ``rate`` a second (unpaced when 0) from a producer
+    thread; returns the sending seconds."""
+    t = {}
+
+    def produce():
+        t0 = time.perf_counter()
+        for i, line in enumerate(lines):
+            if rate:
+                delay = t0 + i / rate - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+            cli.send(line)
+        t["s"] = time.perf_counter() - t0
+
+    worker = threading.Thread(target=produce, name="phase10-producer", daemon=True)
+    worker.start()
+    worker.join(timeout=600)
+    return t["s"]
+
+
+def _pct(values, q) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q)) if len(values) else \
+        float("nan")
+
+
+def span_records(path: str) -> list:
+    return list(RotatingJournal(path).records())
+
+
+def span_split(spans: list, first_frame: int = 0) -> dict:
+    """Stage times (ms) from a span journal, for frame traces from the
+    ``first_frame``-th arrival on and their batches: per-frame queue wait
+    and e2e (enqueue to settle), per-batch dispatch, ready wait, publish;
+    and per-frame e2e by priority."""
+    frames = {}
+    for s in spans:
+        if s.get("topic") == FRAME_TOPIC and s["trace"] > 2 * first_frame:
+            frames.setdefault(s["trace"], {})[s["stage"]] = s
+    batches = {f["queue_wait"]["batch"] for f in frames.values() if "queue_wait" in f}
+    stage = {k: [] for k in ("dispatch", "ready_wait", "publish")}
+    for s in spans:
+        if s.get("topic") == "_batch" and s["trace"] in batches and s["stage"] in stage:
+            stage[s["stage"]].append(s["dur"] * 1e3)
+    qw, e2e, by_pri = [], [], {0: [], 1: []}
+    for f in frames.values():
+        if "queue_wait" in f:
+            qw.append(f["queue_wait"]["dur"] * 1e3)
+        settle = f.get("settle")
+        if "queue_wait" in f and settle and settle["outcome"] == "completed":
+            ms = (settle["t0"] - f["queue_wait"]["t0"]) * 1e3
+            e2e.append(ms)
+            by_pri[f["receive"].get("priority", 0)].append(ms)
+    out = {k: {"p50": _pct(v, 50), "p99": _pct(v, 99), "n": len(v)}
+           for k, v in (("queue_wait", qw), *stage.items(), ("e2e", e2e))}
+    out["e2e_by_priority"] = {("interactive" if p == 0 else "bulk"):
+                              {"p50": _pct(v, 50), "p99": _pct(v, 99), "n": len(v)}
+                              for p, v in by_pri.items()}
+    return out
+
+
+def _serving_delta(rec: dict) -> dict:
+    """Kernel launches and captures of one CLI run after its warmup."""
+    return {"launches": {k: v - rec["warm"]["launches"][k] for k, v in rec["launches"].items()},
+            "captures_after_warmup": rec["captures"] - rec["warm"]["captures"],
+            "recaptures": rec["recaptures"]}
+
+
+def _check_serving(dev, tag: str, rec: dict) -> dict:
+    delta = _serving_delta(rec)
+    if delta["captures_after_warmup"] or rec["summary"].get("recompiles_post_warmup"):
+        raise AssertionError(f"{tag}: a step was captured after warmup: {delta}")
+    if dev.type == "cuda" and min(delta["launches"].values()) < 1:
+        raise AssertionError(f"{tag}: a kernel did not launch: {delta['launches']}")
+    return delta
+
+
+def _close_ledger(tag: str, ledger: dict) -> None:
+    done = ledger["completed"] + ledger["completed_cached"]
+    if ledger["in_system"] != 0 or ledger["admitted"] != done + sum(
+            ledger["drops_by_reason"].values()):
+        raise AssertionError(f"{tag}: the ledger does not close: {ledger}")
+
+
+def _burst_rate(cli: SocketCli, lines: list, fids: list, timeout: float = 120) -> float:
+    """Answered frames a second over an unpaced burst of ``lines``."""
+    t0 = time.perf_counter()
+    paced(cli, lines, 0)
+    wait_for(lambda: cli.n_answered() >= len(lines), timeout, "the burst's answers")
+    with cli._lock:
+        last = max(cli.answered[f] for f in fids)
+    return len(lines) / (last - t0)
+
+
+def steady_run(dev, paths: dict, root: str, tag: str, b64: list, rate_hint: float,
+               sample: float, sink: bool = True, profile: bool = False) -> dict:
+    """Phase 10 (a): a burst of OVL_BURST frames (R), then OVL_STEADY
+    interactive frames at OVL_STEADY_SHARE x R (of ``rate_hint`` when
+    given), with the exposition and the SLO monitor; spans at ``sample``,
+    streamed to a JSONL when ``sink`` (else read from ``/spans``), and the
+    profile when ``profile``."""
+    spans_path = os.path.join(root, f"{tag}_spans.jsonl")
+    args = ["--trace-sample", str(sample), "--flight-dir", os.path.join(root, f"{tag}_flight"),
+            "--expo-port", "0", "--slo"]
+    if sink:
+        args += ["--trace-jsonl", spans_path]
+    if profile:
+        args += ["--profile-dir", os.path.join(root, f"{tag}_profile"),
+                 "--profile-batches", str(OVL_PROFILE_BATCHES)]
+    cli = SocketCli(paths, dev, args, os.path.join(root, f"{tag}_metrics.jsonl"))
+    try:
+        burst = [_frame_line(b64[i % len(b64)], {"_fid": i}, "interactive")
+                 for i in range(OVL_BURST)]
+        rate = _burst_rate(cli, burst, list(range(OVL_BURST)))
+        if profile:
+            # the profile covers the burst's first batches; its start and
+            # its export stall the process, so the steady run waits for it
+            cli.stderr_value("profile trace written to ", 300)
+        steady_rate = OVL_STEADY_SHARE * (rate_hint or rate)
+        n0 = OVL_BURST
+        steady = [_frame_line(b64[i % len(b64)], {"_fid": n0 + i}, "interactive")
+                  for i in range(OVL_STEADY)]
+        t_send = paced(cli, steady, steady_rate)
+        wait_for(lambda: cli.n_answered() >= n0 + OVL_STEADY, 120, "the steady run's answers")
+        attribution = cli.get_json("/attribution")
+        status, health_body = cli.get("/health")
+        prom = cli.get("/prom")[1]
+        problems = lint_prometheus_text(prom)
+        ring = [] if sink or not sample else [
+            {**span, "topic": topic} for topic in (FRAME_TOPIC, "_batch")
+            for span in cli.get_json(f"/spans?topic={topic}&limit=10000")["spans"]]
+    finally:
+        rec = cli.stop()
+    _close_ledger(tag, rec["ledger"])
+    if rec["ledger"]["completed"] != n0 + OVL_STEADY:
+        raise AssertionError(f"{tag}: {rec['ledger']} for {n0 + OVL_STEADY} frames")
+    if problems:
+        raise AssertionError(f"{tag}: /prom has {len(problems)} problems: {problems[:5]}")
+    delta = _check_serving(dev, tag, rec)
+    out = dict(rate_fps=rate, steady_fps=steady_rate, steady_send_s=t_send,
+               summary_p50_ms={k: rec["summary"].get(f"{k}_p50_ms") for k in (
+                   "queue_wait", "dispatch", "ready_wait", "publish", "e2e_latency")},
+               health=json.loads(health_body).get("state"), health_http=status,
+               attribution={k: v for k, v in attribution.items()
+                            if k == "device_busy_fraction" or k.startswith("stage_share_b32")},
+               prom_problems=len(problems), prom_bytes=len(prom), serving=delta)
+    if sample:
+        spans = span_records(spans_path) if sink else ring
+        out["split"] = span_split(spans, first_frame=n0)
+        t_lo = min(s["t0"] for s in spans if s.get("topic") == FRAME_TOPIC
+                   and s["trace"] > 2 * n0)
+        t_hi = max(s["t0"] + s["dur"] for s in spans if s.get("topic") == "_batch")
+        out["busy_steady"] = tracing.device_busy_fraction(
+            [s for s in spans if s.get("topic") == "_batch"], window_s=t_hi - t_lo, now=t_hi)
+        out["spans"] = len(spans)
+    if profile:
+        traces = [os.path.join(root, f"{tag}_profile", n)
+                  for n in os.listdir(os.path.join(root, f"{tag}_profile"))]
+        text = "".join(open(p).read() for p in traces)
+        named = {k: name in text for k, name in OVL_KERNEL_NAMES.items()}
+        if dev.type == "cuda" and not all(named.values()):
+            raise AssertionError(f"{tag}: the profile does not name every kernel: {named}")
+        out.update(profile_files=len(traces), profile_names_kernels=named)
+    return out
+
+
+def overload_run(dev, paths: dict, root: str, b64: list, rate: float) -> dict:
+    """Phase 10 (b): OVL_OVERLOAD deliveries at OVL_OVERLOAD_SHARE x R, one
+    interactive in four, every twentieth repeating an answered ``_fid``;
+    admission bound, brownout, stale shed and the dead-letter journal."""
+    spans_path = os.path.join(root, "b_spans.jsonl")
+    journal_path = os.path.join(root, "b_deadletter.jsonl")
+    args = ["--max-inflight-frames", "256", "--brownout-queue-wait-ms", "20",
+            "--shed-stale-after-ms", "250", "--dead-letter-journal", journal_path,
+            "--journal-fsync", "always", "--trace-sample", "1.0", "--trace-jsonl", spans_path,
+            "--flight-dir", os.path.join(root, "b_flight"), "--expo-port", "0", "--slo"]
+    cli = SocketCli(paths, dev, args, os.path.join(root, "b_metrics.jsonl"))
+    cli.connect_more(OVL_CONNECTIONS - 1)
+    n_new = OVL_OVERLOAD - OVL_OVERLOAD // OVL_REPEAT_EVERY
+    lines = [_frame_line(b64[i % len(b64)], {"_fid": i},
+                         "interactive" if i % 4 == 0 else "bulk") for i in range(n_new)]
+    repeats = []
+    levels = []
+    try:
+        t0 = time.perf_counter()
+        sent_new, owed = 0, 0
+        rate_b = OVL_OVERLOAD_SHARE * rate
+        for slot in range(OVL_OVERLOAD):
+            delay = t0 + slot / rate_b - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            if slot % OVL_REPEAT_EVERY == OVL_REPEAT_EVERY - 1:
+                owed += 1
+            fid = None
+            if owed:
+                # a repeat of a frame already answered, so surely admitted
+                with cli._lock:
+                    pool = sorted(set(cli.answered) - set(repeats))
+                fid = pool[0] if pool else None
+            conn = slot % OVL_CONNECTIONS
+            if fid is not None:
+                repeats.append(fid)
+                cli.send(lines[fid], conn)
+                owed -= 1
+            elif sent_new < n_new:
+                cli.send(lines[sent_new], conn)
+                sent_new += 1
+        for line in lines[sent_new:]:
+            cli.send(line)
+        while owed:
+            wait_for(lambda: set(cli.answered) - set(repeats), 60, "an answer to repeat")
+            with cli._lock:
+                fid = min(set(cli.answered) - set(repeats))
+            repeats.append(fid)
+            cli.send(lines[fid])
+            owed -= 1
+        t_end = time.perf_counter()
+        send_s = t_end - t0
+
+        def settled():
+            led = cli.get_json("/ledger")
+            c = cli.get_json("/metrics")
+            levels.append((time.perf_counter() - t_end, cli.get_json("/brownout")["level"]))
+            rejected = sum(v for k, v in c.items() if k.startswith("frames_rejected_"))
+            return (led["in_system"] == 0 and led["admitted"] + rejected
+                    + c.get("frames_deduped", 0) == OVL_OVERLOAD)
+
+        wait_for(settled, 120, "the overload run to settle", poll=0.1)
+        wait_for(lambda: cli.get_json("/brownout")["level"] == 0, 10,
+                 "the brownout level to return to 0 after the burst", poll=0.1)
+        back_s = time.perf_counter() - t_end
+    finally:
+        rec = cli.stop()
+    ledger = rec["ledger"]
+    _close_ledger("overload", ledger)
+    delta = _check_serving(dev, "overload", rec)
+    journal = DeadLetterJournal(journal_path)
+    dropped = [(r["reason"], f) for r in journal.records() for f in r["frames"]]
+    fids = [r["meta"]["_fid"] for r in cli.results] + [f["meta"]["_fid"] for _r, f in dropped]
+    if len(fids) != len(set(fids)) or len(fids) != ledger["admitted"]:
+        raise AssertionError(f"overload: {len(cli.results)} results and {len(dropped)} journaled "
+                             f"drops ({len(set(fids))} distinct fids) for {ledger['admitted']} "
+                             "admitted frames")
+    c = rec["summary"]
+    if c.get("frames_deduped", 0) != len(repeats):
+        raise AssertionError(f"overload: {c.get('frames_deduped')} deduped, {len(repeats)} sent")
+    intake = [f for reason, f in dropped if f["stage"] == "intake.brownout"]
+    if any(f["priority"] == 0 for f in intake):
+        raise AssertionError("overload: the brownout intake shed an interactive frame")
+    dead = sum(1 for reason, _f in dropped if reason == "dead_letter")
+    if dead != c.get("frames_dead_lettered", 0):
+        raise AssertionError(f"overload: {dead} journaled dead letters, "
+                             f"{c.get('frames_dead_lettered')} counted")
+    spans = span_records(spans_path)
+    transitions = [(round(s["t0"] - spans[0]["t0"], 3), s["from_level"], s["level"],
+                    s["queue_wait_ewma_ms"]) for s in spans
+                   if s.get("topic") == "_lifecycle" and s["stage"] == "brownout"]
+    if not any(lvl >= 1 for _t, _f, lvl, _e in transitions):
+        raise AssertionError(f"overload: the brownout level never rose: {transitions}")
+    split = span_split(spans)
+    e2e = split["e2e_by_priority"]
+    done = {r["meta"]["_fid"] for r in cli.results}
+    share = {cls: sum(1 for f in range(n_new) if (f % 4 == 0) == (cls == "interactive")
+                      and f in done) / sum(1 for f in range(n_new)
+                                           if (f % 4 == 0) == (cls == "interactive"))
+             for cls in ("interactive", "bulk")}
+    # The batcher is FIFO, as in the reference: interactive and bulk frames
+    # admitted together wait alike, and the stale bound caps both classes'
+    # e2e, so the p99s come out alike (recorded, not gated). What the
+    # design gives interactive traffic is its completions: the admission
+    # reserve and the bulk-only intake shed.
+    if not share["interactive"] > share["bulk"]:
+        raise AssertionError(f"overload: interactive frames completed no more often than bulk "
+                             f"ones: {share}")
+    return dict(deliveries=OVL_OVERLOAD, repeats=len(repeats), rate_fps=OVL_OVERLOAD_SHARE * rate,
+                completed_share=share,
+                send_s=send_s, ledger=ledger,
+                rejected={k: v for k, v in c.items() if k.startswith("frames_rejected_")},
+                deduped=c.get("frames_deduped", 0), journaled={r: sum(
+                    1 for reason, _f in dropped if reason == r) for r in {r for r, _ in dropped}},
+                brownout_transitions=transitions, brownout_back_to_0_s=back_s,
+                brownout_max_level=max(lvl for _t, _f, lvl, _e in transitions),
+                e2e_by_priority=e2e, split=split, serving=delta)
+
+
+def overload_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 10 (module docstring); returns the ``{"overload": ...}``
+    numbers."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "overload_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    if "cli_paths" not in ctx:
+        paths, _frames = write_cli_inputs(dev, seed, os.path.join(root, "cli"))
+    else:
+        paths = ctx["cli_paths"]
+    rng = np.random.default_rng(seed + 10)
+    frames = rng.integers(0, 256, (OVL_DISTINCT_FRAMES, *FRAME), dtype=np.uint8)
+    b64 = [base64.b64encode(np.ascontiguousarray(f).tobytes()).decode("ascii") for f in frames]
+    stack = ctx.get("stack")
+    if stack is None:
+        stack = build_stack(dev, seed, ShardedGallery(CLI_CAPACITY, DIM,
+                                                      store_dtype=torch.bfloat16, device=dev))
+    quotes = stage_quotes(dev, card, stack, frames)
+    # R from the untraced run: the profiler's start stalls the traced one
+    a0 = steady_run(dev, paths, root, "a0", b64, 0.0, sample=0.0)
+    rate = a0["rate_fps"]
+    log(f"overload (a) with --trace-sample 0 ({card}): R {rate:.1f} frames/s; {a0}")
+    a = steady_run(dev, paths, root, "a", b64, rate, sample=1.0, profile=True)
+    log(f"overload (a) steady ({card}): {OVL_STEADY} interactive frames at "
+        f"{a['steady_fps']:.1f}/s; span split ms {json.dumps(a['split'])}; busy "
+        f"{a['busy_steady']:.4f}; /attribution {a['attribution']}; /health {a['health']} "
+        f"({a['health_http']}); /prom problems {a['prom_problems']}; profile names kernels "
+        f"{a['profile_names_kernels']}; serving {a['serving']}")
+    # the tracer's cost apart from its JSONL sink: spans in the rings only
+    a1 = steady_run(dev, paths, root, "a1", b64, rate, sample=1.0, sink=False)
+    log(f"overload (a) tracer cost ({card}): p50 ms (metrics windows, burst and steady) "
+        f"untraced {a0['summary_p50_ms']}, rings only {a1['summary_p50_ms']}, rings and JSONL "
+        f"(profiled burst) {a['summary_p50_ms']}; steady dispatch p50 from the spans "
+        f"{a1['split']['dispatch']['p50']:.3f} ms rings only, "
+        f"{a['split']['dispatch']['p50']:.3f} ms with the JSONL")
+    b = overload_run(dev, paths, root, b64, rate)
+    log(f"overload (b) ({card}): {b['deliveries']} deliveries at {b['rate_fps']:.1f}/s in "
+        f"{b['send_s']:.3f} s; ledger {b['ledger']}; rejected {b['rejected']}; deduped "
+        f"{b['deduped']} of {b['repeats']} repeats; journaled {b['journaled']}; brownout "
+        f"transitions (s, from, to, ewma ms) {b['brownout_transitions']}, back to 0 "
+        f"{b['brownout_back_to_0_s']:.3f} s after the burst; e2e by priority "
+        f"{json.dumps(b['e2e_by_priority'])}; serving {b['serving']}")
+    return dict(card=card, rate_fps=rate, quotes=quotes, steady=a, untraced=a0, rings_only=a1,
+                overload=b,
+                phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1999,7 +2558,7 @@ def main() -> int:
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     _build.build_all()
     log(f"built {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name in _build.KERNELS:
@@ -2011,6 +2570,7 @@ def main() -> int:
     ivf = ivf_phase(dev, args.seed, ctx)
     cli = cli_phase(dev, args.seed, card, ctx)
     durability = durability_phase(dev, args.seed, card, ctx)
+    overload = overload_phase(dev, args.seed, card, ctx)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
@@ -2018,6 +2578,9 @@ def main() -> int:
     print(json.dumps({"ivf": ivf}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"durability": durability}))
+    overload["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {overload['total_s']:.1f} s")
+    print(json.dumps({"overload": overload}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

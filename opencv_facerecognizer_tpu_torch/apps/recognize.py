@@ -31,6 +31,18 @@ exits 0 with a ``clean`` report. ``--supervised`` restarts a crashed
 serving loop; ``--probe-on-degraded`` probes the card when dispatches keep
 failing. A state dir crosses between the two packages both ways.
 
+Overload control: ``--max-inflight-frames`` and ``--rate-limit-fps`` reject
+at the front door (``rejected`` statuses), ``--brownout-queue-wait-ms``
+sheds bulk frames under a growing queue, ``--shed-stale-after-ms`` sheds
+frames that waited too long, and ``--dead-letter-journal`` (fsynced per
+``--journal-fsync``) records every lost frame. Observability:
+``--trace-sample`` / ``--trace-ring`` / ``--trace-jsonl`` record spans,
+``--flight-dir`` keeps flight-recorder dumps, ``--expo-port`` serves
+``/metrics``, ``/prom``, ``/health``, ``/spans`` and more (0 picks a free
+port, printed on stderr), ``--slo`` runs the burn-rate monitor (the
+``--slo-*`` objectives), and ``--profile-dir`` writes a ``torch.profiler``
+Chrome trace (CPU and CUDA) of the first ``--profile-batches`` batches.
+
 The command line is the reference's, so any reference command line
 parses. ``--device`` (default ``cuda``) is the port's own: the CLI runs on
 the card and raises without one, unless ``--device cpu`` names the CPU.
@@ -42,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import signal
 import sys
@@ -53,30 +66,15 @@ import numpy as np
 import torch
 
 #: the ROADMAP items that bring the refused flags
-_ADMISSION = "ROADMAP A.8.2 (admission, brownout, dead-letter journal)"
 _INGEST = "ROADMAP A.8.3 (ingest staging ring, JPEG decode pool)"
-_OBSERVE = "ROADMAP A.8.4 (tracing, SLO monitor, exposition, profiling)"
 _REGISTRY = "ROADMAP A.8.5 (model registry, cascade)"
 _REPLICAS = "ROADMAP A.8.6 (replication, topic router)"
 _MULTI_GPU = "ROADMAP A.11 (multi-GPU)"
 
 #: (flag, refused value or None for "any value but the default", item)
 REFUSED = (
-    ("--max-inflight-frames", None, _ADMISSION), ("--rate-limit-fps", None, _ADMISSION),
-    ("--brownout-queue-wait-ms", None, _ADMISSION),
-    ("--shed-stale-after-ms", None, _ADMISSION),
-    ("--dead-letter-journal", None, _ADMISSION), ("--journal-fsync", None, _ADMISSION),
     ("--ingest-mode", "jpeg", _INGEST), ("--ingest-ring-depth", None, _INGEST),
     ("--ingest-decode-workers", None, _INGEST),
-    ("--trace-sample", None, _OBSERVE), ("--trace-ring", None, _OBSERVE),
-    ("--trace-jsonl", None, _OBSERVE), ("--flight-dir", None, _OBSERVE),
-    ("--expo-port", None, _OBSERVE), ("--slo", None, _OBSERVE),
-    ("--slo-interval-s", None, _OBSERVE), ("--slo-e2e-p99-ms", None, _OBSERVE),
-    ("--slo-queue-wait-p99-ms", None, _OBSERVE),
-    ("--slo-completion-target", None, _OBSERVE),
-    ("--slo-durability-rows", None, _OBSERVE), ("--slo-windows", None, _OBSERVE),
-    ("--slo-loop-stale-s", None, _OBSERVE), ("--profile-dir", None, _OBSERVE),
-    ("--profile-batches", None, _OBSERVE),
     ("--cascade", None, _REGISTRY), ("--cascade-threshold", None, _REGISTRY),
     ("--no-cascade", None, _REGISTRY), ("--registry-swap", None, _REGISTRY),
     ("--detector-version", None, _REGISTRY), ("--cascade-version", None, _REGISTRY),
@@ -113,8 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
     add("--dir", help="image directory for --source dir")
     add("--port", type=int, default=5600, help="TCP port for --source socket")
     add("--host", default="127.0.0.1", help="bind address for --source socket")
-    add("--profile-dir")
-    add("--profile-batches", type=int, default=20)
+    add("--profile-dir",
+        help="write a torch.profiler Chrome trace (CPU and CUDA activity) of the first "
+             "--profile-batches batches after warmup into this directory")
+    add("--profile-batches", type=int, default=20,
+        help="batches dispatched before the --profile-dir trace stops")
     add("--frame-size", type=int, nargs=2, default=(256, 256), metavar=("H", "W"))
     add("--parallel", choices=["fused", "pp"], default="fused",
         help="fused: the whole step on one card")
@@ -181,11 +182,22 @@ def build_parser() -> argparse.ArgumentParser:
     add("--supervised", action="store_true",
         help="restart a crashed serving loop from the last-known-good gallery "
              "(ServiceSupervisor)")
-    add("--max-inflight-frames", type=int, default=0)
-    add("--rate-limit-fps", type=float, default=0.0)
-    add("--brownout-queue-wait-ms", type=float, default=0.0)
-    add("--shed-stale-after-ms", type=float, default=0.0)
-    add("--dead-letter-journal", metavar="PATH")
+    add("--max-inflight-frames", type=int, default=0,
+        help="admission bound: reject new frames (reason overload) once this many "
+             "admitted frames are in the system; bulk frames at 75%% of it. 0 = off")
+    add("--rate-limit-fps", type=float, default=0.0,
+        help="per-topic token-bucket rate limit (frames/s, a burst of 1 s): frames "
+             "above it are rejected (reason rate_limit). 0 = off")
+    add("--brownout-queue-wait-ms", type=float, default=0.0,
+        help="brownout threshold of the queue-wait EWMA: level 1 sheds half the bulk "
+             "frames, level 2 all of them and cuts a batch to the smallest rung; "
+             "announced on the status topic. 0 = off")
+    add("--shed-stale-after-ms", type=float, default=0.0,
+        help="shed a queued frame older than this (reason stale) before it takes a "
+             "dispatch slot. 0 = off")
+    add("--dead-letter-journal", metavar="PATH",
+        help="append lost frames' metadata and reason to this rotating JSONL journal "
+             "(read it with python -m opencv_facerecognizer_tpu_torch.runtime.journal)")
     add("--state-dir", metavar="DIR",
         help="durable state: checkpoints, the enrolment WAL, the IVF sidecar and the "
              "registry manifest; recovered at start, checkpointed at SIGTERM")
@@ -205,20 +217,37 @@ def build_parser() -> argparse.ArgumentParser:
              "below a sixth of it: refuse enrolments (0 disables)")
     add("--durability-probe-s", type=float, default=5.0,
         help="interval of the disk checks and of the recovery probe while degraded")
-    add("--journal-fsync", choices=["never", "interval", "always"], default="never")
-    add("--trace-sample", type=float, default=0.0)
-    add("--trace-ring", type=int, default=4096)
-    add("--trace-jsonl", metavar="PATH")
-    add("--flight-dir", metavar="DIR")
-    add("--expo-port", type=int, default=None, metavar="PORT")
-    add("--slo", action="store_true")
-    add("--slo-interval-s", type=float, default=5.0)
-    add("--slo-e2e-p99-ms", type=float, default=500.0)
-    add("--slo-queue-wait-p99-ms", type=float, default=250.0)
-    add("--slo-completion-target", type=float, default=0.999)
-    add("--slo-durability-rows", type=int, default=1024)
+    add("--journal-fsync", choices=["never", "interval", "always"], default="never",
+        help="fsync policy of the dead-letter journal (the WAL always fsyncs)")
+    add("--trace-sample", type=float, default=0.0,
+        help="share of frames whose spans are recorded (deterministic per arrival "
+             "index); lifecycle spans are always recorded when tracing is on")
+    add("--trace-ring", type=int, default=4096, help="spans kept per topic ring")
+    add("--trace-jsonl", metavar="PATH",
+        help="also stream every span as JSONL into this rotating file")
+    add("--flight-dir", metavar="DIR",
+        help="flight-recorder dumps of the span rings: on a dead-letter, a stall, a "
+             "supervisor restart, a critical health verdict and the SIGTERM drain")
+    add("--expo-port", type=int, default=None, metavar="PORT",
+        help="serve the read-only HTTP exposition (/metrics /prom /health /ledger "
+             "/brownout /spans /attribution ...) on this port; 0 picks a free one")
+    add("--slo", action="store_true",
+        help="run the SLO burn-rate monitor (interactive e2e p99, queue-wait p99, "
+             "completion ratio, durability lag, loop liveness): /health, the status "
+             "topic with --supervised, one more brownout level when critical")
+    add("--slo-interval-s", type=float, default=5.0, help="seconds between evaluations")
+    add("--slo-e2e-p99-ms", type=float, default=500.0,
+        help="interactive e2e objective: 99%% of interactive frames within this")
+    add("--slo-queue-wait-p99-ms", type=float, default=250.0,
+        help="queue-wait objective: 99%% of frames leave the queue within this")
+    add("--slo-completion-target", type=float, default=0.999,
+        help="completion objective: the share of admitted frames that must publish")
+    add("--slo-durability-rows", type=int, default=1024,
+        help="durability-lag objective: WAL rows not covered by a checkpoint "
+             "(needs --state-dir)")
     add("--slo-windows", type=float, nargs=2, default=(60.0, 600.0),
-        metavar=("SHORT_S", "LONG_S"))
+        metavar=("SHORT_S", "LONG_S"),
+        help="the two burn-rate windows; a severity needs both to burn")
     add("--replica-role", choices=["writer", "reader"], default="writer",
         help="writer (default)")
     add("--replica-poll-ms", type=float, default=50.0)
@@ -230,7 +259,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--router-link-deadline-s", type=float, default=0.0)
     add("--router-hedge-deadline-s", type=float, default=0.0)
     add("--router-dedup-window", type=int, default=4096)
-    add("--slo-loop-stale-s", type=float, default=30.0)
+    add("--slo-loop-stale-s", type=float, default=30.0,
+        help="loop-liveness objective: seconds without a serving-loop iteration "
+             "(warn; critical at 6x). 0 = off")
     return p
 
 
@@ -321,7 +352,7 @@ def _registry_fence(registry, args) -> None:
                 f"state dir's registry manifest serves {role} v{registry.version(role)}")
 
 
-def _open_state(args, pipeline, names, metrics):
+def _open_state(args, pipeline, names, metrics, tracer=None):
     """The writer's durable state over ``--state-dir`` (the lease is held
     already): recovery into the pipeline's gallery and ``names``, the
     ``--embedder-version`` fence, the registry manifest, the first
@@ -334,7 +365,7 @@ def _open_state(args, pipeline, names, metrics):
     state = StateLifecycle(args.state_dir, metrics=metrics,
                            keep_checkpoints=args.keep_checkpoints,
                            checkpoint_wal_rows=args.checkpoint_wal_rows,
-                           checkpoint_every_s=args.checkpoint_every_s)
+                           checkpoint_every_s=args.checkpoint_every_s, tracer=tracer)
     t0 = time.perf_counter()
     report = state.recover(pipeline.gallery, names)
     recover_s = time.perf_counter() - t0
@@ -357,9 +388,115 @@ def _open_state(args, pipeline, names, metrics):
                 checkpoint=report["recovered_checkpoint"],
                 replayed_records=report["replayed_records"],
                 gallery_size=report["gallery_size"])
-    DurabilityMonitor(state, metrics=metrics, probe_interval_s=args.durability_probe_s,
+    DurabilityMonitor(state, metrics=metrics, tracer=tracer,
+                      probe_interval_s=args.durability_probe_s,
                       low_watermark_bytes=int(args.disk_low_watermark * (1 << 20)))
     return state
+
+
+def _metrics_window(args):
+    """(window_s, slices) of the latency windows: with ``--slo`` the
+    rolling horizon covers the longest SLO window and a slice the
+    shortest, as the reference sizes them."""
+    window_s, slices = 600.0, 20
+    if args.slo:
+        window_s = max(window_s, *args.slo_windows)
+        slices = min(960, max(20, int(math.ceil(
+            window_s / max(1e-3, min(30.0, min(args.slo_windows)))))))
+    return window_s, slices
+
+
+def _build_tracer(args, metrics):
+    """(tracer, span journal): a tracer whenever any observability
+    surface is asked for, else (None, None)."""
+    from opencv_facerecognizer_tpu_torch.utils.tracing import Tracer, make_span_journal
+
+    if not (args.trace_sample > 0 or args.flight_dir or args.trace_jsonl
+            or args.expo_port is not None):
+        return None, None
+    span_journal = (make_span_journal(args.trace_jsonl, metrics=metrics)
+                    if args.trace_jsonl else None)
+    return Tracer(ring_size=args.trace_ring, sample=args.trace_sample,
+                  dump_dir=args.flight_dir, span_sink=span_journal,
+                  metrics=metrics), span_journal
+
+
+def _build_slo(args, metrics, state, tracer):
+    from opencv_facerecognizer_tpu_torch.runtime.slo import (
+        SLOMonitor, default_objectives, disk_free_objective)
+    from opencv_facerecognizer_tpu_torch.utils.metrics import LEDGER_DROP_COUNTERS
+
+    short_s, long_s = args.slo_windows
+    monitor = SLOMonitor(metrics, default_objectives(
+        drop_counters=LEDGER_DROP_COUNTERS, state=state,
+        e2e_p99_s=args.slo_e2e_p99_ms / 1e3,
+        queue_wait_p99_s=args.slo_queue_wait_p99_ms / 1e3,
+        completion_target=args.slo_completion_target,
+        durability_rows=args.slo_durability_rows, short_s=short_s, long_s=long_s),
+        tracer=tracer, interval_s=args.slo_interval_s)
+    dur = None if state is None else state.durability
+    if dur is not None and dur.low_watermark_bytes:
+        monitor.add_objective(disk_free_objective(dur.free_bytes, dur.low_watermark_bytes,
+                                                  short_s=short_s, long_s=long_s))
+    return monitor
+
+
+def _serving_counts(pipeline) -> dict:
+    """The kernels' launches so far (graph replays included) and the step
+    cache's captures; the ``shutdown`` record carries them as counted
+    after warmup (``warm``) and at the end."""
+    from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask
+    from opencv_facerecognizer_tpu_torch.ops.sepblock import fused_sep_block
+    from opencv_facerecognizer_tpu_torch.ops.streaming_match import streaming_match_topk
+
+    return {"launches": {"streaming_match": getattr(streaming_match_topk, "launches", 0),
+                         "sepblock": getattr(fused_sep_block, "launches", 0),
+                         "nms": getattr(nms_mask, "launches", 0)},
+            "captures": getattr(pipeline, "captures", 0),
+            "recaptures": getattr(pipeline, "recaptures", 0)}
+
+
+class _Profile:
+    """``--profile-dir``: ``torch.profiler`` (CPU, and CUDA on the card)
+    from after warmup until ``--profile-batches`` batches were dispatched
+    or the process stops, written as a Chrome trace. A replayed CUDA
+    graph is one launch on the host side; its kernels show on the card's
+    timeline."""
+
+    def __init__(self, args, device, metrics):
+        self.dir = args.profile_dir
+        self.batches = args.profile_batches
+        self.metrics = metrics
+        self.prof = None
+        if not self.dir:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(self.dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    @property
+    def active(self) -> bool:
+        return self.prof is not None
+
+    def stop_if_due(self) -> None:
+        from opencv_facerecognizer_tpu_torch.utils.metrics import BATCHES_DISPATCHED
+
+        if self.prof is not None and self.metrics.counter(BATCHES_DISPATCHED) >= self.batches:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        prof.stop()
+        path = os.path.join(self.dir, f"trace-{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}", file=sys.stderr)
 
 
 def main(argv=None) -> int:
@@ -381,9 +518,19 @@ def main(argv=None) -> int:
         IdentityTracker, TrackerConfig)
     from opencv_facerecognizer_tpu_torch.utils.metrics import Metrics
 
+    from opencv_facerecognizer_tpu_torch.runtime.admission import AdmissionController
+    from opencv_facerecognizer_tpu_torch.runtime.journal import DeadLetterJournal
+    from opencv_facerecognizer_tpu_torch.runtime.resilience import BrownoutPolicy
+    from opencv_facerecognizer_tpu_torch.runtime.slo import loop_liveness_objective
+
     transfer_dtype = _ingest_dtype(args)
     metrics_sink = open(args.metrics_jsonl, "a") if args.metrics_jsonl else None
-    metrics = Metrics(sink=metrics_sink)
+    window_s, window_slices = _metrics_window(args)
+    metrics = Metrics(sink=metrics_sink, window_s=window_s, window_slices=window_slices)
+    tracer, span_journal = _build_tracer(args, metrics)
+    journal = (DeadLetterJournal(args.dead_letter_journal, metrics=metrics,
+                                 fsync=args.journal_fsync)
+               if args.dead_letter_journal else None)
     lease = None
     try:
         if args.state_dir:
@@ -395,16 +542,24 @@ def main(argv=None) -> int:
             except WriterLeaseHeldError as exc:
                 raise SystemExit(f"ocvf-recognize-torch: {exc}")
         pipeline, names = _load_stack(args, metrics)
-        state = _open_state(args, pipeline, names, metrics) if args.state_dir else None
+        state = (_open_state(args, pipeline, names, metrics, tracer)
+                 if args.state_dir else None)
     except BaseException:
         if lease is not None:
             lease.release()
+        for sink in (journal, span_journal):
+            if sink is not None:
+                sink.close()
         if metrics_sink:
             metrics_sink.close()
         raise
+    if state is not None:
+        # the lenient sinks shed while durability is degraded
+        state.durability.attach_sinks(journal=journal, span_sink=span_journal, tracer=tracer)
     quantizer = pipeline.gallery.quantizer
     if quantizer is not None:
         quantizer.metrics = metrics
+        quantizer.tracer = tracer
         if not quantizer.ready and pipeline.gallery._ivf_wanted():
             # no sidecar (or no --state-dir): train before serving
             print(f"training IVF coarse quantizer (nlist={quantizer.nlist})...",
@@ -424,6 +579,13 @@ def main(argv=None) -> int:
         tracker = IdentityTracker(TrackerConfig(
             reverify_frames=max(1, args.track_reverify_frames),
             iou_min=args.track_iou_min), metrics=metrics)
+    admission = None
+    if args.max_inflight_frames > 0 or args.rate_limit_fps > 0:
+        admission = AdmissionController(max_inflight_frames=args.max_inflight_frames or None,
+                                        rate_limit_fps=args.rate_limit_fps or None)
+    brownout = (BrownoutPolicy(queue_wait_s=args.brownout_queue_wait_ms / 1e3)
+                if args.brownout_queue_wait_ms > 0 else None)
+    slo_monitor = _build_slo(args, metrics, state, tracer) if args.slo else None
     service = RecognizerService(
         pipeline, connector, batch_size=args.batch_size,
         frame_shape=tuple(args.frame_size), flush_timeout=args.flush_ms / 1e3,
@@ -439,12 +601,33 @@ def main(argv=None) -> int:
                                     readback_deadline_s=args.readback_deadline,
                                     degraded_after=args.degraded_after,
                                     probe_backend_on_degraded=args.probe_on_degraded),
-        tracker=tracker, state_store=state)
+        tracker=tracker, state_store=state, admission=admission, brownout=brownout,
+        dead_letter_journal=journal,
+        shed_stale_after_s=(args.shed_stale_after_ms / 1e3
+                            if args.shed_stale_after_ms > 0 else None),
+        tracer=tracer, slo_monitor=slo_monitor)
+    if state is not None:
+        service.registry = state.registry
+    if slo_monitor is not None and args.slo_loop_stale_s > 0:
+        short_s, long_s = args.slo_windows
+        slo_monitor.add_objective(loop_liveness_objective(
+            service, stale_s=args.slo_loop_stale_s, short_s=short_s, long_s=long_s))
     supervisor = ServiceSupervisor(service, state=state) if args.supervised else None
+    expo = None
+    if args.expo_port is not None:
+        from opencv_facerecognizer_tpu_torch.runtime.expo import ExpoServer
+
+        expo = ExpoServer(service, tracer=tracer, metrics=metrics, port=args.expo_port)
+        expo.start()
+        print(f"expo endpoint: http://{expo.host}:{expo.port}/", file=sys.stderr)
     if supervisor is not None:
         supervisor.start()
     else:
         service.start()
+    warm_counts = _serving_counts(pipeline)
+    # after warmup (the trace shows serving, not the captures) and before
+    # the port is announced (its start stalls the process for a while)
+    profile = _Profile(args, pipeline.device, metrics)
     if args.source == "socket":
         print(f"serving on {args.host}:{connector.port}", file=sys.stderr)
 
@@ -472,6 +655,7 @@ def main(argv=None) -> int:
             deadline = time.monotonic() + 60
             while (len(connector.messages(RESULT_TOPIC)) < len(files)
                    and time.monotonic() < deadline and not term_event.is_set()):
+                profile.stop_if_due()
                 time.sleep(0.005)
             results = connector.messages(RESULT_TOPIC)
             metrics.log("dir_replay", files=len(files), answered=len(results),
@@ -481,7 +665,8 @@ def main(argv=None) -> int:
         else:
             # until the input ends (stdin EOF), SIGTERM or Ctrl-C; then every
             # accepted frame finishes and publishes before the teardown
-            while not connector.eof.wait(timeout=0.5):
+            while not connector.eof.wait(timeout=0.05 if profile.active else 0.5):
+                profile.stop_if_due()
                 if term_event.is_set():
                     print("SIGTERM: draining before shutdown", file=sys.stderr)
                     break
@@ -489,20 +674,28 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         interrupted = True
     finally:
+        profile.stop()
+        if expo is not None:
+            expo.stop()
         shutdown = graceful_shutdown(service, state=state, supervisor=supervisor,
                                      drain_timeout=0.0 if interrupted else 30.0)
+        if shutdown.get("flight_dump"):
+            print(f"flight-recorder dump: {shutdown['flight_dump']}", file=sys.stderr)
         if state is not None:
             print(f"final checkpoint: "
                   f"{'written' if shutdown['final_checkpoint'] else 'FAILED (previous kept)'}",
                   file=sys.stderr)
         summary = metrics.summary()
         metrics.log("shutdown", ledger=shutdown["ledger"], summary=summary,
-                    clean=shutdown["clean"])
+                    clean=shutdown["clean"], warm=warm_counts, **_serving_counts(pipeline))
         if summary:
             print(f"metrics: {summary}", file=sys.stderr)
         if shutdown["ledger"]["admitted"]:
             print(f"admission ledger: {shutdown['ledger']}", file=sys.stderr)
         print(f"shutdown: {'clean' if shutdown['clean'] else 'NOT clean'}", file=sys.stderr)
+        for sink in (journal, span_journal):
+            if sink is not None:
+                sink.close()
         if lease is not None:
             lease.release()  # last: the final checkpoint ran under it
         if metrics_sink:

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
+from opencv_facerecognizer_tpu_torch.utils.tracing import LIFECYCLE_TOPIC
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, disable_tf32, resolve_device)
 
@@ -240,6 +241,9 @@ class CoarseQuantizer:
         self.kmeans_iters = int(kmeans_iters)
         self.train_sample = int(train_sample)
         self.metrics = metrics
+        #: ``utils.tracing.Tracer``: an ``ivf_retrain`` lifecycle span per
+        #: build attempt, emitted after the single-flight guard is released
+        self.tracer = None
         self._gallery = None  # set by ShardedGallery.attach_quantizer
         #: the published device snapshot; None: not ready, serving takes
         #: the exact matcher
@@ -387,10 +391,15 @@ class CoarseQuantizer:
             if self.metrics is not None:
                 self.metrics.incr(mn.IVF_RETRAINS_SKIPPED_INFLIGHT)
             return False
+        span_t0 = time.monotonic()
+        outcome = "failed"
         try:
             if skip_if_ready and self._data is not None:
+                outcome = "already_ready"
                 return True
-            return self._rebuild_locked()
+            ok = self._rebuild_locked()
+            outcome = "ok" if ok else "fenced"
+            return ok
         except Exception:  # noqa: BLE001 -- a failed build leaves the
             # previous quantizer (or the exact path) serving, and must not
             # kill the enrolment or serving thread that triggered it
@@ -400,6 +409,11 @@ class CoarseQuantizer:
             return False
         finally:
             self._train_lock.release()
+            if self.tracer is not None:
+                self.tracer.emit(self.tracer.new_trace(), "ivf_retrain",
+                                 topic=LIFECYCLE_TOPIC, t0=span_t0,
+                                 dur=time.monotonic() - span_t0, outcome=outcome,
+                                 nlist=self.nlist, version=self.version)
             if self._fence_refire:
                 # The fence dropped this build and the invalidation's own
                 # trigger was dropped as in flight: one fresh attempt

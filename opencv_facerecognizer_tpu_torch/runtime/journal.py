@@ -1,9 +1,10 @@
-"""Append-only JSONL journal with an fsync policy: port of
-``RotatingJournal`` from ``opencv_facerecognizer_tpu/runtime/journal.py``.
+"""Durable journals: port of ``opencv_facerecognizer_tpu/runtime/journal.py``.
 
-The enrolment WAL (``runtime.state_store.EnrollmentWAL``) is built on it.
-One JSON object per line; a line is flushed per append and fsynced per
-``fsync``:
+``RotatingJournal`` is an append-only JSONL file with an fsync policy; the
+enrolment WAL (``runtime.state_store.EnrollmentWAL``), the dead-letter
+journal below and the tracer's span sink (``utils.tracing.
+make_span_journal``) are built on it. One JSON object per line; a line is
+flushed per append and fsynced per ``fsync``:
 
 - ``"never"``: flushed to the kernel, never fsynced (a power cut can lose
   what the kernel had not written back);
@@ -20,11 +21,26 @@ previous process) is sealed the same way. ``records`` skips every line
 that is not a JSON object.
 
 Appends are ``strict`` (an ``OSError`` re-raises: the WAL, whose
-acknowledgement depends on the write) or lenient (counted
-``journal_errors`` and swallowed). ``shed_fn``, when set and true, drops
-lenient appends before they touch the disk (``journal_shed``). Past
-``max_bytes`` the file rotates to ``path.1 .. path.<backups>``;
-``DeadLetterJournal`` waits for ROADMAP A.8.2.
+acknowledgement depends on the write) or lenient (counted on the sink's
+``error_counter``, ``journal_errors`` by default, and swallowed).
+``shed_fn``, when set and true, drops lenient appends before they touch
+the disk (counted on ``shed_counter``; ``DurabilityMonitor.attach_sinks``
+wires it while durability is degraded). Past ``max_bytes`` the file
+rotates to ``path.1 .. path.<backups>``.
+
+``DeadLetterJournal`` records every dead-lettered, shed or abandoned
+frame: the producer's ``meta``, its enqueue stamp, its priority, its
+trace id and the lifecycle stage it died at, under the record's reason,
+so a producer can re-offer exactly what was lost (``replay``). One record
+per line::
+
+    {"ts": <unix s>, "reason": "dead_letter", "frames": [{"meta": ...,
+     "enqueue_ts": <monotonic s|null>, "priority": <int|null>,
+     "trace_id": <int|null>, "stage": "readback.dead_letter"}], ...}
+
+``python -m opencv_facerecognizer_tpu_torch.runtime.journal PATH
+[--reason R] [--trace ID] [--stage S]`` prints a journal's records as
+JSON lines, oldest first; the filters compose.
 """
 
 from __future__ import annotations
@@ -33,7 +49,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterator, List
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
 
@@ -47,7 +63,8 @@ class RotatingJournal:
 
     def __init__(self, path: str, max_bytes: int = 4 << 20, backups: int = 2,
                  metrics=None, fsync: str = "never", fsync_interval_s: float = 1.0,
-                 fault_injector=None):
+                 fault_injector=None, error_counter: str = mn.JOURNAL_ERRORS,
+                 shed_counter: str = mn.JOURNAL_SHED):
         if fsync not in FSYNC_POLICIES:
             raise ValueError(f"fsync policy {fsync!r} not in {FSYNC_POLICIES}")
         self.path = str(path)
@@ -59,6 +76,10 @@ class RotatingJournal:
         #: ``runtime.faults`` hook: the storage boundary fires before each
         #: real write
         self._faults = fault_injector
+        #: per-sink counters: the dead-letter journal and the span sink share
+        #: this class, not their counters
+        self.error_counter = str(error_counter)
+        self.shed_counter = str(shed_counter)
         #: when set and true, lenient appends are dropped (degraded durability)
         self.shed_fn = None
         self._last_fsync_t = 0.0
@@ -75,7 +96,7 @@ class RotatingJournal:
         and re-raised when ``strict``, else swallowed (False)."""
         if not strict and self.shed_fn is not None and self.shed_fn():
             if self.metrics is not None:
-                self.metrics.incr(mn.JOURNAL_SHED)
+                self.metrics.incr(self.shed_counter)
             return False
         with self._lock:
             try:
@@ -83,7 +104,7 @@ class RotatingJournal:
             except OSError:
                 self._needs_seal = True  # part of the line may have landed
                 if self.metrics is not None:
-                    self.metrics.incr(mn.JOURNAL_ERRORS)
+                    self.metrics.incr(self.error_counter)
                 if strict:
                     raise
                 return False
@@ -131,6 +152,18 @@ class RotatingJournal:
             return
         os.fsync(self._fh.fileno())
         self._last_fsync_t = now
+
+    def sync(self) -> None:
+        """fsync the active file now, whatever the policy."""
+        with self._lock:
+            if self._fh is not None:
+                try:
+                    self._fh.flush()
+                    os.fsync(self._fh.fileno())
+                    self._last_fsync_t = time.monotonic()
+                except OSError:
+                    if self.metrics is not None:
+                        self.metrics.incr(self.error_counter)
 
     def _rotate_if_needed(self, incoming: int) -> None:
         """Caller holds the lock: shift ``path -> path.1 -> ...`` when the
@@ -202,3 +235,81 @@ class RotatingJournal:
                             yield record
             except OSError:
                 continue
+
+
+class DeadLetterJournal(RotatingJournal):
+    """The rotating journal of dead-lettered, shed and abandoned frames
+    (module docstring). Lenient: a failed write is counted and swallowed,
+    serving never dies to its flight recorder."""
+
+    @staticmethod
+    def frame_entry(meta: Any = None, enqueue_ts: Optional[float] = None,
+                    priority: Optional[int] = None, trace_id: Optional[int] = None,
+                    stage: Optional[str] = None) -> Dict[str, Any]:
+        """One journaled frame."""
+        return {"meta": meta, "enqueue_ts": enqueue_ts, "priority": priority,
+                "trace_id": trace_id, "stage": stage}
+
+    def append(self, reason: str, frames: List[Dict[str, Any]], **extra: Any) -> None:
+        """One record for ``frames`` lost for ``reason`` (``extra`` rides
+        the record, e.g. a flight dump's path). Never raises."""
+        record = {"ts": time.time(), "reason": str(reason), "frames": list(frames)}
+        if extra:
+            record.update(extra)
+        try:
+            line = json.dumps(record, default=repr)
+        except (TypeError, ValueError):
+            line = json.dumps({"ts": record["ts"], "reason": record["reason"],
+                               "frames": [], "encode_error": True})
+        if not self.append_line(line, strict=False):
+            return
+        if self.metrics is not None:
+            self.metrics.incr(mn.JOURNAL_RECORDS)
+            self.metrics.incr(mn.JOURNAL_FRAMES, len(record["frames"]))
+
+    def replay(self, handler: Callable[[Dict[str, Any]], None],
+               reasons: Optional[tuple] = None) -> int:
+        """``handler(entry)`` for every journaled frame, oldest first, each
+        entry with its record's ``reason`` and ``ts``; returns the frames
+        replayed. A raising handler stops the replay."""
+        n = 0
+        for record in self.records():
+            if reasons is not None and record.get("reason") not in reasons:
+                continue
+            for entry in record.get("frames", ()):
+                handler({**entry, "reason": record.get("reason"), "ts": record.get("ts")})
+                n += 1
+        return n
+
+
+def main(argv=None) -> int:
+    """Print a journal's records as JSON lines, oldest first (module
+    docstring): ``--trace`` answers where a frame died, ``--stage`` what
+    died at a stage (exact match, the settle spans' ``where`` strings)."""
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(description="dump a dead-letter journal as JSON lines")
+    parser.add_argument("path")
+    parser.add_argument("--reason", help="only records with this reason")
+    parser.add_argument("--trace", type=int, default=None,
+                        help="only records holding a frame with this trace id")
+    parser.add_argument("--stage", default=None,
+                        help="only records holding a frame that died at this lifecycle "
+                             "stage (exact match, e.g. batcher.stale, readback.dead_letter)")
+    args = parser.parse_args(argv)
+    journal = DeadLetterJournal(args.path)
+    for record in journal.records():
+        frames = record.get("frames", ())
+        if args.reason and record.get("reason") != args.reason:
+            continue
+        if args.trace is not None and not any(f.get("trace_id") == args.trace for f in frames):
+            continue
+        if args.stage is not None and not any(f.get("stage") == args.stage for f in frames):
+            continue
+        sys.stdout.write(json.dumps(record) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -46,16 +46,48 @@ the batch sliced to the smallest rung of a bucket ladder that holds it)
   readback worker sets ``loop_crashed``; ``runtime.resilience.
   ServiceSupervisor`` restores the gallery and calls ``restart_loop``.
 
+**Overload control**, in front of and inside the loop:
+
+- **Frame-id dedup**: a delivery whose ``meta["_fid"]`` was already
+  admitted (within the last ``dedup_window`` ids) is refused before
+  admission (``frames_deduped``), so a duplicated transport or a re-send
+  never counts twice.
+- **Admission** (``runtime.admission``): ``_on_frame`` consults the
+  controller before it decodes; a rejected frame is counted
+  (``frames_rejected_<reason>``) and announced in aggregate (one
+  ``rejected`` status per reason per half second). Frames carry a
+  ``priority`` (``interactive``, the default, or ``bulk``): the batcher
+  sheds stale and bulk frames first, and sheds frames older than
+  ``shed_stale_after_s`` before they take a dispatch slot.
+- **Brownout** (``BrownoutPolicy``): a queue-wait EWMA past its threshold
+  sheds bulk intake (level 1 one in two, level 2 all) and at the top
+  level cuts a batch to the smallest ladder rung, a graph captured at
+  warmup; announced as ``brownout`` / ``brownout_recovered`` statuses
+  with the ``brownout_level`` gauge. A critical SLO verdict adds one
+  level of intake pressure.
+- Shed, dead-lettered and abandoned frames go to the optional
+  ``DeadLetterJournal`` with their metas, stamps, trace ids and the
+  stage they died at.
+
+**Observability**: with a ``tracer`` every sampled frame records its
+spans (receive with the admission verdict, queue_wait with its batch,
+the batch's dispatch / ready_wait / publish, a settle span mirroring its
+ledger bucket), brownout transitions and captures after warmup are
+lifecycle spans, and a dead-letter dumps the flight recorder (its path
+rides the journal record). The spans are host timestamps around the
+existing dispatch and readback: nothing waits for the card for them.
+``slo_monitor`` is ticked by the loop; a step captured after warmup is
+also its watchdog event.
+
 Every admitted frame ends in exactly one counter of
 ``utils.metrics.LEDGER_COMPLETION_COUNTERS`` or ``LEDGER_DROP_COUNTERS``
-(``ledger()``).
+(``ledger()``); rejected and deduped frames never enter it.
 
-Not ported yet (ROADMAP A.8): admission control and brownout, the dead-
-letter journal, the ingest staging ring and JPEG pool, tracing and SLOs,
-the cascade, the model registry's swaps and replication. The CPU
-fallback is not ported at all (ROADMAP C): with ``probe_backend_on_degraded``
-a dead card is reported (``backend_usable: false``, ``cpu_fallback:
-false``) and the service stays degraded.
+Not ported yet: the ingest staging ring and JPEG pool (ROADMAP A.8.3),
+the cascade and the registry's swaps (A.8.5), replication (A.8.6) and the
+rollout (A.8.8). The CPU fallback is not ported at all (ROADMAP C.7): with
+``probe_backend_on_degraded`` a dead card is reported (``backend_usable:
+false``, ``cpu_fallback: false``) and the service stays degraded.
 """
 
 from __future__ import annotations
@@ -73,12 +105,16 @@ import torch
 from opencv_facerecognizer_tpu_torch.models.embedder import normalize_faces
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import unpack_result
+from opencv_facerecognizer_tpu_torch.runtime.admission import (
+    PRIORITY_INTERACTIVE, AdmissionController, parse_priority)
 from opencv_facerecognizer_tpu_torch.runtime.batcher import FrameBatcher
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     MiddlewareConnector, decode_frame)
 from opencv_facerecognizer_tpu_torch.runtime.resilience import (
-    DurabilityDegradedError, ResiliencePolicy, is_transient_error)
+    BrownoutPolicy, DurabilityDegradedError, ResiliencePolicy, is_transient_error)
+from opencv_facerecognizer_tpu_torch.runtime.slo import STATE_CRITICAL
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
+from opencv_facerecognizer_tpu_torch.utils import tracing
 
 FRAME_TOPIC = "ocvfacerec/frames"
 RESULT_TOPIC = "ocvfacerec/results"
@@ -91,6 +127,8 @@ FALLBACK_READBACK_POLL_S = 0.005
 FALLBACK_DRAIN_POLL_S = 0.05
 #: enrolment embeds run in fixed chunks of this many crops (warmed once)
 ENROL_CHUNK = 8
+#: one aggregated ``rejected`` status per reason per this many seconds
+REJECT_NOTE_INTERVAL_S = 0.5
 
 log = logging.getLogger(__name__)
 
@@ -107,7 +145,9 @@ class _Readback:
     copy and, for a CUDA result, the event recorded behind the copy. The
     copy is queued on the dispatching stream right after the step, so a
     CUDA graph's static output is read before the next replay rewrites
-    it."""
+    it. A pipeline may return an object with this class's interface
+    (``pending``, ``ready``, ``wait``, ``result``) instead of a tensor:
+    ``runtime.fakes`` scripts its readiness that way."""
 
     def __init__(self, packed: torch.Tensor):
         self.host = packed.to("cpu", non_blocking=True)  # pinned for a CUDA source
@@ -183,6 +223,9 @@ class _Inflight(NamedTuple):
     t_disp: float
     deadline: float  # time.monotonic() after which the batch dead-letters
     stamp: Optional[int]  # the gallery's embedder_version at dispatch
+    trace_ids: List[int]  # the frames' traces (0 = untraced)
+    batch_tid: int  # the batch's trace (0 = no member traced)
+    priorities: List[int]
 
 
 class RecognizerService:
@@ -198,7 +241,11 @@ class RecognizerService:
                  bucket_sizes: Optional[Sequence[int]] = DEFAULT_BUCKET_SIZES,
                  target_latency_s: Optional[float] = None, tracker=None,
                  max_pending: int = 256, state_store=None, fault_injector=None,
-                 backend_probe_fn: Optional[Callable[[], tuple]] = None):
+                 backend_probe_fn: Optional[Callable[[], tuple]] = None,
+                 admission: Optional[AdmissionController] = None,
+                 brownout: Optional[BrownoutPolicy] = None, dead_letter_journal=None,
+                 shed_stale_after_s: Optional[float] = None, tracer=None,
+                 slo_monitor=None, dedup_window: int = 4096):
         if frame_shape is None:
             raise ValueError("frame_shape (H, W) is required (fixed batch shapes)")
         self.pipeline = pipeline
@@ -212,9 +259,39 @@ class RecognizerService:
         self._use_worker = bool(readback_worker)
         self._readback_poll_s = float(readback_poll_s)
         self._drain_poll_s = float(drain_poll_s)
+        self.admission = admission
+        if admission is not None and admission.inflight_fn is None:
+            # the bound reads the admission ledger: one bookkeeping, no drift
+            admission.inflight_fn = self.frames_in_system
+        self.brownout_policy = brownout
+        self.journal = dead_letter_journal
+        self.tracer = tracer
+        self.slo = slo_monitor
+        #: attached by later subsystems (ROADMAP A.8.5, A.8.8); the
+        #: exposition reads them
+        self.registry = None
+        self.rollout = None
+        self._brownout_level = 0
+        self._queue_wait_ewma: Optional[float] = None
+        self._brownout_changed_at = 0.0
+        self._bulk_seq = 0
+        self._reject_note_interval_s = REJECT_NOTE_INTERVAL_S
+        self._reject_pending: Dict[str, int] = {}
+        self._reject_last_pub: Dict[str, float] = {}
+        self._reject_lock = threading.Lock()
+        # fids of admitted frames: a set to test, a deque to evict in order
+        self._dedup_window = max(0, int(dedup_window))
+        self._dedup_seen: set = set()
+        self._dedup_order: deque = deque()
+        self._dedup_lock = threading.Lock()
+        #: time.monotonic() of the loop's last iteration (loop_staleness_s)
+        self._loop_progress_t: Optional[float] = None
         self.batcher = FrameBatcher(batch_size, frame_shape, flush_timeout=flush_timeout,
                                     max_pending=max_pending, dtype=transfer_dtype,
-                                    metrics=self.metrics, target_latency_s=target_latency_s)
+                                    metrics=self.metrics, target_latency_s=target_latency_s,
+                                    stale_after_s=shed_stale_after_s,
+                                    drop_log=self._journal_drop, tracer=tracer,
+                                    trace_topic=FRAME_TOPIC)
         self._bucket_ladder = sorted(
             {int(b) for b in (bucket_sizes or ()) if 0 < int(b) < batch_size}
             | {int(batch_size)})
@@ -272,17 +349,232 @@ class RecognizerService:
                 "drops_by_reason": drops,
                 "in_system": admitted - completed - cached - sum(drops.values())}
 
+    def frames_in_system(self) -> float:
+        """Admitted frames not finished yet, the admission bound's signal:
+        one counter read under one lock (it runs for every offered frame);
+        exact only when the service is idle."""
+        return max(0.0, self.metrics.sum_counters(
+            (mn.FRAMES_ADMITTED,), mn.LEDGER_COMPLETION_COUNTERS + mn.LEDGER_DROP_COUNTERS))
+
+    def _journal_drop(self, reason: str, entries: List[Dict[str, Any]], **extra) -> None:
+        """Lost frames to the dead-letter journal, if any (also the
+        batcher's ``drop_log``)."""
+        if self.journal is not None:
+            self.journal.append(reason, entries, **extra)
+
+    @staticmethod
+    def _drop_entries(metas, enqueue_ts, trace_ids, stage: str,
+                      priority=None) -> List[Dict[str, Any]]:
+        """Journal entries of a run of lost frames, aligned by index."""
+        return [{"meta": metas[i],
+                 "enqueue_ts": (enqueue_ts[i] if enqueue_ts is not None
+                                and i < len(enqueue_ts) else None),
+                 "priority": priority,
+                 "trace_id": ((trace_ids[i] or None) if trace_ids is not None
+                              and i < len(trace_ids) else None),
+                 "stage": stage} for i in range(len(metas))]
+
+    def _trace_settle(self, trace_ids, outcome: str, where: str, batch: int = 0) -> None:
+        """The terminal ``settle`` span of each traced frame of a run:
+        ``outcome`` is its ledger bucket."""
+        tracer = self.tracer
+        if tracer is None:
+            return
+        for tid in trace_ids or ():
+            if tid:
+                tracer.emit(tid, tracing.SETTLE_STAGE, topic=FRAME_TOPIC, outcome=outcome,
+                            where=where, batch=batch)
+
+    def _note_rejection(self, reason: str) -> None:
+        """Count one rejection and announce the reason's count since its
+        last announcement, at most once per ``REJECT_NOTE_INTERVAL_S``."""
+        self.metrics.incr(mn.FRAMES_REJECTED_PREFIX + reason)
+        now = time.monotonic()
+        with self._reject_lock:
+            self._reject_pending[reason] = self._reject_pending.get(reason, 0) + 1
+            if now - self._reject_last_pub.get(reason, 0.0) < self._reject_note_interval_s:
+                return
+            count = self._reject_pending.pop(reason)
+            self._reject_last_pub[reason] = now
+        self._publish_status({"status": "rejected", "reason": reason, "count": count})
+
+    def _flush_rejections(self, force: bool = False) -> None:
+        """Announce the rejections still pending when a flood stopped
+        mid-interval (the loop's idle tick; ``stop`` forces it)."""
+        now = time.monotonic()
+        flush = []
+        with self._reject_lock:
+            for reason in list(self._reject_pending):
+                if force or (now - self._reject_last_pub.get(reason, 0.0)
+                             >= self._reject_note_interval_s):
+                    flush.append((reason, self._reject_pending.pop(reason)))
+                    self._reject_last_pub[reason] = now
+        for reason, count in flush:
+            self._publish_status({"status": "rejected", "reason": reason, "count": count})
+
+    # ---- brownout controller ----
+
+    @property
+    def brownout_level(self) -> int:
+        return self._brownout_level
+
+    def _note_queue_wait(self, seconds: float) -> None:
+        """One batch's mean queue wait (0.0 on an idle tick, so an emptied
+        queue recovers) into the controller's EWMA."""
+        if self.brownout_policy is None:
+            return
+        policy = self.brownout_policy
+        prev = self._queue_wait_ewma
+        self._queue_wait_ewma = (seconds if prev is None
+                                 else prev + policy.ewma_alpha * (seconds - prev))
+        self._update_brownout()
+
+    def _update_brownout(self) -> None:
+        policy = self.brownout_policy
+        if time.monotonic() - self._brownout_changed_at < policy.dwell_s:
+            return  # the dwell: no flapping between batches
+        ewma = self._queue_wait_ewma or 0.0
+        level = self._brownout_level
+        if ewma > policy.queue_wait_s and level < policy.max_level:
+            self._set_brownout(level + 1, ewma)
+        elif ewma < policy.exit_ratio * policy.queue_wait_s and level > 0:
+            self._set_brownout(level - 1, ewma)
+
+    def _set_brownout(self, level: int, ewma: float) -> None:
+        prev = self._brownout_level
+        self._brownout_level = level
+        self._brownout_changed_at = time.monotonic()
+        self.metrics.set_gauge(mn.BROWNOUT_LEVEL, level)
+        if self.tracer is not None:
+            self.tracer.emit(self.tracer.new_trace(), "brownout",
+                             topic=tracing.LIFECYCLE_TOPIC, level=level, from_level=prev,
+                             queue_wait_ewma_ms=round(ewma * 1e3, 2))
+        if level > 0:
+            self.metrics.incr(mn.BROWNOUT_TRANSITIONS)
+            self._publish_status({"status": "brownout", "level": level,
+                                  "queue_wait_ewma_ms": round(ewma * 1e3, 2)})
+        else:
+            self.metrics.incr(mn.BROWNOUT_RECOVERIES)
+            self._publish_status({"status": "brownout_recovered",
+                                  "queue_wait_ewma_ms": round(ewma * 1e3, 2)})
+
+    def _effective_brownout_level(self) -> int:
+        """The controller's level, one higher while the SLO monitor reads
+        critical (the intake skip alone reads the boost)."""
+        level = self._brownout_level
+        if (self.slo is not None and self.brownout_policy is not None
+                and self.slo.state_code >= STATE_CRITICAL):
+            level = min(self.brownout_policy.max_level, level + 1)
+        return level
+
+    def _brownout_sheds_intake(self, priority: int, level: int) -> bool:
+        """Shed this admitted frame at intake? Never an interactive one;
+        bulk one in ``bulk_skip`` kept at level 1, none at the top."""
+        if level <= 0 or priority <= PRIORITY_INTERACTIVE:
+            return False
+        if level >= self.brownout_policy.max_level:
+            return True
+        self._bulk_seq += 1
+        return self._bulk_seq % max(2, self.brownout_policy.bulk_skip) != 0
+
+    def _brownout_bucket_cap(self) -> Optional[int]:
+        """At the top level, the smallest ladder rung (warmed at start, so
+        the cut never captures on the serving thread); else None."""
+        if (self.brownout_policy is not None
+                and self._brownout_level >= self.brownout_policy.max_level):
+            return self._bucket_ladder[0]
+        return None
+
+    def _observe_e2e(self, enqueue_ts: float, priority: int, now_mono: float) -> None:
+        """One frame's enqueue-to-publish latency, and again in the
+        interactive window for an interactive frame."""
+        e2e = now_mono - enqueue_ts
+        self.metrics.observe(mn.E2E_LATENCY, e2e)
+        if priority <= PRIORITY_INTERACTIVE:
+            self.metrics.observe(mn.E2E_LATENCY_INTERACTIVE, e2e)
+
+    def _note_recompile(self, bucket: int, frames_n: int, mode) -> None:
+        """A step whose cache entry was missing after warmup (a CUDA graph
+        captured on the serving thread): counted, a lifecycle span, and a
+        warn-level SLO event."""
+        self.metrics.incr(mn.RECOMPILES_POST_WARMUP)
+        if self.tracer is not None:
+            self.tracer.emit(self.tracer.new_trace(), "recompile",
+                             topic=tracing.LIFECYCLE_TOPIC, bucket=bucket, frames=frames_n,
+                             mode=mode)
+        if self.slo is not None:
+            self.slo.note_event("recompile_post_warmup")
+
     # ---- connector handlers (the connector's thread; keep cheap) ----
 
     def _on_frame(self, topic: str, message: Dict[str, Any]) -> None:
+        tracer = self.tracer
+        priority = parse_priority(message.get("priority"))
+        # tid 0: sampled out, every emit below is a no-op
+        tid = tracer.start_trace(topic) if tracer is not None else 0
+        if tid:
+            t_recv = message.get("_recv_ts") or time.monotonic()
+        meta = message.get("meta")
+        fid = meta.get("_fid") if self._dedup_window and isinstance(meta, dict) else None
+        if fid is not None and self._dedup_hit(fid):
+            # outside the ledger, like a rejection
+            self.metrics.incr(mn.FRAMES_DEDUPED)
+            if tid:
+                tracer.emit(tid, "receive", topic=topic, t0=t_recv,
+                            dur=time.monotonic() - t_recv, verdict="deduped",
+                            priority=priority)
+            return
+        if self.admission is not None:
+            # before the decode: a rejected frame costs next to nothing
+            reason = self.admission.admit(topic, priority)
+            if reason is not None:
+                self._note_rejection(reason)
+                if tid:
+                    tracer.emit(tid, "receive", topic=topic, t0=t_recv,
+                                dur=time.monotonic() - t_recv, verdict="rejected_" + reason,
+                                priority=priority)
+                return
+        # admitted: the frame ends in exactly one ledger bucket from here
+        if fid is not None:
+            self._dedup_record(fid)
         self.metrics.incr(mn.FRAMES_ADMITTED)
+        if tid:
+            tracer.emit(tid, "receive", topic=topic, t0=t_recv, dur=time.monotonic() - t_recv,
+                        verdict="admitted", priority=priority)
         try:
             frame = (decode_frame(message) if "__frame__" in message
                      else np.asarray(message["frame"]))
         except Exception:  # noqa: BLE001 - any undecodable payload is malformed
             self.metrics.incr(mn.FRAMES_MALFORMED)
+            self._trace_settle([tid], mn.FRAMES_MALFORMED, "decode")
             return
-        if not self.batcher.put(frame, message.get("meta")):
+        self._intake_frame(frame, meta, priority, tid)
+
+    def _dedup_hit(self, fid) -> bool:
+        with self._dedup_lock:
+            return fid in self._dedup_seen
+
+    def _dedup_record(self, fid) -> None:
+        """Remember an admitted fid; the oldest leave past the window."""
+        with self._dedup_lock:
+            if fid in self._dedup_seen:
+                return
+            self._dedup_seen.add(fid)
+            self._dedup_order.append(fid)
+            while len(self._dedup_order) > self._dedup_window:
+                self._dedup_seen.discard(self._dedup_order.popleft())
+
+    def _intake_frame(self, frame, meta, priority: int, tid: int) -> None:
+        """After the decode: the brownout's intake shed, then the batcher."""
+        level = self._effective_brownout_level()
+        if self._brownout_sheds_intake(priority, level):
+            self.metrics.incr(mn.FRAMES_DROPPED_BROWNOUT)
+            self._trace_settle([tid], mn.FRAMES_DROPPED_BROWNOUT, "intake.brownout")
+            # the effective level (with the SLO boost) is what caused it
+            self._journal_drop("brownout", self._drop_entries(
+                [meta], None, [tid], "intake.brownout", priority=priority), level=level)
+            return
+        if not self.batcher.put(frame, meta, priority=priority, trace_id=tid):
             self.metrics.incr(mn.FRAMES_DROPPED)  # the batcher counted its reason
 
     def _on_control(self, topic: str, message: Dict[str, Any]) -> None:
@@ -307,8 +599,8 @@ class RecognizerService:
                                                   "count": count})
         elif cmd == "stats":
             status = {"status": "stats", **self.metrics.summary(), **self.batcher.stats,
-                      "degraded": self._degraded, "ledger": self.ledger(),
-                      "gallery_size": self.pipeline.gallery.size}
+                      "degraded": self._degraded, "brownout_level": self._brownout_level,
+                      "ledger": self.ledger(), "gallery_size": self.pipeline.gallery.size}
             if self.tracker is not None:
                 status["tracks"] = self.tracker.stats()
             if self.state is not None:
@@ -328,6 +620,7 @@ class RecognizerService:
             self.warmup()
         self._running = True
         self._crashed = False
+        self._loop_progress_t = None
         self.connector.start()
         dur = self._durability
         if dur is not None:
@@ -369,6 +662,7 @@ class RecognizerService:
         """Stop intake and the loop; the readback worker finishes the
         batches already in flight (each bounded by its deadline)."""
         self._running = False
+        self._flush_rejections(force=True)
         dur = self._durability
         if dur is not None:
             dur.stop()
@@ -391,6 +685,14 @@ class RecognizerService:
             if count <= b:
                 return b
         return self.batcher.batch_size
+
+    @property
+    def loop_staleness_s(self) -> float:
+        """Seconds since the serving loop's last iteration (the
+        loop-liveness SLO's gauge); 0.0 while stopped or before the first."""
+        if not self._running or self._loop_progress_t is None:
+            return 0.0
+        return max(0.0, time.monotonic() - self._loop_progress_t)
 
     @property
     def loop_crashed(self) -> bool:
@@ -441,6 +743,8 @@ class RecognizerService:
     def _serve_loop(self) -> None:
         while self._running:
             batch = self.batcher.get_batch(block=True)
+            # after the pop: a loop wedged anywhere below stops refreshing it
+            self._loop_progress_t = time.monotonic()
             if self.state is not None:
                 # cheap threshold checks; a due checkpoint runs on its own
                 # thread, and the monitor's probe only on its own
@@ -453,9 +757,17 @@ class RecognizerService:
                     if batch is not None:
                         # the batch never reached _serve_one: settle it here
                         self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, batch.count)
+                        self._trace_settle(batch.trace_ids, mn.FRAMES_DROPPED_CRASHED,
+                                           "dispatch.crashed")
                         self._mark_completed()
                     raise
+            if self.slo is not None:
+                # on idle ticks too: recovery is part of the signal
+                self.slo.tick()
             if batch is None:
+                # an empty queue waits 0: the EWMA recovers when traffic stops
+                self._note_queue_wait(0.0)
+                self._flush_rejections()
                 if not self._use_worker:
                     self._drain()
                 continue
@@ -470,10 +782,31 @@ class RecognizerService:
 
     def _serve_one(self, batch) -> None:
         frames, metas, count = batch.frames, batch.metas, batch.count
+        trace_ids = batch.trace_ids
+        tracer = self.tracer
+        # the batch's trace, the ancestor its traced frames point at
+        batch_tid = tracer.new_trace() if tracer is not None and any(trace_ids) else 0
         t0 = time.perf_counter()
         now = time.monotonic()
-        for ts in batch.enqueue_ts:
+        for ts, tid in zip(batch.enqueue_ts, trace_ids):
             self.metrics.observe(mn.QUEUE_WAIT, now - ts)
+            if tid:
+                tracer.emit(tid, "queue_wait", topic=FRAME_TOPIC, t0=ts, dur=now - ts,
+                            batch=batch_tid)
+        if batch.enqueue_ts:
+            self._note_queue_wait(sum(now - ts for ts in batch.enqueue_ts)
+                                  / len(batch.enqueue_ts))
+        cap = self._brownout_bucket_cap()
+        if cap is not None and count > cap:
+            # the top level: the newest frames beyond the smallest rung shed
+            self.metrics.incr(mn.FRAMES_DROPPED_BROWNOUT, count - cap)
+            self._trace_settle(trace_ids[cap:count], mn.FRAMES_DROPPED_BROWNOUT,
+                               "dispatch.brownout_trim", batch=batch_tid)
+            self._journal_drop("brownout", self._drop_entries(
+                metas[cap:count], batch.enqueue_ts[cap:count], trace_ids[cap:count],
+                "dispatch.brownout_trim"), level=self._brownout_level)
+            count = cap
+            batch = batch._replace(count=cap)
         stamp = getattr(getattr(self.pipeline, "gallery", None), "embedder_version", None)
         stamp = None if stamp is None else int(stamp)
         accounted = False
@@ -482,12 +815,19 @@ class RecognizerService:
                 batch, cached = self._split_cached(batch, stamp)
                 # the cached frames leave this batch before they settle, so a
                 # crash while they publish settles each frame once
-                metas, count = batch.metas, batch.count
+                metas, count, trace_ids = batch.metas, batch.count, batch.trace_ids
                 if cached:
-                    self._complete_cached(cached)
+                    if batch_tid:
+                        tracer.emit(batch_tid, "track_cache", topic=tracing.BATCH_TOPIC,
+                                    frames=count + len(cached), hits=len(cached))
+                    self._complete_cached(cached, batch_tid)
                 if not count:
                     # every frame answered from the cache: no device work
                     self.metrics.incr(mn.TRACK_BATCH_EXITS)
+                    if batch_tid:
+                        tracer.emit(batch_tid, "dispatch", topic=tracing.BATCH_TOPIC,
+                                    dur=time.perf_counter() - t0, bucket=0, frames=0,
+                                    exit="track_cache", brownout=self._brownout_level)
                     accounted = True
                     self._mark_completed()
                     self.batcher.recycle(frames)
@@ -498,6 +838,11 @@ class RecognizerService:
             if readback is None:
                 # retries spent or a permanent error: the batch is abandoned
                 self.metrics.incr(mn.FRAMES_FAILED, count)
+                self._trace_settle(trace_ids[:count], mn.FRAMES_FAILED, "dispatch.abandoned",
+                                   batch=batch_tid)
+                self._journal_drop("failed", self._drop_entries(
+                    metas[:count], batch.enqueue_ts[:count], trace_ids[:count],
+                    "dispatch.abandoned"))
                 accounted = True
                 self._mark_completed()
                 self.batcher.recycle(frames)
@@ -508,12 +853,15 @@ class RecognizerService:
             with self._inflight_cv:
                 self._inflight.append(_Inflight(readback, frames, metas, count,
                                                 batch.enqueue_ts, t0, t_disp, deadline,
-                                                stamp))
+                                                stamp, trace_ids, batch_tid,
+                                                batch.priorities))
                 accounted = True
                 self._inflight_cv.notify_all()
         except BaseException:
             if not accounted:
                 self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, count)
+                self._trace_settle(trace_ids[:count], mn.FRAMES_DROPPED_CRASHED,
+                                   "dispatch.crashed", batch=batch_tid)
                 self._mark_completed()
             raise
         self.metrics.incr(mn.BATCHES_DISPATCHED)
@@ -521,8 +869,12 @@ class RecognizerService:
         # dispatch provenance: a step cache miss after warmup captured (or
         # re-captured) on the serving thread
         info = getattr(self.pipeline, "last_dispatch_info", None) or {}
+        if batch_tid:
+            tracer.emit(batch_tid, "dispatch", topic=tracing.BATCH_TOPIC, dur=t_disp - t0,
+                        bucket=bucket, frames=count, cache_hit=info.get("cache_hit"),
+                        mode=info.get("mode"), exit="full", brownout=self._brownout_level)
         if self._warmed and info.get("cache_hit") is False:
-            self.metrics.incr(mn.RECOMPILES_POST_WARMUP)
+            self._note_recompile(bucket, count, info.get("mode"))
         if bucket < self.batcher.batch_size:
             self.metrics.incr(mn.BATCHES_BUCKETED)
         if self._use_worker:
@@ -566,7 +918,9 @@ class RecognizerService:
                 self._exit_degraded()
             return readback
 
-    def _start_readback(self, packed: torch.Tensor) -> _Readback:
+    def _start_readback(self, packed) -> _Readback:
+        if not isinstance(packed, torch.Tensor) and hasattr(packed, "result"):
+            return packed  # already a readback (a scripted pipeline's)
         return _Readback(packed)
 
     def _backoff_wait(self, seconds: float) -> None:
@@ -620,14 +974,32 @@ class RecognizerService:
     def _dead_letter(self, entry: _Inflight) -> None:
         """Abandon a batch whose readback missed its deadline (or failed):
         counted, completed, announced with the frames' metas and enqueue
-        times so producers can resend. Its staging buffer is not recycled:
-        the copy of it to the card may still be pending."""
+        times so producers can resend, and journaled. A dead-letter dumps
+        the flight recorder; the dump's path rides the journal record.
+        Its staging buffer is not recycled: the copy of it to the card may
+        still be pending."""
+        count = entry.count
         self.metrics.incr(mn.BATCHES_DEAD_LETTERED)
-        self.metrics.incr(mn.FRAMES_DEAD_LETTERED, entry.count)
+        self.metrics.incr(mn.FRAMES_DEAD_LETTERED, count)
         self._mark_completed()
-        self._publish_status({"status": "dead_letter", "frames": entry.count,
-                              "frame_ids": list(entry.metas[:entry.count]),
-                              "enqueued_at": list(entry.enqueue_ts[:entry.count])})
+        # every list sliced to count: metas is padded, and a trimmed
+        # batch's lists still hold its settled frames
+        trace_ids = list(entry.trace_ids[:count])
+        self._trace_settle(trace_ids, mn.FRAMES_DEAD_LETTERED, "readback.dead_letter",
+                           batch=entry.batch_tid)
+        dump = None
+        if self.tracer is not None:
+            if entry.batch_tid:
+                self.tracer.emit(entry.batch_tid, "dead_letter", topic=tracing.BATCH_TOPIC,
+                                 frames=count)
+            dump = self.tracer.dump("dead_letter", extra={"frames": count,
+                                                          "ledger": self.ledger()})
+        entries = self._drop_entries(list(entry.metas[:count]), entry.enqueue_ts[:count],
+                                     trace_ids, "readback.dead_letter")
+        self._journal_drop("dead_letter", entries, **({"dump": dump} if dump else {}))
+        self._publish_status({"status": "dead_letter", "frames": count,
+                              "frame_ids": [e["meta"] for e in entries],
+                              "enqueued_at": [e["enqueue_ts"] for e in entries]})
 
     # ---- identity cache ----
 
@@ -657,21 +1029,24 @@ class RecognizerService:
             if hit is None:
                 keep.append(i)
             else:
-                cached.append((metas[i], batch.enqueue_ts[i], hit))
+                cached.append((metas[i], batch.enqueue_ts[i], batch.trace_ids[i],
+                               batch.priorities[i], hit))
         if not cached:
             return batch, cached
         kept = len(keep)
         if kept:
             frames[:kept] = frames[np.asarray(keep, dtype=np.intp)]
         batch = batch._replace(metas=[metas[i] for i in keep] + [None] * (len(metas) - kept),
-                               count=kept, enqueue_ts=[batch.enqueue_ts[i] for i in keep])
+                               count=kept, enqueue_ts=[batch.enqueue_ts[i] for i in keep],
+                               trace_ids=[batch.trace_ids[i] for i in keep],
+                               priorities=[batch.priorities[i] for i in keep])
         return batch, cached
 
-    def _complete_cached(self, cached) -> None:
+    def _complete_cached(self, cached, batch_tid: int = 0) -> None:
         """Publish each cache hit's identities (``exit: track_cache``)."""
         published = 0
         try:
-            for meta, _ts, hit in cached:
+            for meta, _ts, _tid, _pri, hit in cached:
                 payload = {"meta": meta, "faces": hit["faces"], "exit": "track_cache",
                            "track_id": hit["track_id"]}
                 if hit.get("embedder_version") is not None:
@@ -681,11 +1056,17 @@ class RecognizerService:
                 self.metrics.incr(mn.FACES_FOUND, len(hit["faces"]))
         finally:
             self.metrics.incr(mn.FRAMES_COMPLETED_CACHED, published)
+            self._trace_settle([r[2] for r in cached[:published]],
+                               tracing.OUTCOME_COMPLETED_CACHED, "track_cache.hit",
+                               batch=batch_tid)
             if published < len(cached):
                 self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, len(cached) - published)
+                self._trace_settle([r[2] for r in cached[published:]],
+                                   mn.FRAMES_DROPPED_CRASHED, "track_cache.publish_crashed",
+                                   batch=batch_tid)
             now = time.monotonic()
-            for _meta, ts, _hit in cached[:published]:
-                self.metrics.observe(mn.E2E_LATENCY, now - ts)
+            for _meta, ts, _tid, pri, _hit in cached[:published]:
+                self._observe_e2e(ts, pri, now)
 
     # ---- readback ----
 
@@ -785,26 +1166,35 @@ class RecognizerService:
             self.metrics.incr(mn.READBACK_ERRORS)
             self._dead_letter(entry)
             return
-        self.metrics.observe(mn.READY_WAIT, time.perf_counter() - entry.t_disp)
+        # the existing wait, from dispatch to the result on the host
+        ready_dur = time.perf_counter() - entry.t_disp
+        self.metrics.observe(mn.READY_WAIT, ready_dur)
+        if entry.batch_tid:
+            self.tracer.emit(entry.batch_tid, "ready_wait", topic=tracing.BATCH_TOPIC,
+                             dur=ready_dur, frames=entry.count)
         t_pub = time.perf_counter()
         try:
-            self._publish(packed, entry.frames, entry.metas, entry.count, entry.stamp)
+            self._publish(packed, entry.frames, entry.metas, entry.count, entry.stamp,
+                          entry.trace_ids, entry.batch_tid)
         except BaseException:
             self._mark_completed()
             self.batcher.recycle(entry.frames)
             raise
         self._mark_completed()
         now = time.perf_counter()
+        if entry.batch_tid:
+            self.tracer.emit(entry.batch_tid, "publish", topic=tracing.BATCH_TOPIC,
+                             dur=now - t_pub, frames=entry.count)
         self.metrics.observe(mn.PUBLISH, now - t_pub)
         self.metrics.observe(mn.BATCH_LATENCY, now - entry.t0)
         mono = time.monotonic()
-        for ts in entry.enqueue_ts[:entry.count]:
-            self.metrics.observe(mn.E2E_LATENCY, mono - ts)
+        for ts, pri in zip(entry.enqueue_ts[:entry.count], entry.priorities[:entry.count]):
+            self._observe_e2e(ts, pri, mono)
         self.batcher.report_service_time(now - entry.t0)
         self.batcher.recycle(entry.frames)
 
     def _publish(self, packed: np.ndarray, frames, metas, count: int,
-                 stamp: Optional[int] = None) -> None:
+                 stamp: Optional[int] = None, trace_ids=(), batch_tid: int = 0) -> None:
         """One result message per real frame: ``{"meta", "faces": [{"box"
         (x0, y0, x1, y1), "detection_score", "label", "name",
         "similarity"}], "embedder_version"}``, the reference's schema."""
@@ -845,9 +1235,14 @@ class RecognizerService:
                         log.exception("tracker update failed")
                         self.metrics.incr(mn.TRACK_ERRORS)
         finally:
+            # settled here, whatever exits; the spans mirror the split
             self.metrics.incr(mn.FRAMES_COMPLETED, published)
+            self._trace_settle(trace_ids[:published], tracing.OUTCOME_COMPLETED, "publish",
+                               batch=batch_tid)
             if published < count:
                 self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, count - published)
+                self._trace_settle(trace_ids[published:count], mn.FRAMES_DROPPED_CRASHED,
+                                   "publish.crashed", batch=batch_tid)
 
     # ---- enrolment ----
 

@@ -25,11 +25,18 @@
   (``supervisor_gave_up``), and a loop that makes no progress with frames
   pending is announced ``stalled``.
 
-Not ported: ``BrownoutPolicy`` and the shedding of the dead-letter
-journal while degraded (ROADMAP A.8.2), the spans, their shedding and
-the SLO health announcements (A.8.4), and ``rebuild_pipeline_on_cpu``: the port
-has no CPU fallback, so a dead card leaves the service degraded
-(ROADMAP C).
+- ``BrownoutPolicy`` holds the service's load-shedding knobs (its
+  docstring).
+
+The monitor's flips and re-arms are lifecycle spans; ``attach_sinks``
+sheds the dead-letter journal, the span sink and the flight dumps while
+durability is degraded, and the warn watermark's retention shrink reaches
+them too (journal backups and kept dumps to their floor, restored with
+the disk). The supervisor announces the SLO monitor's health transitions
+on the status topic, and a stall dumps the flight recorder.
+
+Not ported: ``rebuild_pipeline_on_cpu``: the port has no CPU fallback, so
+a dead card leaves the service degraded (ROADMAP C.7).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
+from opencv_facerecognizer_tpu_torch.utils.tracing import LIFECYCLE_TOPIC
 
 log = logging.getLogger(__name__)
 
@@ -93,6 +101,41 @@ class ResiliencePolicy:
                    self.backoff_base_s * self.backoff_multiplier ** attempt)
 
 
+@dataclass
+class BrownoutPolicy:
+    """Load-shedding knobs of ``RecognizerService``'s brownout controller.
+
+    The controller watches an EWMA of the queue wait (enqueue to batch
+    pop: the term that balloons first when the offered load exceeds
+    capacity). Crossing ``queue_wait_s`` raises the level one step per
+    ``dwell_s``; falling below ``exit_ratio * queue_wait_s`` lowers it. The
+    asymmetric thresholds and the dwell are the hysteresis.
+
+    - level 1: bulk frames are shed at intake, one kept in every
+      ``bulk_skip`` (reason ``brownout``);
+    - level 2 (``max_level``): every bulk frame is shed at intake, and a
+      batch is cut to the smallest rung of the dispatch ladder (the cut
+      frames shed, reason ``brownout``). The rung was captured at warmup,
+      so the cut never captures a graph.
+
+    The intake skip never sheds an interactive frame; the level-2 cut is
+    blind to class. Keeping interactive loss at zero is the admission
+    bound's job (its interactive reserve)."""
+
+    #: queue-wait EWMA (s) above which the level rises
+    queue_wait_s: float = 0.25
+    #: the level falls below exit_ratio * queue_wait_s
+    exit_ratio: float = 0.5
+    #: minimum seconds between level changes (both directions)
+    dwell_s: float = 0.5
+    #: highest level (2: every bulk frame shed and the ladder capped)
+    max_level: int = 2
+    #: level 1 keeps one bulk frame in every bulk_skip
+    bulk_skip: int = 2
+    #: EWMA weight of the newest queue wait
+    ewma_alpha: float = 0.3
+
+
 class DurabilityDegradedError(RuntimeError):
     """An enrolment refused closed because durability is degraded."""
 
@@ -119,12 +162,14 @@ class DurabilityMonitor:
     #: consecutive WAL append (or state-dir reach) failures that flip it
     DEGRADED_AFTER = 3
 
-    def __init__(self, state, metrics=None,
+    def __init__(self, state, metrics=None, tracer=None,
                  probe_interval_s: float = 5.0, low_watermark_bytes: int = 0,
                  publish: Optional[Callable[[dict], None]] = None,
                  fault_injector=None, statvfs_fn=None):
         self.state = state
         self.metrics = metrics
+        #: ``utils.tracing.Tracer``: a lifecycle span per flip and re-arm
+        self.tracer = tracer
         self.probe_interval_s = float(probe_interval_s)
         self.low_watermark_bytes = max(0, int(low_watermark_bytes))
         #: status announcements ({"status": ...}); the service wires its
@@ -138,7 +183,10 @@ class DurabilityMonitor:
         self._consecutive_lease_failures = 0
         self._disk_state = DISK_OK
         self._retention_shrunk = False
-        self._saved_keep: Optional[int] = None
+        self._saved_retention: dict = {}
+        #: the sinks attach_sinks registered, for the retention shrink
+        self._journal = None
+        self._tracer_sink = None
         self._lock = threading.Lock()
         # one tick cycle at a time (non-blocking claim): the watermark
         # transitions are check-then-act
@@ -178,6 +226,29 @@ class DurabilityMonitor:
             "retention_shrunk": self._retention_shrunk,
         }
 
+    def free_bytes(self) -> float:
+        """The last sample of the state volume's free bytes (sampled once
+        when never sampled): the ``disk_free_objective`` probe."""
+        if self._free_bytes is None:
+            self._sample_disk()
+        return float(self._free_bytes if self._free_bytes is not None else float("inf"))
+
+    # ---- sinks ----
+
+    def attach_sinks(self, journal=None, span_sink=None, tracer=None) -> None:
+        """Point the lenient sinks' shed hooks at this monitor: while
+        degraded they drop their writes, counted per sink. The WAL never
+        sheds: its failures are the signal."""
+        shed = lambda: self._degraded  # noqa: E731 - the one-line contract
+        if journal is not None:
+            journal.shed_fn = shed
+            self._journal = journal
+        if span_sink is not None:
+            span_sink.shed_fn = shed
+        if tracer is not None:
+            tracer.shed_fn = shed
+            self._tracer_sink = tracer
+
     # ---- the WAL outcome feed ----
 
     def note_wal_failure(self, exc: BaseException) -> None:
@@ -208,6 +279,9 @@ class DurabilityMonitor:
             self.metrics.set_gauge(mn.DURABILITY_STATE, 1)
         log.error("durability DEGRADED (%s): enrollments refused closed, serving "
                   "continues, recovery probe armed (%s)", reason, detail)
+        if self.tracer is not None:
+            self.tracer.emit(self.tracer.new_trace(), "durability", topic=LIFECYCLE_TOPIC,
+                             from_state="armed", to_state="degraded", reason=reason, **detail)
         self._announce({"status": "durability_degraded", "reason": reason, **detail})
 
     def _rearm(self) -> None:
@@ -223,6 +297,9 @@ class DurabilityMonitor:
             self.metrics.set_gauge(mn.DURABILITY_STATE, 0)
         log.warning("durability RE-ARMED (probe write+fsync succeeded; was degraded: %s)",
                     reason)
+        if self.tracer is not None:
+            self.tracer.emit(self.tracer.new_trace(), "durability", topic=LIFECYCLE_TOPIC,
+                             from_state="degraded", to_state="armed", was=reason)
         self._announce({"status": "durability_restored", "was": reason})
 
     def _announce(self, status: dict) -> None:
@@ -333,14 +410,26 @@ class DurabilityMonitor:
         self._announce({"status": "disk_pressure", "state": "warn", "free_bytes": int(free),
                         "low_watermark_bytes": self.low_watermark_bytes})
 
+    def _dump_tracer(self):
+        return self._tracer_sink if self._tracer_sink is not None else self.tracer
+
     def _shrink_retention(self) -> None:
+        """Checkpoints kept, flight dumps kept and journal backups to their
+        floor, once per pressure episode."""
         if self._retention_shrunk:
             return
         self._retention_shrunk = True
         store = getattr(self.state, "store", None)
         if store is not None:
-            self._saved_keep = store.keep
+            self._saved_retention["store_keep"] = store.keep
             store.keep = 1
+        tracer = self._dump_tracer()
+        if tracer is not None and hasattr(tracer, "keep_dumps"):
+            self._saved_retention["keep_dumps"] = tracer.keep_dumps
+            tracer.keep_dumps = 1
+        if self._journal is not None:
+            self._saved_retention["journal_backups"] = self._journal.backups
+            self._journal.backups = 0
         if self.metrics is not None:
             self.metrics.incr(mn.DISK_PRESSURE_RETENTION_SHRINKS)
 
@@ -348,10 +437,16 @@ class DurabilityMonitor:
         if not self._retention_shrunk:
             return
         self._retention_shrunk = False
+        saved = self._saved_retention
         store = getattr(self.state, "store", None)
-        if store is not None and self._saved_keep is not None:
-            store.keep = self._saved_keep
-        self._saved_keep = None
+        if store is not None and "store_keep" in saved:
+            store.keep = saved["store_keep"]
+        tracer = self._dump_tracer()
+        if tracer is not None and "keep_dumps" in saved:
+            tracer.keep_dumps = saved["keep_dumps"]
+        if self._journal is not None and "journal_backups" in saved:
+            self._journal.backups = saved["journal_backups"]
+        saved.clear()
 
     # ---- ticking ----
 
@@ -432,6 +527,7 @@ class ServiceSupervisor:
         self._last_processed = -1.0
         self._last_progress_t = time.monotonic()
         self._stall_warned = False
+        self._last_health = -1
         self._snapshot: Optional[Tuple] = None
         self._snapshot_wal_seq: Optional[int] = None
         self._snapshot_version: Optional[int] = None
@@ -496,6 +592,7 @@ class ServiceSupervisor:
         while self._running:
             time.sleep(self.poll_interval_s)
             self._check_stall(service, STATUS_TOPIC)
+            self._check_health(service, STATUS_TOPIC)
             if not service.loop_crashed or not service._running:
                 continue
             if not service.restart_pending():
@@ -508,6 +605,11 @@ class ServiceSupervisor:
                                                  "restarts": self.restarts})
                 continue
             self.restarts += 1
+            tracer = getattr(service, "tracer", None)
+            if tracer is not None:
+                # before the restore mutates anything: what was in flight
+                tracer.dump("supervisor_restart",
+                            extra={"restarts": self.restarts, "ledger": service.ledger()})
             try:
                 self._restore_gallery()
             except Exception:  # noqa: BLE001 - fall back to the durable state
@@ -538,9 +640,43 @@ class ServiceSupervisor:
                 and now - self._last_progress_t > self.stall_warn_s):
             self._stall_warned = True
             service.metrics.incr(mn.SUPERVISOR_STALLS)
+            tracer = getattr(service, "tracer", None)
+            if tracer is not None:
+                # what was in flight when the loop stopped moving
+                tracer.dump("wedge_stall", extra={
+                    "pending_frames": service.batcher.pending,
+                    "seconds_without_progress": round(now - self._last_progress_t, 1),
+                    "ledger": service.ledger()})
             self._publish(status_topic, {
                 "status": "stalled", "pending_frames": service.batcher.pending,
                 "seconds_without_progress": round(now - self._last_progress_t, 1)})
+
+    def _check_health(self, service, status_topic: str) -> None:
+        """Publish the SLO monitor's health transitions, one ``health``
+        status per change with the objectives' burns (the initial ``ok``
+        is not announced). Ticks the monitor first: a wedged serving loop
+        stops ticking it."""
+        monitor = getattr(service, "slo", None)
+        if monitor is None:
+            return
+        try:
+            monitor.tick()
+        except Exception:  # noqa: BLE001 - the watchdog thread must live
+            log.exception("supervisor slo backstop tick failed")
+            service.metrics.incr(mn.SLO_TICK_ERRORS)
+        state = monitor.state_code
+        if state == self._last_health:
+            return
+        first = self._last_health < 0
+        self._last_health = state
+        if first and state == 0:
+            return
+        verdict = monitor.verdict()
+        self._publish(status_topic, {
+            "status": "health", "state": monitor.state,
+            "objectives": {name: obj.get("burn")
+                           for name, obj in verdict.get("objectives", {}).items()},
+            "events": verdict.get("events", {})})
 
     def _restore_gallery(self) -> None:
         if self._snapshot is None:

@@ -38,9 +38,15 @@ waits up to 30 s for them to land, and defers (``checkpoints_deferred_pending``,
 a retry 5 s later) while any are still staged; recovery waits up to 300 s
 for its replayed rows to land.
 
+With a ``tracer`` (``utils.tracing.Tracer``) each recovery, WAL append
+and checkpoint is a lifecycle span (``recover``, ``wal_append`` with
+``ok``, ``checkpoint`` with its outcome: ok, deferred, save_failed or
+crashed), emitted after the locks are released. ``graceful_shutdown``
+dumps the flight recorder.
+
 Not ported: the embedder rollout (``perform_cutover`` and a pending
-``cutover`` record raise naming ROADMAP A.8.8), registry swaps
-(``perform_registry_cutover``, A.8.5) and the tracer spans (A.8.4).
+``cutover`` record raise naming ROADMAP A.8.8) and registry swaps
+(``perform_registry_cutover``, A.8.5).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from opencv_facerecognizer_tpu_torch.runtime.faults import InjectedCrashError
 from opencv_facerecognizer_tpu_torch.runtime.journal import RotatingJournal
 from opencv_facerecognizer_tpu_torch.utils import _msgpack
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
+from opencv_facerecognizer_tpu_torch.utils.tracing import LIFECYCLE_TOPIC
 from opencv_facerecognizer_tpu_torch.utils.serialization import (
     CheckpointCorruptError, atomic_write_bytes, fsync_directory)
 
@@ -585,10 +592,12 @@ class StateLifecycle:
 
     def __init__(self, state_dir: str, metrics=None, keep_checkpoints: int = 3,
                  checkpoint_wal_rows: int = 256, checkpoint_every_s: float = 300.0,
-                 fault_injector=None):
+                 fault_injector=None, tracer=None):
         self.state_dir = str(state_dir)
         os.makedirs(self.state_dir, exist_ok=True)
         self.metrics = metrics
+        #: lifecycle spans, emitted outside the enroll and checkpoint locks
+        self.tracer = tracer
         self.checkpoint_wal_rows = int(checkpoint_wal_rows)
         self.checkpoint_every_s = float(checkpoint_every_s)
         self._faults = fault_injector
@@ -750,6 +759,12 @@ class StateLifecycle:
         if poke is not None:
             poke()
         self.last_recovery_s = stages
+        if self.tracer is not None:
+            self.tracer.emit(self.tracer.new_trace(), "recover", topic=LIFECYCLE_TOPIC,
+                             replayed_records=report["replayed_records"],
+                             replayed_rows=report["replayed_rows"],
+                             checkpoint=report["recovered_checkpoint"],
+                             gallery_size=int(gallery.size))
         return report
 
     def _restore_quantizer_locked(self, gallery, base_seq: int,
@@ -954,6 +969,7 @@ class StateLifecycle:
                 "on this state dir; serving continues, the recovery probe re-arms "
                 "automatically)")
         n = int(np.asarray(labels).shape[0])
+        t0 = time.monotonic()
         ok = False
         wal_exc: Optional[OSError] = None
         try:
@@ -989,6 +1005,10 @@ class StateLifecycle:
                 self._rows_since_ckpt += n
             ok = True
         finally:
+            if self.tracer is not None:
+                # outside the enroll lock; ok=False: failed or rolled back
+                self.tracer.emit(self.tracer.new_trace(), "wal_append", topic=LIFECYCLE_TOPIC,
+                                 t0=t0, dur=time.monotonic() - t0, rows=n, ok=ok)
             if dur is not None:
                 if wal_exc is not None:
                     dur.note_wal_failure(wal_exc)
@@ -1091,6 +1111,8 @@ class StateLifecycle:
             return False
         claimed_force = self._force_pending
         self._force_pending = False
+        span_t0 = time.monotonic()
+        span = {"outcome": "crashed", "wal_seq": None, "rows": None}
         try:
             gallery, names = self._targets()
             # Bounded wait for rows an asynchronous grow staged: a snapshot
@@ -1113,9 +1135,11 @@ class StateLifecycle:
                                 gallery.pending_rows)
                     self._force_pending = self._force_pending or claimed_force
                     self._ckpt_retry_at = time.monotonic() + 5.0
+                    span["outcome"] = "deferred"
                     return False
                 wal_seq = self._wal_seq
                 rows_at = self._rows_since_ckpt
+                span.update(wal_seq=wal_seq, rows=rows_at)
                 emb, lab, val, size = gallery.snapshot()
                 gver = self._gallery_version(gallery)
                 reg_stamp = self._role_stamp()
@@ -1148,6 +1172,7 @@ class StateLifecycle:
                 self._force_pending = self._force_pending or claimed_force
                 self._ckpt_retry_at = time.monotonic() + self._ckpt_retry_backoff_s
                 self._ckpt_retry_backoff_s = min(60.0, self._ckpt_retry_backoff_s * 2.0)
+                span["outcome"] = "save_failed"
                 return False
             nbytes = sum(memoryview(p).nbytes for p in payload)
             del payload, emb
@@ -1178,9 +1203,13 @@ class StateLifecycle:
             self._ckpt_retry_at = 0.0
             if self.metrics is not None:
                 self.metrics.set_gauge(mn.WAL_ROWS, self._rows_since_ckpt)
+            span["outcome"] = "ok"
             return True
         finally:
             self._ckpt_lock.release()
+            if self.tracer is not None:
+                self.tracer.emit(self.tracer.new_trace(), "checkpoint", topic=LIFECYCLE_TOPIC,
+                                 t0=span_t0, dur=time.monotonic() - span_t0, **span)
 
     def close(self) -> None:
         self._closed = True
@@ -1191,7 +1220,8 @@ def graceful_shutdown(service, state: Optional[StateLifecycle] = None, superviso
                       drain_timeout: float = 60.0) -> Dict[str, Any]:
     """The SIGTERM path: drain in-flight batches, stop the service (or the
     supervisor), take the final checkpoint (which truncates the WAL),
-    close the state, and report; the caller exits 0 when
+    close the state, dump the flight recorder (past its rate limit: the
+    last dump of a process), and report; the caller exits 0 when
     ``report["clean"]``."""
     drained = service.drain(timeout=drain_timeout)
     if supervisor is not None:
@@ -1206,4 +1236,9 @@ def graceful_shutdown(service, state: Optional[StateLifecycle] = None, superviso
     report["ledger"] = ledger
     report["clean"] = bool(drained and abs(ledger["in_system"]) < 1e-6
                            and (state is None or report["final_checkpoint"]))
+    tracer = getattr(service, "tracer", None)
+    if tracer is not None:
+        report["flight_dump"] = tracer.dump("sigterm_drain",
+                                            extra={"ledger": ledger, "drained": drained},
+                                            force=True)
     return report

@@ -1,7 +1,8 @@
 """Serving counters and latency windows.
 
 The part of ``opencv_facerecognizer_tpu/utils/metrics.py`` the port's
-service, connectors, tracker, IVF quantizer and durable state use: thread-safe counters,
+service, connectors, tracker, IVF quantizer, durable state, overload
+control and signals layer use: thread-safe counters,
 last-write gauges, latency observations with percentiles, a summary, and
 an optional JSONL sink (``log``). The names are the reference's (its
 ``utils/metric_names.py``), so a reader can compare the two services'
@@ -29,11 +30,19 @@ FRAMES_COMPLETED = "frames_completed"
 FRAMES_COMPLETED_CACHED = "frames_completed_cached"
 FRAMES_DROPPED = "frames_dropped"
 FRAMES_DROPPED_CRASHED = "frames_dropped_crashed"
+FRAMES_DROPPED_BROWNOUT = "frames_dropped_brownout"
 FRAMES_FAILED = "frames_failed"
 FRAMES_DEAD_LETTERED = "frames_dead_lettered"
 FACES_FOUND = "faces_found"
 SUBJECTS_ENROLLED = "subjects_enrolled"
 GALLERY_GROWN = "gallery_grown"
+# admission and brownout (runtime.admission, the service's controller);
+# BROWNOUT_LEVEL is a gauge; rejections and dedups sit outside the ledger
+FRAMES_REJECTED_PREFIX = "frames_rejected_"
+FRAMES_DEDUPED = "frames_deduped"
+BROWNOUT_LEVEL = "brownout_level"
+BROWNOUT_TRANSITIONS = "brownout_transitions"
+BROWNOUT_RECOVERIES = "brownout_recoveries"
 # counters: dispatch and readback
 BATCHES_DISPATCHED = "batches_dispatched"
 BATCHES_BUCKETED = "batches_bucketed"
@@ -65,9 +74,12 @@ CONNECTOR_STALLED_CLIENTS_DROPPED = "connector_stalled_clients_dropped"
 # counters and gauges: the frame batcher
 BATCHER_FRAMES_OFFERED = "batcher_frames_offered"
 BATCHER_FRAMES_BATCHED = "batcher_frames_batched"
+#: per-reason drop family: ``batcher_dropped_<reason>``
+BATCHER_DROPPED_PREFIX = "batcher_dropped_"
 BATCHER_DROPPED_MALFORMED = "batcher_dropped_malformed"
 BATCHER_DROPPED_CLOSED = "batcher_dropped_closed"
 BATCHER_DROPPED_OVERFLOW = "batcher_dropped_overflow"
+BATCHER_DROPPED_STALE = "batcher_dropped_stale"
 BATCHER_BATCHES_SIZE = "batcher_batches_size"
 BATCHER_BATCHES_DEADLINE = "batcher_batches_deadline"
 BATCHER_BUFFER_REUSE = "batcher_buffer_reuse"
@@ -83,6 +95,8 @@ READY_WAIT = "ready_wait"
 PUBLISH = "publish"
 BATCH_LATENCY = "batch_latency"
 E2E_LATENCY = "e2e_latency"
+#: the same observation, interactive-priority frames only
+E2E_LATENCY_INTERACTIVE = "e2e_latency_interactive"
 # IVF coarse quantizer (parallel.quantizer); IVF_SPILL_ROWS is a gauge; the
 # state store writes and loads the sidecars.
 IVF_BUILDS = "ivf_builds"
@@ -97,6 +111,8 @@ IVF_SIDECAR_STALE = "ivf_sidecar_stale"
 IVF_SIDECAR_ERRORS = "ivf_sidecar_errors"
 # durable state (runtime.state_store, runtime.journal); WAL_ROWS is a gauge
 JOURNAL_ERRORS = "journal_errors"
+JOURNAL_RECORDS = "journal_records"
+JOURNAL_FRAMES = "journal_frames"
 JOURNAL_TORN_TAILS = "journal_torn_tails"
 JOURNAL_SHED = "journal_shed"
 CHECKPOINTS_WRITTEN = "checkpoints_written"
@@ -149,16 +165,48 @@ SUPERVISOR_RESTARTS = "supervisor_restarts"
 SUPERVISOR_STALLS = "supervisor_stalls"
 SUPERVISOR_GAVE_UP = "supervisor_gave_up"
 SUPERVISOR_DURABLE_RESTORES = "supervisor_durable_restores"
+# tracing, the flight recorder and the exposition (utils.tracing,
+# runtime.expo); DEVICE_BUSY_FRACTION and the stage shares are gauges
+TRACE_DUMPS = "trace_dumps"
+TRACE_DUMP_ERRORS = "trace_dump_errors"
+TRACE_DUMPS_SHED = "trace_dumps_shed"
+TRACE_SPAN_ERRORS = "trace_span_errors"
+TRACE_SPANS_SHED = "trace_spans_shed"
+EXPO_REQUESTS = "expo_requests"
+EXPO_ERRORS = "expo_errors"
+#: ``stage_share_b<bucket>_<detect|crop|embed|match>``
+STAGE_SHARE_PREFIX = "stage_share_"
+DEVICE_BUSY_FRACTION = "device_busy_fraction"
+# the SLO monitor (runtime.slo); HEALTH_STATE (0 ok, 1 warn, 2 critical)
+# and the ``slo_burn_<objective>`` family are gauges
+HEALTH_STATE = "health_state"
+SLO_EVALUATIONS = "slo_evaluations"
+SLO_TRANSITIONS = "slo_transitions"
+SLO_PROBE_FAILURES = "slo_probe_failures"
+SLO_TICK_ERRORS = "slo_tick_errors"
+SLO_BURN_PREFIX = "slo_burn_"
+SLO_EVENTS_PREFIX = "slo_events_"
+#: families of subsystems still to come, named so the exposition folds
+#: them as the reference does (ROADMAP A.8.6)
+TRANSPORT_FAULTS_PREFIX = "transport_fault_"
+ROUTER_REJECTED_PREFIX = "router_rejected_"
 
 #: the admission ledger: once the service is idle, ``frames_admitted ==
 #: sum(LEDGER_COMPLETION_COUNTERS) + sum(LEDGER_DROP_COUNTERS)``, each
-#: admitted frame in exactly one of them. The reference's tables less the
-#: subsystems the port lacks yet (the cascade's ``frames_completed_empty``;
-#: the JPEG pool's, the stale shed's and brownout's drops)
+#: admitted frame in exactly one of them. The reference's tables, in its
+#: order, less the subsystems the port lacks yet: the cascade's
+#: ``frames_completed_empty`` (ROADMAP A.8.5) and the JPEG pool's
+#: ``frames_dropped_decode`` (A.8.3)
 LEDGER_COMPLETION_COUNTERS = (FRAMES_COMPLETED, FRAMES_COMPLETED_CACHED)
 LEDGER_DROP_COUNTERS = (FRAMES_MALFORMED, BATCHER_DROPPED_MALFORMED,
-                        BATCHER_DROPPED_OVERFLOW, BATCHER_DROPPED_CLOSED,
+                        BATCHER_DROPPED_OVERFLOW, BATCHER_DROPPED_STALE,
+                        BATCHER_DROPPED_CLOSED, FRAMES_DROPPED_BROWNOUT,
                         FRAMES_DEAD_LETTERED, FRAMES_FAILED, FRAMES_DROPPED_CRASHED)
+#: the dynamic families the Prometheus exposition folds into labels
+#: (``runtime.promtext``), the reference's table
+PROM_FOLDED_PREFIXES = (FRAMES_REJECTED_PREFIX, BATCHER_DROPPED_PREFIX, SLO_EVENTS_PREFIX,
+                        SLO_BURN_PREFIX, TRACK_FLUSHES_PREFIX, TRANSPORT_FAULTS_PREFIX,
+                        ROUTER_REJECTED_PREFIX)
 
 
 class Metrics:

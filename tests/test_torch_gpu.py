@@ -642,3 +642,50 @@ def test_replays_add_the_captured_launches(cuda):
         pipe.recognize_batch_packed(frames)
     after = (fused_sep_block.launches, streaming_match_topk.launches, nms_mask.launches)
     assert [a - b for a, b in zip(after, before)] == [30, 5, 5]
+
+
+@pytest.mark.gpu
+def test_traced_service_replays_equal_the_untraced_step(cuda):
+    """A service with every span on (sample 1.0, a span sink) serves the
+    same packed bytes as the untraced graphed step on the same weights,
+    from the graphs captured at warmup: tracing adds host timestamps only."""
+    import tempfile
+
+    from opencv_facerecognizer_tpu_torch.runtime.connector import FakeConnector, encode_frame
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import FRAME_TOPIC, RecognizerService
+    from opencv_facerecognizer_tpu_torch.utils.tracing import Tracer, account_spans, \
+        make_span_journal
+
+    traced_pipe = _serving_pipeline(cuda)
+    plain = _serving_pipeline(cuda, gallery=traced_pipe.gallery)
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = make_span_journal(f"{tmp}/spans.jsonl")
+        tracer = Tracer(sample=1.0, span_sink=sink)
+        conn = FakeConnector()
+        service = RecognizerService(traced_pipe, conn, batch_size=8, frame_shape=(256, 256),
+                                    transfer_dtype=np.uint8, flush_timeout=0.01,
+                                    bucket_sizes=(8,), tracer=tracer, readback_worker=False)
+        got = []
+        real_publish = service._publish
+
+        def publish(packed, *args, **kwargs):
+            got.append(np.array(packed, copy=True))
+            return real_publish(packed, *args, **kwargs)
+
+        service._publish = publish
+        service.warmup()
+        captures = traced_pipe.captures
+        service._running = True
+        for i in range(3):
+            for j, frame in enumerate(_frames(i)):
+                conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i, "j": j}})
+            batch = service.batcher.get_batch(block=True)
+            service._serve_one(batch)
+            service._drain(force=True)
+        service._running = False
+        sink.close()
+    assert traced_pipe.captures == captures  # replays of the warmup's graph
+    for i in range(3):
+        want = plain.recognize_batch_packed(_frames(i)).cpu().numpy()
+        assert np.array_equal(got[i], want), i
+    assert account_spans(tracer.snapshot())["completed"] == 24

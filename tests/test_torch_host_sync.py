@@ -18,7 +18,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "opencv_facerecognizer_tpu_torch")
 STEP_MODULES = ("parallel/pipeline.py", "models/detector.py", "models/embedder.py",
                 "models/_layers.py", "ops/image.py", "ops/nms.py",
-                "ops/streaming_match.py", "ops/sepblock.py", "ops/ivf_match.py")
+                "ops/streaming_match.py", "ops/sepblock.py", "ops/ivf_match.py",
+                "utils/tracing.py")
+#: the serving loop's functions that emit spans or run the overload
+#: control around the step: host timestamps only, never a wait for the card
+#: (the one wait stays the readback's, in ``_Readback`` and the worker)
+RECOGNIZER_SPAN_CODE = (
+    "RecognizerService._on_frame", "RecognizerService._intake_frame",
+    "RecognizerService._serve_one", "RecognizerService._dispatch_with_retry",
+    "RecognizerService._complete_head", "RecognizerService._publish",
+    "RecognizerService._dead_letter", "RecognizerService._trace_settle",
+    "RecognizerService._set_brownout", "RecognizerService._note_queue_wait",
+    "RecognizerService._note_recompile", "RecognizerService._observe_e2e",
+    "RecognizerService._complete_cached", "RecognizerService._serve_loop")
 SYNC_ATTRS = {"item", "cpu", "tolist", "numpy", "synchronize"}
 #: (module, qualified function) -> why it may wait for the card
 ALLOWED = {
@@ -85,3 +97,29 @@ def test_the_scan_finds_what_it_looks_for(tmp_path):
     assert got == {("A.f.g", ".item()"), ("A.f", ".synchronize()"),
                    ("A.f", "torch.tensor(device=)"), ("A.f", ".cpu()"),
                    ("h", ".tolist()"), ("h", ".numpy()")}
+
+
+def _functions(path):
+    """Qualified name -> AST node of every function in ``path``."""
+    tree = ast.parse(open(path).read(), filename=path)
+    out = {}
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                name = ".".join(scope + [child.name])
+                if not isinstance(child, ast.ClassDef):
+                    out[name] = child
+                visit(child, scope + [child.name])
+
+    visit(tree, [])
+    return out
+
+
+@pytest.mark.parametrize("fn", RECOGNIZER_SPAN_CODE)
+def test_recognizer_span_code_has_no_host_sync(fn):
+    path = os.path.join(PORT, "runtime/recognizer.py")
+    assert fn in _functions(path), fn
+    offenders = [(f, what, line) for f, what, line in _syncs(path)
+                 if f == fn or f.startswith(fn + ".")]
+    assert not offenders, f"host syncs in {fn}: {offenders}"

@@ -43,7 +43,8 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.runtime.tracker",
                 "opencv_facerecognizer_tpu_torch.apps.recognize",
                 "opencv_facerecognizer_tpu_torch.utils.histogram",
-                "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES):
+                "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
+                *OVERLOAD_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -66,6 +67,16 @@ DURABILITY_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.faults",
                       "opencv_facerecognizer_tpu_torch.runtime.replication",
                       "opencv_facerecognizer_tpu_torch.runtime.resilience",
                       "opencv_facerecognizer_tpu_torch.utils.backend_probe")
+
+
+#: the overload-control and observability slice's modules
+OVERLOAD_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.admission",
+                    "opencv_facerecognizer_tpu_torch.runtime.batcher",
+                    "opencv_facerecognizer_tpu_torch.runtime.expo",
+                    "opencv_facerecognizer_tpu_torch.runtime.fakes",
+                    "opencv_facerecognizer_tpu_torch.runtime.promtext",
+                    "opencv_facerecognizer_tpu_torch.runtime.slo",
+                    "opencv_facerecognizer_tpu_torch.utils.tracing")
 
 
 def _imported_top_names(path):
@@ -161,3 +172,13 @@ def test_state_dir_cli_without_a_card_raises_and_releases_the_lease(tmp_path, mo
         main(["--model", "m", "--detector", "d", "--gallery", "g", "--source", "dir",
               "--dir", "f", "--state-dir", str(tmp_path)])
     WriterLease(str(tmp_path)).acquire().release()
+
+
+@pytest.mark.parametrize("mod", OVERLOAD_MODULES)
+def test_overload_module_imports_only_the_port(mod):
+    """The host-only modules of the overload and observability slice keep
+    their own copies: no JAX, no flax, nothing of the JAX package."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()

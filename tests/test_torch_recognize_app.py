@@ -25,6 +25,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -736,3 +737,101 @@ def test_async_grow_enrolls_past_capacity(artifacts):
     assert stats and stats[-1]["gallery_size"] == 19
     results = {m["data"]["meta"]["seq"] for m in out if m["topic"] == RESULT_TOPIC}
     assert results == set(range(seq))
+
+
+# ---------- overload control and observability (ROADMAP A.8.2, A.8.4) ----------
+
+OVERLOAD_OBSERVE_FLAGS = [
+    "--max-inflight-frames", "--rate-limit-fps", "--brownout-queue-wait-ms",
+    "--shed-stale-after-ms", "--dead-letter-journal", "--journal-fsync",
+    "--trace-sample", "--trace-ring", "--trace-jsonl", "--flight-dir", "--expo-port", "--slo",
+    "--slo-interval-s", "--slo-e2e-p99-ms", "--slo-queue-wait-p99-ms",
+    "--slo-completion-target", "--slo-durability-rows", "--slo-windows", "--slo-loop-stale-s",
+    "--profile-dir", "--profile-batches"]
+
+
+@pytest.mark.parametrize("flag", OVERLOAD_OBSERVE_FLAGS)
+def test_overload_flag_is_served_with_the_reference_default(flag):
+    parser = port_app.build_parser()
+    args = parser.parse_args(_refused_argv(parser, flag, None))
+    port_app.refuse_unported(parser, args)  # no longer refused
+    ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
+    dest = flag.lstrip("-").replace("-", "_")
+    got, want = parser.get_default(dest), ref[dest]
+    assert got == want or list(got) == list(want)
+    assert flag not in {f for f, _v, _i in port_app.REFUSED}
+    action = next(a for a in parser._actions if flag in a.option_strings)
+    assert action.help and "refused" not in action.help
+
+
+def test_refused_keeps_only_the_items_still_to_come():
+    items = {item.split(" (")[0] for _f, _v, item in port_app.REFUSED}
+    assert items == {"ROADMAP A.8.3", "ROADMAP A.8.5", "ROADMAP A.8.6", "ROADMAP A.11"}
+    assert len(OVERLOAD_OBSERVE_FLAGS) == 21 and len(set(OVERLOAD_OBSERVE_FLAGS)) == 21
+
+
+def test_cli_overload_and_observability_flags_end_to_end(artifacts, tmp_path):
+    """The CLI in a subprocess with a rate limit, the dead-letter journal,
+    the span JSONL and the exposition: over-rate frames come back as
+    ``rejected`` statuses, ``/prom`` lints clean, the span journal reads
+    back one terminal span per admitted frame, and the ledger closes."""
+    from opencv_facerecognizer_tpu_torch.runtime.journal import DeadLetterJournal, RotatingJournal
+    from opencv_facerecognizer_tpu_torch.runtime.promtext import lint_prometheus_text
+    from opencv_facerecognizer_tpu_torch.utils.tracing import account_spans
+
+    a = artifacts
+    spans, journal = str(tmp_path / "spans.jsonl"), str(tmp_path / "dead.jsonl")
+    sink = str(tmp_path / "metrics.jsonl")
+    cmd = [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+           "--device", "cpu", *_common_args(a), "--source", "jsonl", "--flush-ms", "5",
+           "--no-track-cache", "--rate-limit-fps", "10", "--dead-letter-journal", journal,
+           "--trace-sample", "1.0", "--trace-jsonl", spans, "--expo-port", "0", "--slo",
+           "--flight-dir", str(tmp_path / "flight"), "--metrics-jsonl", sink]
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=REPO))
+    out, err = [], []
+    threads = [threading.Thread(target=lambda: out.extend(json.loads(l) for l in proc.stdout),
+                                daemon=True),
+               threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True)]
+    for t in threads:
+        t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while not any(line.startswith("expo endpoint: ") for line in err):
+            assert time.monotonic() < deadline and proc.poll() is None, "".join(err)
+            time.sleep(0.05)
+        base = next(line for line in err if line.startswith("expo endpoint: ")).split()[-1]
+        n = 30
+        for i in range(n):  # a burst over the 10 fps bucket (a burst of 10)
+            _send(proc, FRAME_TOPIC, {**encode_frame(a["scenes"][i % 4]), "meta": {"seq": i}})
+        while sum(1 for m in out if m["topic"] == RESULT_TOPIC) < 10:
+            assert time.monotonic() < deadline and proc.poll() is None, "".join(err)
+            time.sleep(0.05)
+        with urllib.request.urlopen(base + "prom", timeout=10) as resp:
+            prom = resp.read().decode()
+        with urllib.request.urlopen(base + "health", timeout=10) as resp:
+            health = json.loads(resp.read().decode())
+        proc.stdin.close()
+        assert proc.wait(timeout=120) == 0, "".join(err)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    for t in threads:
+        t.join(timeout=10)
+    assert lint_prometheus_text(prom) == []
+    assert "ocvf_frames_rejected_total{reason=\"rate_limit\"}" in prom
+    assert health["state"] in ("ok", "warn", "critical")
+    shutdown = [json.loads(line) for line in open(sink)][-1]
+    ledger = shutdown["ledger"]
+    rejected = shutdown["summary"][mn.FRAMES_REJECTED_PREFIX + "rate_limit"]
+    assert ledger["in_system"] == 0 and ledger["admitted"] + rejected == n
+    results = [m for m in out if m["topic"] == RESULT_TOPIC]
+    assert len(results) == ledger["completed"] > 0
+    statuses = [m["data"] for m in out if m["topic"] == STATUS_TOPIC]
+    assert sum(s["count"] for s in statuses if s["status"] == "rejected") == rejected
+    acct = account_spans(RotatingJournal(spans).records())
+    assert acct["traced"] == ledger["admitted"] and acct["completed"] == ledger["completed"]
+    assert list(DeadLetterJournal(journal).records()) == []  # nothing was shed
+    assert any(f.startswith("flight-") and "sigterm_drain" in f
+               for f in os.listdir(tmp_path / "flight"))
