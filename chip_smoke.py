@@ -141,6 +141,51 @@ Phases (any failure exits nonzero before the result line):
    ones, and the journaled dead letters equal the count. One
    ``{"overload": ...}`` line with the run's total seconds.
 
+11. (run after 10) ingest: (a) phase 4's stack (its graphs) serves
+   ING_BATCHES batches of 32 distinct 256x256 uint8 frames back to back
+   through a ``RecognizerService`` three times: the pageable path
+   (``transfer_dtype`` uint8, the step copies the host frames), the
+   pinned staging ring with the side-stream upload (``IngestConfig
+   ("uint8")``), the pageable path again. Every batch's packed result over
+   the ring must equal both pageable runs' bit for bit (a buffer or graph
+   slot overwritten too early would show), the ring must allocate nothing
+   past its preallocation, no step may be captured after warmup, and
+   ING_PROFILE_BATCHES more batches under ``torch.profiler`` must show the
+   frames crossing as ``Memcpy HtoD (Pinned -> Device)`` (the pageable
+   runs show ``Pageable``), with its device time per copy; dispatch p50 of
+   each run. (b) the CLI on ``--source socket`` with ``--ingest-mode
+   uint8`` and with ``--ingest-mode jpeg`` (JPEG payloads of 64 seeded
+   frames at quality 85, one delivery in ING_CORRUPT_EVERY truncated), spans
+   in the rings (``/spans``) and the dead-letter journal: R from a burst of
+   256, then 600 frames at 0.5 R and the span split with the ``upload``
+   and ``decode`` spans. Every corrupt delivery must be journaled once as
+   ``decode_error``, the ledger must close, and each JPEG frame's result
+   must agree with a direct pipeline call on the same bytes decoded on the
+   host (XCHECK_*, labels equal). One ``{"ingest": ...}`` line.
+12. (run after 11) rollout: phase 4's stack over the same 2^20 rows in a
+   bf16 gallery with a ``StateLifecycle`` (``build/rollout_smoke/``, a
+   first checkpoint), served through the pinned ring while a producer
+   injects a batch every RO_TICK_S. A ``RolloutCoordinator`` to version 2:
+   ``reembed_fn`` a seeded orthogonal rotation of the rows, ``new_embed_fn``
+   the old embedder on the card (fused, kernel B) then the rotation. The
+   stage (chunks of RO_CHUNK_ROWS) dies at its append (``stage: crash``)
+   after RO_CRASH_AFTER_CHUNKS chunks and a new coordinator resumes it
+   from the watermark; the staged rows must equal the same re-embed done
+   without a crash, bit for bit. Parity reaches RO_PARITY_SAMPLES from the
+   publish path's live offers. A cutover dies after its fence record
+   (``cutover: crash_after_record``); ``recover`` into a fresh gallery must
+   complete it from the stage. Then the cutover lands in the serving
+   process. Gates: in publish order, every published result's and every
+   batch's ``embedder_version`` moves from 1 to 2 once; each ladder rung's graph
+   is captured again once after the cutover and never again; the planted
+   faces' rows in the new space find their labels through kernel A
+   (sim >= 0.99), and the recovered gallery's matches equal the served
+   one's bit for bit. Numbers: stage, cutover (fence, upload, forced
+   checkpoint) and recovery seconds, the stage file's bytes, and the
+   serving batch's host-clock ms (inject to its last result) during the
+   stage and after the cutover. One ``{"rollout": ...}`` line, with the
+   run's total seconds.
+
 The line before the last is the per-kernel JSON (kernels A, B and C); the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -189,13 +234,18 @@ from opencv_facerecognizer_tpu_torch.parallel.quantizer import CoarseQuantizer
 from opencv_facerecognizer_tpu_torch.runtime import expo as expo_mod
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, encode_frame)
+from opencv_facerecognizer_tpu_torch.runtime.faults import FaultInjector, InjectedCrashError
+from opencv_facerecognizer_tpu_torch.runtime.ingest import (
+    JPEG_KEY, IngestConfig, decode_jpeg, encode_jpeg)
 from opencv_facerecognizer_tpu_torch.runtime.journal import DeadLetterJournal, RotatingJournal
 from opencv_facerecognizer_tpu_torch.runtime.promtext import lint_prometheus_text
 from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
     CONTROL_TOPIC, FRAME_TOPIC, RESULT_TOPIC, STATUS_TOPIC, RecognizerService)
 from opencv_facerecognizer_tpu_torch.runtime.resilience import ServiceSupervisor
+from opencv_facerecognizer_tpu_torch.runtime.rollout import RolloutCoordinator
 from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
 from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
+from opencv_facerecognizer_tpu_torch.utils import metrics as mn
 from opencv_facerecognizer_tpu_torch.utils import native, serialization, tracing
 from opencv_facerecognizer_tpu_torch.utils.metrics import (
     BATCHES_DISPATCHED, FRAMES_DROPPED_CRASHED, IVF_INCREMENTAL_ROWS, LOOP_CRASHES,
@@ -321,6 +371,26 @@ OVL_CONNECTIONS = 4
 #: the kernels' CUDA function names, as the profile shows them
 OVL_KERNEL_NAMES = {"streaming_match": "match_wgmma_kernel", "sepblock": "sepblock_kernel",
                     "nms": "nms_keep_kernel"}
+#: phase 11: batches of distinct frames per path (four times the 32
+#: rung's ring depth of inflight + 2 = 6, so every buffer and graph slot
+#: goes round several times inside the bit-for-bit comparison), batches
+#: under the profiler, the flush deadline (long: every batch fills to
+#: BATCH, so both paths see the same batches), the JPEG quality and one
+#: corrupt delivery in ING_CORRUPT_EVERY (2%)
+ING_BATCHES = 24
+ING_PROFILE_BATCHES = 4
+ING_FLUSH_S = 1.0
+ING_JPEG_QUALITY = 85
+ING_CORRUPT_EVERY = 50
+#: phase 12: rows per stage chunk (64 MiB of f32 rows, 16 chunks at 2^20),
+#: chunks staged before the scripted stage crash, the parity window's
+#: sample floor, the producer's tick (one batch each) and the batches
+#: awaited after the cutover
+RO_CHUNK_ROWS = 1 << 16
+RO_CRASH_AFTER_CHUNKS = 5
+RO_PARITY_SAMPLES = 64
+RO_TICK_S = 0.05
+RO_AFTER_BATCHES = 4
 
 
 def log(*parts) -> None:
@@ -2543,6 +2613,554 @@ def overload_phase(dev, seed: int, card: str, ctx: dict) -> dict:
                 phase_s=time.perf_counter() - t_phase)
 
 
+# ---- phase 11: the ingest staging ring, the upload and the JPEG pool ----
+
+
+def _capturing_service(pipeline, **kw):
+    """A ``RecognizerService`` over ``FakeConnector`` whose publish keeps a
+    copy of each batch's packed result, keyed by its first frame's ``b``.
+    Its batcher holds all ING_BATCHES batches injected at once (the default
+    ``max_pending`` would evict past 256 frames)."""
+    conn = FakeConnector()
+    service = RecognizerService(pipeline, conn, batch_size=BATCH, frame_shape=FRAME,
+                                flush_timeout=ING_FLUSH_S, max_pending=ING_BATCHES * BATCH,
+                                **kw)
+    got = {}
+    real = service._publish
+
+    def publish(packed, frames, metas, *args, **kwargs):
+        if {m["b"] for m in metas[:args[0]]} != {metas[0]["b"]}:
+            raise AssertionError("ingest: a batch mixed frames of two injected batches")
+        got[metas[0]["b"]] = np.array(packed, copy=True)
+        return real(packed, frames, metas, *args, **kwargs)
+
+    service._publish = publish
+    return service, conn, got
+
+
+def _inject_batches(conn, messages, first_b: int = 0) -> None:
+    for i, msg in enumerate(messages):
+        conn.inject(FRAME_TOPIC, {**msg, "meta": {"b": first_b + i // BATCH, "j": i % BATCH}})
+
+
+def _htod(rows) -> dict:
+    """The profile's host-to-device copies: {kind: (count, device ms)}."""
+    out = {}
+    for e in rows:
+        if e.key.startswith("Memcpy HtoD"):
+            n, ms = out.get(e.key, (0, 0.0))
+            out[e.key] = (n + e.count, ms + e.self_device_time_total / 1e3)
+    return out
+
+
+def ingest_serve(pipeline, messages: list, ingest: bool) -> dict:
+    """Phase 11 (a), one path: ING_BATCHES batches of distinct frames served
+    back to back through a service with the pinned ring (``ingest``) or
+    the pageable path (no ring); then ING_PROFILE_BATCHES more under
+    ``torch.profiler``. Returns the packed results, counters and timings."""
+    kw = dict(ingest=IngestConfig("uint8")) if ingest else dict(transfer_dtype=np.uint8)
+    service, conn, got = _capturing_service(pipeline, **kw)
+    service.start(warmup=True)
+    captures = pipeline.captures
+    zero_counters()
+    t0 = time.perf_counter()
+    try:
+        _inject_batches(conn, messages)
+        if not service.drain(timeout=300.0):
+            raise AssertionError("ingest: the service did not drain")
+        serve_s = time.perf_counter() - t0
+        launches = read_launches()
+        summary = service.metrics.summary()
+        counters = service.metrics.counters()
+        rows = []
+        if pipeline.device.type == "cuda":
+            rows, _wall, _g = _profiled(lambda: (
+                _inject_batches(conn, messages[:ING_PROFILE_BATCHES * BATCH], ING_BATCHES),
+                service.drain(timeout=120.0)), 1)
+    finally:
+        service.stop()
+    n_batches = len(messages) // BATCH
+    if sorted(got)[:n_batches] != list(range(n_batches)):
+        raise AssertionError(f"ingest: results for batches {sorted(got)}")
+    if pipeline.captures != captures or counters.get(mn.RECOMPILES_POST_WARMUP, 0):
+        raise AssertionError("ingest: a step was captured after warmup")
+    if pipeline.device.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"ingest: a kernel did not launch: {launches}")
+    htod = _htod(rows)
+    out = dict(packed=got, serve_s=serve_s, launches=launches,
+               dispatch_p50_ms=summary.get("dispatch_p50_ms"),
+               ready_wait_p50_ms=summary.get("ready_wait_p50_ms"),
+               htod={k: dict(count=n, device_ms=ms, per_copy_ms=ms / n)  # one copy a batch
+                     for k, (n, ms) in htod.items()})
+    if ingest:
+        ring = service.ingest.staging
+        out.update(staging_allocs=counters.get(mn.INGEST_STAGING_ALLOCS, 0),
+                   staging_preallocated=ring.preallocated, pinned=ring.pinned,
+                   upload_bytes=counters.get(mn.INGEST_UPLOAD_BYTES, 0),
+                   upload_p50_ms=summary.get("ingest_upload_p50_ms"))
+        if out["staging_allocs"] != ring.preallocated:
+            raise AssertionError(f"ingest: the ring allocated past its preallocation: {out}")
+        if pipeline.device.type == "cuda" and (
+                not ring.pinned or not htod
+                or any("Pageable" in k for k in htod) or not any("Pinned" in k for k in htod)):
+            raise AssertionError(f"ingest: the frames did not cross from pinned memory: {htod}")
+    return out
+
+
+def jpeg_lines(frames: np.ndarray, quality: int, corrupt_every: int) -> tuple:
+    """The JPEG fixture: each frame's JPEG bytes at ``quality``, and one
+    pre-encoded JSONL frame line per delivery index ``i`` (frame ``i %
+    len(frames)``); every ``corrupt_every``-th delivery carries the first
+    64 bytes of its JPEG only (a truncated payload no decoder accepts).
+    Returns (jpegs, line_for(i, meta, priority), is_corrupt(i))."""
+    jpegs = [encode_jpeg(f, quality=quality) for f in frames]
+    b64 = [base64.b64encode(j).decode("ascii") for j in jpegs]
+    bad = [base64.b64encode(j[:64]).decode("ascii") for j in jpegs]
+
+    def is_corrupt(i: int) -> bool:
+        return i % corrupt_every == corrupt_every - 1
+
+    def line_for(i: int, meta: dict, priority: str) -> bytes:
+        payload = (bad if is_corrupt(i) else b64)[i % len(jpegs)]
+        return (f'{{"topic": "{FRAME_TOPIC}", "data": {{"{JPEG_KEY}": "{payload}", '
+                f'"meta": {json.dumps(meta)}, "priority": "{priority}"}}}}\n').encode()
+
+    return jpegs, line_for, is_corrupt
+
+
+def direct_pipeline(paths: dict, dev) -> RecognitionPipeline:
+    """A ``RecognitionPipeline`` on the CLI's checkpoints and gallery
+    directory, loaded here again (the direct call the CLI is held to)."""
+    model = serialization.load_model(paths["model"], device=dev)
+    det = detector_mod.CNNFaceDetector.load(paths["det"], device=dev)
+    images, labels, _ = dataset_utils.read_images(paths["gallery"],
+                                                  image_size=model.feature.input_size)
+    gallery = ShardedGallery(CLI_CAPACITY, DIM, store_dtype=torch.bfloat16, device=dev)
+    gallery.add(model.feature.extract(images).cpu().numpy(), labels)
+    return RecognitionPipeline(det, model.feature.net, gallery,
+                               face_size=model.feature.input_size, fused_embedder=True,
+                               device=dev)
+
+
+def cross_check_messages(direct, frames: np.ndarray, messages: list, what: str) -> dict:
+    """Published results of ``frames`` (in order) against the direct
+    pipeline's call on them, batch by batch (XCHECK_*; labels equal)."""
+    threshold = recognize_app.build_parser().get_default("similarity_threshold")
+    det = direct.detector
+    worst_box = worst_sim = 0.0
+    n_pairs = 0
+    for s in range(0, len(frames), BATCH):
+        want = unpack_result(direct.recognize_batch_packed(frames[s:s + BATCH]).cpu().numpy(), 1)
+        want = want._replace(labels=np.where(want.similarities >= threshold, want.labels, -1))
+        got = messages_as_result(messages[s:s + BATCH], det.max_faces)
+        for i in range(got.valid.shape[0]):
+            pairs, _swaps = cross_check_frame(got, want, i, det.score_threshold,
+                                              det.iou_threshold)
+            n_pairs += len(pairs)
+            for j, m, dbox in pairs:
+                if got.labels[i, j, 0] != want.labels[i, m, 0]:
+                    raise AssertionError(f"{what}: frame {s + i} labels differ")
+                worst_box = max(worst_box, dbox)
+                worst_sim = max(worst_sim, abs(got.similarities[i, j, 0]
+                                               - want.similarities[i, m, 0]))
+    if worst_sim > XCHECK_SIM or n_pairs < len(frames):
+        raise AssertionError(f"{what}: {n_pairs} faces paired, sim diff {worst_sim}")
+    return dict(faces=n_pairs, max_box_px=worst_box, max_sim=worst_sim)
+
+
+def ingest_cli_run(dev, paths: dict, root: str, mode: str, frames: np.ndarray) -> dict:
+    """Phase 11 (b), one mode: the CLI on a socket with ``--ingest-mode
+    mode``, spans in the rings (``/spans``) and the dead-letter journal;
+    R from a burst of OVL_BURST, then OVL_STEADY interactive frames at
+    OVL_STEADY_SHARE x R; the span split with the upload and decode spans.
+    In jpeg mode every ING_CORRUPT_EVERY-th delivery is corrupt."""
+    journal_path = os.path.join(root, f"{mode}_deadletter.jsonl")
+    args = ["--ingest-mode", mode, "--trace-sample", "1.0", "--trace-ring", "16384",
+            "--expo-port", "0", "--dead-letter-journal", journal_path,
+            "--journal-fsync", "always"]
+    if mode == "jpeg":
+        jpegs, line_for, is_corrupt = jpeg_lines(frames, ING_JPEG_QUALITY, ING_CORRUPT_EVERY)
+    else:
+        b64 = [base64.b64encode(np.ascontiguousarray(f).tobytes()).decode("ascii")
+               for f in frames]
+        jpegs, is_corrupt = None, (lambda i: False)
+
+        def line_for(i, meta, priority):
+            return _frame_line(b64[i % len(b64)], meta, priority)
+
+    n = OVL_BURST + OVL_STEADY
+    lines = [line_for(i, {"_fid": i}, "interactive") for i in range(n)]
+    good = [i for i in range(n) if not is_corrupt(i)]
+    cli = SocketCli(paths, dev, args, os.path.join(root, f"{mode}_metrics.jsonl"))
+    try:
+        t0 = time.perf_counter()
+        paced(cli, lines[:OVL_BURST], 0)
+        burst_good = [i for i in good if i < OVL_BURST]
+        wait_for(lambda: cli.n_answered() >= len(burst_good), 120, f"{mode}: the burst's answers")
+        with cli._lock:
+            rate = len(burst_good) / (max(cli.answered[f] for f in burst_good) - t0)
+        t_send = paced(cli, lines[OVL_BURST:], OVL_STEADY_SHARE * rate)
+        wait_for(lambda: cli.n_answered() >= len(good), 120, f"{mode}: the steady answers")
+        spans = [{**span, "topic": topic} for topic in (FRAME_TOPIC, "_batch")
+                 for span in cli.get_json(f"/spans?topic={topic}&limit=10000")["spans"]]
+    finally:
+        rec = cli.stop()
+    _close_ledger(mode, rec["ledger"])
+    delta = _check_serving(dev, mode, rec)
+    bad = [i for i in range(n) if is_corrupt(i)]
+    dropped = [(r["reason"], f["meta"]["_fid"]) for r in DeadLetterJournal(journal_path).records()
+               for f in r["frames"]]
+    if sorted(dropped) != sorted(("decode_error", i) for i in bad):
+        raise AssertionError(f"{mode}: journaled drops {dropped[:8]} for corrupt deliveries "
+                             f"{bad[:8]}")
+    ledger = rec["ledger"]
+    if ledger["completed"] != len(good) or ledger["drops_by_reason"] != (
+            {"frames_dropped_decode": float(len(bad))} if bad else {}):
+        raise AssertionError(f"{mode}: ledger {ledger} for {len(good)} good and {len(bad)} "
+                             f"corrupt deliveries")
+    split = span_split(spans, first_frame=OVL_BURST)
+    steady_tids = {s["trace"] for s in spans if s["topic"] == FRAME_TOPIC
+                   and s["trace"] > 2 * OVL_BURST}
+    batches = {s["batch"] for s in spans if s["topic"] == FRAME_TOPIC and s["stage"] ==
+               "queue_wait" and s["trace"] in steady_tids}
+    for stage, topic, keys in (("upload", "_batch", batches), ("decode", FRAME_TOPIC,
+                                                                steady_tids)):
+        ms = [s["dur"] * 1e3 for s in spans
+              if s["topic"] == topic and s["stage"] == stage and s["trace"] in keys]
+        split[stage] = {"p50": _pct(ms, 50), "p99": _pct(ms, 99), "n": len(ms)}
+    if split["upload"]["n"] < 1 or (mode == "jpeg" and split["decode"]["n"] < 1):
+        raise AssertionError(f"{mode}: no upload or decode spans: {split}")
+    by_fid = {r["meta"]["_fid"]: r for r in cli.results}
+    return dict(mode=mode, rate_fps=rate, steady_fps=OVL_STEADY_SHARE * rate,
+                steady_send_s=t_send, split=split, ledger=ledger, serving=delta,
+                corrupt=len(bad), journaled=len(dropped),
+                summary_p50_ms={k: rec["summary"].get(f"{k}_p50_ms") for k in (
+                    "queue_wait", "dispatch", "ready_wait", "publish", "e2e_latency",
+                    "ingest_upload", "decode_latency")},
+                jpegs=jpegs, by_fid=by_fid)
+
+
+def ingest_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 11 (module docstring); returns the ``{"ingest": ...}`` numbers."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ingest_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stack = ctx["stack"]
+    rng = np.random.default_rng(seed + 11)
+    frames = rng.integers(0, 256, (ING_BATCHES * BATCH, *FRAME), dtype=np.uint8)
+    messages = [encode_frame(f) for f in frames]
+    # (a) the pageable path (the step copies the host frames), then the
+    # pinned ring, then the pageable path again, over one stack (the same
+    # graphs)
+    runs = [ingest_serve(stack, messages, ingest) for ingest in (False, True, False)]
+    plain, ring = runs[0], runs[1]
+    for b in range(ING_BATCHES):
+        for other in (runs[0], runs[2]):
+            if not np.array_equal(ring["packed"][b], other["packed"][b]):
+                raise AssertionError(f"ingest: batch {b} over the pinned ring differs from the "
+                                     f"pageable path")
+    served = {k: v for k, v in ring.items() if k != "packed"}
+    log(f"ingest (a) ({card}): {ING_BATCHES} batches of distinct frames, the pinned ring's "
+        f"results equal the pageable path's bit for bit; ring {served}; pageable path "
+        f"dispatch p50 {plain['dispatch_p50_ms']}, {runs[2]['dispatch_p50_ms']} ms, HtoD "
+        f"{plain['htod']}")
+    # (b) the CLI on a socket in uint8 and jpeg modes
+    paths = ctx.get("cli_paths")
+    if paths is None:
+        paths, _frames = write_cli_inputs(dev, seed, os.path.join(root, "cli"))
+    cli_frames = rng.integers(0, 256, (OVL_DISTINCT_FRAMES, *FRAME), dtype=np.uint8)
+    cli_runs = {mode: ingest_cli_run(dev, paths, root, mode, cli_frames)
+                for mode in ("uint8", "jpeg")}
+    jpeg = cli_runs["jpeg"]
+    decoded = np.stack([decode_jpeg(j) for j in jpeg.pop("jpegs")])
+    cli_runs["uint8"].pop("jpegs")
+    by_fid = jpeg.pop("by_fid")
+    cli_runs["uint8"].pop("by_fid")
+    fids = [f for f in range(len(decoded)) if f in by_fid]
+    direct = direct_pipeline(paths, dev)
+    xcheck = cross_check_messages(direct, decoded[fids], [by_fid[f] for f in fids],
+                                  "ingest jpeg vs the direct pipeline")
+    drop_stack(direct)
+    del direct
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for mode, run in cli_runs.items():
+        log(f"ingest (b) {mode} ({card}): R {run['rate_fps']:.1f} frames/s; span split ms at "
+            f"{OVL_STEADY_SHARE} R {json.dumps(run['split'])}; p50 ms {run['summary_p50_ms']}; "
+            f"corrupt {run['corrupt']} journaled {run['journaled']}; ledger {run['ledger']}; "
+            f"serving {run['serving']}")
+    log(f"ingest (b) jpeg results vs the direct pipeline on the host-decoded bytes: {xcheck}")
+    return dict(card=card, served={k: v for k, v in ring.items() if k != "packed"},
+                pageable=[{k: v for k, v in r.items() if k != "packed"} for r in (runs[0],
+                                                                                 runs[2])],
+                cli=cli_runs, jpeg_xcheck=xcheck, phase_s=time.perf_counter() - t_phase)
+
+
+# ---- phase 12: the staged re-embed, parity and the fenced cutover ----
+
+
+def _l2norm(rows: np.ndarray) -> np.ndarray:
+    """The rollout's row normalization (``runtime.rollout``), on the host."""
+    rows = np.asarray(rows, np.float32)
+    return rows / np.maximum(np.linalg.norm(rows, axis=-1, keepdims=True), 1e-12)
+
+
+def stamps_move_once(stamps: list, old: int, new: int) -> bool:
+    """True when a sequence of published ``embedder_version`` stamps is
+    ``old`` then ``new``, with both present and nothing else."""
+    if not stamps or stamps[0] != old or stamps[-1] != new:
+        return False
+    switch = stamps.index(new)
+    return all(s == old for s in stamps[:switch]) and all(s == new for s in stamps[switch:])
+
+
+def rotation(seed: int, dim: int = DIM) -> np.ndarray:
+    """A seeded orthogonal [dim, dim] matrix (QR of a normal draw)."""
+    q, r = np.linalg.qr(np.random.default_rng(seed).normal(size=(dim, dim)))
+    return (q * np.sign(np.diag(r))).astype(np.float32)
+
+
+def card_embed_fn(stack, rot=None):
+    """Face crops [n, h, w] -> embeddings [n, D] through the stack's
+    embedder on its device, fused (kernel B), then ``@ rot`` when given."""
+    face = stack.face_size
+
+    def fn(crops):
+        with torch.no_grad():
+            x = torch.as_tensor(np.asarray(crops, np.float32), device=stack.device)
+            emb = embedder_mod.fused_forward(stack.embed_net,
+                                             embedder_mod.normalize_faces(x, face))
+        out = emb.float().cpu().numpy()
+        return out if rot is None else out @ rot
+
+    return fn
+
+
+class _Timed:
+    """Wraps ``obj.name`` to add each call's seconds to ``seconds``."""
+
+    def __init__(self, obj, name: str):
+        self.seconds = []
+        real = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.seconds.append(time.perf_counter() - t)
+
+        setattr(obj, name, timed)
+
+
+def rollout_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 12 (module docstring); returns the ``{"rollout": ...}`` numbers."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "rollout_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stack, frames = ctx["stack"], ctx["frames"]
+    rows, labels, n_plant = ctx["rows"], ctx["labels"], ctx["n_plant"]
+    gallery = ShardedGallery(GALLERY_ROWS, DIM, store_dtype=torch.bfloat16, device=dev)
+    gallery.add(rows, labels)
+    pipeline = RecognitionPipeline(stack.detector, stack.embed_net, gallery,
+                                   face_size=embedder_mod.SERVING_FACE_SIZE,
+                                   fused_embedder=True, device=dev)
+    injector = FaultInjector()
+    state = StateLifecycle(root, keep_checkpoints=2, checkpoint_wal_rows=1 << 30,
+                           checkpoint_every_s=1e9, fault_injector=injector)
+    rot = rotation(seed + 12)
+    co_kw = dict(old_embed_fn=card_embed_fn(stack), new_embed_fn=card_embed_fn(stack, rot),
+                 parity_min_samples=RO_PARITY_SAMPLES, chunk_rows=RO_CHUNK_ROWS,
+                 live_sample_interval_s=0.0, face_size=embedder_mod.SERVING_FACE_SIZE,
+                 fault_injector=injector)
+    metrics = Metrics()
+    conn = FakeConnector()
+    service = RecognizerService(pipeline, conn, batch_size=BATCH, frame_shape=FRAME,
+                                flush_timeout=0.01, ingest=IngestConfig("uint8"),
+                                state_store=state, metrics=metrics)
+    t = time.perf_counter()
+    if not state.checkpoint_now(wait=True):
+        raise AssertionError("rollout: the first checkpoint failed")
+    first_ckpt_s = time.perf_counter() - t
+    published = []  # (arrival, batch tick, embedder_version) of every result
+    batch_stamps = []  # the stamp of each published batch, in publish order
+    real_publish = service._publish
+
+    def publish(packed, frames, metas, count, stamp=None, *args, **kwargs):
+        batch_stamps.append(stamp)
+        return real_publish(packed, frames, metas, count, stamp, *args, **kwargs)
+
+    service._publish = publish
+    conn.subscribe(RESULT_TOPIC, lambda _t, m: published.append(
+        (time.perf_counter(), m["meta"]["tick"], m.get("embedder_version"))))
+    sent = {}
+    stop, errors = threading.Event(), []
+    messages = [encode_frame(f) for f in frames]
+
+    def produce():
+        tick = 0
+        try:
+            while not stop.is_set():
+                sent[tick] = time.perf_counter()
+                base = (tick % (len(frames) // BATCH)) * BATCH
+                for j in range(BATCH):
+                    conn.inject(FRAME_TOPIC, {**messages[base + j],
+                                              "meta": {"tick": tick, "j": j}})
+                tick += 1
+                time.sleep(RO_TICK_S)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    service.start(warmup=True)
+    captures, recaptures = pipeline.captures, pipeline.recaptures
+    built = []  # (host clock, step key) of every step built after warmup
+    real_build = pipeline._build_step
+
+    def build_step(key, data, ivf):
+        built.append((time.perf_counter(), key))
+        return real_build(key, data, ivf)
+
+    pipeline._build_step = build_step
+    t_cutover = float("inf")
+    zero_counters()
+    producer = threading.Thread(target=produce, name="rollout-producer", daemon=True)
+    producer.start()
+    try:
+        # the stage, killed partway at its append (on_stage), resumed
+        co = RolloutCoordinator(state, gallery, lambda r: r @ rot, 2, **co_kw)
+        service.rollout = co
+        t_stage0 = time.perf_counter()
+        co.run_stage(max_chunks=RO_CRASH_AFTER_CHUNKS)
+        injector.script("stage", "crash")
+        try:
+            co.run_stage()
+            raise AssertionError("rollout: the scripted stage crash did not fire")
+        except InjectedCrashError:
+            pass
+        watermark = co.stage.watermark
+        co = RolloutCoordinator(state, gallery, lambda r: r @ rot, 2, **co_kw)
+        if not co.stage.resumed or co.stage.watermark != watermark:
+            raise AssertionError(f"rollout: resumed at {co.stage.watermark}, not {watermark}")
+        service.rollout = co
+        co.run_stage()
+        t_stage1 = time.perf_counter()
+        stage_s = t_stage1 - t_stage0
+        staged, staged_labels = co.stage.arrays()
+        host = gallery.snapshot_rows(0, None)[0]
+        want = np.concatenate([_l2norm(host[s:s + RO_CHUNK_ROWS] @ rot)
+                               for s in range(0, GALLERY_ROWS, RO_CHUNK_ROWS)])
+        del host
+        if not (np.array_equal(staged, want) and np.array_equal(staged_labels, labels)):
+            raise AssertionError("rollout: the resumed stage differs from an uncrashed one")
+        del want
+        stage_bytes = os.path.getsize(co.stage.path)
+        # parity from the live publish path, on the rollout thread
+        co.start()
+        wait_for(lambda: errors or co.parity.samples >= RO_PARITY_SAMPLES, 300,
+                 "the parity window's sample floor")
+        wait_for(lambda: co.phase == "ready", 60, "the rollout to read ready")
+        parity = dict(samples=co.parity.samples, agreement=co.parity.agreement)
+        # a death after the fence record: recovery completes the cutover
+        injector.script("cutover", "crash_after_record")
+        try:
+            co.cutover()
+            raise AssertionError("rollout: the scripted cutover crash did not fire")
+        except InjectedCrashError:
+            pass
+        if gallery.embedder_version != 1:
+            raise AssertionError("rollout: the crashed cutover swapped the gallery")
+        g2 = ShardedGallery(8, DIM, store_dtype=torch.bfloat16, device=dev)
+        restarted = StateLifecycle(root, keep_checkpoints=2)
+        t = time.perf_counter()
+        report = restarted.recover(g2, [])
+        recover_s = time.perf_counter() - t
+        recover_stages = dict(restarted.last_recovery_s)
+        restarted.close()
+        if (report.get("completed_cutover") or {}).get("to_version") != 2 or \
+                g2.embedder_version != 2:
+            raise AssertionError(f"rollout: recovery did not complete the cutover: {report}")
+        # the cutover, in the serving process
+        fence = _Timed(state.wal, "append_cutover")
+        upload = _Timed(gallery, "load_snapshot")
+        ckpt = _Timed(state, "checkpoint_now")
+        t = t_cutover = time.perf_counter()
+        co.cutover()
+        cutover_s = time.perf_counter() - t
+        t_cut = time.perf_counter()
+        n_at_cut = len(published)
+        wait_for(lambda: errors or len(published) >= n_at_cut + RO_AFTER_BATCHES * BATCH, 120,
+                 "batches after the cutover")
+    finally:
+        stop.set()
+        producer.join(timeout=60)
+        co.stop()
+        service.drain(timeout=120)
+        service.stop()
+    if errors:
+        raise AssertionError(f"rollout: the producer failed: {errors}")
+    launches = read_launches()
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"rollout: a kernel did not launch while serving: {launches}")
+    # a batch publishes under one stamp; in publish order the results' and
+    # the batches' stamps each move from 1 to 2 once
+    stamps = [v for _t, _k, v in published]
+    if not (stamps_move_once(stamps, 1, 2) and stamps_move_once(batch_stamps, 1, 2)):
+        raise AssertionError(f"rollout: result stamps mixed: {stamps[:8]} ... {stamps[-8:]}; "
+                             f"batches {batch_stamps[:4]} ... {batch_stamps[-4:]}")
+    # each rung's graph is captured again once, after the cutover began, and
+    # never again (on the CPU nothing is captured)
+    keys = [k for _t, k in built]
+    n_re = pipeline.recaptures - recaptures
+    if (any(t < t_cutover for t, _k in built) or len(set(keys)) != len(keys)
+            or n_re != len(keys) or pipeline.captures - captures != n_re
+            or (dev.type == "cuda" and not 1 <= n_re <= len(service._bucket_ladder))):
+        raise AssertionError(f"rollout: steps built after warmup {built} (cutover at "
+                             f"{t_cutover}); recaptures {n_re}")
+    # the planted faces in the new space, through kernel A on both galleries
+    planted = _l2norm(rows[GALLERY_ROWS - n_plant:] @ rot)
+    q = torch.from_numpy(planted).to(dev)
+    streaming_match_topk.launches = 0
+    la, sa, ia = gallery.match(q, k=1)
+    lb, sb, ib = g2.match(q, k=1)
+    if not (torch.equal(la, lb) and torch.equal(sa, sb) and torch.equal(ia, ib)):
+        raise AssertionError("rollout: the recovered cutover matches differ from the served one")
+    found = la[:, 0].cpu().numpy()
+    if not np.array_equal(found, np.arange(n_plant)) or float(sa.min()) < 0.99:
+        raise AssertionError(f"rollout: planted rows not found after the cutover: {found[:8]}")
+    if dev.type == "cuda" and streaming_match_topk.launches < 2:
+        raise AssertionError("rollout: the post-cutover matches did not run kernel A")
+    by_tick = {}
+    for t_arr, tick, _v in published:
+        by_tick[tick] = max(by_tick.get(tick, 0.0), t_arr)
+    during = [(by_tick[k] - sent[k]) * 1e3 for k in by_tick
+              if k in sent and t_stage0 <= sent[k] <= t_stage1]
+    after = [(by_tick[k] - sent[k]) * 1e3 for k in by_tick if k in sent and sent[k] >= t_cut]
+    out = dict(card=card, rows=GALLERY_ROWS, chunk_rows=RO_CHUNK_ROWS,
+               stage_s=stage_s, stage_bytes=stage_bytes, resumed_at=watermark,
+               first_checkpoint_s=first_ckpt_s, parity=parity,
+               cutover_s=cutover_s, fence_s=sum(fence.seconds),
+               upload_s=sum(upload.seconds), checkpoint_s=sum(ckpt.seconds),
+               checkpoint_stages=state.last_checkpoint_s, recover_s=recover_s,
+               recover_stages=recover_stages,
+               batch_ms_during_stage=dict(p50=_pct(during, 50), worst=max(during or [0.0]),
+                                          n=len(during)),
+               batch_ms_after_cutover=dict(p50=_pct(after, 50), n=len(after)),
+               recaptures=n_re, recaptured_batches=sorted(k[0] for k in keys),
+               results=len(stamps), results_v1=stamps.count(1), results_v2=stamps.count(2),
+               batches_v1=batch_stamps.count(1), batches_v2=batch_stamps.count(2),
+               launches=launches, ledger=service.ledger(),
+               phase_s=time.perf_counter() - t_phase)
+    log(f"rollout ({card}): {json.dumps(out)}")
+    state.close()
+    drop_stack(pipeline)
+    del g2, gallery, pipeline
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2571,6 +3189,8 @@ def main() -> int:
     cli = cli_phase(dev, args.seed, card, ctx)
     durability = durability_phase(dev, args.seed, card, ctx)
     overload = overload_phase(dev, args.seed, card, ctx)
+    ingest = ingest_phase(dev, args.seed, card, ctx)
+    rollout = rollout_phase(dev, args.seed, card, ctx)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
@@ -2578,9 +3198,11 @@ def main() -> int:
     print(json.dumps({"ivf": ivf}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"durability": durability}))
-    overload["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {overload['total_s']:.1f} s")
     print(json.dumps({"overload": overload}))
+    print(json.dumps({"ingest": ingest}))
+    rollout["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {rollout['total_s']:.1f} s")
+    print(json.dumps({"rollout": rollout}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -31,6 +31,13 @@ exits 0 with a ``clean`` report. ``--supervised`` restarts a crashed
 serving loop; ``--probe-on-degraded`` probes the card when dispatches keep
 failing. A state dir crosses between the two packages both ways.
 
+Ingest: frames stage through a ring of pinned host buffers and upload on
+a side stream (``--ingest-mode f32|uint8|jpeg``, ``--ingest-ring-depth``,
+``--ingest-decode-workers``); ``jpeg`` takes ``{"__jpeg__": base64}``
+payloads and decodes them off the connector thread. With ``--state-dir``
+and ``--embedder-version N``, a pending cutover to N is completed by the
+recovery; any other version mismatch exits.
+
 Overload control: ``--max-inflight-frames`` and ``--rate-limit-fps`` reject
 at the front door (``rejected`` statuses), ``--brownout-queue-wait-ms``
 sheds bulk frames under a growing queue, ``--shed-stale-after-ms`` sheds
@@ -60,21 +67,16 @@ import signal
 import sys
 import threading
 import time
-import warnings
 
-import numpy as np
 import torch
 
 #: the ROADMAP items that bring the refused flags
-_INGEST = "ROADMAP A.8.3 (ingest staging ring, JPEG decode pool)"
 _REGISTRY = "ROADMAP A.8.5 (model registry, cascade)"
 _REPLICAS = "ROADMAP A.8.6 (replication, topic router)"
 _MULTI_GPU = "ROADMAP A.11 (multi-GPU)"
 
 #: (flag, refused value or None for "any value but the default", item)
 REFUSED = (
-    ("--ingest-mode", "jpeg", _INGEST), ("--ingest-ring-depth", None, _INGEST),
-    ("--ingest-decode-workers", None, _INGEST),
     ("--cascade", None, _REGISTRY), ("--cascade-threshold", None, _REGISTRY),
     ("--no-cascade", None, _REGISTRY), ("--registry-swap", None, _REGISTRY),
     ("--detector-version", None, _REGISTRY), ("--cascade-version", None, _REGISTRY),
@@ -139,10 +141,15 @@ def build_parser() -> argparse.ArgumentParser:
     add("--drain-poll-ms", type=float, default=50.0,
         help="completion-wait tick of drain() and the serving threads")
     add("--ingest-mode", choices=["f32", "uint8", "jpeg"], default=None,
-        help="transfer dtype of the frame batches: f32 (default) or uint8 "
-             "(4x fewer bytes, cast on the card)")
-    add("--ingest-ring-depth", type=int, default=0)
-    add("--ingest-decode-workers", type=int, default=2)
+        help="f32 (default): float staging; uint8: frames stage and upload as uint8 "
+             "(4x fewer bytes, cast on the card); jpeg: uint8, and the frame topic "
+             "takes compressed payloads decoded off the connector thread")
+    add("--ingest-ring-depth", type=int, default=0,
+        help="pinned staging buffers per dispatch rung; 0 = the in-flight depth + 2. "
+             "An exhausted ring rejects intake (reason staging), never allocates")
+    add("--ingest-decode-workers", type=int, default=2,
+        help="decode threads of --ingest-mode jpeg (a corrupt payload dead-letters "
+             "with reason decode_error)")
     add("--transfer-uint8", action="store_true",
         help="deprecated alias of --ingest-mode uint8")
     add("--cascade", metavar="PATH")
@@ -280,17 +287,6 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
                              f"{item}")
 
 
-def _ingest_dtype(args):
-    """The batches' transfer dtype: uint8 for ``--ingest-mode uint8`` (or
-    the deprecated ``--transfer-uint8``), else float32."""
-    mode = args.ingest_mode
-    if args.transfer_uint8:
-        warnings.warn("--transfer-uint8 is deprecated; it aliases --ingest-mode uint8",
-                      DeprecationWarning, stacklevel=2)
-        mode = mode or "uint8"
-    return np.uint8 if mode == "uint8" else np.float32
-
-
 def _load_stack(args, metrics):
     """Checkpoints, the gallery directory embedded into a gallery, and the
     serving pipeline on ``--device``; returns (pipeline, subject names).
@@ -372,10 +368,13 @@ def _open_state(args, pipeline, names, metrics, tracer=None):
     print(f"state recovery: {report}", file=sys.stderr)
     recovered_version = int(report.get("embedder_version", 1))
     if args.embedder_version and recovered_version != args.embedder_version:
+        # a pending cutover to the declared version was completed inside
+        # recover() and matches here; anything else would serve mixed spaces
         raise SystemExit(
             f"ocvf-recognize-torch: --embedder-version {args.embedder_version} declared but "
-            f"recovery landed on embedder v{recovered_version}: refusing to serve mixed "
-            f"spaces (the embedder rollout is ROADMAP A.8.8)")
+            f"recovery landed on embedder v{recovered_version} — refusing to serve mixed "
+            f"spaces. Roll the new embedder out via the staged re-embed (runtime.rollout: "
+            f"stage + parity gate + cutover), or start the matching model")
     if state.registry is None:
         state.attach_registry(ModelRegistry(args.state_dir, metrics=metrics))
     state.registry.mirror_embedder(recovered_version)
@@ -523,7 +522,12 @@ def main(argv=None) -> int:
     from opencv_facerecognizer_tpu_torch.runtime.resilience import BrownoutPolicy
     from opencv_facerecognizer_tpu_torch.runtime.slo import loop_liveness_objective
 
-    transfer_dtype = _ingest_dtype(args)
+    from opencv_facerecognizer_tpu_torch.runtime.ingest import (
+        IngestConfig, resolve_ingest_mode)
+
+    ingest = IngestConfig(mode=resolve_ingest_mode(args.ingest_mode, args.transfer_uint8),
+                          ring_depth=args.ingest_ring_depth or None,
+                          decode_workers=args.ingest_decode_workers)
     metrics_sink = open(args.metrics_jsonl, "a") if args.metrics_jsonl else None
     window_s, window_slices = _metrics_window(args)
     metrics = Metrics(sink=metrics_sink, window_s=window_s, window_slices=window_slices)
@@ -590,7 +594,7 @@ def main(argv=None) -> int:
         pipeline, connector, batch_size=args.batch_size,
         frame_shape=tuple(args.frame_size), flush_timeout=args.flush_ms / 1e3,
         similarity_threshold=args.similarity_threshold, subject_names=names,
-        metrics=metrics, transfer_dtype=transfer_dtype,
+        metrics=metrics, ingest=ingest,
         readback_worker=not args.no_readback_worker,
         readback_poll_s=args.readback_poll_ms / 1e3,
         drain_poll_s=args.drain_poll_ms / 1e3,

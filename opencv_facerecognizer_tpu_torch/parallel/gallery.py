@@ -97,6 +97,11 @@ class GalleryData(NamedTuple):
     #: the gallery's ``_epoch`` at install (``reset`` bumps it): pairs this
     #: snapshot with quantizer state published in the same epoch
     epoch: int = 0
+    #: the embedder version whose space these rows live in, published with
+    #: them: a reader stamps its results from the snapshot it matched
+    #: against, never from a version a concurrent cutover set meanwhile
+    #: (ROADMAP C.12)
+    embedder_version: int = 1
 
     @property
     def capacity(self) -> int:
@@ -224,7 +229,7 @@ class ShardedGallery:
             embeddings=self._upload_rows(self._host_emb),
             labels=torch.from_numpy(self._host_lab).to(self.device, copy=True),
             valid=torch.from_numpy(self._host_val).to(self.device, copy=True),
-            size=size, epoch=self._epoch)
+            size=size, epoch=self._epoch, embedder_version=self.embedder_version)
         self._drop_next_tiers(self.capacity)
 
     def _append_locked(self, size: int, emb: np.ndarray, lab: np.ndarray) -> None:
@@ -243,7 +248,8 @@ class ShardedGallery:
             # the writes are complete before any reader, on any stream,
             # can see the snapshot that makes them matchable
             torch.cuda.current_stream(self.device).synchronize()
-        self._data = GalleryData(data.embeddings, labels, valid, size + n, self._epoch)
+        self._data = GalleryData(data.embeddings, labels, valid, size + n, self._epoch,
+                                 data.embedder_version)
 
     @staticmethod
     def _normalize_rows(embeddings: np.ndarray) -> np.ndarray:
@@ -490,7 +496,8 @@ class ShardedGallery:
             if cuda:
                 event = torch.cuda.Event()
                 event.record(side)
-        data = GalleryData(embeddings=dst, labels=labels, valid=valid, size=pos, epoch=epoch)
+        data = GalleryData(embeddings=dst, labels=labels, valid=valid, size=pos, epoch=epoch,
+                           embedder_version=old.embedder_version)
         return data, event
 
     def _grow_worker(self) -> None:
@@ -643,6 +650,26 @@ class ShardedGallery:
             if acquired:
                 self._write_lock.release()
 
+    def snapshot_rows(self, start: int,
+                      end: Optional[int]) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Rows ``[start, min(end, size))`` of the host mirrors
+        (embeddings, labels) and the size, as read-only views taken under
+        the write lock as ``snapshot`` takes it; ``end`` None reads to
+        the size. No copy: rows below the size are never written again
+        (an append writes past it, a grow or load installs new arrays),
+        so a view keeps the bytes it was taken with."""
+        acquired = self._write_lock.acquire(timeout=self.SNAPSHOT_LOCK_TIMEOUT_S)
+        try:
+            emb, lab, size = self._host_emb, self._host_lab, int(self.size)
+        finally:
+            if acquired:
+                self._write_lock.release()
+        stop = size if end is None else max(start, min(int(end), size))
+        emb, lab = emb[start:stop], lab[start:stop]
+        emb.flags.writeable = False
+        lab.flags.writeable = False
+        return emb, lab, size
+
     def load_snapshot(self, emb: np.ndarray, lab: np.ndarray, val: np.ndarray, size: int,
                       embedder_version: Optional[int] = None) -> None:
         """Install arrays of a prior ``snapshot()`` (or a checkpoint) as
@@ -697,7 +724,8 @@ class ShardedGallery:
             else:
                 # restamped with this gallery's epoch, or the quantizer's
                 # publishes would never pair with it
-                self._data = other._data._replace(epoch=self._epoch)
+                self._data = other._data._replace(epoch=self._epoch,
+                                                  embedder_version=self.embedder_version)
                 self._drop_next_tiers(self.capacity)
         self._poke_quantizer()
 

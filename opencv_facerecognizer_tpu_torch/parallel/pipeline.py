@@ -125,6 +125,9 @@ class _GraphStep:
         self.deltas = deltas
 
     def __call__(self, frames: torch.Tensor, data: GalleryData, ivf) -> torch.Tensor:
+        # frames on the card (the ingest upload) copy device to device, on
+        # the serving stream: a queued replay has read the slot before the
+        # next call's copy overwrites it
         self.frames.copy_(frames)
         self.valid.copy_(data.valid)
         self.labels.copy_(data.labels)
@@ -175,8 +178,10 @@ class RecognitionPipeline:
         self.captures = 0
         self.recaptures = 0
         self.capture_ms: Dict[Tuple, float] = {}
-        #: the last packed call's provenance: {"cache_hit", "mode"}
+        #: the last packed call's provenance: {"cache_hit", "mode"}, and the
+        #: gallery snapshot it matched against
         self.last_dispatch_info: dict = {}
+        self.last_snapshot: Optional[GalleryData] = None
         # The gallery's grow machinery captures this pipeline's steps for
         # a new tier before it publishes, and drops stale tiers after.
         gallery.prewarm_hooks.append(self.prewarm_capacity)
@@ -307,17 +312,25 @@ class RecognitionPipeline:
         return step, False
 
     def recognize_batch_packed(self, frames) -> torch.Tensor:
-        """The serving step: [B, H, W] frames (float32 or uint8) -> one
-        [B, K, 6 + 2k] f32 array on the device (``pack_result``; decode on
-        the host with ``unpack_result``). On the card it is the graph's
-        static output: read it (``_Readback`` copies it on the same
-        stream) before the next call of the same key."""
+        """The serving step: [B, H, W] frames (float32 or uint8; host
+        memory, or a tensor already on the pipeline's device, which no
+        path copies through the host again) -> one [B, K, 6 + 2k] f32
+        array on the device (``pack_result``; decode on the host with
+        ``unpack_result``). On the card it is the graph's static output:
+        read it (``_Readback`` copies it on the same stream) before the
+        next call of the same key. ``last_snapshot`` is the gallery
+        snapshot the step matched against: its ``embedder_version`` stamps
+        the results, and holding it keeps its tensors alive while the step
+        is queued."""
         frames = self._frames_tensor(frames)
+        if frames.device.type == "cuda" and frames.device != self.device:
+            raise ValueError(f"frames on {frames.device}, pipeline on {self.device}")
         data = self.gallery.data  # one snapshot read
         ivf = self.gallery._ivf_data(data)  # one epoch-checked quantizer read
         step, hit = self._step_for(frames, data, ivf)
         self.last_dispatch_info = {"cache_hit": hit,
                                    "mode": "ivf" if ivf is not None else "exact"}
+        self.last_snapshot = data
         if not self.cuda_graphs:
             frames = frames.to(self.device)
         return step(frames, data, ivf)

@@ -86,8 +86,8 @@ class AdmissionController:
 
     ``admit(topic, priority)`` returns None to admit, or the rejection's
     reason: ``"rate_limit"``, ``"overload"`` or ``"staging"`` (the last
-    when ``staging_free_fn`` reads no free staging buffer; the ingest ring
-    that wires it is ROADMAP A.8.3). The caller counts and announces the
+    when ``staging_free_fn`` reads no free staging buffer; the service
+    wires the ingest ring's ``free_slots``). The caller counts and announces the
     rejection.
 
     ``rate_limit_fps`` is a scalar (every topic) or ``{topic: fps}``;

@@ -21,11 +21,15 @@ batches. Port of ``opencv_facerecognizer_tpu/runtime/batcher.py``.
   blown its budget never takes a dispatch slot (``batcher_dropped_stale``).
 - ``recycle`` hands a batch's staging array back for reuse once the
   consumer is done with it, so steady-state batching allocates nothing.
+  With a ``staging_ring`` (``runtime.ingest.StagingRing``) the ring's
+  pre-allocated per-rung buffers replace the pool: ``recycle`` and
+  ``forfeit`` go to the ring, and an exhausted ring keeps the frames
+  queued (the consumer waits for a released buffer) and never allocates.
 
 Every drop is counted on the shared ``Metrics`` (``batcher_dropped_*``),
 handed to ``drop_log`` (the service's dead-letter journal) and, with a
 ``tracer``, settled by the frame's terminal span; both outside the queue
-lock. The staging ring that may replace the buffer pool is ROADMAP A.8.3.
+lock.
 """
 
 from __future__ import annotations
@@ -39,6 +43,10 @@ import numpy as np
 
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
 
+#: a staging-ring acquire already missed in this pop: later re-checks of
+#: the same exhaustion episode are quiet (``StagingRing.acquire``)
+_EXHAUSTED = object()
+
 
 class Batch(NamedTuple):
     """One batch and its provenance: ``enqueue_ts`` are the
@@ -46,7 +54,7 @@ class Batch(NamedTuple):
     ``trace_ids`` their frame traces (0 = untraced) and ``priorities``
     their admission classes."""
 
-    frames: np.ndarray  # [B, H, W] in the batcher's dtype, zero-padded
+    frames: np.ndarray  # [rung or B, H, W] in the batcher's dtype, zero-padded
     metas: List[Any]
     count: int
     enqueue_ts: List[float]
@@ -65,7 +73,7 @@ class FrameBatcher:
                  dtype=np.float32, metrics: Optional[mn.Metrics] = None,
                  buffer_pool_size: int = 8, target_latency_s: Optional[float] = None,
                  stale_after_s: Optional[float] = None, drop_log=None, tracer=None,
-                 trace_topic: Optional[str] = None):
+                 trace_topic: Optional[str] = None, staging_ring=None):
         self.batch_size = int(batch_size)
         self.target_latency_s = (None if target_latency_s is None
                                  else float(target_latency_s))
@@ -77,6 +85,16 @@ class FrameBatcher:
         self.metrics = metrics
         self._pool_cap = int(buffer_pool_size)
         self._buffer_pool: List[np.ndarray] = []
+        self._ring = staging_ring
+        if staging_ring is not None:
+            if (tuple(staging_ring.frame_shape) != self.frame_shape
+                    or np.dtype(staging_ring.dtype) != self.dtype):
+                raise ValueError(f"staging_ring shape/dtype ({staging_ring.frame_shape}, "
+                                 f"{staging_ring.dtype}) does not match the batcher's "
+                                 f"({self.frame_shape}, {self.dtype})")
+            if max(staging_ring.rungs) < self.batch_size:
+                raise ValueError(f"staging_ring's largest rung {max(staging_ring.rungs)} "
+                                 f"cannot hold a full batch of {self.batch_size}")
         #: freshness bound (s): older queued frames are shed, reason ``stale``
         self.stale_after_s = None if stale_after_s is None else float(stale_after_s)
         #: ``drop_log(reason, entries)`` for overflow and stale sheds
@@ -89,6 +107,10 @@ class FrameBatcher:
         self._frames: deque = deque()
         self._delivered = 0
         self._closed = False
+        if staging_ring is not None:
+            # a consumer parked on an exhausted ring wakes when a buffer
+            # returns (the ring calls this outside its own lock)
+            staging_ring.add_notify(self._wake_consumer)
 
     def _count(self, name: str, value: float = 1.0) -> None:
         if self.metrics is not None:
@@ -218,7 +240,10 @@ class FrameBatcher:
     def recycle(self, buf: np.ndarray) -> None:
         """Return a batch's staging array once the consumer is done with it
         (readback finished, no views kept). A wrong shape or a full pool
-        just drops it."""
+        just drops it; with a staging ring it goes back to its rung."""
+        if self._ring is not None:
+            self._ring.release(buf)
+            return
         if (not isinstance(buf, np.ndarray)
                 or buf.shape != (self.batch_size, *self.frame_shape)
                 or buf.dtype != self.dtype):
@@ -226,6 +251,17 @@ class FrameBatcher:
         with self._lock:
             if len(self._buffer_pool) < self._pool_cap:
                 self._buffer_pool.append(buf)
+
+    def forfeit(self, buf) -> None:
+        """An in-flight staging buffer that never comes back (dead letter,
+        crash: a copy of it may still be pending); the ring heals with one
+        allocation. A no-op without a ring."""
+        if self._ring is not None:
+            self._ring.forfeit(buf)
+
+    def _wake_consumer(self) -> None:
+        with self._not_empty:
+            self._not_empty.notify_all()
 
     # ---- consumer side ----
 
@@ -253,6 +289,7 @@ class FrameBatcher:
             frames = np.zeros((self.batch_size, *self.frame_shape), self.dtype)
         else:
             self._count(mn.BATCHER_BUFFER_REUSE)
+            # a ring buffer may be rung-sized (the smallest rung >= count)
             frames = buf
             frames[count:] = 0  # re-zero a reused buffer's padding lanes
         metas: List[Any] = [None] * self.batch_size
@@ -279,31 +316,44 @@ class FrameBatcher:
 
     def _pop_batch_locked(self, block: bool, stale: List[tuple]):
         """Caller holds the lock: wait for a flushable batch and pop it
-        with a pooled buffer, or None."""
+        with a pooled buffer, or None. With a staging ring the buffer is
+        acquired before the pop: an exhausted ring keeps the frames queued
+        and waits for a released buffer."""
+        buf = None
         while True:
             self._shed_stale(stale)
             n = len(self._frames)
-            if n >= self.batch_size:
-                break
-            if n > 0:
+            if n > 0 and n < self.batch_size:
                 deadline = self.current_flush_deadline()
                 age = time.monotonic() - self._frames[0][2]
-                if age >= deadline:
-                    break
-                if not block:
+                if age < deadline:
+                    if not block:
+                        return None
+                    self._not_empty.wait(timeout=deadline - age)
+                    continue
+            elif n == 0:
+                if self._closed or not block:
                     return None
-                self._not_empty.wait(timeout=deadline - age)
+                self._not_empty.wait(timeout=self.flush_timeout)
+                if not self._frames:
+                    return None  # idle tick: give the caller a turn
                 continue
+            if self._ring is None:
+                break
+            # the one FrameBatcher._lock -> StagingRing._lock nesting
+            buf = self._ring.acquire(min(n, self.batch_size), quiet=buf is _EXHAUSTED)
+            if buf is not None:
+                break
+            buf = _EXHAUSTED
             if self._closed or not block:
                 return None
-            self._not_empty.wait(timeout=self.flush_timeout)
-            if not self._frames:
-                return None  # idle tick: give the caller a turn
+            self._not_empty.wait(timeout=min(self.flush_timeout, 0.01))
         count = min(len(self._frames), self.batch_size)
         items = [self._frames.popleft() for _ in range(count)]
         # counted with the pop: drain() compares it with its completions
         self._delivered += 1
-        buf = self._buffer_pool.pop() if self._buffer_pool else None
+        if self._ring is None:
+            buf = self._buffer_pool.pop() if self._buffer_pool else None
         return items, count, buf
 
     @property

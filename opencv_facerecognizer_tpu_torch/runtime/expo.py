@@ -21,8 +21,8 @@ path                payload
                     ``SPAN_LIMIT_MAX`` is clamped)
 ``/attribution``    the stage-attribution gauges, folded on read
 ``/replicas``       ``{"replicas": null}`` (the router is ROADMAP A.8.6)
-``/rollout``        ``{"rollout": null}`` until a rollout is attached
-                    (ROADMAP A.8.8)
+``/rollout``        the rollout coordinator's ``status()``, or
+                    ``{"rollout": null}`` while none is attached
 ``/registry``       the model registry's manifest when one is attached
 ``/tracks``         the identity tracker's tracks and stats
 ==================  ========================================================
@@ -151,7 +151,7 @@ class ExpoServer:
         self.slo = slo if slo is not None else getattr(service, "slo", None)
         #: the topic router behind ``/replicas`` (ROADMAP A.8.6)
         self.router = router
-        #: the rollout coordinator behind ``/rollout`` (ROADMAP A.8.8)
+        #: the rollout coordinator behind ``/rollout`` (else the service's)
         self.rollout = rollout
         self.registry = registry
         self.refresh_s = float(refresh_s)

@@ -7,9 +7,13 @@ and signals tests need.
 whose readiness is scripted (``compute_s`` after the dispatch), after
 sleeping ``dispatch_s`` on the serving thread (a capacity wall of
 ``batch_size / dispatch_s`` frames a second). Every frame comes back with
-no face. It runs no model and touches no card, so the serving loop's
-host side (admission, batching, brownout, publish, spans) is measurable
-alone.
+no face, or with ``faces_per_frame`` scripted ones (a fixed box, label 0,
+similarity 1). It runs no model and touches no card, so the serving
+loop's host side (admission, batching, brownout, publish, spans) is
+measurable alone.
+
+``synthetic_jpeg_frames`` makes seeded camera payloads as real JPEG
+bytes, the reference's generator.
 
 ``FakeClock`` is a manual clock with the ``time`` module's interface
 (``monotonic``, ``perf_counter``, ``time``, ``sleep``): a test installs it
@@ -99,12 +103,14 @@ class InstantPipeline:
     ``last_dispatch_info``, like a step captured after warmup."""
 
     def __init__(self, frame_shape: Tuple[int, int], top_k: int = 1, max_faces: int = 2,
-                 compute_s: float = 0.0, dispatch_s: float = 0.0):
+                 compute_s: float = 0.0, dispatch_s: float = 0.0, faces_per_frame: int = 0):
         self.frame_shape = tuple(frame_shape)
         self.top_k = int(top_k)
         self.max_faces = int(max_faces)
         self.compute_s = float(compute_s)
         self.dispatch_s = float(dispatch_s)
+        #: face slots of every frame that come back valid
+        self.faces_per_frame = min(int(faces_per_frame), int(max_faces))
         self.face_size = (8, 8)
         self.gallery = _GalleryStub()
         self.dispatches = 0
@@ -137,7 +143,45 @@ class InstantPipeline:
         # pack_result's layout: boxes(4) | det_score | valid | labels(k) | sims(k);
         # valid 0 everywhere: no face
         packed = np.zeros((b, self.max_faces, 6 + 2 * self.top_k), np.float32)
+        h, w = self.frame_shape
+        for j in range(self.faces_per_frame):
+            packed[:, j, 0:4] = (2.0, 2.0, max(6.0, h - 2.0), max(6.0, w - 2.0))  # yxyx
+            packed[:, j, 4] = 1.0  # det_score
+            packed[:, j, 5] = 1.0  # valid
+            packed[:, j, 6] = 0.0  # top-1 label
+            packed[:, j, 6 + self.top_k] = 1.0  # top-1 similarity
         return FakeReadback(packed, time.monotonic() + self.compute_s)
+
+
+def _stamp_faces(rng, frame: np.ndarray, n_faces: int) -> None:
+    """Stamp ``n_faces`` bright face-ish squares (200, with darker eye
+    dots) onto ``frame`` in place at seeded positions."""
+    h, w = frame.shape
+    for _face in range(int(n_faces)):
+        side = int(rng.integers(max(6, h // 8), max(8, h // 3)))
+        y0 = int(rng.integers(0, max(1, h - side)))
+        x0 = int(rng.integers(0, max(1, w - side)))
+        frame[y0:y0 + side, x0:x0 + side] = 200
+        ey = y0 + side // 3
+        for ex in (x0 + side // 4, x0 + 3 * side // 4):
+            frame[max(0, ey - 1):ey + 1, max(0, ex - 1):ex + 1] = 60
+
+
+def synthetic_jpeg_frames(n: int, frame_hw: Tuple[int, int] = (64, 64), seed: int = 0,
+                          quality: int = 85, faces_per_frame: int = 0):
+    """``n`` seeded ``(jpeg_bytes, source_frame)`` pairs of uint8 grayscale
+    frames (20-90 noise, ``faces_per_frame`` stamped squares); one seed
+    gives the same bytes on one codec."""
+    from opencv_facerecognizer_tpu_torch.runtime.ingest import encode_jpeg
+
+    rng = np.random.default_rng(seed)
+    h, w = int(frame_hw[0]), int(frame_hw[1])
+    out = []
+    for _ in range(int(n)):
+        frame = rng.integers(20, 90, size=(h, w)).astype(np.uint8)
+        _stamp_faces(rng, frame, faces_per_frame)
+        out.append((encode_jpeg(frame, quality=quality), frame))
+    return out
 
 
 def build_overload_stack(frame_shape=(32, 32), batch_size: int = 8, dispatch_s: float = 0.04,

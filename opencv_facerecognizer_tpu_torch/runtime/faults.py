@@ -8,9 +8,12 @@ part of ``opencv_facerecognizer_tpu/runtime/faults.py``.
   ``crash`` dies before the write becomes visible, and checkpoint
   ``late`` dies after the checkpoint lands but before the WAL truncation
   that follows it (the window the checkpoint's ``wal_seq`` exists for).
-- **stage**: the same two deaths at a rollout's stage append (the rollout
-  is not ported yet; the boundary is kept so one script format serves
-  both packages).
+- **stage**: the same two deaths at a rollout's stage append.
+- **cutover**: death on either side of the embedder cutover's WAL fence
+  record (``crash_before_record``, ``crash_after_record``).
+- **decode**: the JPEG decode pool's worker (``runtime.ingest``): ``slow``
+  stalls ``slow_decode_s`` before the decode, ``corrupt`` replaces the
+  payload with bytes no decoder accepts.
 - **storage**: the disk stays broken. ``enospc`` and ``eio`` raise the
   matching ``OSError`` before the real syscall of every durable write,
   ``slow_fsync`` stalls ``slow_fsync_s`` and then lets it proceed, and
@@ -22,8 +25,8 @@ Faults are scripted (``script("wal", "torn")``: consumed in order, one
 per crossing) or drawn at ``rates`` from a ``random.Random(seed)``;
 ``injected`` counts each one fired as ``"boundary:fault"``. Without
 scripted faults and rates every hook is a no-op, and no production path
-arms an injector. The connector, batcher, readback, cascade, decode and
-transport boundaries wait for their subsystems (ROADMAP A.8.2-A.8.6).
+arms an injector. The connector, batcher, readback, cascade and
+transport boundaries wait for their subsystems (ROADMAP A.8.5, A.8.6).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ BOUNDARIES: Dict[str, tuple] = {
     "wal": ("torn", "crash"),
     "checkpoint": ("torn", "crash", "late"),
     "stage": ("torn", "crash"),
+    "cutover": ("crash_before_record", "crash_after_record"),
+    "decode": ("slow", "corrupt"),
     "storage": ("enospc", "eio", "slow_fsync", "read_error"),
 }
 
@@ -75,9 +80,11 @@ class FaultInjector:
 
     def __init__(self, seed: int = 0,
                  rates: Optional[Dict[str, Dict[str, float]]] = None,
-                 slow_fsync_s: float = 0.05):
+                 slow_decode_s: float = 0.05, slow_fsync_s: float = 0.05):
         self.seed = int(seed)
         self._rng = random.Random(self.seed)
+        #: stall of a ``decode: slow`` fault, before the worker decodes
+        self.slow_decode_s = float(slow_decode_s)
         #: stall of a ``storage: slow_fsync`` fault
         self.slow_fsync_s = float(slow_fsync_s)
         self.rates = rates or {}
@@ -149,6 +156,24 @@ class FaultInjector:
     def on_stage(self) -> Optional[str]:
         """Rollout stage append: ``"torn"``, ``"crash"`` or None."""
         return self._draw("stage")
+
+    def on_cutover(self) -> Optional[str]:
+        """Embedder cutover (``StateLifecycle.perform_cutover``): the side
+        of the fence record the death lands on, or None."""
+        return self._draw("cutover")
+
+    def on_decode(self, payload: bytes) -> bytes:
+        """JPEG decode (a decode worker, never the serving thread):
+        ``slow`` sleeps ``slow_decode_s`` and passes the payload on,
+        ``corrupt`` returns a truncated pseudo-JPEG (SOI, then zeros) that
+        the decoder rejects like real corrupt camera bytes."""
+        fault = self._draw("decode")
+        if fault is None:
+            return payload
+        if fault == "slow":
+            time.sleep(self.slow_decode_s)
+            return payload
+        return b"\xff\xd8\xff" + b"\x00" * 5
 
     def on_storage(self, op: str = "write") -> None:
         """Durable-write boundary, called just before the real syscall

@@ -83,9 +83,27 @@ Every admitted frame ends in exactly one counter of
 ``utils.metrics.LEDGER_COMPLETION_COUNTERS`` or ``LEDGER_DROP_COUNTERS``
 (``ledger()``); rejected and deduped frames never enter it.
 
-Not ported yet: the ingest staging ring and JPEG pool (ROADMAP A.8.3),
-the cascade and the registry's swaps (A.8.5), replication (A.8.6) and the
-rollout (A.8.8). The CPU fallback is not ported at all (ROADMAP C.7): with
+**Ingest** (``ingest=``, a ``runtime.ingest.IngestConfig``): the batcher
+stages into a pre-allocated ring of host buffers (pinned on the card),
+each dispatch attempt uploads its batch explicitly on a side stream
+(``upload`` span), a buffer goes back to the ring only after its batch's
+readback (and its upload has passed), and a dead-lettered or crashed
+batch forfeits its buffer. Ring exhaustion backpressures through the
+admission (reason ``staging``). In ``jpeg`` mode a compressed payload is
+decoded by the decode pool off the connector thread (``decode`` span); a
+corrupt one is a ``frames_dropped_decode`` drop journaled as
+``decode_error``, a full decode queue one journaled as ``decode_backlog``.
+A compressed payload with no decode pool counts as malformed.
+
+**Rollout** (``rollout``, a ``runtime.rollout.RolloutCoordinator``
+set by the code that runs the rollout): the publish path offers a face of each frame
+with faces to its live parity window (rate-limited and copied by the
+coordinator). Each batch's results carry the ``embedder_version`` of the
+gallery snapshot its step matched against (ROADMAP C.12), and the
+in-flight entry holds that snapshot until the readback.
+
+Not ported yet: the cascade and the registry's swaps (ROADMAP A.8.5) and
+replication (A.8.6). The CPU fallback is not ported at all (ROADMAP C.7): with
 ``probe_backend_on_degraded`` a dead card is reported (``backend_usable:
 false``, ``cpu_fallback: false``) and the service stays degraded.
 """
@@ -110,6 +128,8 @@ from opencv_facerecognizer_tpu_torch.runtime.admission import (
 from opencv_facerecognizer_tpu_torch.runtime.batcher import FrameBatcher
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     MiddlewareConnector, decode_frame)
+from opencv_facerecognizer_tpu_torch.runtime.ingest import (
+    JPEG_KEY, IngestConfig, IngestPipeline)
 from opencv_facerecognizer_tpu_torch.runtime.resilience import (
     BrownoutPolicy, DurabilityDegradedError, ResiliencePolicy, is_transient_error)
 from opencv_facerecognizer_tpu_torch.runtime.slo import STATE_CRITICAL
@@ -222,10 +242,11 @@ class _Inflight(NamedTuple):
     t0: float
     t_disp: float
     deadline: float  # time.monotonic() after which the batch dead-letters
-    stamp: Optional[int]  # the gallery's embedder_version at dispatch
+    stamp: Optional[int]  # the embedder_version of the snapshot the step matched
     trace_ids: List[int]  # the frames' traces (0 = untraced)
     batch_tid: int  # the batch's trace (0 = no member traced)
     priorities: List[int]
+    snapshot: Any = None  # that gallery snapshot, alive until the readback
 
 
 class RecognizerService:
@@ -245,7 +266,8 @@ class RecognizerService:
                  admission: Optional[AdmissionController] = None,
                  brownout: Optional[BrownoutPolicy] = None, dead_letter_journal=None,
                  shed_stale_after_s: Optional[float] = None, tracer=None,
-                 slo_monitor=None, dedup_window: int = 4096):
+                 slo_monitor=None, dedup_window: int = 4096,
+                 ingest: Optional[IngestConfig] = None):
         if frame_shape is None:
             raise ValueError("frame_shape (H, W) is required (fixed batch shapes)")
         self.pipeline = pipeline
@@ -267,8 +289,8 @@ class RecognizerService:
         self.journal = dead_letter_journal
         self.tracer = tracer
         self.slo = slo_monitor
-        #: attached by later subsystems (ROADMAP A.8.5, A.8.8); the
-        #: exposition reads them
+        #: the model registry (ROADMAP A.8.5) and the rollout coordinator,
+        #: set by the code that runs them; the exposition reads them
         self.registry = None
         self.rollout = None
         self._brownout_level = 0
@@ -286,15 +308,31 @@ class RecognizerService:
         self._dedup_lock = threading.Lock()
         #: time.monotonic() of the loop's last iteration (loop_staleness_s)
         self._loop_progress_t: Optional[float] = None
+        self._bucket_ladder = sorted(
+            {int(b) for b in (bucket_sizes or ()) if 0 < int(b) < batch_size}
+            | {int(batch_size)})
+        #: the staging ring, the upload and the decode pool (runtime.ingest),
+        #: built before the batcher, which stages into the ring
+        self.ingest = None
+        if ingest is not None:
+            self.ingest = IngestPipeline(ingest, self._bucket_ladder, tuple(frame_shape),
+                                         metrics=self.metrics, tracer=tracer,
+                                         trace_topic=FRAME_TOPIC,
+                                         fault_injector=fault_injector,
+                                         inflight_depth=int(inflight_depth),
+                                         device=getattr(pipeline, "device", None))
+            transfer_dtype = self.ingest.transfer_dtype
+            if admission is not None and admission.staging_free_fn is None:
+                # an exhausted ring rejects at the front door (``staging``)
+                admission.staging_free_fn = self.ingest.staging.free_slots
         self.batcher = FrameBatcher(batch_size, frame_shape, flush_timeout=flush_timeout,
                                     max_pending=max_pending, dtype=transfer_dtype,
                                     metrics=self.metrics, target_latency_s=target_latency_s,
                                     stale_after_s=shed_stale_after_s,
                                     drop_log=self._journal_drop, tracer=tracer,
-                                    trace_topic=FRAME_TOPIC)
-        self._bucket_ladder = sorted(
-            {int(b) for b in (bucket_sizes or ()) if 0 < int(b) < batch_size}
-            | {int(batch_size)})
+                                    trace_topic=FRAME_TOPIC,
+                                    staging_ring=(None if self.ingest is None
+                                                  else self.ingest.staging))
         self._inflight: deque = deque()
         # guards the in-flight queue and the completion count; drain() waits on it
         self._inflight_cv = threading.Condition()
@@ -541,6 +579,16 @@ class RecognizerService:
         if tid:
             tracer.emit(tid, "receive", topic=topic, t0=t_recv, dur=time.monotonic() - t_recv,
                         verdict="admitted", priority=priority)
+        if JPEG_KEY in message and self.ingest is not None and self.ingest.decoder is not None:
+            # the decode pool decodes it off this thread; a full queue is a
+            # counted drop (without a pool the pixel decode below fails:
+            # malformed)
+            if not self.ingest.submit_decode(message, priority, tid):
+                self.metrics.incr(mn.FRAMES_DROPPED_DECODE)
+                self._trace_settle([tid], mn.FRAMES_DROPPED_DECODE, "ingest.decode_backlog")
+                self._journal_drop("decode_backlog", self._drop_entries(
+                    [meta], None, [tid], "ingest.decode_backlog", priority=priority))
+            return
         try:
             frame = (decode_frame(message) if "__frame__" in message
                      else np.asarray(message["frame"]))
@@ -577,6 +625,24 @@ class RecognizerService:
         if not self.batcher.put(frame, meta, priority=priority, trace_id=tid):
             self.metrics.incr(mn.FRAMES_DROPPED)  # the batcher counted its reason
 
+    def _intake_decoded(self, frame, message, priority: int, tid: int) -> None:
+        """The decode pool's sink: the decoded frame joins the intake (the
+        batcher still checks its shape). An intake failure settles the
+        frame as a decode drop here, where the ledger lives."""
+        try:
+            self._intake_frame(frame, message.get("meta"), priority, tid)
+        except Exception:  # noqa: BLE001 - costs this frame, never a decode worker
+            log.exception("decoded-frame intake failed; settling as a decode drop")
+            self._decode_failed(message, priority, tid, "decode_error")
+
+    def _decode_failed(self, message, priority: int, tid: int, reason: str) -> None:
+        """The decode pool's failure sink: one counted drop, one journal
+        row, one terminal span."""
+        self.metrics.incr(mn.FRAMES_DROPPED_DECODE)
+        self._trace_settle([tid], mn.FRAMES_DROPPED_DECODE, "ingest.decode")
+        self._journal_drop(reason, self._drop_entries(
+            [message.get("meta")], None, [tid], "ingest.decode", priority=priority))
+
     def _on_control(self, topic: str, message: Dict[str, Any]) -> None:
         cmd = message.get("cmd")
         if cmd == "enroll":
@@ -601,6 +667,8 @@ class RecognizerService:
             status = {"status": "stats", **self.metrics.summary(), **self.batcher.stats,
                       "degraded": self._degraded, "brownout_level": self._brownout_level,
                       "ledger": self.ledger(), "gallery_size": self.pipeline.gallery.size}
+            if self.ingest is not None:
+                status["ingest"] = self.ingest.stats()
             if self.tracker is not None:
                 status["tracks"] = self.tracker.stats()
             if self.state is not None:
@@ -621,6 +689,9 @@ class RecognizerService:
         self._running = True
         self._crashed = False
         self._loop_progress_t = None
+        if self.ingest is not None:
+            # decode workers feed the intake the connector thread uses
+            self.ingest.start(sink=self._intake_decoded, on_error=self._decode_failed)
         self.connector.start()
         dur = self._durability
         if dur is not None:
@@ -652,7 +723,10 @@ class RecognizerService:
         deadline = time.monotonic() + timeout
         with self._inflight_cv:
             while time.monotonic() < deadline:
-                if (self.batcher.pending == 0
+                # the decode pool first: a worker is busy until its batcher
+                # put returned, so once idle no frame is in transit
+                if ((self.ingest is None or self.ingest.idle())
+                        and self.batcher.pending == 0
                         and self.batcher.delivered_batches == self._completed_batches):
                     return True
                 self._inflight_cv.wait(timeout=self._drain_poll_s)
@@ -666,6 +740,8 @@ class RecognizerService:
         dur = self._durability
         if dur is not None:
             dur.stop()
+        if self.ingest is not None:
+            self.ingest.stop()
         self.batcher.close()
         with self._inflight_cv:
             self._inflight_cv.notify_all()
@@ -759,6 +835,8 @@ class RecognizerService:
                         self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, batch.count)
                         self._trace_settle(batch.trace_ids, mn.FRAMES_DROPPED_CRASHED,
                                            "dispatch.crashed")
+                        # nothing read the buffer yet: back to the ring
+                        self.batcher.recycle(batch.frames)
                         self._mark_completed()
                     raise
             if self.slo is not None:
@@ -834,7 +912,11 @@ class RecognizerService:
                     self.batcher.report_service_time(time.perf_counter() - t0)
                     return
             bucket = self._pick_bucket(count)
-            readback = self._dispatch_with_retry(frames[:bucket])
+            if batch_tid and self.ingest is not None:
+                # which staging rung carried the batch (rung >= bucket)
+                tracer.emit(batch_tid, "stage", topic=tracing.BATCH_TOPIC, rung=len(frames),
+                            bucket=bucket, frames=count)
+            readback = self._dispatch_with_retry(frames[:bucket], batch_tid)
             if readback is None:
                 # retries spent or a permanent error: the batch is abandoned
                 self.metrics.incr(mn.FRAMES_FAILED, count)
@@ -845,16 +927,27 @@ class RecognizerService:
                     "dispatch.abandoned"))
                 accounted = True
                 self._mark_completed()
-                self.batcher.recycle(frames)
+                if self.ingest is not None:
+                    # an attempt's upload may still be reading the buffer
+                    self.batcher.forfeit(frames)
+                else:
+                    self.batcher.recycle(frames)
                 return
             t_disp = time.perf_counter()
             self.metrics.observe(mn.DISPATCH, t_disp - t0)
+            # dispatch provenance: a step cache miss after warmup captured
+            # (or re-captured) on the serving thread; the snapshot the step
+            # matched against stamps the results
+            info = getattr(self.pipeline, "last_dispatch_info", None) or {}
+            snapshot = getattr(self.pipeline, "last_snapshot", None)
+            if snapshot is not None:
+                stamp = int(snapshot.embedder_version)
             deadline = time.monotonic() + self.resilience.readback_deadline_s
             with self._inflight_cv:
                 self._inflight.append(_Inflight(readback, frames, metas, count,
                                                 batch.enqueue_ts, t0, t_disp, deadline,
                                                 stamp, trace_ids, batch_tid,
-                                                batch.priorities))
+                                                batch.priorities, snapshot))
                 accounted = True
                 self._inflight_cv.notify_all()
         except BaseException:
@@ -862,13 +955,12 @@ class RecognizerService:
                 self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, count)
                 self._trace_settle(trace_ids[:count], mn.FRAMES_DROPPED_CRASHED,
                                    "dispatch.crashed", batch=batch_tid)
+                # a copy of the buffer may still be pending: never recycled
+                self.batcher.forfeit(frames)
                 self._mark_completed()
             raise
         self.metrics.incr(mn.BATCHES_DISPATCHED)
         self.metrics.incr(mn.FRAMES_PROCESSED, count)
-        # dispatch provenance: a step cache miss after warmup captured (or
-        # re-captured) on the serving thread
-        info = getattr(self.pipeline, "last_dispatch_info", None) or {}
         if batch_tid:
             tracer.emit(batch_tid, "dispatch", topic=tracing.BATCH_TOPIC, dur=t_disp - t0,
                         bucket=bucket, frames=count, cache_hit=info.get("cache_hit"),
@@ -884,16 +976,23 @@ class RecognizerService:
         else:
             self._drain()
 
-    def _dispatch_with_retry(self, frames) -> Optional[_Readback]:
+    def _dispatch_with_retry(self, frames, batch_tid: int = 0) -> Optional[_Readback]:
         """One batch through the device under the resilience policy; the
-        readback of its packed output, or None when abandoned."""
+        readback of its packed output, or None when abandoned. With the
+        ingest, every attempt uploads the host staging view again."""
         policy = self.resilience
         attempt = 0
         while True:
             try:
+                send = frames
+                if self.ingest is not None:
+                    send, up_bytes, up_dur = self.ingest.upload(frames)
+                    if batch_tid:
+                        self.tracer.emit(batch_tid, "upload", topic=tracing.BATCH_TOPIC,
+                                         dur=up_dur, bytes=up_bytes, dtype=str(frames.dtype))
                 if self._faults is not None:
                     self._faults.on_dispatch()
-                readback = self._start_readback(self.pipeline.recognize_batch_packed(frames))
+                readback = self._start_readback(self.pipeline.recognize_batch_packed(send))
             except Exception as exc:  # noqa: BLE001 - classified below
                 self.metrics.incr(mn.DISPATCH_FAILURES)
                 self._consecutive_dispatch_failures += 1
@@ -976,8 +1075,9 @@ class RecognizerService:
         counted, completed, announced with the frames' metas and enqueue
         times so producers can resend, and journaled. A dead-letter dumps
         the flight recorder; the dump's path rides the journal record.
-        Its staging buffer is not recycled: the copy of it to the card may
-        still be pending."""
+        Its staging buffer is forfeited, not recycled: the copy of it to
+        the card may still be pending."""
+        self.batcher.forfeit(entry.frames)
         count = entry.count
         self.metrics.incr(mn.BATCHES_DEAD_LETTERED)
         self.metrics.incr(mn.FRAMES_DEAD_LETTERED, count)
@@ -1199,6 +1299,7 @@ class RecognizerService:
         (x0, y0, x1, y1), "detection_score", "label", "name",
         "similarity"}], "embedder_version"}``, the reference's schema."""
         result = unpack_result(packed, self.pipeline.top_k)
+        rollout = self.rollout
         published = 0
         try:
             for i in range(count):
@@ -1234,6 +1335,14 @@ class RecognizerService:
                     except Exception:  # noqa: BLE001 - the cache only: fail open
                         log.exception("tracker update failed")
                         self.metrics.incr(mn.TRACK_ERRORS)
+                if rollout is not None and faces:
+                    # live dual-score parity (rate-limited and copied inside,
+                    # scored on the rollout thread): observation only
+                    try:
+                        rollout.offer_live(frames[i], faces)
+                    except Exception:  # noqa: BLE001 - costs a counter, never the publish
+                        log.exception("rollout live-parity offer failed")
+                        self.metrics.incr(mn.ROLLOUT_OBSERVE_ERRORS)
         finally:
             # settled here, whatever exits; the spans mirror the split
             self.metrics.incr(mn.FRAMES_COMPLETED, published)

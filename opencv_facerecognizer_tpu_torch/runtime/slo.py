@@ -31,8 +31,9 @@ claim (the loser skips), so a transition's side effects fire once.
 Readers take the last verdict dict by reference. ``clock`` is injectable.
 
 The objective constructors for rollout, registry, replication and link
-health take duck-typed objects; their subsystems are ROADMAP A.8.5,
-A.8.6 and A.8.8.
+health take duck-typed objects (``rollout_parity_objective`` reads a
+``runtime.rollout.RolloutCoordinator``); the registry's and
+replication's subsystems are ROADMAP A.8.5 and A.8.6.
 """
 
 from __future__ import annotations

@@ -44,9 +44,17 @@ and checkpoint is a lifecycle span (``recover``, ``wal_append`` with
 crashed), emitted after the locks are released. ``graceful_shutdown``
 dumps the flight recorder.
 
-Not ported: the embedder rollout (``perform_cutover`` and a pending
-``cutover`` record raise naming ROADMAP A.8.8) and registry swaps
-(``perform_registry_cutover``, A.8.5).
+**The embedder cutover** (``perform_cutover``, driven by
+``runtime.rollout.RolloutCoordinator``): under the enroll lock the final
+delta is staged, the ``cutover`` fence record is appended with a strict
+fsync, and the gallery installs the new-space rows and version in one
+``load_snapshot`` publish; the caller forces a checkpoint. A fence record
+past the newest checkpoint is completed by ``recover`` from the durable
+stage file (``runtime.rollout.load_stage``), which fails closed when the
+stage does not cover the promised rows.
+
+Not ported: registry swaps (``perform_registry_cutover`` raises naming
+ROADMAP A.8.5).
 """
 
 from __future__ import annotations
@@ -80,8 +88,7 @@ QUARANTINE_SUFFIX = ".corrupt"
 #: ``wal_seq``; a mismatched or corrupt sidecar means a retrain
 SIDECAR_NAME = "quantizer.ivf"
 
-#: the ROADMAP items of the reference's paths that are not ported yet
-ROLLOUT_ITEM = "ROADMAP A.8.8 (embedder rollout)"
+#: the ROADMAP item of the reference's path that is not ported yet
 REGISTRY_ITEM = "ROADMAP A.8.5 (model registry swaps)"
 
 log = logging.getLogger(__name__)
@@ -99,8 +106,8 @@ class EmbedderVersionMismatchError(ValueError):
 
 
 class RolloutNotPortedError(NotImplementedError):
-    """The state needs the embedder rollout or a registry swap, which the
-    port does not have yet (the message names the ROADMAP item)."""
+    """The state needs a registry swap, which the port does not have yet
+    (the message names the ROADMAP item)."""
 
 
 def _encode_checkpoint(header: Dict[str, Any], payload: bytes) -> bytes:
@@ -486,6 +493,19 @@ class EnrollmentWAL(RotatingJournal):
             self.metrics.incr(mn.WAL_APPENDS)
             self.metrics.incr(mn.WAL_ROWS_APPENDED, emb.shape[0])
 
+    def append_cutover(self, seq: int, from_version: int, to_version: int, rows: int,
+                       dim: int) -> None:
+        """Append the embedder cutover's fence record (strict: the gallery
+        swaps only after it is durable). ``rows`` and ``dim`` are what
+        recovery checks the stage against."""
+        self.append_line(json.dumps({
+            "kind": "cutover", "seq": int(seq), "from_version": int(from_version),
+            "to_version": int(to_version), "rows": int(rows), "dim": int(dim),
+            "ts": time.time(),
+        }), strict=True)
+        if self.metrics is not None:
+            self.metrics.incr(mn.WAL_CUTOVER_RECORDS)
+
     def append_registry_abort(self, fence_seq: int, role: str, to_version: int) -> None:
         """Tombstone a ``registry_cutover`` fence that recovery abandoned
         (strict)."""
@@ -685,11 +705,13 @@ class StateLifecycle:
     def recover(self, gallery=None, subject_names: Optional[list] = None) -> Dict[str, Any]:
         """Install the newest checkpoint that verifies and decodes
         (``load_snapshot``: capacity, size and labels are the
-        checkpoint's), restore the names and the IVF sidecar, settle
-        fenced registry swaps, then replay the WAL records past the
-        checkpoint's ``wal_seq``. Under the enroll lock. Returns the
-        report; raises ``ValueError`` on a dim mismatch and
-        ``RolloutNotPortedError`` on a pending embedder cutover."""
+        checkpoint's), complete a pending embedder cutover from its stage
+        (or restore the IVF sidecar when there is none), settle fenced
+        registry swaps, then replay the WAL records past the checkpoint's
+        ``wal_seq`` (past the cutover's fence, when one was completed).
+        Under the enroll lock. Returns the report; raises ``ValueError`` on
+        a dim mismatch and ``runtime.rollout.RolloutStateError`` when a
+        pending cutover's stage is missing or short."""
         if gallery is not None:
             self.bind(gallery, subject_names if subject_names is not None else [])
         gallery, names = self._targets()
@@ -701,17 +723,20 @@ class StateLifecycle:
             surviving, highest = self.wal.scan()
             base_seq, current_version = self._recover_checkpoint_locked(
                 gallery, names, report, surviving, stages)
+            # a fence past the checkpoint: the crash fell between the
+            # cutover record and its checkpoint; the stage is durable
             cutover = self._pending_cutover(surviving, base_seq)
-            if cutover is not None:
-                raise RolloutNotPortedError(
-                    f"state dir {self.state_dir!r} holds an embedder cutover to "
-                    f"v{cutover.get('to_version')} (WAL seq {cutover.get('seq')}) past its "
-                    f"newest checkpoint; completing it needs the rollout's staged shard "
-                    f"set, which is not ported yet: {ROLLOUT_ITEM}. Recover this dir "
-                    f"with the JAX package")
+            effective_base = base_seq
             t = time.perf_counter()
-            self._restore_quantizer_locked(gallery, base_seq, report)
-            stages["sidecar"] = time.perf_counter() - t
+            if cutover is not None:
+                self._complete_cutover_locked(gallery, cutover, report)
+                current_version = int(cutover["to_version"])
+                effective_base = int(cutover["seq"])
+                stages["cutover"] = time.perf_counter() - t
+            else:
+                # the sidecar's centroids live in the old space after a cutover
+                self._restore_quantizer_locked(gallery, base_seq, report)
+                stages["sidecar"] = time.perf_counter() - t
             self._settle_registry_locked(surviving, report)
             t = time.perf_counter()
             for record in surviving:
@@ -722,6 +747,12 @@ class StateLifecycle:
                     report["skipped_records"] += 1
                     if self.metrics is not None:
                         self.metrics.incr(mn.WAL_SKIPPED_RECORDS)
+                    continue
+                if seq <= effective_base:
+                    # its rows ride the completed cutover's stage; its name
+                    # still re-grows from the record
+                    self._grow_names(names, record)
+                    report["skipped_records"] += 1
                     continue
                 if int(record.get("embedder_version", 1)) != current_version:
                     report["version_skipped_records"] += 1
@@ -746,6 +777,10 @@ class StateLifecycle:
                 wait_ready(timeout=300.0)
             stages["replay"] = time.perf_counter() - t
         self._last_ckpt_t = time.monotonic()
+        if cutover is not None:
+            # the completed cutover lives in memory and the stage until a
+            # new-version checkpoint lands: the next tick forces one
+            self._force_pending = True
         if self.metrics is not None:
             self.metrics.incr(mn.STATE_RECOVERIES)
             self.metrics.set_gauge(mn.WAL_ROWS, self._rows_since_ckpt)
@@ -870,12 +905,46 @@ class StateLifecycle:
     @staticmethod
     def _pending_cutover(records: List[Dict[str, Any]],
                          base_seq: int) -> Optional[Dict[str, Any]]:
-        """The newest ``cutover`` record past the recovered checkpoint."""
+        """The newest ``cutover`` record past the recovered checkpoint
+        (each stage holds the whole row set, so the newest alone is
+        exact)."""
         pending = None
         for record in records:
             if record.get("kind") == "cutover" and int(record.get("seq", 0)) > base_seq:
                 pending = record
         return pending
+
+    def _complete_cutover_locked(self, gallery, cutover: Dict[str, Any],
+                                 report: Dict[str, Any]) -> None:
+        """Install a fenced cutover's staged row set as the whole gallery
+        at the new version (``load_stage``: a missing or short stage is
+        media damage and raises ``RolloutStateError``)."""
+        from opencv_facerecognizer_tpu_torch.runtime.rollout import load_stage
+
+        rows = int(cutover["rows"])
+        dim = int(cutover["dim"])
+        to_version = int(cutover["to_version"])
+        if dim != gallery.dim:
+            raise ValueError(f"state dir {self.state_dir!r} holds a pending cutover to "
+                             f"dim={dim} but the gallery is dim={gallery.dim}: wrong "
+                             f"--state-dir (or wrong model) for completing this rollout?")
+        emb, labels = load_stage(self.state_dir, to_version, expect_rows=rows, expect_dim=dim)
+        capacity = max(int(gallery.capacity), rows)
+        emb_full = np.zeros((capacity, dim), np.float32)
+        emb_full[:rows] = emb
+        lab_full = np.full((capacity,), getattr(gallery, "labels_pad", -1), np.int32)
+        lab_full[:rows] = labels
+        val_full = np.zeros((capacity,), bool)
+        val_full[:rows] = True
+        gallery.load_snapshot(emb_full, lab_full, val_full, rows, embedder_version=to_version)
+        report["completed_cutover"] = {"seq": int(cutover["seq"]),
+                                       "from_version": int(cutover.get("from_version", 0)),
+                                       "to_version": to_version, "rows": rows}
+        if self.metrics is not None:
+            self.metrics.incr(mn.ROLLOUT_CUTOVERS_COMPLETED_RECOVERY)
+        log.warning("completed pending embedder cutover v%s -> v%d from the staged shard set "
+                    "(%d rows; the crash fell between the cutover record and its checkpoint)",
+                    cutover.get("from_version"), to_version, rows)
 
     def _recover_checkpoint_locked(self, gallery, names, report: Dict[str, Any],
                                    wal_records: List[Dict[str, Any]],
@@ -898,10 +967,14 @@ class StateLifecycle:
             if dim != gallery.dim:
                 pending = self._pending_cutover(wal_records, wal_seq)
                 if pending is not None and int(pending.get("dim", -1)) == gallery.dim:
-                    raise RolloutNotPortedError(
-                        f"state dir {self.state_dir!r} holds dim={dim} checkpoints and a "
-                        f"pending cutover to dim={gallery.dim}; completing it needs "
-                        f"{ROLLOUT_ITEM}")
+                    # an old-space checkpoint and a durable cutover to this
+                    # dim: the stage supersedes its rows; adopt its names
+                    # and its anchor only
+                    if names is not None:
+                        names[:] = [str(v) for v in meta.get("subject_names", [])]
+                    report["recovered_checkpoint"] = path
+                    report["checkpoint_superseded_by_cutover"] = True
+                    return wal_seq, ckpt_version
                 raise ValueError(f"state dir {self.state_dir!r} holds dim={dim} checkpoints "
                                  f"but the gallery is dim={gallery.dim}: wrong --state-dir "
                                  f"for this model?")
@@ -1051,8 +1124,47 @@ class StateLifecycle:
             self.metrics.incr(mn.WAL_TAIL_REPLAYED_ROWS, rows)
         return rows
 
-    def perform_cutover(self, to_version: int, build_fn=None) -> int:
-        raise RolloutNotPortedError(f"embedder cutovers are not ported yet: {ROLLOUT_ITEM}")
+    def perform_cutover(self, to_version: int,
+                        build_fn: Callable[[], Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                                     int]]) -> int:
+        """The embedder cutover, under the enroll lock (no enrolment and no
+        checkpoint snapshot can fall between the fence and the swap):
+        ``build_fn()`` stages the last rows durably and returns the new
+        space's ``(emb, lab, val, size)``; the ``cutover`` fence record is
+        appended (strict fsync); the gallery installs the arrays and the
+        version in one ``load_snapshot`` publish. Returns the fence's seq.
+        The caller forces a checkpoint next; until it lands ``recover``
+        completes the cutover from the stage."""
+        gallery, _names = self._targets()
+        t0 = time.monotonic()
+        with self._enroll_lock:
+            from_version = self._gallery_version(gallery)
+            emb, lab, val, size = build_fn()
+            fault = self._faults.on_cutover() if self._faults is not None else None
+            if fault == "crash_before_record":
+                raise InjectedCrashError("crash before the cutover record: the stage is "
+                                         "durable, the old version stays")
+            seq = self._wal_seq = self._wal_seq + 1
+            self.wal.append_cutover(seq, from_version, int(to_version), rows=int(size),
+                                    dim=int(emb.shape[1]))
+            if fault == "crash_after_record":
+                raise InjectedCrashError("crash after the cutover record, before the swap: "
+                                         "recovery completes it from the stage")
+            gallery.load_snapshot(emb, lab, val, int(size), embedder_version=int(to_version))
+        # the quantizer retrains in the background; the exact match serves
+        poke = getattr(gallery, "_poke_quantizer", None)
+        if poke is not None:
+            poke()
+        if self.registry is not None:
+            self.registry.mirror_embedder(int(to_version))
+        if self.metrics is not None:
+            self.metrics.incr(mn.ROLLOUT_CUTOVERS)
+            self.metrics.set_gauge(mn.ROLLOUT_EMBEDDER_VERSION, int(to_version))
+        if self.tracer is not None:
+            self.tracer.emit(self.tracer.new_trace(), "cutover", topic=LIFECYCLE_TOPIC, t0=t0,
+                             dur=time.monotonic() - t0, from_version=from_version,
+                             to_version=int(to_version), rows=int(size), seq=seq)
+        return seq
 
     def perform_registry_cutover(self, role: str, to_version: int, **_kwargs) -> int:
         raise RolloutNotPortedError(f"registry swaps are not ported yet: {REGISTRY_ITEM}")

@@ -31,6 +31,10 @@ FRAMES_COMPLETED_CACHED = "frames_completed_cached"
 FRAMES_DROPPED = "frames_dropped"
 FRAMES_DROPPED_CRASHED = "frames_dropped_crashed"
 FRAMES_DROPPED_BROWNOUT = "frames_dropped_brownout"
+#: an admitted compressed frame that never became pixels (a corrupt
+#: payload, or the decode queue full); journaled ``decode_error`` /
+#: ``decode_backlog``
+FRAMES_DROPPED_DECODE = "frames_dropped_decode"
 FRAMES_FAILED = "frames_failed"
 FRAMES_DEAD_LETTERED = "frames_dead_lettered"
 FACES_FOUND = "faces_found"
@@ -43,6 +47,22 @@ FRAMES_DEDUPED = "frames_deduped"
 BROWNOUT_LEVEL = "brownout_level"
 BROWNOUT_TRANSITIONS = "brownout_transitions"
 BROWNOUT_RECOVERIES = "brownout_recoveries"
+# the ingest staging ring and upload (runtime.ingest): allocations are the
+# preallocation plus outage heals, and steady serving never moves them;
+# INGEST_STAGING_FREE is a gauge, INGEST_UPLOAD a window (host enqueue s)
+INGEST_STAGING_ALLOCS = "ingest_staging_allocs"
+INGEST_STAGING_REUSE = "ingest_staging_reuse"
+INGEST_STAGING_EXHAUSTED = "ingest_staging_exhausted"
+INGEST_STAGING_FORFEITS = "ingest_staging_forfeits"
+INGEST_STAGING_FREE = "ingest_staging_free"
+INGEST_UPLOAD = "ingest_upload"
+INGEST_UPLOAD_BYTES = "ingest_upload_bytes"
+# the JPEG decode pool (runtime.ingest); DECODE_QUEUE_DEPTH is a gauge,
+# DECODE_LATENCY a window
+DECODE_LATENCY = "decode_latency"
+DECODE_QUEUE_DEPTH = "decode_queue_depth"
+DECODE_FRAMES = "decode_frames"
+DECODE_ERRORS = "decode_errors"
 # counters: dispatch and readback
 BATCHES_DISPATCHED = "batches_dispatched"
 BATCHES_BUCKETED = "batches_bucketed"
@@ -137,8 +157,28 @@ WAL_ROWS = "wal_rows"
 WAL_APPEND_ERRORS = "wal_append_errors"
 WAL_REGISTRY_ABORTS = "wal_registry_aborts"
 STATE_RECOVERIES = "state_recoveries"
+WAL_CUTOVER_RECORDS = "wal_cutover_records"
+# the embedder rollout (runtime.rollout); ROLLOUT_PHASE (0 idle, 1 staging,
+# 2 parity, 3 ready, 4 cutover, 5 done), the staged and total rows, the
+# parity window and the embedder version are gauges
+ROLLOUT_PHASE = "rollout_phase"
+ROLLOUT_STAGED_ROWS = "rollout_staged_rows"
+ROLLOUT_TOTAL_ROWS = "rollout_total_rows"
+ROLLOUT_PARITY_AGREEMENT = "rollout_parity_agreement"
+ROLLOUT_PARITY_SAMPLES = "rollout_parity_samples"
+ROLLOUT_STAGE_CHUNKS = "rollout_stage_chunks"
+ROLLOUT_STAGE_RESUMES = "rollout_stage_resumes"
+ROLLOUT_STAGE_ERRORS = "rollout_stage_errors"
+ROLLOUT_CUTOVERS = "rollout_cutovers"
+ROLLOUT_CUTOVERS_COMPLETED_RECOVERY = "rollout_cutovers_completed_recovery"
+ROLLOUT_CUTOVER_BLOCKED = "rollout_cutover_blocked"
+ROLLOUT_ROLLBACKS = "rollout_rollbacks"
+ROLLOUT_EMBEDDER_VERSION = "rollout_embedder_version"
 ROLLOUT_VERSION_MISMATCHES = "rollout_version_mismatches"
 ROLLOUT_VERSION_SKIPPED_ROWS = "rollout_version_skipped_rows"
+ROLLOUT_REPLICA_AWAITING = "rollout_replica_awaiting"
+ROLLOUT_REPLICA_REANCHORS = "rollout_replica_reanchors"
+ROLLOUT_OBSERVE_ERRORS = "rollout_observe_errors"
 # the model registry's manifest (runtime.registry); a gauge per role
 MODEL_VERSION_PREFIX = "model_version_"
 REGISTRY_SWAPS_COMPLETED_RECOVERY = "registry_swaps_completed_recovery"
@@ -194,11 +234,9 @@ ROUTER_REJECTED_PREFIX = "router_rejected_"
 #: the admission ledger: once the service is idle, ``frames_admitted ==
 #: sum(LEDGER_COMPLETION_COUNTERS) + sum(LEDGER_DROP_COUNTERS)``, each
 #: admitted frame in exactly one of them. The reference's tables, in its
-#: order, less the subsystems the port lacks yet: the cascade's
-#: ``frames_completed_empty`` (ROADMAP A.8.5) and the JPEG pool's
-#: ``frames_dropped_decode`` (A.8.3)
+#: order, less the cascade's ``frames_completed_empty`` (ROADMAP A.8.5)
 LEDGER_COMPLETION_COUNTERS = (FRAMES_COMPLETED, FRAMES_COMPLETED_CACHED)
-LEDGER_DROP_COUNTERS = (FRAMES_MALFORMED, BATCHER_DROPPED_MALFORMED,
+LEDGER_DROP_COUNTERS = (FRAMES_MALFORMED, FRAMES_DROPPED_DECODE, BATCHER_DROPPED_MALFORMED,
                         BATCHER_DROPPED_OVERFLOW, BATCHER_DROPPED_STALE,
                         BATCHER_DROPPED_CLOSED, FRAMES_DROPPED_BROWNOUT,
                         FRAMES_DEAD_LETTERED, FRAMES_FAILED, FRAMES_DROPPED_CRASHED)

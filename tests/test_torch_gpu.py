@@ -689,3 +689,105 @@ def test_traced_service_replays_equal_the_untraced_step(cuda):
         want = plain.recognize_batch_packed(_frames(i)).cpu().numpy()
         assert np.array_equal(got[i], want), i
     assert account_spans(tracer.snapshot())["completed"] == 24
+
+
+def _ingest_service(pipe, batch=8, mode="uint8", worker=True):
+    from opencv_facerecognizer_tpu_torch.runtime.connector import FakeConnector
+    from opencv_facerecognizer_tpu_torch.runtime.ingest import IngestConfig
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import RecognizerService
+
+    conn = FakeConnector()
+    service = RecognizerService(pipe, conn, batch_size=batch, frame_shape=(256, 256),
+                                flush_timeout=0.01, bucket_sizes=(batch,),
+                                ingest=IngestConfig(mode), readback_worker=worker)
+    got = {}
+    real_publish = service._publish
+
+    def publish(packed, frames, metas, *args, **kwargs):
+        got[metas[0]["i"]] = np.array(packed, copy=True)
+        return real_publish(packed, frames, metas, *args, **kwargs)
+
+    service._publish = publish
+    return service, conn, got
+
+
+@pytest.mark.gpu
+def test_pinned_ring_service_equals_the_pageable_step(cuda):
+    """Batches of distinct frames served back to back through the pinned
+    staging ring and the side-stream upload give the plain graphed step's
+    bytes on the same frames (from pageable memory), batch for batch: a
+    buffer or graph slot overwritten too early would show. The steady
+    run allocates nothing and captures nothing after warmup."""
+    from opencv_facerecognizer_tpu_torch.runtime.connector import encode_frame
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import FRAME_TOPIC
+    from opencv_facerecognizer_tpu_torch.utils import metrics as mn
+
+    pipe = _serving_pipeline(cuda)
+    plain = _serving_pipeline(cuda, gallery=pipe.gallery)
+    service, conn, got = _ingest_service(pipe)
+    assert service.ingest.staging.pinned
+    service.start(warmup=True)
+    captures = pipe.captures
+    try:
+        for i in range(8):
+            for j, frame in enumerate(_frames(100 + i)):
+                conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i, "j": j}})
+        assert service.drain(timeout=120.0)
+    finally:
+        service.stop()
+    c = service.metrics.counters()
+    assert pipe.captures == captures and c.get(mn.RECOMPILES_POST_WARMUP, 0) == 0
+    assert c[mn.INGEST_STAGING_ALLOCS] == service.ingest.staging.preallocated
+    assert c[mn.INGEST_UPLOAD_BYTES] == 8 * 8 * 256 * 256
+    assert sorted(got) == list(range(8))
+    for i in range(8):
+        want = plain.recognize_batch_packed(_frames(100 + i)).cpu().numpy()
+        assert np.array_equal(got[i], want), i
+
+
+@pytest.mark.gpu
+def test_upload_refuses_pageable_memory(cuda):
+    from opencv_facerecognizer_tpu_torch.runtime.ingest import IngestConfig, IngestPipeline
+
+    ingest = IngestPipeline(IngestConfig("uint8"), [8], (16, 16), device=cuda)
+    buf = ingest.staging.acquire(8)
+    buf[:] = 3
+    out, nbytes, _dur = ingest.upload(buf)
+    assert out.is_cuda and nbytes == 8 * 16 * 16
+    assert torch.equal(out.cpu(), torch.full((8, 16, 16), 3, dtype=torch.uint8))
+    with pytest.raises(RuntimeError, match="pageable"):
+        ingest.upload(np.zeros((8, 16, 16), np.uint8))
+
+
+@pytest.mark.gpu
+def test_cutover_under_replays(cuda):
+    """A batch dispatched before a cutover and read back after it answers
+    from the old rows (its in-flight entry holds the snapshot) stamped 1;
+    the next batch re-captures once, answers from the new rows like an
+    eager step over them, stamped 2."""
+    from opencv_facerecognizer_tpu_torch.runtime.connector import encode_frame
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import FRAME_TOPIC
+
+    pipe = _serving_pipeline(cuda)
+    eager = _serving_pipeline(cuda, cuda_graphs=False, gallery=pipe.gallery)
+    service, conn, got = _ingest_service(pipe, worker=False)
+    service.warmup()
+    service._running = True
+    want_old = eager.recognize_batch_packed(_frames(0)).cpu().numpy()
+    for j, frame in enumerate(_frames(0)):
+        conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": 0, "j": j}})
+    service._serve_one(service.batcher.get_batch(block=True))
+    emb, lab, val, size = pipe.gallery.snapshot()
+    pipe.gallery.load_snapshot(-emb, lab, val, size, embedder_version=2)
+    recaptures = pipe.recaptures
+    service._drain(force=True)
+    for j, frame in enumerate(_frames(1)):
+        conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": 1, "j": j}})
+    service._serve_one(service.batcher.get_batch(block=True))
+    service._drain(force=True)
+    service._running = False
+    want_new = eager.recognize_batch_packed(_frames(1)).cpu().numpy()
+    assert np.array_equal(got[0], want_old) and np.array_equal(got[1], want_new)
+    assert pipe.recaptures == recaptures + 1
+    stamps = [m["embedder_version"] for m in conn.messages("ocvfacerec/results")]
+    assert stamps == [1] * 8 + [2] * 8

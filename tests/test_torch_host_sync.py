@@ -3,7 +3,8 @@ the step runs through, in place of the ``ocvf-lint`` host-sync rules
 (which scan the JAX package only).
 
 Inside any function of these modules, a call of ``.item()``, ``.cpu()``,
-``.tolist()``, ``.numpy()`` or ``synchronize`` waits for the card, and
+``.tolist()``, ``.numpy()`` or ``synchronize`` waits for the card, a
+``.query()`` asks it (an event query: no wait, but a CUDA runtime call), and
 ``torch.tensor(..., device=...)`` copies from pageable host memory; both
 are illegal while a CUDA graph captures the step and stall the host when
 it runs eagerly. Host-only helpers that never run on the step are
@@ -19,7 +20,7 @@ PORT = os.path.join(REPO, "opencv_facerecognizer_tpu_torch")
 STEP_MODULES = ("parallel/pipeline.py", "models/detector.py", "models/embedder.py",
                 "models/_layers.py", "ops/image.py", "ops/nms.py",
                 "ops/streaming_match.py", "ops/sepblock.py", "ops/ivf_match.py",
-                "utils/tracing.py")
+                "utils/tracing.py", "runtime/ingest.py")
 #: the serving loop's functions that emit spans or run the overload
 #: control around the step: host timestamps only, never a wait for the card
 #: (the one wait stays the readback's, in ``_Readback`` and the worker)
@@ -30,8 +31,9 @@ RECOGNIZER_SPAN_CODE = (
     "RecognizerService._dead_letter", "RecognizerService._trace_settle",
     "RecognizerService._set_brownout", "RecognizerService._note_queue_wait",
     "RecognizerService._note_recompile", "RecognizerService._observe_e2e",
-    "RecognizerService._complete_cached", "RecognizerService._serve_loop")
-SYNC_ATTRS = {"item", "cpu", "tolist", "numpy", "synchronize"}
+    "RecognizerService._complete_cached", "RecognizerService._serve_loop",
+    "RecognizerService._intake_decoded", "RecognizerService._decode_failed")
+SYNC_ATTRS = {"item", "cpu", "tolist", "numpy", "synchronize", "query"}
 #: (module, qualified function) -> why it may wait for the card
 ALLOWED = {
     ("parallel/pipeline.py", "RecognitionPipeline.prewarm_batch_shapes"):
@@ -40,6 +42,12 @@ ALLOWED = {
         "the one-image host API (Python box tuples), never on the batched step",
     ("models/embedder.py", "CNNEmbedding.get_state"):
         "the checkpoint writer: parameters to numpy",
+    ("runtime/ingest.py", "StagingRing._alloc"):
+        "ring construction and outage heals: the numpy view of a pinned host tensor",
+    ("runtime/ingest.py", "StagingRing._sweep_fenced_locked"):
+        "the release path: a parked buffer's upload event, queried, never waited on",
+    ("runtime/ingest.py", "StagingRing.release"):
+        "the release path: the released buffer's upload event, queried, never waited on",
 }
 
 

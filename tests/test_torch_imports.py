@@ -44,7 +44,7 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.apps.recognize",
                 "opencv_facerecognizer_tpu_torch.utils.histogram",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
-                *OVERLOAD_MODULES):
+                *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -77,6 +77,11 @@ OVERLOAD_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.admission",
                     "opencv_facerecognizer_tpu_torch.runtime.promtext",
                     "opencv_facerecognizer_tpu_torch.runtime.slo",
                     "opencv_facerecognizer_tpu_torch.utils.tracing")
+
+
+#: the ingest and embedder-rollout slice's modules
+INGEST_ROLLOUT_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.ingest",
+                          "opencv_facerecognizer_tpu_torch.runtime.rollout")
 
 
 def _imported_top_names(path):

@@ -766,7 +766,7 @@ def test_overload_flag_is_served_with_the_reference_default(flag):
 
 def test_refused_keeps_only_the_items_still_to_come():
     items = {item.split(" (")[0] for _f, _v, item in port_app.REFUSED}
-    assert items == {"ROADMAP A.8.3", "ROADMAP A.8.5", "ROADMAP A.8.6", "ROADMAP A.11"}
+    assert items == {"ROADMAP A.8.5", "ROADMAP A.8.6", "ROADMAP A.11"}
     assert len(OVERLOAD_OBSERVE_FLAGS) == 21 and len(set(OVERLOAD_OBSERVE_FLAGS)) == 21
 
 
@@ -835,3 +835,112 @@ def test_cli_overload_and_observability_flags_end_to_end(artifacts, tmp_path):
     assert list(DeadLetterJournal(journal).records()) == []  # nothing was shed
     assert any(f.startswith("flight-") and "sigterm_drain" in f
                for f in os.listdir(tmp_path / "flight"))
+
+
+# ---------- ingest and the embedder rollout (ROADMAP A.8.3, A.8.8) ----------
+
+INGEST_FLAGS = ["--ingest-mode", "--ingest-ring-depth", "--ingest-decode-workers"]
+
+
+@pytest.mark.parametrize("flag", INGEST_FLAGS)
+def test_ingest_flag_is_served_with_the_reference_default(flag):
+    parser = port_app.build_parser()
+    args = parser.parse_args(_refused_argv(parser, flag, None))
+    port_app.refuse_unported(parser, args)  # no longer refused
+    ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
+    dest = flag.lstrip("-").replace("-", "_")
+    assert parser.get_default(dest) == ref[dest]
+    assert flag not in {f for f, _v, _i in port_app.REFUSED}
+    action = next(a for a in parser._actions if flag in a.option_strings)
+    assert action.help and "refused" not in action.help
+
+
+def test_jsonl_jpeg_ingest_matches_jax_cli(artifacts, f32_stacks, tmp_path, monkeypatch,
+                                           capsys):
+    """``--ingest-mode jpeg``: JPEG payloads of the scenes (and one corrupt
+    payload) on stdin; both CLIs decode them in their pools and answer
+    every good frame alike; the corrupt one is dead-lettered with reason
+    ``decode_error`` in both journals, and both ledgers close."""
+    from opencv_facerecognizer_tpu_torch.runtime.ingest import encode_jpeg, encode_jpeg_message
+
+    a = artifacts
+    n = 6
+    payloads = [encode_jpeg(a["scenes"][i % 5]) for i in range(n)]
+    lines = [json.dumps({"topic": FRAME_TOPIC,
+                         "data": {**encode_jpeg_message(p), "meta": {"seq": i}}})
+             for i, p in enumerate(payloads)]
+    lines.append(json.dumps({"topic": FRAME_TOPIC, "data": {
+        **encode_jpeg_message(payloads[0][:20]), "meta": {"seq": 99}}}))
+    stdin_text = "\n".join(lines) + "\n"
+    out = {}
+    for name, main, extra in (("jax", jax_app.main, []),
+                              ("port", port_app.main, ["--device", "cpu"])):
+        journal = str(tmp_path / f"{name}.jsonl")
+        metrics = str(tmp_path / f"{name}-metrics.jsonl")
+        argv = (_common_args(a) + ["--source", "jsonl", "--ingest-mode", "jpeg",
+                                   "--no-track-cache", "--dead-letter-journal", journal,
+                                   "--metrics-jsonl", metrics] + extra)
+        msgs = _run_jsonl(main, argv, stdin_text, monkeypatch, capsys)
+        with open(journal) as fh:
+            rows = [json.loads(line) for line in fh if line.strip()]
+        out[name] = ([m["data"] for m in msgs if m["topic"] == RESULT_TOPIC], rows)
+    results, rows = out["port"]
+    assert sorted(r["meta"]["seq"] for r in results) == list(range(n))
+    _assert_same_results(results, out["jax"][0], key=lambda m: m["seq"])
+    for _results, journal_rows in out.values():
+        assert [(r["reason"], [e["meta"]["seq"] for e in r["frames"]])
+                for r in journal_rows] == [("decode_error", [99])]
+    records = [json.loads(line) for line in open(tmp_path / "port-metrics.jsonl")]
+    shutdown = next(r for r in records if r.get("event") == "shutdown")
+    assert shutdown["ledger"]["in_system"] == 0
+    assert shutdown["ledger"]["drops_by_reason"] == {mn.FRAMES_DROPPED_DECODE: 1.0}
+
+
+def _dir_with_pending_cutover(a, state_dir, capsys):
+    """A state dir the JAX CLI wrote (dir mode, a clean shutdown), then a
+    rollout's crash after its fence: the stage of version 2 holds the
+    checkpoint's rows negated, and the ``cutover`` record lies past the
+    newest checkpoint."""
+    from opencv_facerecognizer_tpu.parallel import ShardedGallery as JaxGallery
+    from opencv_facerecognizer_tpu.parallel.mesh import DP_AXIS, TP_AXIS
+    from opencv_facerecognizer_tpu.runtime import rollout as jax_rollout
+    from opencv_facerecognizer_tpu.runtime import state_store as jax_state
+    from jax.sharding import Mesh
+
+    argv = _common_args(a) + ["--source", "dir", "--dir", a["frames"], "--state-dir", state_dir]
+    assert jax_app.main(argv) == 0
+    capsys.readouterr()
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), (DP_AXIS, TP_AXIS))
+    gallery = JaxGallery(capacity=64, dim=EMB["embed_dim"], mesh=mesh)
+    state = jax_state.StateLifecycle(state_dir)
+    state.recover(gallery, [])
+    emb, lab, _val, size = gallery.snapshot()
+    stage = jax_rollout.ReEmbedStage(state_dir, 2, dim=EMB["embed_dim"])
+    stage.stage_chunk(0, -emb[:size], lab[:size])
+    state.wal.append_cutover(state.wal_seq + 1, 1, 2, rows=size, dim=EMB["embed_dim"])
+    state.close()
+    return size
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_pending_cutover_to_the_declared_version_recovers_and_serves_at_it(
+        artifacts, tmp_path, capsys, pkg):
+    """``--state-dir`` with a pending cutover and ``--embedder-version 2``:
+    the recovery completes the cutover and every result is stamped 2, in
+    both packages; then a declared version 3 exits, refusing mixed
+    spaces."""
+    a = artifacts
+    state_dir = str(tmp_path / "state")
+    rows = _dir_with_pending_cutover(a, state_dir, capsys)
+    main, extra = (jax_app.main, []) if pkg == "jax" else (port_app.main, ["--device", "cpu"])
+    argv = _common_args(a) + ["--source", "dir", "--dir", a["frames"],
+                              "--state-dir", state_dir] + extra
+    assert main(argv + ["--embedder-version", "2"]) == 0
+    captured = capsys.readouterr()
+    results = _json_lines(captured.out)
+    assert len(results) == 5 and {r["embedder_version"] for r in results} == {2}
+    assert "'completed_cutover': {" in captured.err and f"'rows': {rows}" in captured.err
+    assert pkg == "jax" or "shutdown: clean" in captured.err  # the port's line (C.6)
+    # last: the JAX CLI keeps its writer lease when it exits here in-process
+    with pytest.raises(SystemExit, match="refusing to serve mixed spaces"):
+        main(argv + ["--embedder-version", "3"])

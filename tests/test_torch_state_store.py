@@ -675,21 +675,49 @@ def test_sidecar_restored_or_retrained_by_wal_seq(pkg, sidecar, tmp_path):
 
 def test_pending_cutover_raises_naming_the_rollout_item(tmp_path):
     """A JAX-written WAL whose embedder ``cutover`` lies past the newest
-    checkpoint needs the rollout's stage to complete: the port refuses
-    naming the ROADMAP item instead of serving the old rows."""
+    checkpoint, with its JAX-written stage: the port's recovery completes
+    the cutover to the same gallery, names and report as JAX's own
+    recovery (bit for bit). Without the stage both refuse alike
+    (``RolloutStateError``). Registry swaps still raise naming their
+    ROADMAP item."""
+    from opencv_facerecognizer_tpu.runtime import rollout as jax_rollout
+    from opencv_facerecognizer_tpu_torch.runtime import rollout as port_rollout
+
     root = str(tmp_path)
     g = _jax_gallery()
+    names = []
     st = jax_state.StateLifecycle(root, metrics=jax_metrics.Metrics())
-    st.bind(g, [])
-    _enroll(st, g, [], "a", n=2, label=0)
+    st.bind(g, names)
+    _enroll(st, g, names, "a", n=2)
     assert st.checkpoint_now(wait=True)
-    st.wal.append_cutover(2, 1, 2, rows=2, dim=DIM)
+    _enroll(st, g, names, "b", n=1)
+    emb, lab, _val, size = g.snapshot()
+    stage = jax_rollout.ReEmbedStage(root, 2, dim=DIM)
+    stage.stage_chunk(0, emb[:size][::-1].copy(), lab[:size])
+    st.wal.append_cutover(st.wal_seq + 1, 1, 2, rows=size, dim=DIM)
     st.wal.close()
-    with pytest.raises(port_state.RolloutNotPortedError, match=r"ROADMAP A\.8\.8"):
-        port_state.StateLifecycle(root, metrics=port_metrics.Metrics()).recover(
-            _port_gallery(), [])
-    with pytest.raises(port_state.RolloutNotPortedError, match=r"ROADMAP A\.8\.8"):
-        port_state.StateLifecycle(root).perform_cutover(2, lambda: None)
+    reports, galleries, name_lists = {}, {}, {}
+    for pkg in ("jax", "torch"):
+        copy = str(tmp_path / f"copy_{pkg}")
+        shutil.copytree(root, copy)
+        p = PKGS[pkg]
+        m = p.Metrics()
+        galleries[pkg] = p.gallery()
+        name_lists[pkg] = []
+        reports[pkg] = p.state.StateLifecycle(copy, metrics=m).recover(
+            galleries[pkg], name_lists[pkg])
+        assert m.counter("rollout_cutovers_completed_recovery") == 1
+        assert galleries[pkg].embedder_version == 2
+    _assert_same_gallery(galleries["jax"], galleries["torch"])
+    assert name_lists["torch"] == name_lists["jax"] == ["a", "b"]
+    for key in ("completed_cutover", "embedder_version", "replayed_records",
+                "skipped_records", "gallery_size"):
+        assert reports["torch"][key] == reports["jax"][key], key
+    os.remove(jax_rollout.stage_path(root, 2))
+    with pytest.raises(jax_rollout.RolloutStateError):
+        jax_state.StateLifecycle(root).recover(_jax_gallery(), [])
+    with pytest.raises(port_rollout.RolloutStateError):
+        port_state.StateLifecycle(root).recover(_port_gallery(), [])
     with pytest.raises(port_state.RolloutNotPortedError, match=r"ROADMAP A\.8\.5"):
         port_state.StateLifecycle(root).perform_registry_cutover("detector", 2)
 
