@@ -186,6 +186,44 @@ Phases (any failure exits nonzero before the result line):
    stage and after the cutover. One ``{"rollout": ...}`` line, with the
    run's total seconds.
 
+13. (run after 12) cascade and registry: phase 4's stack (its detector, the
+   serving embedder, fused, the 2^20-row bf16 gallery) with a stage-1
+   ``FaceGate()`` (``features`` (8, 16), ``downsample`` 4, bf16, weights from
+   ``--seed``: training is not ported), batches of 32 256x256 uint8 frames
+   through the pinned ring, ladder (8, 32). (a) CASC_CANDIDATES seeded frames
+   (half with stamped faces) are scored on the CPU in f32; a threshold is
+   chosen and frames whose CPU score lies more than CASC_MARGIN from it are
+   drawn into batches of 0, 6 and 20 survivors (the whole-batch exit, the 8
+   rung, the 32 rung), each served CASC_REPEATS times, and a full batch
+   through the same stack without the cascade as often. Gates: the card's
+   stage-1 scores within CASC_SCORE_ATOL of the CPU's and the keep masks
+   equal; each rejected frame published once with no faces and ``exit:
+   "cascade"``; each survivor's result equal bit for bit to a direct call of
+   the compacted batch at its rung; ``completed_empty`` equal to the rejects,
+   the ledger closed, ``cascade_errors`` 0; one stage-1 graph a rung captured
+   at warmup and nothing captured after; kernels A, B and C launched once,
+   six times and once a stage-2 step. (b) a live detector swap with a
+   ``StateLifecycle`` and a ``ModelRegistry`` in ``build/cascade_smoke/``
+   while a producer injects a batch every REG_TICK_S: v2 (v1 plus a seeded
+   perturbation of REG_PERTURB of each tensor's spread) through the parity
+   window fed by the publish path, the cutover (fence, manifest, in-place
+   install, cache flush, forced checkpoint) and the watch; v3 (the heatmap
+   bias at -30: no face anywhere) refused by the parity gate; a swap to v4
+   dying after its fence (``cutover: crash_after_record``), completed by
+   ``recover``; a swap to v5 dying likewise with its staged file damaged,
+   abandoned and retired by ``recover``. Gates: in publish order the
+   results' detector stamps move from 1 to 2 once, no batch mixes, and each
+   result equals a direct call of the version it names; no stage-2 graph
+   captured (a same-architecture swap). (c) the CLI: ``--registry-swap
+   cascade=2`` offline in-process, then ``--source socket`` with ``--cascade
+   PATH --cascade-version 2 --state-dir`` in a subprocess: every frame
+   answered, the rejects as predicted, the ledger closed, nothing captured
+   after warmup. Numbers: stage-1 ms per rung (events around the graph's
+   replays, and the device time of its kernels in a graph of back-to-back
+   calls), the ``cascade_score`` p50, the step's host ms for the full batch
+   and the 0 / 6 / 20-survivor batches, the cutover's seconds by stage and
+   the worst serving batch during it. One ``{"cascade": ...}`` line.
+
 The line before the last is the per-kernel JSON (kernels A, B and C); the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -212,6 +250,7 @@ import numpy as np
 import torch
 
 from opencv_facerecognizer_tpu_torch.apps import recognize as recognize_app
+from opencv_facerecognizer_tpu_torch.models import cascade as cascade_mod
 from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
 from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
 from opencv_facerecognizer_tpu_torch.models.classifier import NearestNeighbor
@@ -234,6 +273,7 @@ from opencv_facerecognizer_tpu_torch.parallel.quantizer import CoarseQuantizer
 from opencv_facerecognizer_tpu_torch.runtime import expo as expo_mod
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, encode_frame)
+from opencv_facerecognizer_tpu_torch.runtime.fakes import synthetic_frame_stream
 from opencv_facerecognizer_tpu_torch.runtime.faults import FaultInjector, InjectedCrashError
 from opencv_facerecognizer_tpu_torch.runtime.ingest import (
     JPEG_KEY, IngestConfig, decode_jpeg, encode_jpeg)
@@ -241,8 +281,10 @@ from opencv_facerecognizer_tpu_torch.runtime.journal import DeadLetterJournal, R
 from opencv_facerecognizer_tpu_torch.runtime.promtext import lint_prometheus_text
 from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
     CONTROL_TOPIC, FRAME_TOPIC, RESULT_TOPIC, STATUS_TOPIC, RecognizerService)
+from opencv_facerecognizer_tpu_torch.runtime.registry import (
+    ModelRegistry, RegistrySwapCoordinator, _file_sha256, registry_params_path)
 from opencv_facerecognizer_tpu_torch.runtime.resilience import ServiceSupervisor
-from opencv_facerecognizer_tpu_torch.runtime.rollout import RolloutCoordinator
+from opencv_facerecognizer_tpu_torch.runtime.rollout import RolloutCoordinator, RolloutGateError
 from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
 from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
@@ -391,6 +433,28 @@ RO_CRASH_AFTER_CHUNKS = 5
 RO_PARITY_SAMPLES = 64
 RO_TICK_S = 0.05
 RO_AFTER_BATCHES = 4
+# phase 13: the cascade and the registry's swaps
+#: seeded frames (half with stamped faces) scored on the CPU to draw from
+CASC_CANDIDATES = 384
+#: survivors of 32 in the three cascade batches: the whole-batch exit, the
+#: 8 rung, the 32 rung
+CASC_SURVIVORS = (0, 6, 20)
+#: the card's bf16 stage-1 probabilities against the CPU's f32 (bf16 keeps 8
+#: bits: the logits differ by ~1e-2, the probabilities by a quarter of that)
+CASC_SCORE_ATOL = 0.01
+#: a drawn frame's CPU score lies at least this far from the threshold, so
+#: the card's bf16 score cannot cross it
+CASC_MARGIN = 2 * CASC_SCORE_ATOL
+CASC_LADDER = (8, 32)
+CASC_REPEATS = 3
+#: v2 of the detector: each tensor plus seeded noise of this share of its
+#: spread (the swap's parity passes); the parity window's floor
+REG_PERTURB = 1e-3
+REG_PARITY_SAMPLES = 16
+REG_TICK_S = 0.03
+REG_AFTER_BATCHES = 4
+#: the CLI's frames (c): the 6- and 20-survivor batches
+CASC_CLI_FRAMES = 2 * BATCH
 
 
 def log(*parts) -> None:
@@ -2358,7 +2422,7 @@ def _check_serving(dev, tag: str, rec: dict) -> dict:
 
 
 def _close_ledger(tag: str, ledger: dict) -> None:
-    done = ledger["completed"] + ledger["completed_cached"]
+    done = ledger["completed"] + ledger["completed_empty"] + ledger["completed_cached"]
     if ledger["in_system"] != 0 or ledger["admitted"] != done + sum(
             ledger["drops_by_reason"].values()):
         raise AssertionError(f"{tag}: the ledger does not close: {ledger}")
@@ -3161,6 +3225,523 @@ def rollout_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     return out
 
 
+# ---- phase 13: the cascade and the registry's swaps ----
+
+
+def choose_threshold(scores: np.ndarray, n_keep: int, n_reject: int) -> float:
+    """The threshold among the scores' 10th-90th percentiles that leaves the
+    most room for ``n_keep`` frames at least CASC_MARGIN above it and
+    ``n_reject`` at least CASC_MARGIN below it; raises when none leaves
+    enough."""
+    best, room = None, -1
+    for q in range(10, 91):
+        thr = float(np.percentile(scores, q))
+        spare = min(int((scores >= thr + CASC_MARGIN).sum()) - n_keep,
+                    int((scores < thr - CASC_MARGIN).sum()) - n_reject)
+        if spare > room:
+            best, room = thr, spare
+    if room < 0:
+        raise AssertionError(f"cascade: no threshold leaves {n_keep} keeps and {n_reject} "
+                             f"rejects {CASC_MARGIN} from it (scores {scores.min():.4f}-"
+                             f"{scores.max():.4f})")
+    return best
+
+
+def cascade_batches(pool: np.ndarray, scores: np.ndarray, thr: float, seed: int):
+    """One batch of BATCH frames per entry of CASC_SURVIVORS, survivors at
+    seeded positions: [(frames, keep mask)], drawn without repeats."""
+    rng = np.random.default_rng(seed)
+    keeps = list(rng.permutation(np.flatnonzero(scores >= thr + CASC_MARGIN)))
+    rejects = list(rng.permutation(np.flatnonzero(scores < thr - CASC_MARGIN)))
+    out = []
+    for n in CASC_SURVIVORS:
+        idx = [keeps.pop() for _ in range(n)] + [rejects.pop() for _ in range(BATCH - n)]
+        idx = [idx[i] for i in rng.permutation(BATCH)]
+        out.append((pool[idx], scores[idx] >= thr))
+    return out
+
+
+def face_rows(result, i: int, threshold: float) -> list:
+    """Frame ``i`` of an unpacked result as the published faces' numbers
+    (box x-first, detection score, label as published, similarity)."""
+    out = []
+    for j in np.flatnonzero(result.valid[i]):
+        sim = float(result.similarities[i, j, 0])
+        label = int(result.labels[i, j, 0])
+        y0, x0, y1, x1 = (float(v) for v in result.boxes[i, j])
+        out.append(([x0, y0, x1, y1], float(result.det_scores[i, j]),
+                    label if sim >= threshold and label >= 0 else -1, sim))
+    return out
+
+
+def published_rows(message: dict) -> list:
+    return [(f["box"], f["detection_score"], f["label"], f["similarity"])
+            for f in message["faces"]]
+
+
+def _inject_batch(conn, frames, meta: dict) -> float:
+    """Inject one batch of pre-encoded frames; returns the host clock after
+    the last put (which flushes the batch): its results' arrivals past it
+    are the step's host ms."""
+    messages = [encode_frame(frame) for frame in frames]
+    for j, message in enumerate(messages):
+        conn.inject(FRAME_TOPIC, {**message, "meta": {**meta, "j": j}})
+    return time.perf_counter()
+
+
+def cascade_serve(dev, stack, batches, thr: float) -> dict:
+    """Phase 13 (a), the serving part: the three cascade batches
+    CASC_REPEATS times through a service with the cascade, then a full
+    batch as often without it; the gates on the results, the ledger, the
+    captures and the launches."""
+    conn = FakeConnector()
+    arrived = {}  # (kind, repeat) -> [perf_counter of each result]
+    conn.subscribe(RESULT_TOPIC, lambda _t, m: arrived.setdefault(
+        (m["meta"]["kind"], m["meta"]["r"]), []).append(time.perf_counter()))
+    metrics = Metrics()
+    service = RecognizerService(stack, conn, batch_size=BATCH, frame_shape=FRAME,
+                                flush_timeout=1.0, ingest=IngestConfig("uint8"),
+                                bucket_sizes=CASC_LADDER, cascade_threshold=thr,
+                                metrics=metrics)
+    ccap0 = stack.cascade_captures
+    service.start(warmup=True)
+    warm = dict(captures=stack.captures, cascade=stack.cascade_captures)
+    zero_counters()
+    step_ms = {n: [] for n in CASC_SURVIVORS}
+    try:
+        for r in range(CASC_REPEATS):
+            for n, (frames, _keep) in zip(CASC_SURVIVORS, batches):
+                t0 = _inject_batch(conn, frames, {"kind": n, "r": r})
+                wait_for(lambda: len(arrived.get((n, r), ())) >= BATCH, 60,
+                         f"the {n}-survivor batch's results")
+                step_ms[n].append((max(arrived[(n, r)]) - t0) * 1e3)
+        if not service.drain(timeout=60):
+            raise AssertionError("cascade: the service did not drain")
+    finally:
+        service.stop()
+    launches = read_launches()
+    steps = int(metrics.counter(BATCHES_DISPATCHED))
+    ledger = service.ledger()
+    results = conn.messages(RESULT_TOPIC)
+    n_reject = CASC_REPEATS * sum(BATCH - n for n in CASC_SURVIVORS)
+    _close_ledger("cascade", ledger)
+    if ledger["completed_empty"] != n_reject or metrics.counter(mn.CASCADE_ERRORS):
+        raise AssertionError(f"cascade: ledger {ledger}, errors "
+                             f"{metrics.counter(mn.CASCADE_ERRORS)}; {n_reject} rejects")
+    # on the CPU nothing is captured
+    if warm["cascade"] - ccap0 != (len(CASC_LADDER) if dev.type == "cuda" else 0) or (
+            stack.captures, stack.cascade_captures) != (warm["captures"], warm["cascade"]) or \
+            metrics.counter(mn.RECOMPILES_POST_WARMUP):
+        raise AssertionError(f"cascade: captures at warmup {stack.cascade_captures - ccap0} "
+                             f"(stage 1), after warmup stage 2 "
+                             f"{stack.captures - warm['captures']}, stage 1 "
+                             f"{stack.cascade_captures - warm['cascade']}")
+    if steps != CASC_REPEATS * sum(1 for n in CASC_SURVIVORS if n) or dev.type == "cuda" and (
+            launches != {"streaming_match": steps, "sepblock": 6 * steps, "nms": steps}):
+        raise AssertionError(f"cascade: {steps} steps, launches {launches}")
+    # each rejected frame once, empty, exit cascade; the survivors later
+    by_key = {}
+    for m in results:
+        key = (m["meta"]["kind"], m["meta"]["r"], m["meta"]["j"])
+        if key in by_key:
+            raise AssertionError(f"cascade: frame {key} published twice")
+        by_key[key] = m
+    for r in range(CASC_REPEATS):
+        for n, (_frames, keep) in zip(CASC_SURVIVORS, batches):
+            for j in range(BATCH):
+                m = by_key[(n, r, j)]
+                if (m.get("exit") == "cascade") == bool(keep[j]) or (
+                        not keep[j] and m["faces"]):
+                    raise AssertionError(f"cascade: frame {(n, r, j)} keep {keep[j]}: {m}")
+    summary = metrics.summary()
+    full_ms = cascade_full_batches(stack, batches[-1][0])
+    return dict(results=by_key, launches=launches, steps=steps, ledger=ledger,
+                stage1_captures_at_warmup=warm["cascade"] - ccap0,
+                cascade_score_p50_ms=summary.get("cascade_score_p50_ms"),
+                dispatch_p50_ms=summary.get("dispatch_p50_ms"),
+                step_ms={"full": full_ms, **{f"survivors_{n}": v for n, v in step_ms.items()}})
+
+
+def cascade_full_batches(stack, frames) -> list:
+    """The host ms (inject to the last result) of a full batch through the
+    same stack without the cascade, CASC_REPEATS times."""
+    conn = FakeConnector()
+    arrived = {}
+    conn.subscribe(RESULT_TOPIC, lambda _t, m: arrived.setdefault(
+        m["meta"]["r"], []).append(time.perf_counter()))
+    service = RecognizerService(stack, conn, batch_size=BATCH, frame_shape=FRAME,
+                                flush_timeout=1.0, ingest=IngestConfig("uint8"),
+                                bucket_sizes=CASC_LADDER, cascade=False)
+    service.start(warmup=True)
+    out = []
+    try:
+        for r in range(CASC_REPEATS):
+            t0 = _inject_batch(conn, frames, {"kind": "full", "r": r})
+            wait_for(lambda: len(arrived.get(r, ())) >= BATCH, 60, "the full batch's results")
+            out.append((max(arrived[r]) - t0) * 1e3)
+        service.drain(timeout=60)
+    finally:
+        service.stop()
+    return out
+
+
+def cascade_direct(dev, stack, gate_cpu, batches, thr: float, served: dict) -> dict:
+    """Phase 13 (a), after serving: the card's stage-1 scores against the
+    CPU's f32, and each survivor's published result against a direct call
+    of the compacted batch at its rung (comparison launches, after the
+    path's counts were read)."""
+    worst, faces = 0.0, 0
+    for n, (frames, keep) in zip(CASC_SURVIVORS, batches):
+        card = stack.cascade_scores(frames).float().cpu().numpy()
+        cpu = gate_cpu.score_batch(frames).numpy()
+        worst = max(worst, float(np.abs(card - cpu).max()))
+        if not np.array_equal(card >= thr, keep) or not np.array_equal(cpu >= thr, keep):
+            raise AssertionError(f"cascade: keep masks differ on the {n}-survivor batch")
+        if not n:
+            continue
+        kept = np.flatnonzero(keep)
+        rung = min(b for b in CASC_LADDER if b >= n)
+        compacted = np.concatenate([frames[kept], frames[n:rung]])
+        direct = unpack_result(stack.recognize_batch_packed(compacted).cpu().numpy(), 1)
+        for r in range(CASC_REPEATS):
+            for i, j in enumerate(kept):
+                got = published_rows(served[(n, r, int(j))])
+                if got != face_rows(direct, i, 0.3):
+                    raise AssertionError(f"cascade: survivor {(n, r, int(j))} differs from "
+                                         f"the direct call at rung {rung}")
+                faces += len(got)
+    if worst > CASC_SCORE_ATOL:
+        raise AssertionError(f"cascade: stage-1 scores differ from the CPU's by {worst}")
+    return dict(score_max_abs_err=worst, survivor_faces_equal=faces)
+
+
+def stage1_times(dev, stack, frames) -> dict:
+    """Stage-1 ms per rung: CUDA events around 20 calls of the pipeline's
+    pass (graph replays, frames already on the card), and the device time
+    of its kernels in a graph of 20 back-to-back eager passes."""
+    out = {}
+    for rung in CASC_LADDER:
+        x = torch.from_numpy(np.ascontiguousarray(frames[:rung])).to(dev)
+        net = stack._cascade_net
+        out[rung] = dict(
+            ms=cuda_ms(lambda: stack.cascade_scores(x)),
+            device_ms=graph_ms(lambda: cascade_mod.frame_scores(net, x.float())))
+    return out
+
+
+def perturbed(params: dict, seed: int, share: float) -> dict:
+    """Each tensor plus seeded normal noise of ``share`` of its spread."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in params.items():
+        noise = torch.randn(v.shape, generator=gen) * (float(v.float().std()) * share
+                                                        if v.numel() > 1 else share)
+        out[k] = (v.float().cpu() + noise).to(v.dtype).to(v.device)
+    return out
+
+
+def detector_with(dev, params: dict):
+    """A serving-config detector on ``dev`` holding ``params``."""
+    det = detector_mod.CNNFaceDetector(device=dev)
+    det.load_params(params)
+    return det
+
+
+def boxes_fn(det):
+    """A frame's verdict as the published boxes (x-first), for the parity."""
+    def fn(frame):
+        b, _s, v = det.detect_batch(np.asarray(frame, np.float32)[None])
+        b, v = b[0].cpu().numpy(), v[0].cpu().numpy()
+        return [[float(x[1]), float(x[0]), float(x[3]), float(x[2])] for x in b[v]]
+    return fn
+
+
+def registry_live_swap(dev, stack, frames, root: str) -> dict:
+    """Phase 13 (b): the live v2 swap under serving, the v3 refusal, the
+    stamps against direct calls; returns the numbers and the state dir's
+    objects for the crash checks."""
+    injector = FaultInjector()
+    state = StateLifecycle(root, keep_checkpoints=1, checkpoint_wal_rows=1 << 30,
+                           checkpoint_every_s=1e9, fault_injector=injector)
+    registry = ModelRegistry(root)
+    state.attach_registry(registry)
+    v1 = {k: t.detach().clone() for k, t in stack.detector.params.items()}
+    v2 = perturbed(v1, 13, REG_PERTURB)
+    v3 = dict(v2, **{"heatmap.bias": torch.full_like(v2["heatmap.bias"], -30.0)})
+    dets = {v: detector_with(dev, p) for v, p in ((1, v1), (2, v2), (3, v3))}
+    paths = {v: registry_params_path(root, "detector", v) for v in (2, 3)}
+    for v, path in paths.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        dets[v].save(path)
+    metrics = Metrics()
+    conn = FakeConnector()
+    service = RecognizerService(stack, conn, batch_size=BATCH, frame_shape=FRAME,
+                                flush_timeout=0.01, ingest=IngestConfig("uint8"),
+                                bucket_sizes=CASC_LADDER, state_store=state, metrics=metrics,
+                                cascade=False)
+    service.registry = registry
+    published = []  # (arrival, tick, j, detector version) of every result
+    conn.subscribe(RESULT_TOPIC, lambda _t, m: published.append(
+        (time.perf_counter(), m["meta"]["tick"], m["meta"]["j"],
+         (m.get("registry") or {}).get("detector"), m)))
+    timers = {name: _Timed(obj, attr) for name, obj, attr in (
+        ("fence", state.wal, "append_registry_cutover"), ("manifest", registry, "install"),
+        ("install", stack, "install_detector_params"), ("flush", service, "flush_model_caches"),
+        ("checkpoint", state, "checkpoint_now"))}
+    co = RegistrySwapCoordinator(
+        state, registry, "detector", 2, old_detect_fn=boxes_fn(dets[1]),
+        new_detect_fn=boxes_fn(dets[2]), params_path=paths[2],
+        install_fn=lambda: stack.install_detector_params(v2, version=2),
+        rollback_install_fn=lambda: stack.install_detector_params(v1, version=3),
+        flush_fn=service.flush_model_caches, parity_min_samples=REG_PARITY_SAMPLES,
+        watch_min_samples=REG_PARITY_SAMPLES, live_sample_interval_s=0.0, metrics=metrics)
+    service.registry_swap = co
+    n_bases = len(frames) // BATCH
+    messages = [encode_frame(f) for f in frames]
+    sent, stop, errors = {}, threading.Event(), []
+
+    def produce():
+        tick = 0
+        try:
+            while not stop.is_set():
+                sent[tick] = time.perf_counter()
+                base = (tick % n_bases) * BATCH
+                for j in range(BATCH):
+                    conn.inject(FRAME_TOPIC, {**messages[base + j],
+                                              "meta": {"tick": tick, "j": j}})
+                tick += 1
+                time.sleep(REG_TICK_S)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    service.start(warmup=True)
+    captures = (stack.captures, stack.cascade_captures)
+    built = []
+    real_build = stack._build_step
+
+    def build_step(key, data, ivf):
+        built.append(key)
+        return real_build(key, data, ivf)
+
+    stack._build_step = build_step
+    zero_counters()
+    producer = threading.Thread(target=produce, name="registry-producer", daemon=True)
+    producer.start()
+    try:
+        def drained(phase):
+            co.drain_live()
+            return errors or co.phase == phase
+        wait_for(lambda: drained("ready"), 60, "the v2 parity gate")
+        parity = dict(samples=co.parity.samples, agreement=co.parity.agreement)
+        t_cut0 = time.perf_counter()
+        co.cutover()
+        t_cut1 = time.perf_counter()
+        wait_for(lambda: drained("done"), 60, "the v2 watch")
+        n_at = len(published)
+        wait_for(lambda: errors or len(published) >= n_at + REG_AFTER_BATCHES * BATCH, 60,
+                 "batches after the v2 cutover")
+        # v3 (no face anywhere): the parity gate refuses it
+        co3 = RegistrySwapCoordinator(state, registry, "detector", 3,
+                                      old_detect_fn=boxes_fn(dets[2]),
+                                      new_detect_fn=boxes_fn(dets[3]), params_path=paths[3],
+                                      parity_min_samples=REG_PARITY_SAMPLES, metrics=metrics)
+        co3.score_parity(frames[:REG_PARITY_SAMPLES])
+        try:
+            co3.cutover()
+            raise AssertionError("registry: the degraded v3 was not refused")
+        except RolloutGateError:
+            pass
+    finally:
+        stop.set()
+        producer.join(timeout=60)
+        service.drain(timeout=120)
+        service.stop()
+        del stack._build_step, stack.install_detector_params  # the wrappers above
+    if errors:
+        raise AssertionError(f"registry: the producer failed: {errors}")
+    launches = read_launches()
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"registry: a kernel did not launch while serving: {launches}")
+    if (metrics.counter(mn.REGISTRY_SWAPS_BLOCKED) != 1 or registry.version("detector") != 2
+            or co.phase != "done"):
+        raise AssertionError(f"registry: blocked {metrics.counter(mn.REGISTRY_SWAPS_BLOCKED)}, "
+                             f"served v{registry.version('detector')}, phase {co.phase}")
+    if built or (stack.captures, stack.cascade_captures) != captures:
+        raise AssertionError(f"registry: graphs captured during the swap: {built}")
+    stamps = [v for _t, _k, _j, v, _m in published]
+    by_tick = {}
+    for _t, tick, _j, v, _m in published:
+        by_tick.setdefault(tick, set()).add(v)
+    if not stamps_move_once(stamps, 1, 2) or any(len(v) != 1 for v in by_tick.values()):
+        raise AssertionError(f"registry: detector stamps mixed: {stamps[:8]} ... {stamps[-8:]}")
+    # each result against a direct call of the version it names
+    direct = {}
+    for version, params in ((1, v1), (2, v2)):
+        stack.install_detector_params(params, version=version)
+        for base in range(n_bases):
+            direct[(base, version)] = unpack_result(stack.recognize_batch_packed(
+                frames[base * BATCH:(base + 1) * BATCH]).cpu().numpy(), 1)
+    differ = sum(face_rows(direct[(b, 1)], j, 0.3) != face_rows(direct[(b, 2)], j, 0.3)
+                 for b in range(n_bases) for j in range(BATCH))
+    for _t, tick, j, v, m in published:
+        if published_rows(m) != face_rows(direct[(tick % n_bases, v)], j, 0.3):
+            raise AssertionError(f"registry: result {(tick, j)} stamped v{v} differs from a "
+                                 f"direct call of v{v}")
+    done = {}
+    for t_arr, tick, _j, _v, _m in published:
+        done[tick] = max(done.get(tick, 0.0), t_arr)
+    during = [(done[k] - sent[k]) * 1e3 for k in done if k in sent
+              and sent[k] <= t_cut1 and done[k] >= t_cut0]
+    other = [(done[k] - sent[k]) * 1e3 for k in done if k in sent
+             and not (sent[k] <= t_cut1 and done[k] >= t_cut0)]
+    out = dict(parity=parity, cutover_s=t_cut1 - t_cut0,
+               cutover_stages_s={k: sum(t.seconds) for k, t in timers.items()},
+               batch_ms_during_cutover=dict(worst=max(during or [0.0]), n=len(during)),
+               batch_ms_otherwise=dict(p50=_pct(other, 50), worst=max(other or [0.0]),
+                                       n=len(other)),
+               results=len(stamps), results_v1=stamps.count(1), results_v2=stamps.count(2),
+               frames_v1_v2_differ=differ, blocked=metrics.counter(mn.REGISTRY_SWAPS_BLOCKED),
+               v3_agreement=co3.parity.agreement, launches=launches, ledger=service.ledger())
+    stack.install_detector_params(v2, version=2)
+    return out, state, injector, dets, v1
+
+
+def registry_recovery(dev, root: str, state, injector, dets) -> dict:
+    """Phase 13 (b), the crash checks: a swap to v4 dying after its fence
+    is completed by ``recover``; one to v5 with its staged file damaged is
+    abandoned and v5 retired."""
+    out = {}
+    for version, damage in ((4, False), (5, True)):
+        path = registry_params_path(root, "detector", version)
+        dets[4].save(path)
+        injector.script("cutover", "crash_after_record")
+        try:
+            state.perform_registry_cutover("detector", version, params_path=path,
+                                           params_sha256=_file_sha256(path))
+            raise AssertionError(f"registry: the crash after the v{version} fence did not fire")
+        except InjectedCrashError:
+            pass
+        state.close()
+        if ModelRegistry(root, readonly=True).version("detector") == version:
+            raise AssertionError("registry: the manifest moved before recovery")
+        if damage:
+            with open(path, "r+b") as f:
+                f.seek(16)
+                f.write(b"\x00" * 16)
+        state = StateLifecycle(root, fault_injector=injector)
+        t = time.perf_counter()
+        report = state.recover(ShardedGallery(8, DIM, store_dtype=torch.bfloat16, device=dev), [])
+        out[f"recover_v{version}_s"] = time.perf_counter() - t
+        manifest = ModelRegistry(root, readonly=True)
+        if damage:
+            ok = (manifest.version("detector") == 4
+                  and manifest.describe("detector").get("retired") == version
+                  and [e["to_version"] for e in report.get("abandoned_registry_swaps", [])]
+                  == [version])
+        else:
+            ok = (manifest.version("detector") == version
+                  and [e["to_version"] for e in report.get("completed_registry_swaps", [])]
+                  == [version])
+        if not ok:
+            raise AssertionError(f"registry: recovery of the v{version} fence: "
+                                 f"{manifest.stamp()} {report}")
+    state.close()
+    out["manifest"] = ModelRegistry(root, readonly=True).stamp()
+    return out
+
+
+def registry_cli(dev, paths: dict, root: str, gate, thr: float, frames, keep) -> dict:
+    """Phase 13 (c): ``--registry-swap cascade=2`` offline, then the CLI on
+    a socket with ``--cascade PATH --cascade-version 2``."""
+    gate_path = registry_params_path(root, "cascade", 2)
+    os.makedirs(os.path.dirname(gate_path), exist_ok=True)
+    saved = cascade_mod.FaceGate(threshold=thr, device=dev)
+    saved.load_params(gate.params)
+    saved.save(gate_path)
+    t = time.perf_counter()
+    if recognize_app.main(["--registry-swap", "cascade=2", "--state-dir", root]) != 0:
+        raise AssertionError("registry: the offline swap failed")
+    swap_s = time.perf_counter() - t
+    if ModelRegistry(root, readonly=True).version("cascade") != 2:
+        raise AssertionError("registry: the offline swap did not install cascade v2")
+    metrics_path = os.path.join(root, "cli_metrics.jsonl")
+    cli = SocketCli(paths, dev, ["--state-dir", root, "--cascade", gate_path,
+                                 "--cascade-version", "2", "--ingest-mode", "uint8",
+                                 "--bucket-sizes", *map(str, CASC_LADDER)], metrics_path)
+    try:
+        b64 = [base64.b64encode(np.ascontiguousarray(f).tobytes()).decode("ascii")
+               for f in frames]
+        for i, line in enumerate(b64):
+            cli.send(_frame_line(line, {"_fid": i}, "interactive"))
+        wait_for(lambda: cli.n_answered() >= len(frames), 120, "the CLI's answers")
+    finally:
+        rec = cli.stop()
+    with cli._lock:
+        exits = {r["meta"]["_fid"] for r in cli.results if r.get("exit") == "cascade"}
+    want = {i for i in range(len(frames)) if not keep[i]}
+    _close_ledger("cascade cli", rec["ledger"])
+    if exits != want or rec["ledger"]["completed_empty"] != len(want):
+        raise AssertionError(f"cascade cli: rejects {sorted(exits)} != {sorted(want)}; "
+                             f"{rec['ledger']}")
+    delta = _check_serving(dev, "cascade cli", rec)
+    if rec["cascade_captures"] != rec["warm"]["cascade_captures"]:
+        raise AssertionError("cascade cli: a stage-1 graph was captured after warmup")
+    return dict(offline_swap_s=swap_s, answered=len(cli.answered), rejects=len(exits),
+                ledger=rec["ledger"], **delta)
+
+
+def cascade_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 13 (module docstring); returns the ``{"cascade": ...}`` numbers."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cascade_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stack = ctx["stack"]
+    gate = cascade_mod.FaceGate(device=dev, generator=torch.Generator().manual_seed(seed + 13))
+    gate_cpu = cascade_mod.FaceGate(dtype=torch.float32, device="cpu")
+    gate_cpu.load_params({k: v.cpu() for k, v in gate.params.items()})
+    pool = np.stack([f for f, _n in synthetic_frame_stream(
+        CASC_CANDIDATES, FRAME, face_density=0.5, seed=seed + 13)])
+    scores = gate_cpu.score_batch(pool).numpy()
+    n_keep = sum(CASC_SURVIVORS)
+    thr = choose_threshold(scores, n_keep, len(CASC_SURVIVORS) * BATCH - n_keep)
+    batches = cascade_batches(pool, scores, thr, seed + 13)
+    stack.install_cascade(gate, version=1)
+    t = time.perf_counter()
+    served = cascade_serve(dev, stack, batches, thr)
+    serve_s = time.perf_counter() - t
+    checks = cascade_direct(dev, stack, gate_cpu, batches, thr, served.pop("results"))
+    times = stage1_times(dev, stack, batches[-1][0]) if dev.type == "cuda" else {}
+    log(f"cascade ({card}): threshold {thr:.5f}, stage 1 {times}, {checks}, "
+        f"step ms {served['step_ms']}")
+    t = time.perf_counter()
+    swap, state, injector, dets, v1 = registry_live_swap(
+        dev, stack, ctx["frames"][:len(ctx["frames"]) // BATCH * BATCH],
+        os.path.join(root, "state"))
+    swap_s = time.perf_counter() - t
+    dets[4] = detector_with(dev, perturbed(v1, 14, REG_PERTURB))
+    t = time.perf_counter()
+    recovery = registry_recovery(dev, os.path.join(root, "state"), state, injector, dets)
+    recovery_s = time.perf_counter() - t
+    log(f"registry ({card}): {json.dumps(swap)} {json.dumps(recovery)}")
+    stack.install_detector_params({k: v.to(dev) for k, v in v1.items()}, version=1)
+    t = time.perf_counter()
+    cli_paths = ctx.get("cli_paths") or write_cli_inputs(
+        dev, seed, os.path.join(root, "cli_inputs"))[0]
+    frames, keep = (np.concatenate([b[0] for b in batches[1:]]),
+                    np.concatenate([b[1] for b in batches[1:]]))
+    cli = registry_cli(dev, cli_paths, os.path.join(root, "cli_state"), gate, thr,
+                       frames[:CASC_CLI_FRAMES], keep[:CASC_CLI_FRAMES])
+    cli_s = time.perf_counter() - t
+    stack.install_cascade(None)
+    out = dict(card=card, threshold=thr, score_atol=CASC_SCORE_ATOL, margin=CASC_MARGIN,
+               stage1=times, **checks, **served, serve_s=serve_s, swap=swap, swap_s=swap_s,
+               recovery=recovery, recovery_s=recovery_s, cli=cli, cli_s=cli_s,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"cascade ({card}): {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3191,6 +3772,7 @@ def main() -> int:
     overload = overload_phase(dev, args.seed, card, ctx)
     ingest = ingest_phase(dev, args.seed, card, ctx)
     rollout = rollout_phase(dev, args.seed, card, ctx)
+    cascade = cascade_phase(dev, args.seed, card, ctx)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
@@ -3200,9 +3782,10 @@ def main() -> int:
     print(json.dumps({"durability": durability}))
     print(json.dumps({"overload": overload}))
     print(json.dumps({"ingest": ingest}))
-    rollout["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {rollout['total_s']:.1f} s")
     print(json.dumps({"rollout": rollout}))
+    cascade["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {cascade['total_s']:.1f} s")
+    print(json.dumps({"cascade": cascade}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -38,6 +38,19 @@ payloads and decodes them off the connector thread. With ``--state-dir``
 and ``--embedder-version N``, a pending cutover to N is completed by the
 recovery; any other version mismatch exits.
 
+The cascade: ``--cascade PATH`` loads a stage-1 ``FaceGate`` (written by
+either package) onto ``--device``; each batch is scored at its rung first
+and frames below ``--cascade-threshold`` (default: the gate's own) are
+answered with no faces (``exit: "cascade"``) without the full step;
+``--no-cascade`` serves single-stage with the gate loaded. The registry:
+with ``--state-dir``, ``--detector-version N`` and ``--cascade-version N``
+refuse to start unless the manifest serves that version of the role, and
+``--registry-swap ROLE=N`` (``detector`` or ``cascade``) performs one
+fenced swap offline and exits: the candidate must be staged at
+``STATE_DIR/registry/<role>-v<N>.params``, the writer lease is taken, the
+``registry_cutover`` fence is appended and the manifest installed; a
+writer picks the version up at its next start.
+
 Overload control: ``--max-inflight-frames`` and ``--rate-limit-fps`` reject
 at the front door (``rejected`` statuses), ``--brownout-queue-wait-ms``
 sheds bulk frames under a growing queue, ``--shed-stale-after-ms`` sheds
@@ -71,15 +84,11 @@ import time
 import torch
 
 #: the ROADMAP items that bring the refused flags
-_REGISTRY = "ROADMAP A.8.5 (model registry, cascade)"
 _REPLICAS = "ROADMAP A.8.6 (replication, topic router)"
 _MULTI_GPU = "ROADMAP A.11 (multi-GPU)"
 
 #: (flag, refused value or None for "any value but the default", item)
 REFUSED = (
-    ("--cascade", None, _REGISTRY), ("--cascade-threshold", None, _REGISTRY),
-    ("--no-cascade", None, _REGISTRY), ("--registry-swap", None, _REGISTRY),
-    ("--detector-version", None, _REGISTRY), ("--cascade-version", None, _REGISTRY),
     ("--replica-role", "reader", _REPLICAS), ("--replica-poll-ms", None, _REPLICAS),
     ("--replication-lag-rows", None, _REPLICAS), ("--router", None, _REPLICAS),
     ("--router-health", None, _REPLICAS), ("--router-budget-fps", None, _REPLICAS),
@@ -152,9 +161,14 @@ def build_parser() -> argparse.ArgumentParser:
              "with reason decode_error)")
     add("--transfer-uint8", action="store_true",
         help="deprecated alias of --ingest-mode uint8")
-    add("--cascade", metavar="PATH")
-    add("--cascade-threshold", type=float, default=None, metavar="P")
-    add("--no-cascade", action="store_true")
+    add("--cascade", metavar="PATH",
+        help="stage-1 FaceGate file (FaceGate.save): frames scoring below the threshold "
+             "are answered with no faces without the full step (completed_empty)")
+    add("--cascade-threshold", type=float, default=None, metavar="P",
+        help="stage-1 operating point (default: the gate's own); brownout level >= 1 "
+             "raises it one notch")
+    add("--no-cascade", action="store_true",
+        help="serve single-stage even with a --cascade gate loaded")
     add("--track-reverify-frames", type=int, default=8, metavar="N",
         help="identity cache: a coherent track serves its identity from the "
              "cache for at most N-1 frames before a full re-verify")
@@ -211,9 +225,15 @@ def build_parser() -> argparse.ArgumentParser:
     add("--embedder-version", type=int, default=0, metavar="N",
         help="the loaded model's embedder version, stamped on results and "
              "identity-cache entries (0 = 1)")
-    add("--detector-version", type=int, default=0, metavar="N")
-    add("--cascade-version", type=int, default=0, metavar="N")
-    add("--registry-swap", metavar="ROLE=VERSION")
+    add("--detector-version", type=int, default=0, metavar="N",
+        help="the loaded --detector's registry version: with --state-dir, refuse to "
+             "start unless the manifest serves it (0 = adopt the manifest's)")
+    add("--cascade-version", type=int, default=0, metavar="N",
+        help="the same fence for the --cascade gate")
+    add("--registry-swap", metavar="ROLE=VERSION",
+        help="perform one fenced registry swap against --state-dir and exit: the "
+             "candidate must be staged at STATE_DIR/registry/<role>-v<N>.params; "
+             "roles detector, cascade")
     add("--checkpoint-every-s", type=float, default=300.0,
         help="checkpoint when WAL rows are this old")
     add("--checkpoint-wal-rows", type=int, default=256,
@@ -308,6 +328,11 @@ def _load_stack(args, metrics):
     if not isinstance(feature, CNNEmbedding):
         raise SystemExit("--model must be a CNN model checkpoint (CNNEmbedding)")
     detector = CNNFaceDetector.load(args.detector, device=device)
+    gate = None
+    if args.cascade:
+        from opencv_facerecognizer_tpu_torch.models.cascade import FaceGate
+
+        gate = FaceGate.load(args.cascade, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
@@ -333,7 +358,8 @@ def _load_stack(args, metrics):
             mode=args.match_mode)
     pipeline = RecognitionPipeline(detector, feature.net, gallery,
                                    face_size=feature.input_size,
-                                   fused_embedder=args.fused_embedder, device=device)
+                                   fused_embedder=args.fused_embedder, device=device,
+                                   cascade=gate)
     return pipeline, names
 
 
@@ -346,6 +372,58 @@ def _registry_fence(registry, args) -> None:
             raise SystemExit(
                 f"ocvf-recognize-torch: --{role}-version {declared} declared but the "
                 f"state dir's registry manifest serves {role} v{registry.version(role)}")
+
+
+def run_registry_swap(args) -> int:
+    """``--registry-swap ROLE=N``: one fenced swap against ``--state-dir``
+    under the writer lease, then exit (module docstring)."""
+    from opencv_facerecognizer_tpu_torch.runtime.registry import (
+        ModelRegistry, _file_sha256, registry_params_path)
+    from opencv_facerecognizer_tpu_torch.runtime.replication import (
+        WriterLease, WriterLeaseHeldError)
+    from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
+    from opencv_facerecognizer_tpu_torch.utils.metrics import Metrics
+
+    if not args.state_dir:
+        raise SystemExit("ocvf-recognize-torch: --registry-swap requires --state-dir")
+    role, sep, version = args.registry_swap.partition("=")
+    role = role.strip()
+    try:
+        to_version = int(version)
+    except ValueError:
+        to_version = 0
+    if not sep or role not in ("detector", "cascade") or to_version <= 0:
+        raise SystemExit(
+            "ocvf-recognize-torch: --registry-swap wants ROLE=VERSION with role in "
+            f"(detector, cascade) and a positive integer version, got {args.registry_swap!r}")
+    params_path = registry_params_path(args.state_dir, role, to_version)
+    if not os.path.exists(params_path):
+        raise SystemExit(f"ocvf-recognize-torch: stage the candidate params first — "
+                         f"{params_path} does not exist (CNNFaceDetector.save / "
+                         f"FaceGate.save to the registry's path)")
+    metrics = Metrics()
+    lease = WriterLease(args.state_dir, metrics=metrics)
+    try:
+        lease.acquire()
+    except WriterLeaseHeldError as exc:
+        raise SystemExit(f"ocvf-recognize-torch: {exc} — stop the writer first (or swap "
+                         f"through its live coordinator)")
+    try:
+        state = StateLifecycle(args.state_dir, metrics=metrics)
+        state.attach_registry(ModelRegistry(args.state_dir, metrics=metrics))
+        state.adopt_wal_seq()
+        try:
+            seq = state.perform_registry_cutover(role, to_version, params_path=params_path,
+                                                 params_sha256=_file_sha256(params_path))
+        except ValueError as exc:
+            raise SystemExit(f"ocvf-recognize-torch: {exc}")
+        finally:
+            state.close()
+        print(f"registry swap fenced at WAL seq {seq}; manifest now serves "
+              f"{state.registry.stamp()}", file=sys.stderr)
+    finally:
+        lease.release()
+    return 0
 
 
 def _open_state(args, pipeline, names, metrics, tracer=None):
@@ -452,7 +530,8 @@ def _serving_counts(pipeline) -> dict:
                          "sepblock": getattr(fused_sep_block, "launches", 0),
                          "nms": getattr(nms_mask, "launches", 0)},
             "captures": getattr(pipeline, "captures", 0),
-            "recaptures": getattr(pipeline, "recaptures", 0)}
+            "recaptures": getattr(pipeline, "recaptures", 0),
+            "cascade_captures": getattr(pipeline, "cascade_captures", 0)}
 
 
 class _Profile:
@@ -502,8 +581,11 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
+    if args.registry_swap:
+        return run_registry_swap(args)
     if not (args.model and args.detector and args.gallery):
-        parser.error("the following arguments are required: --model, --detector, --gallery")
+        parser.error("the following arguments are required: --model, --detector, --gallery "
+                     "(only --registry-swap runs without a serving stack)")
     from opencv_facerecognizer_tpu_torch.runtime.connector import (
         FakeConnector, JSONLConnector, SocketConnector, encode_frame)
     from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
@@ -609,7 +691,8 @@ def main(argv=None) -> int:
         dead_letter_journal=journal,
         shed_stale_after_s=(args.shed_stale_after_ms / 1e3
                             if args.shed_stale_after_ms > 0 else None),
-        tracer=tracer, slo_monitor=slo_monitor)
+        tracer=tracer, slo_monitor=slo_monitor, cascade=not args.no_cascade,
+        cascade_threshold=args.cascade_threshold)
     if state is not None:
         service.registry = state.registry
     if slo_monitor is not None and args.slo_loop_stale_s > 0:

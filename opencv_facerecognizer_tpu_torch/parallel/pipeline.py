@@ -20,17 +20,38 @@ tensor (and the IVF lists) it was captured over, by address: an entry
 remembers their addresses and is captured again when the call's
 snapshot holds other tensors (a ``reset``, ``load_snapshot``,
 ``swap_from``, or a quantizer publish); in-place appends keep the
-address. All graphs of a pipeline share one memory pool: they replay one
-at a time on the serving stream. A graph tallies at capture the launches
+address. All step graphs of a pipeline share one memory pool: they replay
+one at a time on the serving stream. A graph tallies at capture the launches
 of the kernel wrappers it holds (``ops._build.capture_tally``) and adds
 them to the wrappers' counters on every replay. On
 the CPU (or with ``cuda_graphs=False``) a cached step is the eager
 callable under the same key. A capture or replay that fails raises; no
 path falls back to eager.
+
+**The cascade's stage 1** (``cascade=``, a ``models.cascade.FaceGate``):
+``cascade_scores`` maps a batch of frames to ``[B]`` face-possible
+probabilities on the device, one captured graph per (batch, H, W, frame
+dtype); the gallery never enters it. Its graphs have a pool of their own,
+made again when an install of another architecture drops them (capturing
+into a pool whose graphs were all freed trips the caching allocator). The
+pipeline serves its own copy of the gate's net, so an install never
+touches the gate object it was given.
+
+**Installs are atomic against the step.** ``install_detector_params`` and
+``install_cascade`` copy the new weights into the served parameters (and
+their cached casts) in place, on the stream the steps are queued on,
+holding ``_weights_lock``; a step or a stage-1 pass is queued (its graph
+replayed, or its kernels launched eagerly) holding the same lock. So a
+queued step sits wholly before the first copy or wholly after the last
+in stream order, and reads all-old or all-new weights, never a mix. Each
+queued step records the model versions it ran (``last_model_versions``,
+``last_cascade_info["version"]``), which the service stamps on its
+results.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
@@ -38,6 +59,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from opencv_facerecognizer_tpu_torch.models import cascade as cascade_mod
 from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
 from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
 from opencv_facerecognizer_tpu_torch.ops import _build
@@ -137,17 +159,36 @@ class _GraphStep:
         return self.out
 
 
+class _GraphScores:
+    """A captured stage-1 pass: the graph, its static frames slot and its
+    ``[B]`` output."""
+
+    def __init__(self, graph, frames, out):
+        self.graph = graph
+        self.frames = frames
+        self.out = out
+
+    def __call__(self, frames: torch.Tensor) -> torch.Tensor:
+        # host frames copy in stream order; the caller reads the scores
+        # (which waits for this stream) before it writes their buffer again
+        self.frames.copy_(frames, non_blocking=True)
+        self.graph.replay()
+        return self.out
+
+
 class RecognitionPipeline:
     """Holds the nets and the gallery and runs the per-batch step on
     ``device`` (the card unless the caller asks for the CPU), each step key
-    as one captured CUDA graph on the card (``cuda_graphs``)."""
+    as one captured CUDA graph on the card (``cuda_graphs``); with a
+    ``cascade`` gate also the stage-1 pass (``cascade_scores``)."""
 
     def __init__(self, detector: detector_mod.CNNFaceDetector,
                  embed_net: embedder_mod.FaceEmbedNet,
                  gallery: ShardedGallery,
                  face_size: Tuple[int, int] = embedder_mod.SERVING_FACE_SIZE,
                  top_k: int = 1, fused_embedder: bool = False,
-                 device: DeviceLike = DEFAULT_DEVICE, cuda_graphs: bool = True):
+                 device: DeviceLike = DEFAULT_DEVICE, cuda_graphs: bool = True,
+                 cascade: Optional[cascade_mod.FaceGate] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()  # the f32 heads, f32 stacks and the crop stay full f32
@@ -182,6 +223,26 @@ class RecognitionPipeline:
         #: gallery snapshot it matched against
         self.last_dispatch_info: dict = {}
         self.last_snapshot: Optional[GalleryData] = None
+        # held while weights are copied in and while a step is queued
+        # (module docstring); the stream steps are queued on, for the copies
+        self._weights_lock = threading.Lock()
+        self._serving_stream = None
+        #: {role: version} of the installed weights, as the installs name
+        #: them ("detector", "cascade"), and what the last step ran
+        self.model_versions: Dict[str, int] = {}
+        self.last_model_versions: Dict[str, int] = {}
+        #: the stage-1 gate, the net this pipeline serves for it, its cached
+        #: passes ((batch, H, W, frame dtype) -> graph or eager callable),
+        #: stage-1 graphs captured, and the last pass's {"cache_hit",
+        #: "version"}
+        self.cascade: Optional[cascade_mod.FaceGate] = None
+        self._cascade_net: Optional[cascade_mod.CascadeNet] = None
+        self._cascade_cache: Dict[Tuple, object] = {}
+        self._cascade_pool = None
+        self.cascade_captures = 0
+        self.last_cascade_info: dict = {}
+        if cascade is not None:
+            self.install_cascade(cascade)
         # The gallery's grow machinery captures this pipeline's steps for
         # a new tier before it publishes, and drops stale tiers after.
         gallery.prewarm_hooks.append(self.prewarm_capacity)
@@ -264,27 +325,37 @@ class RecognitionPipeline:
 
         with self._capture_lock:
             t0 = time.perf_counter()
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                for _ in range(CAPTURE_WARMUP_RUNS):
-                    run()
-            graph = torch.cuda.CUDAGraph()
-            # capture_begin/end, not ``torch.cuda.graph``: its entry runs a
-            # device synchronize and ``gc.collect()``, which holds the GIL
-            # and so stalls a serving thread while a grow worker captures.
-            # The capture launches nothing: its counts go to the replays.
-            with _build.capture_tally() as deltas, torch.cuda.stream(side):
-                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-                try:
-                    out = run()
-                finally:
-                    graph.capture_end()
-            torch.cuda.current_stream(dev).wait_stream(side)
+            graph, out, deltas = self._capture_graph(run)
             self.captures += 1
             self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         return _GraphStep(graph, frames, valid, labels, out, self._binding(data, ivf),
                           deltas)
+
+    def _capture_graph(self, run, pool=None):
+        """(graph, output, launch deltas) of ``run`` captured into ``pool``
+        (the steps' by default) on a side stream in ``thread_local`` mode
+        after ``CAPTURE_WARMUP_RUNS`` eager runs there; the caller holds
+        ``_capture_lock``."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP_RUNS):
+                run()
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin/end, not ``torch.cuda.graph``: its entry runs a
+        # device synchronize and ``gc.collect()``, which holds the GIL
+        # and so stalls a serving thread while a grow worker captures.
+        # The capture launches nothing: its counts go to the replays.
+        with _build.capture_tally() as deltas, torch.cuda.stream(side):
+            graph.capture_begin(pool=self._pool if pool is None else pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = run()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return graph, out, deltas
 
     def _evict_stale_ivf(self, key: Tuple) -> None:
         """Drop cached steps of the same (batch, frame, capacity, kernel)
@@ -333,27 +404,128 @@ class RecognitionPipeline:
         self.last_snapshot = data
         if not self.cuda_graphs:
             frames = frames.to(self.device)
-        return step(frames, data, ivf)
+        with self._weights_lock:
+            self._note_serving_stream()
+            self.last_model_versions = dict(self.model_versions)
+            return step(frames, data, ivf)
 
     def recognize_batch(self, frames) -> RecognitionResult:
         """The same step, unpacked on the device into new tensors."""
         return _unpack_device(self.recognize_batch_packed(frames), self.top_k)
 
-    def install_detector_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Publish new detector weights in place (same architecture): the
-        parameters and their cached casts keep their addresses, so every
-        captured step runs the new weights on its next replay."""
-        self.detector.load_params(params)
+    # ---- the cascade's stage 1 ----
+
+    def cascade_scores(self, frames) -> torch.Tensor:
+        """Stage 1: [B, H, W] frames (uint8 or float32, host or this
+        device) -> [B] face-possible probabilities on the device. On the
+        card the pass is the graph of its (batch, H, W, dtype), and the
+        result is its static output: read it before the next call of the
+        same key. Host frames are copied in stream order, so reading the
+        scores also fences the frames' buffer. ``last_cascade_info`` is
+        ``{"cache_hit", "version"}`` (the recompile watchdog reads the
+        first, the result stamps the second)."""
+        if self.cascade is None:
+            raise RuntimeError("cascade_scores called with no cascade gate")
+        frames = self._frames_tensor(frames)
+        if frames.device.type == "cuda" and frames.device != self.device:
+            raise ValueError(f"frames on {frames.device}, pipeline on {self.device}")
+        key = (*frames.shape, str(frames.dtype).removeprefix("torch."))
+        with self._weights_lock:
+            fn = self._cascade_cache.get(key)
+            self.last_cascade_info = {"cache_hit": fn is not None,
+                                      "version": self.model_versions.get("cascade")}
+            if fn is None:
+                fn = self._cascade_cache[key] = self._build_scores(key)
+            self._note_serving_stream()
+            return fn(frames if self.cuda_graphs else frames.to(self.device))
+
+    def _build_scores(self, key: Tuple):
+        """A stage-1 cache entry over the served net: a captured graph on
+        the card, else the eager callable. Under ``_weights_lock``."""
+        net = self._cascade_net
+        if not self.cuda_graphs:
+            return torch.no_grad()(lambda f: cascade_mod.frame_scores(net, f.float()))
+        batch, height, width, dtype_name = key
+        frames = torch.zeros((batch, height, width), dtype=getattr(torch, dtype_name),
+                             device=self.device)
+
+        @torch.no_grad()
+        def run():
+            return cascade_mod.frame_scores(net, frames.float())
+
+        if self._cascade_pool is None:
+            self._cascade_pool = torch.cuda.graph_pool_handle()
+        with self._capture_lock:
+            t0 = time.perf_counter()
+            graph, out, _deltas = self._capture_graph(run, self._cascade_pool)
+            self.cascade_captures += 1
+            self.capture_ms[("cascade", *key)] = (time.perf_counter() - t0) * 1e3
+        return _GraphScores(graph, frames, out)
+
+    # ---- installs (the registry's swaps) ----
+
+    def _note_serving_stream(self) -> None:
+        if self.device.type == "cuda":
+            self._serving_stream = torch.cuda.current_stream(self.device)
+
+    def _on_serving_stream(self):
+        """The stream steps are queued on, for an install's copies."""
+        if self.device.type != "cuda" or self._serving_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._serving_stream)
+
+    def install_detector_params(self, params: Dict[str, torch.Tensor],
+                                version: Optional[int] = None) -> None:
+        """Publish new detector weights in place (same architecture),
+        atomically against the steps (module docstring): the parameters
+        and their cached casts keep their addresses, so every captured
+        step runs the new weights on its next replay and none recaptures.
+        ``version`` is what the next steps record having run."""
+        with self._weights_lock, self._on_serving_stream():
+            self.detector.load_params(params)
+            if version is not None:
+                self.model_versions["detector"] = int(version)
+
+    def install_cascade(self, gate: Optional[cascade_mod.FaceGate],
+                        version: Optional[int] = None) -> None:
+        """Serve ``gate`` at stage 1 (None: no stage 1), atomically against
+        the passes. A gate of the served architecture (``features``,
+        ``downsample``, compute dtype) is copied into the served net in
+        place, so its graphs stay; another architecture gets a new net and
+        its passes are built again. ``version`` is what the next passes
+        record having run."""
+        with self._weights_lock, self._on_serving_stream():
+            old = self._cascade_net
+            if gate is None:
+                self._cascade_net = None
+                self._cascade_cache.clear()
+                self._cascade_pool = None
+            elif old is not None and (old.features, old.downsample, old.dtype) == (
+                    tuple(gate.net.features), gate.net.downsample, gate.net.dtype):
+                old.load_state_dict(gate.net.state_dict())
+            else:
+                net = cascade_mod.CascadeNet(gate.net.features, gate.net.downsample,
+                                             dtype=gate.net.dtype)
+                net.load_state_dict(gate.net.state_dict())
+                self._cascade_net = net.to(self.device).eval()
+                self._cascade_cache.clear()
+                self._cascade_pool = None
+            self.cascade = gate
+            if version is not None:
+                self.model_versions["cascade"] = int(version)
 
     def prewarm_batch_shapes(self, batch_sizes: Sequence[int], frame_shape,
                              dtype=np.float32) -> int:
         """Build (capture) the step of every batch size up front on zero
-        frames, so no serving batch of these sizes pays a kernel build, an
-        algorithm search or a capture. Returns the number of sizes."""
+        frames, and with a cascade gate its stage-1 pass too, so no serving
+        batch of these sizes pays a kernel build, an algorithm search or a
+        capture. Returns the number of sizes."""
         sizes = sorted({int(b) for b in batch_sizes})
         for b in sizes:
-            out = self.recognize_batch_packed(np.zeros((b, *frame_shape), dtype))
-            out.cpu()  # warmup precedes serving: wait for the step
+            zeros = np.zeros((b, *frame_shape), dtype)
+            self.recognize_batch_packed(zeros).cpu()  # warmup precedes serving: wait
+            if self.cascade is not None:
+                self.cascade_scores(zeros).cpu()
         return len(sizes)
 
     def prewarm_capacity(self, capacity: int, data: Optional[GalleryData] = None) -> None:

@@ -10,10 +10,13 @@ sleeping ``dispatch_s`` on the serving thread (a capacity wall of
 no face, or with ``faces_per_frame`` scripted ones (a fixed box, label 0,
 similarity 1). It runs no model and touches no card, so the serving
 loop's host side (admission, batching, brownout, publish, spans) is
-measurable alone.
+measurable alone. With ``cascade_stub=True`` it also carries a stage-1
+gate: ``cascade_scores`` scores a frame 1.0 when its brightest pixel
+reaches 150 (a stamped face) and 0.0 otherwise.
 
 ``synthetic_jpeg_frames`` makes seeded camera payloads as real JPEG
-bytes, the reference's generator.
+bytes, and ``synthetic_frame_stream`` a seeded mix of frames with and
+without faces: the reference's generators.
 
 ``FakeClock`` is a manual clock with the ``time`` module's interface
 (``monotonic``, ``perf_counter``, ``time``, ``sleep``): a test installs it
@@ -103,7 +106,8 @@ class InstantPipeline:
     ``last_dispatch_info``, like a step captured after warmup."""
 
     def __init__(self, frame_shape: Tuple[int, int], top_k: int = 1, max_faces: int = 2,
-                 compute_s: float = 0.0, dispatch_s: float = 0.0, faces_per_frame: int = 0):
+                 compute_s: float = 0.0, dispatch_s: float = 0.0, faces_per_frame: int = 0,
+                 cascade_stub: bool = False):
         self.frame_shape = tuple(frame_shape)
         self.top_k = int(top_k)
         self.max_faces = int(max_faces)
@@ -120,14 +124,32 @@ class InstantPipeline:
         #: capture after warmup
         self.compiled_batch_sizes: set = set()
         self.last_dispatch_info: dict = {}
+        #: the stage-1 stand-in (module docstring)
+        self.cascade = "brightness-stub" if cascade_stub else None
+        self.cascade_calls = 0
+        #: (batch, dtype) stage-1 signatures already built
+        self.compiled_cascade_sigs: set = set()
+        self.last_cascade_info: dict = {}
 
     @staticmethod
     def _sig(batch, dtype) -> tuple:
         return (int(batch), str(np.dtype(dtype)))
 
     def prewarm_batch_shapes(self, ladder, frame_shape, dtype=np.float32) -> None:
+        """Both stages of every rung, as the real pipeline warms them."""
         for bucket in ladder:
             self.compiled_batch_sizes.add(self._sig(bucket, dtype))
+            if self.cascade is not None:
+                self.compiled_cascade_sigs.add(self._sig(bucket, dtype))
+
+    def cascade_scores(self, frames) -> np.ndarray:
+        """[B, H, W] -> [B] scores: 1.0 where the frame's peak reaches 150."""
+        host = np.asarray(frames)
+        self.cascade_calls += 1
+        sig = self._sig(host.shape[0], host.dtype)
+        self.last_cascade_info = {"cache_hit": sig in self.compiled_cascade_sigs}
+        self.compiled_cascade_sigs.add(sig)
+        return (host.reshape(host.shape[0], -1).max(axis=1) >= 150).astype(np.float32)
 
     def recognize_batch_packed(self, frames) -> FakeReadback:
         host = np.asarray(frames.numpy() if isinstance(frames, torch.Tensor) else frames)
@@ -181,6 +203,34 @@ def synthetic_jpeg_frames(n: int, frame_hw: Tuple[int, int] = (64, 64), seed: in
         frame = rng.integers(20, 90, size=(h, w)).astype(np.uint8)
         _stamp_faces(rng, frame, faces_per_frame)
         out.append((encode_jpeg(frame, quality=quality), frame))
+    return out
+
+
+def synthetic_frame_stream(n: int, frame_hw: Tuple[int, int] = (64, 64),
+                           face_density: float = 0.3, seed: int = 0,
+                           faces_per_frame: int = 1, jpeg: bool = False, quality: int = 85):
+    """``n`` seeded uint8 frames of which exactly ``round(n * face_density)``,
+    at seeded positions, carry ``faces_per_frame`` stamped faces:
+    ``[(frame, n_faces)]``, or ``[(jpeg_bytes, frame, n_faces)]`` with
+    ``jpeg=True``. The reference's generator: one seed gives the same
+    frames in both packages."""
+    n = int(n)
+    rng = np.random.default_rng(seed)
+    h, w = int(frame_hw[0]), int(frame_hw[1])
+    n_faced = int(round(n * float(face_density)))
+    faced = np.zeros(n, dtype=bool)
+    faced[rng.permutation(n)[:n_faced]] = True
+    out = []
+    for i in range(n):
+        frame = rng.integers(20, 90, size=(h, w)).astype(np.uint8)
+        k = int(faces_per_frame) if faced[i] else 0
+        _stamp_faces(rng, frame, k)
+        if jpeg:
+            from opencv_facerecognizer_tpu_torch.runtime.ingest import encode_jpeg
+
+            out.append((encode_jpeg(frame, quality=quality), frame, k))
+        else:
+            out.append((frame, k))
     return out
 
 

@@ -9,8 +9,13 @@ part of ``opencv_facerecognizer_tpu/runtime/faults.py``.
   ``late`` dies after the checkpoint lands but before the WAL truncation
   that follows it (the window the checkpoint's ``wal_seq`` exists for).
 - **stage**: the same two deaths at a rollout's stage append.
-- **cutover**: death on either side of the embedder cutover's WAL fence
-  record (``crash_before_record``, ``crash_after_record``).
+- **cutover**: death on either side of a cutover's WAL fence record
+  (``crash_before_record``, ``crash_after_record``): the embedder's
+  (``StateLifecycle.perform_cutover``) and a registry swap's
+  (``perform_registry_cutover``).
+- **cascade**: the serving loop's stage-1 gate (``runtime.recognizer``):
+  ``reject_all`` turns the batch's keep mask all False, so every frame
+  exits as ``completed_empty``.
 - **decode**: the JPEG decode pool's worker (``runtime.ingest``): ``slow``
   stalls ``slow_decode_s`` before the decode, ``corrupt`` replaces the
   payload with bytes no decoder accepts.
@@ -25,8 +30,8 @@ Faults are scripted (``script("wal", "torn")``: consumed in order, one
 per crossing) or drawn at ``rates`` from a ``random.Random(seed)``;
 ``injected`` counts each one fired as ``"boundary:fault"``. Without
 scripted faults and rates every hook is a no-op, and no production path
-arms an injector. The connector, batcher, readback, cascade and
-transport boundaries wait for their subsystems (ROADMAP A.8.5, A.8.6).
+arms an injector. The connector, batcher, readback and transport
+boundaries wait for their subsystems (ROADMAP A.8.6).
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import time
 from collections import Counter, deque
 from typing import Dict, Optional
 
+import numpy as np
+
 #: boundary name -> the fault kinds it understands
 BOUNDARIES: Dict[str, tuple] = {
     "dispatch": ("unavailable",),
@@ -45,6 +52,7 @@ BOUNDARIES: Dict[str, tuple] = {
     "stage": ("torn", "crash"),
     "cutover": ("crash_before_record", "crash_after_record"),
     "decode": ("slow", "corrupt"),
+    "cascade": ("reject_all",),
     "storage": ("enospc", "eio", "slow_fsync", "read_error"),
 }
 
@@ -158,9 +166,17 @@ class FaultInjector:
         return self._draw("stage")
 
     def on_cutover(self) -> Optional[str]:
-        """Embedder cutover (``StateLifecycle.perform_cutover``): the side
-        of the fence record the death lands on, or None."""
+        """A cutover (``StateLifecycle.perform_cutover`` and
+        ``perform_registry_cutover``): the side of the fence record the
+        death lands on, or None."""
         return self._draw("cutover")
+
+    def on_cascade(self, keep: np.ndarray) -> np.ndarray:
+        """Stage-1 gate: ``reject_all`` replaces the keep mask with all
+        False; otherwise ``keep`` unchanged."""
+        if self._draw("cascade") is None:
+            return keep
+        return np.zeros_like(keep, dtype=bool)
 
     def on_decode(self, payload: bytes) -> bytes:
         """JPEG decode (a decode worker, never the serving thread):

@@ -102,10 +102,31 @@ coordinator). Each batch's results carry the ``embedder_version`` of the
 gallery snapshot its step matched against (ROADMAP C.12), and the
 in-flight entry holds that snapshot until the readback.
 
-Not ported yet: the cascade and the registry's swaps (ROADMAP A.8.5) and
-replication (A.8.6). The CPU fallback is not ported at all (ROADMAP C.7): with
-``probe_backend_on_degraded`` a dead card is reported (``backend_usable:
-false``, ``cpu_fallback: false``) and the service stays degraded.
+**The cascade** (a pipeline with a stage-1 gate, ``cascade=True``): each
+batch is scored at its rung first (``RecognitionPipeline.cascade_scores``;
+the ``[B]`` readback is the decision point), frames below the threshold
+(``cascade_threshold``, else the gate's own, tightened by
+``cascade_brownout_notch`` at brownout level 1 and up) settle as
+``completed_empty`` with an empty result (``exit: "cascade"``), the
+survivors are compacted to the front of the staging buffer and dispatch at
+the smallest rung that holds them; a batch with no survivor exits
+(``cascade_batch_exits``). A failed stage-1 pass fails open: the whole batch
+takes the full step (``cascade_errors``). The host writes the staging
+buffer only after the scores' readback, which follows the stage-1 copy of
+the buffer on the same stream.
+
+**The registry** (``registry``, a ``runtime.registry.ModelRegistry``, and
+``registry_swap``, a live ``RegistrySwapCoordinator``, set by the code
+that runs them): results carry ``registry``, the version of each role the
+batch really ran (the pipeline records it with each queued step: ROADMAP
+C.14), and the identity cache keys on that stamp; the publish path offers
+frames to a live swap's parity window; ``flush_model_caches`` is a swap's
+cache flush.
+
+Not ported yet: replication (ROADMAP A.8.6). The CPU fallback is not
+ported at all (ROADMAP C.7): with ``probe_backend_on_degraded`` a dead
+card is reported (``backend_usable: false``, ``cpu_fallback: false``) and
+the service stays degraded.
 """
 
 from __future__ import annotations
@@ -120,6 +141,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from opencv_facerecognizer_tpu_torch.models.cascade import DEFAULT_THRESHOLD
 from opencv_facerecognizer_tpu_torch.models.embedder import normalize_faces
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import unpack_result
@@ -149,6 +171,8 @@ FALLBACK_DRAIN_POLL_S = 0.05
 ENROL_CHUNK = 8
 #: one aggregated ``rejected`` status per reason per this many seconds
 REJECT_NOTE_INTERVAL_S = 0.5
+#: the stage-1 threshold's rise at brownout level 1 and up (capped at 0.99)
+CASCADE_BROWNOUT_NOTCH = 0.15
 
 log = logging.getLogger(__name__)
 
@@ -242,7 +266,9 @@ class _Inflight(NamedTuple):
     t0: float
     t_disp: float
     deadline: float  # time.monotonic() after which the batch dead-letters
-    stamp: Optional[int]  # the embedder_version of the snapshot the step matched
+    # the embedder_version of the snapshot the step matched, or with a
+    # registry the sorted (role, version) pairs the batch ran
+    stamp: Any
     trace_ids: List[int]  # the frames' traces (0 = untraced)
     batch_tid: int  # the batch's trace (0 = no member traced)
     priorities: List[int]
@@ -267,7 +293,9 @@ class RecognizerService:
                  brownout: Optional[BrownoutPolicy] = None, dead_letter_journal=None,
                  shed_stale_after_s: Optional[float] = None, tracer=None,
                  slo_monitor=None, dedup_window: int = 4096,
-                 ingest: Optional[IngestConfig] = None):
+                 ingest: Optional[IngestConfig] = None, cascade: bool = True,
+                 cascade_threshold: Optional[float] = None,
+                 cascade_brownout_notch: float = CASCADE_BROWNOUT_NOTCH):
         if frame_shape is None:
             raise ValueError("frame_shape (H, W) is required (fixed batch shapes)")
         self.pipeline = pipeline
@@ -289,10 +317,24 @@ class RecognizerService:
         self.journal = dead_letter_journal
         self.tracer = tracer
         self.slo = slo_monitor
-        #: the model registry (ROADMAP A.8.5) and the rollout coordinator,
-        #: set by the code that runs them; the exposition reads them
-        self.registry = None
+        #: the model registry, a live registry swap and the rollout
+        #: coordinator, set by the code that runs them; the exposition reads them
+        self._registry = None
+        self.registry_swap = None
         self.rollout = None
+        # the stage-1 gate runs when enabled and the pipeline carries one;
+        # the threshold: the argument, else the gate's, else the default
+        gate = getattr(pipeline, "cascade", None)
+        self._cascade_active = (bool(cascade) and gate is not None
+                                and hasattr(pipeline, "cascade_scores"))
+        if cascade_threshold is None:
+            cascade_threshold = getattr(gate, "threshold", None)
+        self.cascade_threshold = float(DEFAULT_THRESHOLD if cascade_threshold is None
+                                       else cascade_threshold)
+        self.cascade_brownout_notch = float(cascade_brownout_notch)
+        # frames scored and rejected, the rate gauges' totals (serving thread)
+        self._cascade_scored = 0
+        self._cascade_rejected = 0
         self._brownout_level = 0
         self._queue_wait_ewma: Optional[float] = None
         self._brownout_changed_at = 0.0
@@ -372,20 +414,37 @@ class RecognizerService:
         """The state store's ``DurabilityMonitor`` (None without one)."""
         return None if self.state is None else self.state.durability
 
+    @property
+    def registry(self):
+        return self._registry
+
+    @registry.setter
+    def registry(self, registry) -> None:
+        """Attach the manifest; a pipeline that records its installs starts
+        from the versions the manifest serves."""
+        self._registry = registry
+        versions = getattr(self.pipeline, "model_versions", None)
+        if registry is not None and versions is not None:
+            for role, version in registry.stamp().items():
+                if role != "embedder":
+                    versions.setdefault(role, version)
+
     # ---- admission ledger ----
 
     def ledger(self) -> Dict[str, Any]:
-        """``admitted``, ``completed``, ``completed_cached`` (answered from
-        the identity cache), per-reason ``drops_by_reason`` and the
-        ``in_system`` remainder, which is 0 once ``drain()`` returned."""
+        """``admitted``, ``completed``, ``completed_empty`` (the cascade's
+        exits), ``completed_cached`` (answered from the identity cache),
+        per-reason ``drops_by_reason`` and the ``in_system`` remainder,
+        which is 0 once ``drain()`` returned."""
         c = self.metrics.counters()
         drops = {n: c[n] for n in mn.LEDGER_DROP_COUNTERS if c.get(n)}
         admitted = c.get(mn.FRAMES_ADMITTED, 0.0)
         completed = c.get(mn.FRAMES_COMPLETED, 0.0)
+        empty = c.get(mn.FRAMES_COMPLETED_EMPTY, 0.0)
         cached = c.get(mn.FRAMES_COMPLETED_CACHED, 0.0)
-        return {"admitted": admitted, "completed": completed, "completed_cached": cached,
-                "drops_by_reason": drops,
-                "in_system": admitted - completed - cached - sum(drops.values())}
+        return {"admitted": admitted, "completed": completed, "completed_empty": empty,
+                "completed_cached": cached, "drops_by_reason": drops,
+                "in_system": admitted - completed - empty - cached - sum(drops.values())}
 
     def frames_in_system(self) -> float:
         """Admitted frames not finished yet, the admission bound's signal:
@@ -669,6 +728,11 @@ class RecognizerService:
                       "ledger": self.ledger(), "gallery_size": self.pipeline.gallery.size}
             if self.ingest is not None:
                 status["ingest"] = self.ingest.stats()
+            if self._cascade_active:
+                status["cascade"] = {"threshold": self.cascade_threshold,
+                                     "effective_threshold": self._effective_cascade_threshold(),
+                                     "scored": self._cascade_scored,
+                                     "rejected": self._cascade_rejected}
             if self.tracker is not None:
                 status["tracks"] = self.tracker.stats()
             if self.state is not None:
@@ -890,7 +954,7 @@ class RecognizerService:
         accounted = False
         try:
             if count and self.tracker is not None:
-                batch, cached = self._split_cached(batch, stamp)
+                batch, cached = self._split_cached(batch, self._model_stamp(stamp))
                 # the cached frames leave this batch before they settle, so a
                 # crash while they publish settles each frame once
                 metas, count, trace_ids = batch.metas, batch.count, batch.trace_ids
@@ -911,6 +975,31 @@ class RecognizerService:
                     self.batcher.recycle(frames)
                     self.batcher.report_service_time(time.perf_counter() - t0)
                     return
+            stage1_version = None
+            if count and self._cascade_active:
+                keep = self._cascade_keep_mask(frames, count, batch_tid)
+                if keep is not None:
+                    stage1_version = (getattr(self.pipeline, "last_cascade_info", None)
+                                      or {}).get("version")
+                if keep is not None and not keep.all():
+                    batch, rejected = self._split_rejected(batch, keep)
+                    # the rejected frames leave this batch before they
+                    # settle, so a crash while they publish settles each once
+                    metas, count, trace_ids = batch.metas, batch.count, batch.trace_ids
+                    self._complete_empty(rejected, batch_tid)
+                    if not count:
+                        # no survivor: the whole batch exits at stage 1; the
+                        # scores' readback waited for the buffer's copy
+                        self.metrics.incr(mn.CASCADE_BATCH_EXITS)
+                        if batch_tid:
+                            tracer.emit(batch_tid, "dispatch", topic=tracing.BATCH_TOPIC,
+                                        dur=time.perf_counter() - t0, bucket=0, frames=0,
+                                        exit="cascade", brownout=self._brownout_level)
+                        accounted = True
+                        self._mark_completed()
+                        self.batcher.recycle(frames)
+                        self.batcher.report_service_time(time.perf_counter() - t0)
+                        return
             bucket = self._pick_bucket(count)
             if batch_tid and self.ingest is not None:
                 # which staging rung carried the batch (rung >= bucket)
@@ -942,6 +1031,10 @@ class RecognizerService:
             snapshot = getattr(self.pipeline, "last_snapshot", None)
             if snapshot is not None:
                 stamp = int(snapshot.embedder_version)
+            ran = dict(getattr(self.pipeline, "last_model_versions", None) or {})
+            if stage1_version is not None:
+                ran["cascade"] = stage1_version
+            stamp = self._model_stamp(stamp, ran)
             deadline = time.monotonic() + self.resilience.readback_deadline_s
             with self._inflight_cv:
                 self._inflight.append(_Inflight(readback, frames, metas, count,
@@ -1133,14 +1226,156 @@ class RecognizerService:
                                batch.priorities[i], hit))
         if not cached:
             return batch, cached
+        return self._compact(batch, keep), cached
+
+    @staticmethod
+    def _compact(batch, keep):
+        """The batch of the frames at indices ``keep`` (ascending), moved to
+        the front of its staging buffer in place (the fancy-index gather
+        copies them out before the front rows are written)."""
+        frames, metas = batch.frames, batch.metas
         kept = len(keep)
         if kept:
             frames[:kept] = frames[np.asarray(keep, dtype=np.intp)]
-        batch = batch._replace(metas=[metas[i] for i in keep] + [None] * (len(metas) - kept),
-                               count=kept, enqueue_ts=[batch.enqueue_ts[i] for i in keep],
-                               trace_ids=[batch.trace_ids[i] for i in keep],
-                               priorities=[batch.priorities[i] for i in keep])
-        return batch, cached
+        return batch._replace(metas=[metas[i] for i in keep] + [None] * (len(metas) - kept),
+                              count=kept, enqueue_ts=[batch.enqueue_ts[i] for i in keep],
+                              trace_ids=[batch.trace_ids[i] for i in keep],
+                              priorities=[batch.priorities[i] for i in keep])
+
+    # ---- the cascade's stage-1 gate ----
+
+    def _effective_cascade_threshold(self) -> float:
+        """The stage-1 threshold, one notch higher (at most 0.99) from
+        brownout level 1 up, the SLO boost included: rejecting borderline
+        frames at stage 1 is the cheapest shed."""
+        thr = self.cascade_threshold
+        if (self.brownout_policy is not None and self.cascade_brownout_notch
+                and self._effective_brownout_level() >= 1):
+            thr = min(0.99, thr + self.cascade_brownout_notch)
+        return thr
+
+    def _cascade_keep_mask(self, frames, count: int, batch_tid: int) -> Optional[np.ndarray]:
+        """One stage-1 pass over the batch at its rung: the keep mask of the
+        first ``count`` frames, or None when the pass failed (the batch
+        fails open to the full step, ``cascade_errors``). The ``[B]``
+        readback is the decision point; its host seconds, readback
+        included, go to the ``cascade_score`` window. The pass copies the
+        staging buffer to the card on the serving stream, so once the
+        readback returned the host may write the buffer."""
+        thr = self._effective_cascade_threshold()
+        t0 = time.perf_counter()
+        bucket = self._pick_bucket(count)
+        try:
+            scores = self.pipeline.cascade_scores(frames[:bucket])
+            if isinstance(scores, torch.Tensor):
+                scores = scores.cpu()  # the designed decision readback
+        except Exception:  # noqa: BLE001 - fail open: the full step serves the batch
+            log.exception("cascade stage-1 scoring failed; serving the full batch")
+            self.metrics.incr(mn.CASCADE_ERRORS)
+            return None
+        dur = time.perf_counter() - t0
+        self.metrics.observe(mn.CASCADE_SCORE, dur)
+        info = getattr(self.pipeline, "last_cascade_info", None) or {}
+        if self._warmed and info.get("cache_hit") is False:
+            self._note_recompile(bucket, count, "cascade")
+        keep = np.asarray(scores)[:count] >= thr
+        if self._faults is not None:
+            keep = self._faults.on_cascade(keep)
+        rejected = count - int(keep.sum())
+        self._cascade_scored += count
+        self._cascade_rejected += rejected
+        self.metrics.incr(mn.CASCADE_FRAMES_SCORED, count)
+        reject_rate = self._cascade_rejected / max(1, self._cascade_scored)
+        self.metrics.set_gauge(mn.CASCADE_REJECT_RATE, reject_rate)
+        self.metrics.set_gauge(mn.CASCADE_PASS_RATE, 1.0 - reject_rate)
+        self.metrics.set_gauge(mn.CASCADE_THRESHOLD, thr)
+        if batch_tid:
+            self.tracer.emit(batch_tid, "cascade", topic=tracing.BATCH_TOPIC, dur=dur,
+                             frames=count, rejected=rejected, threshold=round(thr, 4))
+        return keep
+
+    def _split_rejected(self, batch, keep: np.ndarray):
+        """(the batch of the survivors, compacted, and the rejected rows
+        ``(meta, enqueue_ts, trace_id, priority)``)."""
+        rejected = [(batch.metas[i], batch.enqueue_ts[i], batch.trace_ids[i],
+                     batch.priorities[i]) for i in np.flatnonzero(~keep)]
+        return self._compact(batch, [int(i) for i in np.flatnonzero(keep)]), rejected
+
+    def _complete_empty(self, rejected, batch_tid: int = 0) -> None:
+        """Settle stage-1 rejects as ``completed_empty``: each publishes an
+        empty result (``exit: "cascade"``) and is a miss for its stream's
+        tracks; a crash mid-run settles the rest as crashed drops."""
+        if self.tracker is not None:
+            for meta, _ts, _tid, _pri in rejected:
+                key = self._track_stream_key(meta)
+                if key is not None:
+                    try:
+                        self.tracker.note_miss(key)
+                    except Exception:  # noqa: BLE001 - the cache only: fail open
+                        log.exception("tracker note_miss failed")
+                        self.metrics.incr(mn.TRACK_ERRORS)
+        published = 0
+        try:
+            for meta, _ts, _tid, _pri in rejected:
+                self.connector.publish(RESULT_TOPIC, {"meta": meta, "faces": [],
+                                                      "exit": "cascade"})
+                published += 1
+        finally:
+            self.metrics.incr(mn.FRAMES_COMPLETED_EMPTY, published)
+            self._trace_settle([r[2] for r in rejected[:published]],
+                               tracing.OUTCOME_COMPLETED_EMPTY, "cascade.reject",
+                               batch=batch_tid)
+            if published < len(rejected):
+                self.metrics.incr(mn.FRAMES_DROPPED_CRASHED, len(rejected) - published)
+                self._trace_settle([r[2] for r in rejected[published:]],
+                                   mn.FRAMES_DROPPED_CRASHED, "cascade.publish_crashed",
+                                   batch=batch_tid)
+            now = time.monotonic()
+            for _meta, ts, _tid, pri in rejected[:published]:
+                if ts is not None:
+                    self._observe_e2e(ts, pri, now)
+
+    # ---- model stamps ----
+
+    def _model_stamp(self, gallery_ver, ran: Optional[Dict[str, int]] = None):
+        """What results and the identity cache are stamped with: the
+        embedder version alone without a registry, else the sorted
+        ``(role, version)`` pairs of every role, the embedder's from
+        ``gallery_ver`` and those in ``ran`` (what the batch's passes
+        recorded running) over the manifest's."""
+        reg = self.registry
+        if reg is None:
+            return gallery_ver
+        stamp = reg.stamp()
+        for role, version in (ran or {}).items():
+            if role in stamp and version is not None:
+                stamp[role] = int(version)
+        if gallery_ver is not None:
+            stamp["embedder"] = int(gallery_ver)
+        return tuple(sorted(stamp.items()))
+
+    @staticmethod
+    def _stamp_fields(stamp):
+        """(``embedder_version``, the ``registry`` dict or None) of a stamp."""
+        if isinstance(stamp, tuple):
+            roles = {str(k): int(v) for k, v in stamp}
+            return roles.get("embedder"), roles
+        return stamp, None
+
+    def flush_model_caches(self, stamp=None, reason: str = "registry") -> int:
+        """A registry cutover's eager cache flush (its ``flush_fn``): every
+        identity-cache verdict came from the old model set. Returns the
+        tracks flushed."""
+        del stamp  # the flush is total; the stamp is provenance only
+        flushed = 0
+        if self.tracker is not None:
+            try:
+                flushed = self.tracker.flush_all(reason=reason)
+            except Exception:  # noqa: BLE001 - the cache only: fail open
+                log.exception("tracker flush on a registry cutover failed")
+                self.metrics.incr(mn.TRACK_ERRORS)
+        self.metrics.incr(mn.REGISTRY_CACHE_FLUSHES)
+        return flushed
 
     def _complete_cached(self, cached, batch_tid: int = 0) -> None:
         """Publish each cache hit's identities (``exit: track_cache``)."""
@@ -1149,8 +1384,11 @@ class RecognizerService:
             for meta, _ts, _tid, _pri, hit in cached:
                 payload = {"meta": meta, "faces": hit["faces"], "exit": "track_cache",
                            "track_id": hit["track_id"]}
-                if hit.get("embedder_version") is not None:
-                    payload["embedder_version"] = hit["embedder_version"]
+                emb_ver, roles = self._stamp_fields(hit.get("embedder_version"))
+                if emb_ver is not None:
+                    payload["embedder_version"] = emb_ver
+                if roles is not None:
+                    payload["registry"] = roles
                 self.connector.publish(RESULT_TOPIC, payload)
                 published += 1
                 self.metrics.incr(mn.FACES_FOUND, len(hit["faces"]))
@@ -1294,12 +1532,15 @@ class RecognizerService:
         self.batcher.recycle(entry.frames)
 
     def _publish(self, packed: np.ndarray, frames, metas, count: int,
-                 stamp: Optional[int] = None, trace_ids=(), batch_tid: int = 0) -> None:
+                 stamp=None, trace_ids=(), batch_tid: int = 0) -> None:
         """One result message per real frame: ``{"meta", "faces": [{"box"
         (x0, y0, x1, y1), "detection_score", "label", "name",
-        "similarity"}], "embedder_version"}``, the reference's schema."""
+        "similarity"}], "embedder_version", "registry"}``, the reference's
+        schema (``registry`` with a registry attached)."""
         result = unpack_result(packed, self.pipeline.top_k)
         rollout = self.rollout
+        registry_swap = self.registry_swap
+        emb_ver, roles = self._stamp_fields(stamp)
         published = 0
         try:
             for i in range(count):
@@ -1323,8 +1564,10 @@ class RecognizerService:
                     })
                 self._maybe_collect_enrolment(frames[i], faces)
                 payload = {"meta": metas[i], "faces": faces}
-                if stamp is not None:
-                    payload["embedder_version"] = stamp
+                if emb_ver is not None:
+                    payload["embedder_version"] = emb_ver
+                if roles is not None:
+                    payload["registry"] = roles
                 self.connector.publish(RESULT_TOPIC, payload)
                 published += 1
                 self.metrics.incr(mn.FACES_FOUND, len(faces))
@@ -1343,6 +1586,14 @@ class RecognizerService:
                     except Exception:  # noqa: BLE001 - costs a counter, never the publish
                         log.exception("rollout live-parity offer failed")
                         self.metrics.incr(mn.ROLLOUT_OBSERVE_ERRORS)
+                if registry_swap is not None:
+                    # detection parity on whole frames (face-free ones too)
+                    # with the serving detector's boxes: observation only
+                    try:
+                        registry_swap.offer_live(frames[i], faces)
+                    except Exception:  # noqa: BLE001 - costs a counter, never the publish
+                        log.exception("registry live-parity offer failed")
+                        self.metrics.incr(mn.REGISTRY_OBSERVE_ERRORS)
         finally:
             # settled here, whatever exits; the spans mirror the split
             self.metrics.incr(mn.FRAMES_COMPLETED, published)

@@ -32,8 +32,9 @@ Readers take the last verdict dict by reference. ``clock`` is injectable.
 
 The objective constructors for rollout, registry, replication and link
 health take duck-typed objects (``rollout_parity_objective`` reads a
-``runtime.rollout.RolloutCoordinator``); the registry's and
-replication's subsystems are ROADMAP A.8.5 and A.8.6.
+``runtime.rollout.RolloutCoordinator``, ``registry_parity_objective`` a
+``runtime.registry.RegistrySwapCoordinator``); replication's subsystems
+are ROADMAP A.8.6.
 """
 
 from __future__ import annotations

@@ -53,8 +53,15 @@ past the newest checkpoint is completed by ``recover`` from the durable
 stage file (``runtime.rollout.load_stage``), which fails closed when the
 stage does not cover the promised rows.
 
-Not ported: registry swaps (``perform_registry_cutover`` raises naming
-ROADMAP A.8.5).
+**A registry swap** (``perform_registry_cutover``, driven by
+``runtime.registry.RegistrySwapCoordinator`` or the CLI's
+``--registry-swap``): under the enroll lock the ``registry_cutover`` fence
+record (the post-swap stamp of every role, the candidate's params path and
+sha256) is appended with a strict fsync, the manifest installs the new
+version, and ``install_fn`` publishes the weights in memory. A fence past
+the newest checkpoint whose manifest install never ran is completed by
+``recover`` when the staged params verify, and abandoned (a
+``registry_abort`` tombstone, the version retired) when they do not.
 """
 
 from __future__ import annotations
@@ -88,9 +95,6 @@ QUARANTINE_SUFFIX = ".corrupt"
 #: ``wal_seq``; a mismatched or corrupt sidecar means a retrain
 SIDECAR_NAME = "quantizer.ivf"
 
-#: the ROADMAP item of the reference's path that is not ported yet
-REGISTRY_ITEM = "ROADMAP A.8.5 (model registry swaps)"
-
 log = logging.getLogger(__name__)
 
 
@@ -103,11 +107,6 @@ class CheckpointVersionError(ValueError):
 class EmbedderVersionMismatchError(ValueError):
     """An enrolment embedded by one embedder version met a gallery serving
     another; refused before any WAL sequence is burned."""
-
-
-class RolloutNotPortedError(NotImplementedError):
-    """The state needs a registry swap, which the port does not have yet
-    (the message names the ROADMAP item)."""
 
 
 def _encode_checkpoint(header: Dict[str, Any], payload: bytes) -> bytes:
@@ -506,6 +505,24 @@ class EnrollmentWAL(RotatingJournal):
         if self.metrics is not None:
             self.metrics.incr(mn.WAL_CUTOVER_RECORDS)
 
+    def append_registry_cutover(self, seq: int, role: str, from_version: int,
+                                to_version: int, registry: Dict[str, int], config: Any = None,
+                                params_path: Optional[str] = None,
+                                params_sha256: Optional[str] = None) -> None:
+        """Append a registry swap's fence record (strict: the manifest and
+        the weights change only after it is durable), in the reference's
+        layout: the post-swap stamp of every role and the candidate's
+        params path and sha256, which recovery verifies."""
+        self.append_line(json.dumps({
+            "kind": "registry_cutover", "seq": int(seq), "role": str(role),
+            "from_version": int(from_version), "to_version": int(to_version),
+            "registry": {str(k): int(v) for k, v in registry.items()},
+            "config": config, "params_path": params_path, "params_sha256": params_sha256,
+            "ts": time.time(),
+        }), strict=True)
+        if self.metrics is not None:
+            self.metrics.incr(mn.WAL_REGISTRY_RECORDS)
+
     def append_registry_abort(self, fence_seq: int, role: str, to_version: int) -> None:
         """Tombstone a ``registry_cutover`` fence that recovery abandoned
         (strict)."""
@@ -698,6 +715,16 @@ class StateLifecycle:
             return None
         stamp = self.registry.stamp()
         stamp.pop("embedder", None)
+        return stamp
+
+    def registry_stamp(self) -> Optional[Dict[str, int]]:
+        """Every role's version, the embedder's from the live gallery; None
+        without a registry."""
+        if self.registry is None:
+            return None
+        gallery, _names = self._targets()
+        stamp = self.registry.stamp()
+        stamp["embedder"] = self._gallery_version(gallery)
         return stamp
 
     # ---- recovery ----
@@ -1166,8 +1193,54 @@ class StateLifecycle:
                              to_version=int(to_version), rows=int(size), seq=seq)
         return seq
 
-    def perform_registry_cutover(self, role: str, to_version: int, **_kwargs) -> int:
-        raise RolloutNotPortedError(f"registry swaps are not ported yet: {REGISTRY_ITEM}")
+    def perform_registry_cutover(self, role: str, to_version: int, *, config: Any = None,
+                                 params_path: Optional[str] = None,
+                                 params_sha256: Optional[str] = None,
+                                 install_fn: Optional[Callable[[], None]] = None) -> int:
+        """A detector or cascade swap, under the enroll lock (no enrolment
+        and no checkpoint snapshot falls between the fence and the swap):
+        the ``registry_cutover`` fence record (strict fsync), the manifest's
+        ``install``, then ``install_fn()``, which publishes the weights.
+        Returns the fence's seq; the caller forces a checkpoint next. The
+        ``cutover`` fault boundary dies on either side of the record."""
+        if self.registry is None:
+            raise RuntimeError("perform_registry_cutover needs an attached ModelRegistry "
+                               "(attach_registry)")
+        t0 = time.monotonic()
+        with self._enroll_lock:
+            from_version = self.registry.version(role)
+            if int(to_version) <= from_version:
+                raise ValueError(f"registry versions are monotonic: {role} serves "
+                                 f"v{from_version}, refusing cutover to v{to_version}")
+            stamp_after = self.registry.stamp()
+            stamp_after[role] = int(to_version)
+            if self._service is not None or self._gallery is not None:
+                gallery, _names = self._targets()
+                stamp_after["embedder"] = self._gallery_version(gallery)
+            fault = self._faults.on_cutover() if self._faults is not None else None
+            if fault == "crash_before_record":
+                raise InjectedCrashError("crash before the registry_cutover record: the "
+                                         "candidate params are durable, the old version "
+                                         "stays")
+            seq = self._wal_seq = self._wal_seq + 1
+            self.wal.append_registry_cutover(seq, role, from_version, int(to_version),
+                                             registry=stamp_after, config=config,
+                                             params_path=params_path,
+                                             params_sha256=params_sha256)
+            if fault == "crash_after_record":
+                raise InjectedCrashError("crash after the registry_cutover record, before "
+                                         "the manifest: recovery completes or abandons it")
+            self.registry.install(role, int(to_version), config=config,
+                                  params_path=params_path, params_sha256=params_sha256)
+            if install_fn is not None:
+                install_fn()
+        if self.metrics is not None:
+            self.metrics.incr(mn.REGISTRY_SWAPS)
+        if self.tracer is not None:
+            self.tracer.emit(self.tracer.new_trace(), "registry_cutover", topic=LIFECYCLE_TOPIC,
+                             t0=t0, dur=time.monotonic() - t0, role=str(role),
+                             from_version=from_version, to_version=int(to_version), seq=seq)
+        return seq
 
     def adopt_wal_seq(self) -> int:
         """Seed the sequence from the existing WAL without a recovery."""

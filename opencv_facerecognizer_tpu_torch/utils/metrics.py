@@ -27,6 +27,9 @@ FRAMES_ADMITTED = "frames_admitted"
 FRAMES_MALFORMED = "frames_malformed"
 FRAMES_PROCESSED = "frames_processed"
 FRAMES_COMPLETED = "frames_completed"
+#: a frame the cascade's stage 1 scored face-free: published with no faces,
+#: never dispatched to the full step (a completion, not a drop)
+FRAMES_COMPLETED_EMPTY = "frames_completed_empty"
 FRAMES_COMPLETED_CACHED = "frames_completed_cached"
 FRAMES_DROPPED = "frames_dropped"
 FRAMES_DROPPED_CRASHED = "frames_dropped_crashed"
@@ -63,6 +66,18 @@ DECODE_LATENCY = "decode_latency"
 DECODE_QUEUE_DEPTH = "decode_queue_depth"
 DECODE_FRAMES = "decode_frames"
 DECODE_ERRORS = "decode_errors"
+# the cascade's stage-1 gate (models.cascade, runtime.recognizer): frames
+# scored, whole batches that exited at stage 1, failed stage-1 passes (the
+# batch fails open to the full step); CASCADE_SCORE is a window (host s of
+# one pass with its readback); the rates and the effective threshold are
+# gauges
+CASCADE_FRAMES_SCORED = "cascade_frames_scored"
+CASCADE_BATCH_EXITS = "cascade_batch_exits"
+CASCADE_ERRORS = "cascade_errors"
+CASCADE_SCORE = "cascade_score"
+CASCADE_REJECT_RATE = "cascade_reject_rate"
+CASCADE_PASS_RATE = "cascade_pass_rate"
+CASCADE_THRESHOLD = "cascade_threshold"
 # counters: dispatch and readback
 BATCHES_DISPATCHED = "batches_dispatched"
 BATCHES_BUCKETED = "batches_bucketed"
@@ -179,10 +194,25 @@ ROLLOUT_VERSION_SKIPPED_ROWS = "rollout_version_skipped_rows"
 ROLLOUT_REPLICA_AWAITING = "rollout_replica_awaiting"
 ROLLOUT_REPLICA_REANCHORS = "rollout_replica_reanchors"
 ROLLOUT_OBSERVE_ERRORS = "rollout_observe_errors"
-# the model registry's manifest (runtime.registry); a gauge per role
+# the model registry (runtime.registry): a version gauge per role; the
+# swap's phase (runtime.registry.PHASE_CODES) and its detection-parity
+# window are gauges; swaps done, refused by the parity gate, completed or
+# abandoned by recovery, rolled back, the gate retrains riding a detector
+# swap, the cache flushes at a cutover, failed live offers; the WAL's
+# registry fences and their abandon tombstones
 MODEL_VERSION_PREFIX = "model_version_"
+REGISTRY_PHASE = "registry_phase"
+REGISTRY_PARITY_AGREEMENT = "registry_parity_agreement"
+REGISTRY_PARITY_SAMPLES = "registry_parity_samples"
+REGISTRY_SWAPS = "registry_swaps"
+REGISTRY_SWAPS_BLOCKED = "registry_swaps_blocked"
 REGISTRY_SWAPS_COMPLETED_RECOVERY = "registry_swaps_completed_recovery"
 REGISTRY_SWAPS_ABANDONED_RECOVERY = "registry_swaps_abandoned_recovery"
+REGISTRY_AUTO_ROLLBACKS = "registry_auto_rollbacks"
+REGISTRY_GATE_RETRAINS = "registry_gate_retrains"
+REGISTRY_CACHE_FLUSHES = "registry_cache_flushes"
+REGISTRY_OBSERVE_ERRORS = "registry_observe_errors"
+WAL_REGISTRY_RECORDS = "wal_registry_records"
 # the writer lease (runtime.replication)
 REPLICATION_LEASE_ACQUIRED = "replication_lease_acquired"
 REPLICATION_LEASE_CONFLICTS = "replication_lease_conflicts"
@@ -234,8 +264,9 @@ ROUTER_REJECTED_PREFIX = "router_rejected_"
 #: the admission ledger: once the service is idle, ``frames_admitted ==
 #: sum(LEDGER_COMPLETION_COUNTERS) + sum(LEDGER_DROP_COUNTERS)``, each
 #: admitted frame in exactly one of them. The reference's tables, in its
-#: order, less the cascade's ``frames_completed_empty`` (ROADMAP A.8.5)
-LEDGER_COMPLETION_COUNTERS = (FRAMES_COMPLETED, FRAMES_COMPLETED_CACHED)
+#: order
+LEDGER_COMPLETION_COUNTERS = (FRAMES_COMPLETED, FRAMES_COMPLETED_EMPTY,
+                              FRAMES_COMPLETED_CACHED)
 LEDGER_DROP_COUNTERS = (FRAMES_MALFORMED, FRAMES_DROPPED_DECODE, BATCHER_DROPPED_MALFORMED,
                         BATCHER_DROPPED_OVERFLOW, BATCHER_DROPPED_STALE,
                         BATCHER_DROPPED_CLOSED, FRAMES_DROPPED_BROWNOUT,

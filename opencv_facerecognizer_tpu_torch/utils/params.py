@@ -11,9 +11,14 @@ module. Layout conversions:
 - Dense kernel ``[in, out]`` -> ``[out, in]``;
 - GroupNorm scale and bias as they are.
 
-``detector_params_to_flax`` and ``embedder_params_to_flax`` are the
-inverses: a port module's weights as the flax tree (numpy float32), which
-the checkpoint writers store in the JAX package's layout.
+``cascade_params_from_flax`` loads the stage-1 gate (``Conv_i`` /
+``GroupNorm_i`` per block, the 1x1 head as the last ``Conv_*`` with its
+bias).
+
+``detector_params_to_flax``, ``embedder_params_to_flax`` and
+``cascade_params_to_flax`` are the inverses: a port module's weights as
+the flax tree (numpy float32), which the checkpoint writers store in the
+JAX package's layout.
 
 ``ivf_data_from_numpy`` takes the reference's ``IVFDeviceData`` (its
 arrays read back as numpy) to the port's, on a device.
@@ -87,6 +92,21 @@ def embedder_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch
     return _load(net, state)
 
 
+def cascade_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch.nn.Module:
+    """Load flax ``CascadeNet`` params into a port ``CascadeNet``."""
+    nb = len(net.convs)
+    state: Dict[str, torch.Tensor] = {}
+    for i in range(nb):
+        state[f"convs.{i}.weight"] = _conv(params[f"Conv_{i}"])
+        gn = params[f"GroupNorm_{i}"]
+        state[f"norms.{i}.weight"] = _t(gn["scale"])
+        state[f"norms.{i}.bias"] = _t(gn["bias"])
+    head = params[f"Conv_{nb}"]
+    state["head.weight"] = _conv(head)
+    state["head.bias"] = _t(head["bias"])
+    return _load(net, state)
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy().copy()
 
@@ -108,6 +128,18 @@ def detector_params_to_flax(net: torch.nn.Module) -> Dict[str, Any]:
     for j, name in enumerate(("head", "heatmap", "size", "offset")):
         conv = getattr(net, name)
         tree[f"Conv_{nb + j}"] = {"kernel": _hwio(conv.weight), "bias": _np(conv.bias)}
+    return tree
+
+
+def cascade_params_to_flax(net: torch.nn.Module) -> Dict[str, Any]:
+    """A port ``CascadeNet``'s weights as the flax ``CascadeNet`` tree."""
+    nb = len(net.convs)
+    tree: Dict[str, Any] = {}
+    for i in range(nb):
+        tree[f"Conv_{i}"] = {"kernel": _hwio(net.convs[i].weight)}
+        tree[f"GroupNorm_{i}"] = {"scale": _np(net.norms[i].weight),
+                                  "bias": _np(net.norms[i].bias)}
+    tree[f"Conv_{nb}"] = {"kernel": _hwio(net.head.weight), "bias": _np(net.head.bias)}
     return tree
 
 

@@ -60,7 +60,7 @@ SETTLE_STAGE = "settle"
 #: ``settle`` outcome of a frame that published a result; any other
 #: outcome is the ledger counter the frame was counted under
 OUTCOME_COMPLETED = "completed"
-#: the cascade's face-free early exit (ROADMAP A.8.5): a completion
+#: the cascade's face-free early exit (``runtime.recognizer``): a completion
 OUTCOME_COMPLETED_EMPTY = "completed_empty"
 #: a frame answered from the identity cache: a completion
 OUTCOME_COMPLETED_CACHED = "completed_cached"

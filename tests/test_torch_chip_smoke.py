@@ -101,3 +101,62 @@ def test_htod_sums_the_profiles_host_to_device_copies():
             Row("Memcpy DtoH (Device -> Pinned)", 4, 100.0), Row("sepblock_kernel", 24, 5.0),
             Row("Memcpy HtoD (Pinned -> Device)", 1, 200.0)]
     assert chip_smoke._htod(rows) == {"Memcpy HtoD (Pinned -> Device)": (5, 1.0)}
+
+
+# ---------- phase 13: its host-side helpers ----------
+
+
+def test_threshold_leaves_room_on_both_sides_or_refuses():
+    scores = np.linspace(0.0, 1.0, 201)
+    thr = chip_smoke.choose_threshold(scores, 26, 70)
+    m = chip_smoke.CASC_MARGIN
+    assert (scores >= thr + m).sum() >= 26 and (scores < thr - m).sum() >= 70
+    with pytest.raises(AssertionError, match="no threshold"):
+        chip_smoke.choose_threshold(np.full(200, 0.5), 26, 70)
+
+
+def test_cascade_batches_draw_their_survivors_without_repeats():
+    scores = np.random.default_rng(2).random(300)
+    pool = np.arange(300)[:, None, None] * np.ones((1, 2, 2))
+    thr = chip_smoke.choose_threshold(scores, 26, 70)
+    batches = chip_smoke.cascade_batches(pool, scores, thr, seed=5)
+    seen = np.concatenate([b[0][:, 0, 0] for b in batches]).astype(int)
+    assert len(set(seen)) == len(seen) == chip_smoke.BATCH * len(chip_smoke.CASC_SURVIVORS)
+    for n, (frames, keep) in zip(chip_smoke.CASC_SURVIVORS, batches):
+        idx = frames[:, 0, 0].astype(int)
+        assert keep.sum() == n and np.array_equal(keep, scores[idx] >= thr)
+        assert (np.abs(scores[idx] - thr) >= chip_smoke.CASC_MARGIN).all()
+
+
+def test_face_rows_read_a_result_as_the_service_publishes_it():
+    from opencv_facerecognizer_tpu_torch.runtime.connector import FakeConnector
+    from opencv_facerecognizer_tpu_torch.runtime.fakes import InstantPipeline
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
+        FRAME_TOPIC, RESULT_TOPIC, RecognizerService)
+
+    pipe = InstantPipeline((16, 16), faces_per_frame=2, max_faces=3)
+    conn = FakeConnector()
+    service = RecognizerService(pipe, conn, batch_size=2, frame_shape=(16, 16),
+                                readback_worker=False, bucket_sizes=(2,))
+    service._running = True
+    for j in range(2):
+        conn.inject(FRAME_TOPIC, {"frame": np.zeros((16, 16), np.float32), "meta": {"j": j}})
+    service._serve_one(service.batcher.get_batch(block=True))
+    service._drain(force=True)
+    packed = pipe.recognize_batch_packed(np.zeros((2, 16, 16), np.float32)).result()
+    result = unpack_result(packed, 1)
+    for msg in conn.messages(RESULT_TOPIC):
+        assert chip_smoke.published_rows(msg) == chip_smoke.face_rows(
+            result, msg["meta"]["j"], service.similarity_threshold)
+        assert len(msg["faces"]) == 2
+
+
+def test_perturbed_weights_are_seeded_and_small():
+    import torch
+
+    params = {"w": torch.randn(64, generator=torch.Generator().manual_seed(0)),
+              "b": torch.tensor([1.5])}
+    a, b = chip_smoke.perturbed(params, 3, 1e-3), chip_smoke.perturbed(params, 3, 1e-3)
+    assert all(torch.equal(a[k], b[k]) for k in params)
+    assert not torch.equal(a["w"], chip_smoke.perturbed(params, 4, 1e-3)["w"])
+    assert float((a["w"] - params["w"]).abs().max()) < 0.01 * float(params["w"].std())

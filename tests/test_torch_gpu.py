@@ -507,7 +507,7 @@ def test_nms_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def _serving_pipeline(cuda, rows=1 << 17, cuda_graphs=True, fused=True, gallery=None,
-                      seed=7):
+                      seed=7, cascade=None):
     """The serving detector and embedder (seeded; a detector that fires on
     noise) over a bf16 gallery at kernel A's capacity."""
     from opencv_facerecognizer_tpu_torch.models.detector import CNNFaceDetector
@@ -527,7 +527,7 @@ def _serving_pipeline(cuda, rows=1 << 17, cuda_graphs=True, fused=True, gallery=
         filled = rows - 1024  # room for a batch's faces (up to 8 x 16)
         gallery.add(_normed(rng, (filled, 256)), np.arange(filled, dtype=np.int32))
     return RecognitionPipeline(det, net, gallery, fused_embedder=fused, device=cuda,
-                               cuda_graphs=cuda_graphs)
+                               cuda_graphs=cuda_graphs, cascade=cascade)
 
 
 def _frames(seed, n=8):
@@ -791,3 +791,67 @@ def test_cutover_under_replays(cuda):
     assert pipe.recaptures == recaptures + 1
     stamps = [m["embedder_version"] for m in conn.messages("ocvfacerec/results")]
     assert stamps == [1] * 8 + [2] * 8
+
+
+def _gate(cuda, seed=13, features=(8, 16)):
+    from opencv_facerecognizer_tpu_torch.models.cascade import FaceGate
+
+    return FaceGate(features=features, device=cuda,
+                    generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.gpu
+def test_stage1_graph_equals_eager_and_installs_in_place(cuda):
+    """The captured stage-1 pass gives the eager pass's bytes per rung and
+    dtype; a same-architecture install reaches the next replay with no new
+    capture, another architecture captures again."""
+    pipe = _serving_pipeline(cuda, cascade=_gate(cuda))
+    eager = _serving_pipeline(cuda, cuda_graphs=False, gallery=pipe.gallery,
+                              cascade=pipe.cascade)
+    for n, dtype in ((8, np.uint8), (8, np.float32), (32, np.uint8)):
+        frames = _frames(n, n=n).astype(dtype)
+        got = pipe.cascade_scores(frames).clone()
+        assert torch.equal(got, eager.cascade_scores(frames)), n
+    assert pipe.cascade_captures == 3
+    other = _gate(cuda, seed=14)
+    pipe.install_cascade(other, version=2)
+    eager.install_cascade(other)
+    frames = _frames(3)
+    assert torch.equal(pipe.cascade_scores(frames), eager.cascade_scores(frames))
+    assert pipe.cascade_captures == 3 and pipe.last_cascade_info["version"] == 2
+    pipe.install_cascade(_gate(cuda, features=(8, 8)))
+    pipe.cascade_scores(frames)
+    assert pipe.cascade_captures == 4
+
+
+@pytest.mark.gpu
+def test_detector_install_under_replays_never_mixes(cuda):
+    """Steps queued back to back on the serving thread while another thread
+    installs new detector weights: every step's output equals the all-old
+    or the all-new eager step, and the version it recorded says which."""
+    import threading
+
+    pipe = _serving_pipeline(cuda)
+    frames = _frames(5)
+    old = {k: v.clone() for k, v in pipe.detector.params.items()}
+    new = {k: v * 1.01 for k, v in old.items()}
+    eager = _serving_pipeline(cuda, cuda_graphs=False, gallery=pipe.gallery)
+    want = {}
+    for version, params in ((1, old), (2, new)):
+        eager.install_detector_params(params)
+        want[version] = eager.recognize_batch_packed(frames).clone()
+    assert not torch.equal(want[1], want[2])
+    pipe.install_detector_params(old, version=1)
+    pipe.recognize_batch_packed(frames)
+    outs = []
+    installer = threading.Thread(target=lambda: pipe.install_detector_params(new, version=2))
+    for i in range(40):
+        if i == 5:
+            installer.start()
+        out = pipe.recognize_batch_packed(frames)
+        outs.append((pipe.last_model_versions["detector"], out.clone()))
+    installer.join(timeout=60)
+    torch.cuda.synchronize()
+    assert {v for v, _o in outs} <= {1, 2}
+    for version, out in outs:
+        assert torch.equal(out, want[version]), version

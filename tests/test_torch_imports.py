@@ -43,6 +43,7 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.runtime.tracker",
                 "opencv_facerecognizer_tpu_torch.apps.recognize",
                 "opencv_facerecognizer_tpu_torch.utils.histogram",
+                "opencv_facerecognizer_tpu_torch.models.cascade",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
                 *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES):
         assert mod in mods
@@ -82,6 +83,10 @@ OVERLOAD_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.admission",
 #: the ingest and embedder-rollout slice's modules
 INGEST_ROLLOUT_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.ingest",
                           "opencv_facerecognizer_tpu_torch.runtime.rollout")
+
+#: the cascade and registry slice's modules
+CASCADE_REGISTRY_MODULES = ("opencv_facerecognizer_tpu_torch.models.cascade",
+                            "opencv_facerecognizer_tpu_torch.runtime.registry")
 
 
 def _imported_top_names(path):
@@ -183,6 +188,16 @@ def test_state_dir_cli_without_a_card_raises_and_releases_the_lease(tmp_path, mo
 def test_overload_module_imports_only_the_port(mod):
     """The host-only modules of the overload and observability slice keep
     their own copies: no JAX, no flax, nothing of the JAX package."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()
+
+
+@pytest.mark.parametrize("mod", CASCADE_REGISTRY_MODULES)
+def test_cascade_registry_module_imports_only_the_port(mod):
+    """The stage-1 gate and the registry's swaps keep their own copies: no
+    JAX, no flax, nothing of the JAX package."""
     path = os.path.join(REPO, *mod.split(".")) + ".py"
     names = set(_imported_top_names(path))
     assert not names & FORBIDDEN, names & FORBIDDEN

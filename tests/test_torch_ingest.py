@@ -99,9 +99,7 @@ def _settled(service) -> bool:
 
 
 def _ledger(service):
-    led = dict(service.ledger())
-    led.pop("completed_empty", None)  # the cascade's bucket (ROADMAP A.8.5)
-    return led
+    return dict(service.ledger())
 
 
 def _strip(records):

@@ -214,9 +214,7 @@ def _serve_all(service, clock, flush: bool = True):
 
 
 def _ledger(service):
-    led = dict(service.ledger())
-    led.pop("completed_empty", None)  # the cascade's bucket (ROADMAP A.8.5)
-    return led
+    return dict(service.ledger())
 
 
 def _statuses(conn, topic):

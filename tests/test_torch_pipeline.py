@@ -222,8 +222,9 @@ def test_service_answers_every_frame_like_jax(params):
             np.testing.assert_allclose(face["box"], e["box"], atol=BOX_ATOL)
             assert (face["label"], face["name"]) == (e["label"], e["name"])
     ledger = service.ledger()
-    assert ledger == {"admitted": 6.0, "completed": 5.0, "completed_cached": 0.0,
-                      "drops_by_reason": {"frames_malformed": 1.0}, "in_system": 0.0}
+    assert ledger == {"admitted": 6.0, "completed": 5.0, "completed_empty": 0.0,
+                      "completed_cached": 0.0, "drops_by_reason": {"frames_malformed": 1.0},
+                      "in_system": 0.0}
 
 
 class _StubPipeline:
@@ -273,8 +274,8 @@ def test_service_ledger_under_concurrent_producers():
     metas = [r["meta"] for r in conn.messages(RESULT_TOPIC)]
     assert sorted(metas) == sorted((t, i) for t in range(8) for i in range(50))
     assert service.ledger() == {"admitted": 400.0, "completed": 400.0,
-                                "completed_cached": 0.0, "drops_by_reason": {},
-                                "in_system": 0.0}
+                                "completed_empty": 0.0, "completed_cached": 0.0,
+                                "drops_by_reason": {}, "in_system": 0.0}
 
 
 def test_frame_wire_roundtrip():

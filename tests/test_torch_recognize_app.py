@@ -766,7 +766,7 @@ def test_overload_flag_is_served_with_the_reference_default(flag):
 
 def test_refused_keeps_only_the_items_still_to_come():
     items = {item.split(" (")[0] for _f, _v, item in port_app.REFUSED}
-    assert items == {"ROADMAP A.8.5", "ROADMAP A.8.6", "ROADMAP A.11"}
+    assert items == {"ROADMAP A.8.6", "ROADMAP A.11"}
     assert len(OVERLOAD_OBSERVE_FLAGS) == 21 and len(set(OVERLOAD_OBSERVE_FLAGS)) == 21
 
 
@@ -944,3 +944,182 @@ def test_pending_cutover_to_the_declared_version_recovers_and_serves_at_it(
     # last: the JAX CLI keeps its writer lease when it exits here in-process
     with pytest.raises(SystemExit, match="refusing to serve mixed spaces"):
         main(argv + ["--embedder-version", "3"])
+
+
+# ---------- the cascade and the registry (ROADMAP A.8.5) ----------
+
+CASCADE_REGISTRY_FLAGS = ["--cascade", "--cascade-threshold", "--no-cascade",
+                          "--registry-swap", "--detector-version", "--cascade-version"]
+
+
+@pytest.mark.parametrize("flag", CASCADE_REGISTRY_FLAGS)
+def test_cascade_and_registry_flag_is_served_with_the_reference_default(flag):
+    parser = port_app.build_parser()
+    args = parser.parse_args(_refused_argv(parser, flag, None))
+    port_app.refuse_unported(parser, args)  # no longer refused
+    ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
+    dest = flag.lstrip("-").replace("-", "_")
+    assert parser.get_default(dest) == ref[dest]
+    assert flag not in {f for f, _v, _i in port_app.REFUSED}
+    action = next(a for a in parser._actions if flag in a.option_strings)
+    assert action.help and "refused" not in action.help
+
+
+def _jax_gate_file(path):
+    """A JAX-written stage-1 gate from seeded flax init params, spread so
+    the five scenes score apart; returns the gate (its net in f32)."""
+    from opencv_facerecognizer_tpu.models import cascade as jax_cascade
+
+    gate = jax_cascade.FaceGate(features=(4, 8), downsample=4)
+    gate.net = jax_cascade.CascadeNet(features=(4, 8), downsample=4, dtype=jnp.float32)
+    params = gate.net.init(jax.random.PRNGKey(3), jnp.zeros((1, FRAME, FRAME)))["params"]
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    keys = jax.random.split(jax.random.PRNGKey(4), len(leaves))
+    gate.load_params(jax.tree_util.tree_unflatten(
+        tree, [a + 0.3 * jax.random.normal(k, a.shape) for a, k in zip(leaves, keys)]))
+    gate.save(path)
+    return gate
+
+
+@pytest.fixture
+def f32_gates(monkeypatch):
+    """Both CLIs load their stage-1 gates in float32 (the module docstring's
+    reason)."""
+    from opencv_facerecognizer_tpu.models import cascade as jax_cascade
+    from opencv_facerecognizer_tpu_torch.models import cascade as port_cascade
+
+    monkeypatch.setattr(jax_cascade, "CascadeNet",
+                        functools.partial(jax_cascade.CascadeNet, dtype=jnp.float32))
+
+    class F32Gate(port_cascade.FaceGate):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **{**kwargs, "dtype": torch.float32})
+
+    monkeypatch.setattr(port_cascade, "FaceGate", F32Gate)
+
+
+def test_dir_mode_with_the_cascade_matches_jax_cli(artifacts, f32_stacks, f32_gates, tmp_path,
+                                                   capsys):
+    """``--cascade PATH --cascade-threshold P``: both CLIs answer the frames
+    scoring below P with no faces (``exit: "cascade"``) and the others as
+    the full step does; ``--no-cascade`` serves every frame in full."""
+    a = artifacts
+    path = str(tmp_path / "gate.msgpack")
+    gate = _jax_gate_file(path)
+    scores = np.sort(np.asarray(gate.score_batch(a["scenes"].astype(np.float32))))
+    thr = float(scores[1:3].mean())  # between two scores: two frames exit, three survive
+    argv = _common_args(a) + ["--source", "dir", "--dir", a["frames"], "--cascade", path,
+                              "--cascade-threshold", str(thr), "--no-track-cache"]
+    runs = {}
+    for name, main, extra in (("jax", jax_app.main, []),
+                              ("port", port_app.main, ["--device", "cpu"])):
+        assert main(argv + extra) == 0
+        runs[name] = _json_lines(capsys.readouterr().out)
+        assert main(argv + extra + ["--no-cascade"]) == 0
+        runs[name + "_full"] = _json_lines(capsys.readouterr().out)
+    exits = {n: sorted(r["meta"]["file"] for r in runs[n] if r.get("exit") == "cascade")
+             for n in ("jax", "port")}
+    assert exits["port"] == exits["jax"] and len(exits["port"]) == 2
+    for r in runs["port"]:
+        if r.get("exit") == "cascade":
+            assert r["faces"] == []
+    kept = [r for r in runs["port"] if r.get("exit") != "cascade"]
+    want = {r["meta"]["file"]: r for r in runs["jax"]}
+    for r in kept:
+        w = want[r["meta"]["file"]]
+        assert [(f["label"], f["name"]) for f in r["faces"]] == [
+            (f["label"], f["name"]) for f in w["faces"]]
+        for gf, wf in zip(r["faces"], w["faces"]):
+            np.testing.assert_allclose(gf["box"], wf["box"], atol=BOX_ATOL)
+            assert abs(gf["similarity"] - wf["similarity"]) <= SIM_ATOL
+    assert not any(r.get("exit") for n in ("jax_full", "port_full") for r in runs[n])
+    _assert_same_results(runs["port_full"], runs["jax_full"], key=lambda m: m["file"])
+
+
+def _stage_gate(state_dir, version):
+    from opencv_facerecognizer_tpu_torch.runtime.registry import registry_params_path
+
+    path = registry_params_path(state_dir, "cascade", version)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _jax_gate_file(path)
+    return path
+
+
+def test_offline_registry_swap_matches_jax_cli(tmp_path, capsys):
+    """``--registry-swap ROLE=N`` against a state dir, in each CLI on a copy
+    of one dir: the same fence record, the same manifest; and the same
+    refusals."""
+    import shutil
+
+    from opencv_facerecognizer_tpu.runtime.registry import ModelRegistry as JaxRegistry
+    from opencv_facerecognizer_tpu_torch.runtime.registry import ModelRegistry
+
+    base = str(tmp_path / "base")
+    _stage_gate(base, 2)
+    got = {}
+    for name, main in (("jax", jax_app.main), ("port", port_app.main)):
+        sd = str(tmp_path / name)
+        shutil.copytree(base, sd)
+        assert main(["--registry-swap", "cascade=2", "--state-dir", sd]) == 0
+        with open(os.path.join(sd, "enroll.wal")) as f:
+            fence = [json.loads(line) for line in f]
+        for rec in fence:
+            rec.pop("ts")
+            rec["params_path"] = os.path.relpath(rec["params_path"], sd)
+        got[name] = (fence, JaxRegistry(sd, readonly=True).stamp(),
+                     ModelRegistry(sd, readonly=True).stamp())
+        for bad in (["--registry-swap", "cascade=2", "--state-dir", sd],  # not above v2
+                    ["--registry-swap", "cascade=3", "--state-dir", sd],  # not staged
+                    ["--registry-swap", "embedder=3", "--state-dir", sd],
+                    ["--registry-swap", "cascade=x", "--state-dir", sd],
+                    ["--registry-swap", "cascade=3"]):
+            with pytest.raises(SystemExit):
+                main(bad)
+        capsys.readouterr()
+    assert got["port"] == got["jax"]
+    assert got["port"][1]["cascade"] == 2 and got["port"][0][0]["kind"] == "registry_cutover"
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_the_version_fences_serve_the_manifest_and_refuse_another(artifacts, tmp_path, capsys,
+                                                                  pkg):
+    """After an offline ``--registry-swap cascade=2``, a start with
+    ``--cascade PATH --cascade-version 2`` serves (results stamped with the
+    manifest's versions) and ``--detector-version 3`` refuses to start, in
+    both CLIs."""
+    a = artifacts
+    state_dir = str(tmp_path / "state")
+    path = _stage_gate(state_dir, 2)
+    main, extra = (jax_app.main, []) if pkg == "jax" else (port_app.main, ["--device", "cpu"])
+    assert main(["--registry-swap", "cascade=2", "--state-dir", state_dir]) == 0
+    argv = _common_args(a) + ["--source", "dir", "--dir", a["frames"], "--state-dir",
+                              state_dir, "--cascade", path, "--cascade-version", "2"] + extra
+    assert main(argv) == 0
+    results = _json_lines(capsys.readouterr().out)
+    assert len(results) == 5
+    assert all(r.get("exit") == "cascade" or r["registry"] == {
+        "embedder": 1, "detector": 1, "cascade": 2} for r in results)
+    # last: the JAX CLI keeps its writer lease when it exits here in-process
+    with pytest.raises(SystemExit, match="detector-version 3"):
+        main(argv + ["--detector-version", "3"])
+
+
+def test_registry_fence_refuses_an_undeclared_version_like_the_reference(tmp_path):
+    import argparse
+
+    from opencv_facerecognizer_tpu_torch.runtime.registry import ModelRegistry
+
+    registry = ModelRegistry(str(tmp_path))
+    registry.install("detector", 2)
+    for declared, ok in (((0, 0), True), ((2, 0), True), ((2, 1), True), ((1, 0), False),
+                         ((0, 2), False)):
+        args = argparse.Namespace(detector_version=declared[0], cascade_version=declared[1])
+        outcomes = []
+        for fence in (lambda: port_app._registry_fence(registry, args),
+                      lambda: jax_app._registry_fence(registry, args, "writer")):
+            try:
+                fence()
+                outcomes.append(True)
+            except SystemExit:
+                outcomes.append(False)
+        assert outcomes == [ok, ok], declared

@@ -388,8 +388,6 @@ def test_expo_paths_match_reference(expos, path):
         if path == "/":
             body.pop("uptime_s")
             body.pop("endpoints")
-        if path == "/ledger":
-            body.pop("completed_empty", None)  # the cascade's bucket (ROADMAP A.8.5)
         got[name] = (status, ctype, body)
     assert got["port"] == got["jax"]
 

@@ -678,8 +678,8 @@ def test_pending_cutover_raises_naming_the_rollout_item(tmp_path):
     checkpoint, with its JAX-written stage: the port's recovery completes
     the cutover to the same gallery, names and report as JAX's own
     recovery (bit for bit). Without the stage both refuse alike
-    (``RolloutStateError``). Registry swaps still raise naming their
-    ROADMAP item."""
+    (``RolloutStateError``). A registry swap without an attached manifest
+    raises in both packages."""
     from opencv_facerecognizer_tpu.runtime import rollout as jax_rollout
     from opencv_facerecognizer_tpu_torch.runtime import rollout as port_rollout
 
@@ -718,7 +718,9 @@ def test_pending_cutover_raises_naming_the_rollout_item(tmp_path):
         jax_state.StateLifecycle(root).recover(_jax_gallery(), [])
     with pytest.raises(port_rollout.RolloutStateError):
         port_state.StateLifecycle(root).recover(_port_gallery(), [])
-    with pytest.raises(port_state.RolloutNotPortedError, match=r"ROADMAP A\.8\.5"):
+    with pytest.raises(RuntimeError, match="attach_registry"):
+        jax_state.StateLifecycle(root).perform_registry_cutover("detector", 2)
+    with pytest.raises(RuntimeError, match="attach_registry"):
         port_state.StateLifecycle(root).perform_registry_cutover("detector", 2)
 
 
