@@ -212,7 +212,8 @@ Phases (any failure exits nonzero before the result line):
    dying after its fence (``cutover: crash_after_record``), completed by
    ``recover``; a swap to v5 dying likewise with its staged file damaged,
    abandoned and retired by ``recover``. Gates: in publish order the
-   results' detector stamps move from 1 to 2 once, no batch mixes, and each
+   results' and the batches' detector stamps move from 1 to 2 once, each
+   result carries its batch's stamp, and each
    result equals a direct call of the version it names; no stage-2 graph
    captured (a same-architecture swap). (c) the CLI: ``--registry-swap
    cascade=2`` offline in-process, then ``--source socket`` with ``--cascade
@@ -224,8 +225,67 @@ Phases (any failure exits nonzero before the result line):
    and the 0 / 6 / 20-survivor batches, the cutover's seconds by stage and
    the worst serving batch during it. One ``{"cascade": ...}`` line.
 
-The line before the last is the per-kernel JSON (kernels A, B and C); the
-last line is ``{"ok": true, "device": {...}}``.
+14. (run after 13) replication: (a) in-process, a writer service with a
+   ``StateLifecycle`` (fsync ``always``) and a ``ModelRegistry`` over the
+   2^20-row bf16 tier (REPL_HEADROOM rows left free, so enrolments append
+   within it) and a reader service with ``replica=ReadReplica(...)`` over
+   its own gallery, resynced from the writer's checkpoint; each its own
+   detector (v1), both graphed, a batch of 32 every REPL_TICK_S through the
+   ring. REPL_SUBJECTS enrolments through the writer's control topic, one
+   every REPL_ENROL_EVERY_S (the writer's producer held meanwhile), the
+   port's ``--follow`` verifier over REPL_FOLLOW_S from the last
+   REPL_FOLLOW_LAST of them (it must see every record); once the reader's
+   lag is 0 its rows, labels, valid flags (host and card) and names equal
+   the writer's bit for bit, a batch of
+   the subjects' frames is equal on both services and to a direct call, an
+   enrol on the reader is refused (``read_replica``) and the reader
+   captured nothing for the appends. A checkpoint compacts the WAL: the
+   tailer reopens without a resync. A writer's apply that fails after the
+   reader applied its row: the tombstone forces one resync, and the rows
+   are equal again. A detector swap v1 -> v2 on the writer (phase 13's v2,
+   ``RegistrySwapCoordinator``, its forced checkpoint landing after the
+   reader parked on the fence): the reader re-anchors once, installs v2,
+   its detector stamps move 1 -> 2 once in publish order and each result
+   equals a direct call of its version. Then, the writer idle and both
+   drained, the counts are set to 0 and the reader alone serves
+   REPL_ALONE_BATCHES batches: each of A, B and C launched on its path.
+   Numbers: the visible latency (the writer's ``enrolled`` to the reader's
+   first result naming the subject, and to the reader's apply), poll and
+   apply ms, ``lag_s``, each resync's stages, the reader's worst tick
+   during a resync against its p50, and for each serving resync the
+   longest gap between two of the reader's results and the frames its
+   batcher dropped, its re-captures, the reader's launches of A, B and C.
+   (c) the port's verifier
+   (``python -m ...apps.verify_checkpoint``) on (a)'s dir: rc 0, and rc 2
+   on a copy (taken before the compaction) with one base64 byte of an
+   acknowledged record flipped. (b) the CLI (phase 7's checkpoints, phase
+   10's configuration) as a writer and a reader on one ``--state-dir``,
+   each on a socket with fixed ports (the reader starts once the writer's
+   first checkpoint is on disk), and a router CLI in front of both with
+   ``--router-health`` on their ``/health``, ``--router-link-deadline-s``
+   REPL_LINK_DEADLINE_S and ``--router-hedge-deadline-s``
+   REPL_HEDGE_DEADLINE_S: R from a burst of REPL_BURST through the router,
+   REPL_DIRECT_FRAMES straight to the writer at REPL_RATE_SHARE x R, then
+   REPL_TOPICS camera topics x REPL_FRAMES_PER_TOPIC interactive frames
+   through the router at that rate, the reader SIGKILLed at REPL_KILL_AT of
+   them; its topics fail over (within the link deadline and a health
+   sweep), the reader restarts at its ports, resyncs, its link comes up
+   and its topics route back; every frame is answered exactly once, and
+   every answer (before the kill, through the failover, hedged, and from
+   the restarted reader) equals a direct pipeline call (XCHECK_*); the
+   writer and the restarted reader captured nothing after their warmups
+   and launched A, B and C; an enrolment through the router
+   reaches the writer; a second writer exits naming the lease; the router
+   adds no process on the card (``nvidia-smi --query-compute-apps``) and
+   reports no CUDA context. Numbers: e2e p50 / p99 through the router and
+   direct, the failover seconds, the restarted reader's seconds to its
+   first answer, the router's hedges, dedups and failovers. One
+   ``{"replication": ...}`` line, with the run's total seconds.
+
+The line before the last is the per-kernel JSON (kernels A, B and C, their
+launches those of phase 4's serving run and of the reader alone in phase
+14 (a)); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -283,6 +343,7 @@ from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
     CONTROL_TOPIC, FRAME_TOPIC, RESULT_TOPIC, STATUS_TOPIC, RecognizerService)
 from opencv_facerecognizer_tpu_torch.runtime.registry import (
     ModelRegistry, RegistrySwapCoordinator, _file_sha256, registry_params_path)
+from opencv_facerecognizer_tpu_torch.runtime.replication import TopicRouter
 from opencv_facerecognizer_tpu_torch.runtime.resilience import ServiceSupervisor
 from opencv_facerecognizer_tpu_torch.runtime.rollout import RolloutCoordinator, RolloutGateError
 from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
@@ -455,6 +516,37 @@ REG_TICK_S = 0.03
 REG_AFTER_BATCHES = 4
 #: the CLI's frames (c): the 6- and 20-survivor batches
 CASC_CLI_FRAMES = 2 * BATCH
+
+# phase 14 (replication): subjects the writer enrols, one every
+# REPL_ENROL_EVERY_S; the batch tick of both services; the reader's poll;
+# the verifier's --follow window
+REPL_SUBJECTS = 16
+REPL_HEADROOM = 64
+REPL_ENROL_EVERY_S = 0.1
+REPL_TICK_S = 0.03
+REPL_POLL_S = 0.05
+REPL_FOLLOW_S = 5.0
+#: the --follow window opens before the last REPL_FOLLOW_LAST enrolments
+#: (it reads the earlier records at its first poll), so it closes after
+#: the last one however slow the host makes the enrolment
+REPL_FOLLOW_LAST = 4
+#: batches the reader serves alone, its launches counted
+REPL_ALONE_BATCHES = 8
+# the CLI trio: camera topics and frames per topic through the router, the
+# burst that measures its rate, the share of that rate the traffic runs
+# at, the router's link and hedge deadlines (the link's must exceed the
+# router's 1 s health interval, which paces its pings), the direct run's
+# frames, where in the traffic the reader is killed, the frames a round
+# after its restart
+REPL_TOPICS = 8
+REPL_FRAMES_PER_TOPIC = 64
+REPL_BURST = 128
+REPL_RATE_SHARE = 0.5
+REPL_LINK_DEADLINE_S = 2.5
+REPL_HEDGE_DEADLINE_S = 0.5
+REPL_DIRECT_FRAMES = 256
+REPL_KILL_AT = 0.4
+REPL_ROUTE_BACK_FRAMES = 8
 
 
 def log(*parts) -> None:
@@ -2808,13 +2900,21 @@ def direct_pipeline(paths: dict, dev) -> RecognitionPipeline:
 
 def cross_check_messages(direct, frames: np.ndarray, messages: list, what: str) -> dict:
     """Published results of ``frames`` (in order) against the direct
-    pipeline's call on them, batch by batch (XCHECK_*; labels equal)."""
+    pipeline's call on them, batch by batch (XCHECK_*; labels equal). A
+    short last batch is padded to BATCH frames (repeats of its first), so
+    every direct call runs at the ladder's top rung, which the served
+    rungs match: a call at a batch size off the ladder (24) moved a
+    similarity enough to flip a label between two near-tied subjects of
+    the CLI configuration on the card."""
     threshold = recognize_app.build_parser().get_default("similarity_threshold")
     det = direct.detector
     worst_box = worst_sim = 0.0
     n_pairs = 0
     for s in range(0, len(frames), BATCH):
-        want = unpack_result(direct.recognize_batch_packed(frames[s:s + BATCH]).cpu().numpy(), 1)
+        batch = frames[s:s + BATCH]
+        if len(batch) < BATCH:
+            batch = np.concatenate([batch, np.repeat(batch[:1], BATCH - len(batch), axis=0)])
+        want = unpack_result(direct.recognize_batch_packed(batch).cpu().numpy(), 1)
         want = want._replace(labels=np.where(want.similarities >= threshold, want.labels, -1))
         got = messages_as_result(messages[s:s + BATCH], det.max_faces)
         for i in range(got.valid.shape[0]):
@@ -2823,7 +2923,11 @@ def cross_check_messages(direct, frames: np.ndarray, messages: list, what: str) 
             n_pairs += len(pairs)
             for j, m, dbox in pairs:
                 if got.labels[i, j, 0] != want.labels[i, m, 0]:
-                    raise AssertionError(f"{what}: frame {s + i} labels differ")
+                    raise AssertionError(
+                        f"{what}: frame {s + i} labels differ: published label "
+                        f"{got.labels[i, j, 0]} (similarity {got.similarities[i, j, 0]}), "
+                        f"direct {want.labels[i, m, 0]} ({want.similarities[i, m, 0]}), "
+                        f"threshold {threshold}")
                 worst_box = max(worst_box, dbox)
                 worst_sim = max(worst_sim, abs(got.similarities[i, j, 0]
                                                - want.similarities[i, m, 0]))
@@ -3484,6 +3588,15 @@ def registry_live_swap(dev, stack, frames, root: str) -> dict:
     conn.subscribe(RESULT_TOPIC, lambda _t, m: published.append(
         (time.perf_counter(), m["meta"]["tick"], m["meta"]["j"],
          (m.get("registry") or {}).get("detector"), m)))
+    batches = []  # (the batch's detector stamp, its frames' (tick, j)) in publish order
+    real_publish = service._publish
+
+    def publish(packed, frames, metas, count, stamp=None, *args, **kwargs):
+        batches.append((dict(stamp or ()).get("detector"),
+                        [(m["tick"], m["j"]) for m in metas[:count]]))
+        return real_publish(packed, frames, metas, count, stamp, *args, **kwargs)
+
+    service._publish = publish
     timers = {name: _Timed(obj, attr) for name, obj, attr in (
         ("fence", state.wal, "append_registry_cutover"), ("manifest", registry, "install"),
         ("install", stack, "install_detector_params"), ("flush", service, "flush_model_caches"),
@@ -3568,12 +3681,17 @@ def registry_live_swap(dev, stack, frames, root: str) -> dict:
                              f"served v{registry.version('detector')}, phase {co.phase}")
     if built or (stack.captures, stack.cascade_captures) != captures:
         raise AssertionError(f"registry: graphs captured during the swap: {built}")
+    # in publish order the results' and the batches' stamps move 1 -> 2 once,
+    # and each result carries its batch's (a tick split across two batches
+    # at the install may carry both)
     stamps = [v for _t, _k, _j, v, _m in published]
-    by_tick = {}
-    for _t, tick, _j, v, _m in published:
-        by_tick.setdefault(tick, set()).add(v)
-    if not stamps_move_once(stamps, 1, 2) or any(len(v) != 1 for v in by_tick.values()):
-        raise AssertionError(f"registry: detector stamps mixed: {stamps[:8]} ... {stamps[-8:]}")
+    batch_of = {key: v for v, keys in batches for key in keys}
+    if (not stamps_move_once(stamps, 1, 2) or not stamps_move_once([v for v, _k in batches],
+                                                                    1, 2)
+            or any(batch_of.get((tick, j)) != v for _t, tick, j, v, _m in published)):
+        raise AssertionError(f"registry: detector stamps mixed: {stamps[:8]} ... {stamps[-8:]}; "
+                             f"batches {[v for v, _k in batches][:4]} ... "
+                             f"{[v for v, _k in batches][-4:]}")
     # each result against a direct call of the version it names
     direct = {}
     for version, params in ((1, v1), (2, v2)):
@@ -3742,6 +3860,831 @@ def cascade_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     return out
 
 
+# ---- phase 14: read replicas, the topic router and the verifier ----
+
+
+class _Ticks:
+    """A producer of one batch every REPL_TICK_S into each connector it
+    feeds (``paused`` holds one), and each service's published results:
+    (arrival, tick, j, message) by connector name."""
+
+    def __init__(self, conns: dict, frames: np.ndarray):
+        self.conns = conns
+        self.messages = [encode_frame(f) for f in frames]
+        self.sent = {}  # tick -> host clock of its first inject
+        self.published = {name: [] for name in conns}
+        self.paused = {name: threading.Event() for name in conns}
+        self.stop, self.errors = threading.Event(), []
+        for name, conn in conns.items():
+            conn.subscribe(RESULT_TOPIC, lambda _t, m, n=name: self.published[n].append(
+                (time.perf_counter(), m["meta"].get("tick"), m["meta"].get("j"), m)))
+        self.thread = threading.Thread(target=self._run, name="replication-producer",
+                                       daemon=True)
+
+    def _run(self):
+        tick = 0
+        try:
+            while not self.stop.is_set():
+                t = time.perf_counter()
+                for name, conn in self.conns.items():
+                    if self.paused[name].is_set():
+                        continue
+                    self.sent.setdefault(tick, t)
+                    for j, message in enumerate(self.messages):
+                        conn.inject(FRAME_TOPIC, {**message, "meta": {"tick": tick, "j": j}})
+                tick += 1
+                time.sleep(max(0.0, REPL_TICK_S - (time.perf_counter() - t)))
+        except Exception as e:  # noqa: BLE001 - reported by the phase
+            self.errors.append(e)
+
+    def tick_ms(self, name: str, windows=None) -> list:
+        """Host ms from a tick's inject to its last result at ``name``, for
+        the ticks sent inside one of ``windows`` ((t0, t1) pairs) if given."""
+        done = {}
+        for t_arr, tick, _j, _m in self.published[name]:
+            if tick is not None:
+                done[tick] = max(done.get(tick, 0.0), t_arr)
+        return [(done[k] - self.sent[k]) * 1e3 for k in done if k in self.sent and (
+            windows is None or any(a <= self.sent[k] <= b for a, b in windows))]
+
+
+def _wrap_calls(obj, name: str, keep=lambda result: True) -> list:
+    """Wraps ``obj.name``: each call's (start, seconds, result) for which
+    ``keep(result)`` holds goes into the returned list."""
+    calls = []
+    real = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        t = time.perf_counter()
+        result = real(*args, **kwargs)
+        if keep(result):
+            calls.append((t, time.perf_counter() - t, result))
+        return result
+
+    setattr(obj, name, wrapped)
+    return calls
+
+
+def faced_frames(stack, frames: np.ndarray, n: int) -> np.ndarray:
+    """The indices of the first ``n`` frames in which ``stack``'s detector
+    finds a face."""
+    _b, _s, valid = stack.detector.detect_batch(frames.astype(np.float32))
+    keep = np.flatnonzero(valid.cpu().numpy().any(axis=1))[:n]
+    if len(keep) < n:
+        raise AssertionError(f"replication: only {len(keep)} frames with a face")
+    return keep
+
+
+def galleries_equal(a, b, what: str) -> None:
+    """Host mirrors (rows, labels) and device state (rows, labels, valid
+    flags) of two galleries equal bit for bit, at one size and capacity."""
+    ea, la, na = a.snapshot_rows(0, None)
+    eb, lb, nb = b.snapshot_rows(0, None)
+    da, db = a.data, b.data
+    if (na != nb or a.capacity != b.capacity or not np.array_equal(ea, eb)
+            or not np.array_equal(la, lb)
+            or not torch.equal(da.embeddings[:na], db.embeddings[:nb])
+            or not torch.equal(da.labels, db.labels) or not torch.equal(da.valid, db.valid)):
+        raise AssertionError(f"replication: {what}: the reader's gallery ({nb} rows of "
+                             f"{b.capacity}) differs from the writer's ({na} of {a.capacity})")
+
+
+def replication_inproc(dev, seed: int, card: str, ctx: dict, root: str) -> dict:
+    """Phase 14 (a): a writer and a reader service over one state dir on
+    the card; enrolment and its tail, compaction, an abort after apply and
+    a detector swap the reader re-anchors onto (module docstring)."""
+    from opencv_facerecognizer_tpu_torch.apps import verify_checkpoint
+    from opencv_facerecognizer_tpu_torch.runtime.replication import (
+        ReadReplica, pipeline_model_installer)
+
+    stack, rows, labels = ctx["stack"], ctx["rows"], ctx["labels"]
+    v1 = {k: t.detach().clone() for k, t in stack.detector.params.items()}
+    v2 = perturbed(v1, 13, REG_PERTURB)  # phase 13's v2
+
+    def pipeline_over(gallery):
+        return RecognitionPipeline(detector_with(dev, v1), stack.embed_net, gallery,
+                                   face_size=embedder_mod.SERVING_FACE_SIZE,
+                                   fused_embedder=True, device=dev)
+
+    # the 2^20-row tier with REPL_HEADROOM rows free (random rows dropped,
+    # the planted faces kept), so the enrolments append within the tier
+    g_w = ShardedGallery(GALLERY_ROWS, DIM, store_dtype=torch.bfloat16, device=dev)
+    g_w.add(rows[REPL_HEADROOM:], labels[REPL_HEADROOM:])
+    pipe_w = pipeline_over(g_w)
+    state = StateLifecycle(root, keep_checkpoints=2, checkpoint_wal_rows=1 << 30,
+                           checkpoint_every_s=1e9)
+    registry = ModelRegistry(root)
+    state.attach_registry(registry)
+    metrics_w, conn_w = Metrics(), FakeConnector()
+    names_w = [f"planted_{i}" for i in range(ctx["n_plant"])]
+    service_w = RecognizerService(pipe_w, conn_w, batch_size=BATCH, frame_shape=FRAME,
+                                  flush_timeout=0.01, ingest=IngestConfig("uint8"),
+                                  state_store=state, metrics=metrics_w, subject_names=names_w)
+    service_w.registry = registry
+    wal_s = timed_wal_appends(state)
+    t = time.perf_counter()
+    if not state.checkpoint_now(wait=True):
+        raise AssertionError("replication: the writer's first checkpoint failed")
+    first_ckpt_s = time.perf_counter() - t
+
+    g_r = ShardedGallery(8, DIM, store_dtype=torch.bfloat16, device=dev)
+    pipe_r = pipeline_over(g_r)
+    metrics_r, conn_r, names_r = Metrics(), FakeConnector(), []
+    replica = ReadReplica(root, g_r, names_r, metrics=metrics_r, poll_interval_s=REPL_POLL_S,
+                          name="reader")
+    replica.registry = ModelRegistry(root, metrics=metrics_r, readonly=True)
+    replica.install_model = pipeline_model_installer(pipe_r)
+    resyncs = _wrap_calls(replica, "resync")
+    resync_drops = []  # the reader's batcher overflow during each resync
+    counted_resync = replica.resync
+
+    def resync_counting_drops():
+        before = metrics_r.counter(mn.BATCHER_DROPPED_OVERFLOW)
+        try:
+            return counted_resync()
+        finally:
+            resync_drops.append(metrics_r.counter(mn.BATCHER_DROPPED_OVERFLOW) - before)
+
+    replica.resync = resync_counting_drops
+    applies = _wrap_calls(replica, "poll", keep=lambda r: bool(r and r.get("rows")))
+    parks = _wrap_calls(replica, "_park")
+    applied_at, lags = {}, []  # WAL seq -> host clock once applied; lag_s per apply
+    real_apply = replica._apply_records
+
+    def apply_records(records):
+        out = real_apply(records)
+        t_done = time.perf_counter()
+        for seq in range(replica._anchor_seq + 1, replica.applied_seq + 1):
+            applied_at.setdefault(seq, t_done)
+        if out["rows"]:
+            lags.append(replica.lag_s)
+        return out
+
+    replica._apply_records = apply_records
+    t = time.perf_counter()
+    first_sync = replica.resync()
+    first_resync = dict(replica.last_resync_s, seconds=time.perf_counter() - t)
+    galleries_equal(g_w, g_r, "the first resync")
+    if replica.embedder_version != 1 or names_r != names_w:
+        raise AssertionError(f"replication: first resync {first_sync}, names {names_r[:4]}")
+    service_r = RecognizerService(pipe_r, conn_r, batch_size=BATCH, frame_shape=FRAME,
+                                  flush_timeout=0.01, ingest=IngestConfig("uint8"),
+                                  metrics=metrics_r, replica=replica)
+    service_r.subject_names = names_r
+    service_r.registry = replica.registry
+    replica.on_registry_change = service_r.flush_model_caches
+
+    pool = ctx["frames"][BATCH:]
+    keep = faced_frames(stack, pool, REPL_SUBJECTS)
+    subjects = pool[keep]
+    others = np.delete(pool, keep, axis=0)
+    batch = np.concatenate([subjects, others[:BATCH - len(subjects)]])
+    ticks = _Ticks({"writer": conn_w, "reader": conn_r}, batch)
+    enrolled_at = {}  # subject -> (host clock of its 'enrolled', WAL seq)
+    conn_w.subscribe(STATUS_TOPIC, lambda _t, m: enrolled_at.setdefault(
+        m.get("subject"), (time.perf_counter(), state.wal_seq))
+        if m.get("status") == "enrolled" else None)
+    follow = {}
+    out = dict(card=card, rows=GALLERY_ROWS, first_checkpoint_s=first_ckpt_s,
+               first_resync_s=first_resync)
+    service_w.start(warmup=True)
+    service_r.start(warmup=True)
+    captures_r = (pipe_r.captures, pipe_r.recaptures)
+    ticks.thread.start()
+    n_parks = 0
+    try:
+        # 1. enrolment and its tail; the writer's producer holds meanwhile,
+        # so each enrolment takes its subject's frame
+        ticks.paused["writer"].set()
+        follower = threading.Thread(target=lambda: follow.update(verify_checkpoint.follow_wal(
+            root, duration_s=REPL_FOLLOW_S, poll_s=0.05)), daemon=True)
+        t_enrol = time.perf_counter()
+        for i, frame in enumerate(subjects):
+            if i == len(subjects) - REPL_FOLLOW_LAST:
+                follower.start()
+            subject = f"replica_{i}"
+            wait_for(lambda: time.perf_counter() >= t_enrol + i * REPL_ENROL_EVERY_S, 10,
+                     "the enrolment tick", poll=0.002)
+            conn_w.inject(CONTROL_TOPIC, {"cmd": "enroll", "subject": subject, "count": 1})
+            conn_w.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"enrol": subject}})
+            wait_for(lambda: ticks.errors or subject in enrolled_at, 60, f"{subject} enrolled")
+        enrol_s = time.perf_counter() - t_enrol
+        wait_for(lambda: replica.applied_seq == state.wal_seq and replica.lag_rows == 0, 30,
+                 "the reader's tail")
+
+        follower.join(timeout=REPL_FOLLOW_S + 30)
+        # visible: the ack to the reader's first result naming the subject
+        # (a random embedder names some subjects on no frame at all), and
+        # the ack to the reader's apply of the row
+        named_at = {}
+        for t_arr, _k, _j, m in list(ticks.published["reader"]):
+            for f in m["faces"]:
+                if f["name"] in enrolled_at and t_arr >= enrolled_at[f["name"]][0]:
+                    named_at.setdefault(f["name"], t_arr)
+        visible = [(t - enrolled_at[s][0]) * 1e3 for s, t in named_at.items()]
+        applied = [(applied_at[seq] - t) * 1e3 for t, seq in enrolled_at.values()]
+        ticks.paused["reader"].set()
+        service_r.drain(timeout=120)
+        service_w.drain(timeout=120)
+        galleries_equal(g_w, g_r, "after the tail")
+        if names_r != list(service_w.subject_names):
+            raise AssertionError(f"replication: names differ: {names_r[-4:]} vs "
+                                 f"{service_w.subject_names[-4:]}")
+        if (pipe_r.captures, pipe_r.recaptures) != captures_r:
+            raise AssertionError("replication: the reader captured a graph for appends "
+                                 "within its tier")
+        # one batch holding each subject's frame: equal on both services and
+        # to a direct call
+        for conn in (conn_w, conn_r):
+            _inject_batch(conn, batch, {"check": 1})
+        wait_for(lambda: all(sum(1 for *_x, m in list(ticks.published[n])
+                                 if m["meta"].get("check")) == BATCH
+                             for n in ("writer", "reader")), 60, "the check batch")
+        direct = unpack_result(pipe_r.recognize_batch_packed(batch).cpu().numpy(), 1)
+        got = {n: {m["meta"]["j"]: m for *_x, m in ticks.published[n] if m["meta"].get("check")}
+               for n in ("writer", "reader")}
+        for j in range(BATCH):
+            w, r = got["writer"][j], got["reader"][j]
+            if w["faces"] != r["faces"] or published_rows(r) != face_rows(direct, j, 0.3):
+                raise AssertionError(f"replication: check frame {j}: writer {w['faces']} "
+                                     f"reader {r['faces']}")
+        named = sorted({f["name"] for m in got["reader"].values() for f in m["faces"]}
+                       & set(enrolled_at))
+        n_status = len(conn_r.messages(STATUS_TOPIC))
+        conn_r.inject(CONTROL_TOPIC, {"cmd": "enroll", "subject": "nope", "count": 1})
+        refused = [m for m in conn_r.messages(STATUS_TOPIC)[n_status:]
+                   if m.get("reason") == "read_replica"]
+        if len(refused) != 1 or metrics_r.counter(mn.REPLICATION_ENROLL_REJECTED) != 1:
+            raise AssertionError("replication: an enrol on the reader was not refused")
+        out.update(subjects=len(enrolled_at), enrol_s=enrol_s, named_in_check=len(named),
+                   visible_ms=dict(p50=_pct(visible, 50), max=max(visible or [float("nan")]),
+                                   n=len(visible)),
+                   applied_ms=dict(p50=_pct(applied, 50), max=max(applied), n=len(applied)),
+                   follow={k: follow.get(k) for k in (
+                       "ok", "valid_records", "valid_rows", "corrupt_records", "polls")})
+        if not follow.get("ok") or follow.get("valid_records") != len(enrolled_at):
+            raise AssertionError(f"replication: --follow saw {follow}")
+        # a copy of the dir for the verifier's flipped byte, before the
+        # compaction empties the WAL (hard links: checkpoints never change)
+        copy = root + "_copy"
+        shutil.copytree(root, copy, copy_function=os.link,
+                        ignore=shutil.ignore_patterns("enroll.wal", "*.lease"))
+        shutil.copy2(os.path.join(root, "enroll.wal"), os.path.join(copy, "enroll.wal"))
+        out["copy"] = copy
+        ticks.paused["writer"].clear()
+        ticks.paused["reader"].clear()
+
+        # 2. compaction: the checkpoint truncates the WAL; the tailer reopens
+        # and, its rows covered, does not resync
+        reopens, n_resync = replica.tailer.reopens, len(resyncs)
+        t = time.perf_counter()
+        if not state.checkpoint_now(wait=True):
+            raise AssertionError("replication: the compaction checkpoint failed")
+        out["compaction_checkpoint_s"] = time.perf_counter() - t
+        wait_for(lambda: replica.tailer.reopens > reopens, 30, "the tailer's reopen")
+        time.sleep(3 * REPL_POLL_S)
+        if len(resyncs) != n_resync:
+            raise AssertionError("replication: a covered compaction forced a resync")
+
+        # 3. an abort after apply: the writer's apply fails after the reader
+        # applied the row; the tombstone forces one resync
+        phantom = _unit_rows(np.random.default_rng(seed + 14).standard_normal((1, DIM)))
+
+        def failing_apply():
+            seq = state.wal_seq
+            wait_for(lambda: replica.applied_seq >= seq, 30, "the reader applying the row")
+            raise RuntimeError("the writer's apply fails after the reader applied the row")
+
+        n_resync = len(resyncs)
+        try:
+            state.append_enrollment(phantom.astype(np.float32),
+                                    np.full(1, len(names_w), np.int32), subject="phantom",
+                                    label=len(names_w), apply_fn=failing_apply)
+            raise AssertionError("replication: the failing apply did not raise")
+        except RuntimeError as exc:
+            if "fails after" not in str(exc):
+                raise
+        wait_for(lambda: len(resyncs) == n_resync + 1, 60, "the abort's resync")
+        if metrics_r.counter(mn.REPLICATION_ABORTS_AFTER_APPLY) != 1:
+            raise AssertionError("replication: the abort after apply was not counted")
+        abort_resync = dict(replica.last_resync_s, seconds=resyncs[-1][1])
+        ticks.paused["writer"].set()
+        ticks.paused["reader"].set()
+        service_w.drain(timeout=120)
+        service_r.drain(timeout=120)
+        galleries_equal(g_w, g_r, "after the abort's resync")
+        ticks.paused["writer"].clear()
+        ticks.paused["reader"].clear()
+        t_step4 = time.perf_counter()
+        wait_for(lambda: any(t_arr > t_step4 for t_arr, *_x in ticks.published["reader"]),
+                 30, "reader results before the swap")
+
+        # 4. a detector swap on the writer, v1 -> v2; the reader parks on the
+        # fence, re-anchors on the covering checkpoint and installs v2
+        path_v2 = registry_params_path(root, "detector", 2)
+        os.makedirs(os.path.dirname(path_v2), exist_ok=True)
+        detector_with(dev, v2).save(path_v2)
+        co = RegistrySwapCoordinator(
+            state, registry, "detector", 2, old_detect_fn=boxes_fn(detector_with(dev, v1)),
+            new_detect_fn=boxes_fn(detector_with(dev, v2)), params_path=path_v2,
+            install_fn=lambda: pipe_w.install_detector_params(v2, version=2),
+            flush_fn=service_w.flush_model_caches, parity_min_samples=REG_PARITY_SAMPLES,
+            metrics=metrics_w)
+        co.score_parity(batch[:REG_PARITY_SAMPLES])
+        n_resync, n_parks = len(resyncs), len(parks)
+        real_checkpoint = state.checkpoint_now
+
+        def checkpoint_after_the_park(wait=False):
+            # the swap's forced checkpoint lands once the reader has parked
+            # on the fence (else a fast checkpoint lets it skip the park)
+            wait_for(lambda: len(parks) > n_parks, 30, "the reader parking on the fence")
+            return real_checkpoint(wait=wait)
+
+        state.checkpoint_now = checkpoint_after_the_park
+        t_swap = time.perf_counter()
+        try:
+            co.cutover()
+        finally:
+            state.checkpoint_now = real_checkpoint
+        swap_s = time.perf_counter() - t_swap
+        wait_for(lambda: len(resyncs) == n_resync + 1, 60, "the reader's re-anchor")
+        t_swapped = time.perf_counter()
+        wait_for(lambda: any(t_arr > t_swapped for t_arr, *_x in ticks.published["reader"]),
+                 30, "reader results after the re-anchor")
+
+        # 5. the reader's path launches the kernels: with the writer idle
+        # and both drained, the counts are set to 0 and the reader alone
+        # serves REPL_ALONE_BATCHES batches (no direct call, no parity
+        # detection inside)
+        ticks.paused["writer"].set()
+        ticks.paused["reader"].set()
+        service_w.drain(timeout=120)
+        service_r.drain(timeout=120)
+        n_alone = len(ticks.published["reader"])
+        zero_counters()
+        ticks.paused["reader"].clear()
+        wait_for(lambda: len(ticks.published["reader"]) >= n_alone + REPL_ALONE_BATCHES * BATCH,
+                 60, "the reader serving alone")
+        ticks.paused["reader"].set()
+        service_r.drain(timeout=120)
+        launches = read_launches()
+    finally:
+        ticks.stop.set()
+        ticks.thread.join(timeout=60)
+        for service in (service_w, service_r):
+            service.drain(timeout=120)
+            service.stop()
+    if ticks.errors:
+        raise AssertionError(f"replication: the producer failed: {ticks.errors}")
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"replication: a kernel did not launch on the reader's path: "
+                             f"{launches}")
+    if len(parks) <= n_parks or replica.registry.version("detector") != 2:
+        raise AssertionError(f"replication: the reader did not park on the fence or does not "
+                             f"serve v{replica.registry.version('detector')}")
+    galleries_equal(g_w, g_r, "after the re-anchor")
+    # the reader's detector stamps in publish order move 1 -> 2 once, and
+    # each result from the swap on equals a direct call of its version
+    stamped = [(t_arr, m) for t_arr, tick, _j, m in ticks.published["reader"]
+               if tick is not None and t_arr > t_step4]
+    stamps = [(m.get("registry") or {}).get("detector") for _t, m in stamped]
+    if not stamps_move_once(stamps, 1, 2):
+        raise AssertionError(f"replication: reader stamps {stamps[:6]} ... {stamps[-6:]}")
+    direct = {}
+    for version, params in ((1, v1), (2, v2)):
+        pipe_r.install_detector_params(params, version=version)
+        direct[version] = unpack_result(pipe_r.recognize_batch_packed(batch).cpu().numpy(), 1)
+    for _t, m in stamped:
+        v = m["registry"]["detector"]
+        if published_rows(m) != face_rows(direct[v], m["meta"]["j"], 0.3):
+            raise AssertionError(f"replication: reader result {m['meta']} stamped v{v} differs "
+                                 f"from a direct call of v{v}")
+    windows = [(t0, t0 + dt) for t0, dt, _r in resyncs[1:]]
+    during = ticks.tick_ms("reader", windows)
+    # each serving resync: the longest gap between two of the reader's
+    # results around it, and the frames its batcher dropped meanwhile
+    arrivals = sorted(t_arr for t_arr, *_x in ticks.published["reader"])
+    stalls = [dict(seconds=t1 - t0, dropped=dropped, longest_gap_ms=1e3 * max(
+        (b - a for a, b in zip(arrivals, arrivals[1:]) if b >= t0 and a <= t1), default=0.0))
+        for (t0, t1), dropped in zip(windows, resync_drops[1:])]
+    apply_ms = [dt * 1e3 for _t, dt, _r in applies]
+    wal_ms = np.asarray(wal_s) * 1e3
+    out.update(
+        launches=launches, abort_resync_s=abort_resync,
+        reanchor_resync_s=dict(replica.last_resync_s, seconds=resyncs[-1][1]),
+        resyncs=len(resyncs), parks=len(parks), swap_s=swap_s,
+        swap_stamps=dict(v1=stamps.count(1), v2=stamps.count(2)),
+        poll_apply_ms=dict(p50=_pct(apply_ms, 50), max=max(apply_ms or [0.0]), n=len(apply_ms)),
+        lag_s=dict(p50=_pct(lags, 50), max=max(lags or [0.0]), n=len(lags)),
+        wal_append_ms=dict(p50=float(np.median(wal_ms)), max=float(wal_ms.max())),
+        reader_tick_ms=dict(p50=_pct(ticks.tick_ms("reader"), 50),
+                            worst_during_resync=max(during or [0.0]), n_during=len(during)),
+        reader_resync_stalls=stalls,
+        writer_tick_ms=dict(p50=_pct(ticks.tick_ms("writer"), 50)),
+        reader_recaptures=pipe_r.recaptures - captures_r[1],
+        reader_ledger=service_r.ledger(), writer_ledger=service_w.ledger(),
+        reader_stats=replica.stats())
+    state.close()
+    for p in (pipe_w, pipe_r):
+        drop_stack(p)
+    return out
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class RouterCli:
+    """The CLI as a topic router (``--router``) in a subprocess, on a
+    socket, with one raw client: frame lines go out on camera topics;
+    results (with their host-clock arrivals, by ``meta["cid"]``) and
+    statuses come back."""
+
+    def __init__(self, paths: dict, dev, endpoints: list, healths: list):
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+             *cli_args(paths, "socket", dev), "--port", "0", "--expo-port", "0",
+             "--router", ",".join(endpoints), "--router-health", ",".join(healths),
+             "--router-link-deadline-s", str(REPL_LINK_DEADLINE_S),
+             "--router-hedge-deadline-s", str(REPL_HEDGE_DEADLINE_S)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, env=env)
+        self.err, self.answers, self.statuses = [], {}, []
+        self._lock = threading.Lock()
+        threading.Thread(target=lambda: self.err.extend(self.proc.stderr), daemon=True).start()
+        self.port = int(self.stderr_value("serving on ", 120).rsplit(":", 1)[1])
+        self.expo = int(self.stderr_value("router expo endpoint: ", 30)
+                        .rstrip("/").rsplit(":", 1)[1])
+        self.sock = socket.create_connection(("127.0.0.1", self.port), timeout=30)
+        self.sock.settimeout(None)
+        threading.Thread(target=self._read, daemon=True).start()
+
+    stderr_value = SocketCli.stderr_value
+
+    def _read(self) -> None:
+        for line in self.sock.makefile("r", encoding="utf-8"):
+            msg = json.loads(line)
+            now = time.perf_counter()
+            with self._lock:
+                if msg["topic"] == RESULT_TOPIC:
+                    cid = (msg["data"].get("meta") or {}).get("cid")
+                    if cid is not None:
+                        self.answers.setdefault(cid, []).append((now, msg["data"]))
+                elif msg["topic"] == STATUS_TOPIC:
+                    self.statuses.append(msg["data"])
+
+    def send(self, topic: str, b64: str, cid, priority: str = "interactive") -> None:
+        line = _frame_line(b64, {"cid": cid}, priority)
+        self.sock.sendall(line.replace(f'"topic": "{FRAME_TOPIC}"'.encode(),
+                                       f'"topic": "{topic}"'.encode(), 1))
+
+    def send_control(self, data: dict) -> None:
+        self.sock.sendall((json.dumps({"topic": CONTROL_TOPIC, "data": data}) + "\n").encode())
+
+    def answered(self, cids) -> bool:
+        with self._lock:
+            return all(c in self.answers for c in cids)
+
+    def replicas(self) -> list:
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.expo}/replicas", timeout=10) as r:
+            return json.loads(r.read())["replicas"]
+
+    def stop(self) -> dict:
+        """SIGTERM; the router's counters and registry from its stderr."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.sock.close()
+        if rc != 0:
+            raise AssertionError(f"the router exited {rc}: {''.join(self.err[-20:])}")
+        return dict(counters=json.loads(self.stderr_value("router metrics: ", 5)),
+                    registry=json.loads(self.stderr_value("router registry at shutdown: ", 5)),
+                    cuda=self.stderr_value("router holds a CUDA context: ", 5))
+
+
+def compute_apps() -> list:
+    """One pid per process holding a CUDA context on the card
+    (``nvidia-smi``; inside a container the pids may not be this
+    namespace's, so callers compare counts)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _paced_send(n: int, rate: float, send) -> dict:
+    """``send(i)`` for i in range(n) at ``rate`` a second; {i: send time}."""
+    sent = {}
+    t0 = time.perf_counter()
+    for i in range(n):
+        delay = t0 + i / rate - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        sent[i] = time.perf_counter()
+        send(i)
+    return sent
+
+
+def replication_cli(dev, ctx: dict, root: str, card: str) -> dict:
+    """Phase 14 (b): a writer and a reader CLI on one state dir, each on a
+    socket, and a router CLI in front of both (module docstring)."""
+    paths = ctx["cli_paths"]
+    b64 = [base64.b64encode(np.ascontiguousarray(f).tobytes()).decode("ascii")
+           for f in ctx["cli_frames"]]
+    state_dir = os.path.join(root, "cli_state")
+    topics = [f"camera/{k}" for k in range(REPL_TOPICS)]
+    while True:
+        # ports whose endpoint names split the topics between the two
+        # replicas by rendezvous (each gets a quarter of them at least)
+        ports = {n: (_free_port(), _free_port()) for n in ("writer", "reader")}
+        names = {n: f"127.0.0.1:{ports[n][0]}" for n in ports}
+        to_reader = sum(TopicRouter._weight(t, names["reader"])
+                        > TopicRouter._weight(t, names["writer"]) for t in topics)
+        if REPL_TOPICS // 4 <= to_reader <= REPL_TOPICS - REPL_TOPICS // 4:
+            break
+
+    def replica_cli(name, extra):
+        port, expo = ports[name]
+        return SocketCli(paths, dev, ["--state-dir", state_dir, "--port", str(port),
+                                      "--expo-port", str(expo), "--flush-ms", "5", *extra],
+                         os.path.join(root, f"{name}_{time.perf_counter_ns()}.jsonl"))
+
+    # the reader starts once the writer's first checkpoint is on disk (else
+    # it would replay the WAL onto an empty gallery); both start meanwhile
+    t = time.perf_counter()
+    started = {}
+    boot = threading.Thread(target=lambda: started.update(writer=replica_cli("writer", [])),
+                            daemon=True)
+    boot.start()
+    wait_for(lambda: os.path.isdir(os.path.join(state_dir, "checkpoints")) and any(
+        n.endswith(".ckpt") for n in os.listdir(os.path.join(state_dir, "checkpoints")))
+        or not boot.is_alive(), 300, "the writer's first checkpoint")
+    reader = replica_cli("reader", ["--replica-role", "reader"])
+    reader_start_s = time.perf_counter() - t
+    boot.join(timeout=300)
+    writer = started["writer"]
+    writer_start_s = time.perf_counter() - t
+    router = restarted = None
+    out = dict(card=card, writer_start_s=writer_start_s, reader_start_s=reader_start_s)
+    apps_before = compute_apps() if dev.type == "cuda" else []
+    try:
+        router = RouterCli(paths, dev, [names["writer"], names["reader"]],
+                           [f"http://127.0.0.1:{ports[n][1]}/health"
+                            for n in ("writer", "reader")])
+        # 3. a second writer on the dir (its verdict read after the traffic)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        second = subprocess.Popen(
+            [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+             *cli_args(paths, "jsonl", dev), "--state-dir", state_dir],
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        # R: an unpaced burst through the router
+        burst = list(range(REPL_BURST))
+        t0 = time.perf_counter()
+        for c in burst:
+            router.send(topics[c % REPL_TOPICS], b64[c % len(b64)], c)
+        wait_for(lambda: router.answered(burst), 120, "the router burst")
+        with router._lock:
+            rate = len(burst) / (max(router.answers[c][0][0] for c in burst) - t0)
+        steady = REPL_RATE_SHARE * rate
+        # 4. no card for the router: routing added no process on the card
+        apps_routing = compute_apps() if dev.type == "cuda" else []
+        if router.proc.pid in apps_routing or len(apps_routing) != len(apps_before):
+            raise AssertionError(f"replication cli: compute apps {apps_before} before the "
+                                 f"router, {apps_routing} while it routes (router pid "
+                                 f"{router.proc.pid})")
+        # the same rate straight to the writer
+        direct_sent = _paced_send(REPL_DIRECT_FRAMES, steady, lambda i: writer.send(
+            _frame_line(b64[i % len(b64)], {"_fid": f"d{i}"}, "interactive")))
+        wait_for(lambda: all(f"d{i}" in writer.answered for i in direct_sent), 120,
+                 "the direct run")
+        with writer._lock:
+            direct_ms = [(writer.answered[f"d{i}"] - t) * 1e3 for i, t in direct_sent.items()]
+        # as many frames at that rate through the router, both replicas up
+        base = REPL_BURST
+        clean = list(range(base, base + REPL_DIRECT_FRAMES))
+        clean_sent = _paced_send(len(clean), steady, lambda i: router.send(
+            topics[clean[i] % REPL_TOPICS], b64[clean[i] % len(b64)], clean[i]))
+        wait_for(lambda: router.answered(clean), 120, "the router run")
+        with router._lock:
+            router_ms = [(router.answers[clean[i]][0][0] - t) * 1e3
+                         for i, t in clean_sent.items()]
+        # 1-2. eight topics through the router, the reader killed partway
+        base = clean[-1] + 1
+        traffic = list(range(base, base + REPL_TOPICS * REPL_FRAMES_PER_TOPIC))
+        kill_at = int(REPL_KILL_AT * len(traffic))
+        t_kill = [None]
+
+        def send_traffic(i):
+            if i == kill_at:
+                reader.proc.send_signal(signal.SIGKILL)
+                t_kill[0] = time.perf_counter()
+            c = traffic[i]
+            router.send(topics[c % REPL_TOPICS], b64[c % len(b64)], c)
+
+        sent = _paced_send(len(traffic), steady, send_traffic)
+        sent_at = {traffic[i]: t for i, t in sent.items()}
+        t_kill = t_kill[0]
+        t_failover = None
+        deadline = time.monotonic() + 60
+        while t_failover is None and time.monotonic() < deadline:
+            r = {x["name"]: x for x in router.replicas()}[names["reader"]]
+            if not (r["healthy"] and r["link_up"]):
+                t_failover = time.perf_counter()
+            time.sleep(0.01)
+        if t_failover is None:
+            raise AssertionError("replication cli: the router never failed the reader over")
+        wait_for(lambda: router.answered(traffic), 120, "the traffic's answers")
+        _out, second_err = second.communicate(timeout=300)
+        if second.returncode == 0 or "writer lease" not in second_err:
+            raise AssertionError(f"replication cli: a second writer started "
+                                 f"(rc {second.returncode}): {second_err[-2000:]}")
+        reader.proc.wait(timeout=30)
+        for sock in (reader.sock, *reader.extra):
+            sock.close()
+        with router._lock:
+            e2e_kill = [(router.answers[c][0][0] - sent_at[c]) * 1e3 for c in traffic]
+        # the reader again at its ports: it resyncs, its link comes up and
+        # its topics route back
+        t_restart = time.perf_counter()
+        restarted = replica_cli("reader", ["--replica-role", "reader"])
+        restart_serving_s = time.perf_counter() - t_restart
+        back = []
+        cid = traffic[-1] + 1
+        deadline = time.monotonic() + 120
+        while not restarted.n_answered() and time.monotonic() < deadline:
+            for k in range(REPL_TOPICS):
+                router.send(topics[k], b64[cid % len(b64)], cid)
+                back.append(cid)
+                cid += 1
+            time.sleep(0.1)
+        if not restarted.n_answered():
+            raise AssertionError("replication cli: the restarted reader got no frame")
+        with restarted._lock:
+            first_answer_s = min(restarted.answered.values()) - t_restart
+        wait_for(lambda: router.answered(back), 120, "the frames after the restart")
+        r = {x["name"]: x for x in router.replicas()}[names["reader"]]
+        if not (r["healthy"] and r["link_up"] and r["topics"]):
+            raise AssertionError(f"replication cli: the reader did not come back: {r}")
+        # every frame answered exactly once
+        every = burst + clean + traffic + back
+        with router._lock:
+            counts = {c: len(a) for c, a in router.answers.items()}
+            firsts = {c: a[0][1] for c, a in router.answers.items()}
+        if sorted(counts) != sorted(every) or any(counts[c] != 1 for c in every):
+            raise AssertionError(f"replication cli: answers per frame "
+                                 f"{ {c: counts.get(c, 0) for c in every if counts.get(c) != 1} }")
+        # an enrolment through the router reaches the writer
+        router.send_control({"cmd": "enroll", "subject": "routed_subject", "count": 1})
+
+        def enrolled():
+            if any(s.get("status") == "enrolled" for s in list(router.statuses)):
+                return True
+            for k in range(REPL_TOPICS):
+                router.send(topics[k], b64[0], None)
+            return False
+
+        wait_for(enrolled, 120, "the routed enrolment", poll=0.2)
+        enrolments = [s for s in router.statuses if s.get("status") == "enrolled"]
+        if [s.get("replica") for s in enrolments] != [names["writer"]]:
+            raise AssertionError(f"replication cli: enrolment statuses {enrolments}")
+    finally:
+        routed = router.stop() if router is not None else {}
+        recs = {}
+        for name, cli in (("writer", writer), ("reader", restarted)):
+            if cli is not None:
+                recs[name] = cli.stop()
+        if reader.proc.poll() is None:
+            reader.proc.kill()
+    # every answer (failover, hedged and restarted-reader answers too)
+    # against a direct call on the CLI's checkpoints: round r holds the
+    # r-th answer of each frame index
+    by_frame = {}
+    for c in sorted(every):
+        by_frame.setdefault(c % len(b64), []).append(c)
+    check = dict(answers=0, faces=0, max_box_px=0.0, max_sim=0.0)
+    for r in range(max(len(a) for a in by_frame.values())):
+        idx = [i for i in sorted(by_frame) if len(by_frame[i]) > r]
+        cids = [by_frame[i][r] for i in idx]
+        try:
+            got = cross_check_messages(ctx["cli_direct"], ctx["cli_frames"][idx],
+                                       [firsts[c] for c in cids], f"replication cli round {r}")
+        except AssertionError as exc:
+            # which replica CLIs published each of the round's frames
+            seen = {n: {(m.get("meta") or {}).get("cid") for m in list(cli.results)}
+                    for n, cli in (("writer", writer), ("reader", reader),
+                                   ("restarted", restarted))}
+            raise AssertionError(f"{exc}; the round's frames (cid: publishers): " + ", ".join(
+                f"{c}: {[n for n in seen if c in seen[n]]}" for c in cids)) from exc
+        check.update(answers=check["answers"] + len(idx), faces=check["faces"] + got["faces"],
+                     max_box_px=max(check["max_box_px"], got["max_box_px"]),
+                     max_sim=max(check["max_sim"], got["max_sim"]))
+    if check["answers"] != len(every):
+        raise AssertionError(f"replication cli: {check['answers']} of {len(every)} answers "
+                             f"cross-checked")
+    serving = {}
+    for name, rec in recs.items():
+        _close_ledger(f"replication cli {name}", rec["ledger"])
+        serving[name] = _check_serving(dev, f"replication cli {name}", rec)
+    counters = routed["counters"]
+    if routed["cuda"] != "False":
+        raise AssertionError(f"replication cli: the router holds a CUDA context: {routed['cuda']}")
+    out.update(rate_fps=rate, steady_fps=steady, frames=len(every),
+               e2e_router_ms=dict(p50=_pct(router_ms, 50), p99=_pct(router_ms, 99),
+                                  n=len(router_ms)),
+               e2e_router_through_the_kill_ms=dict(p50=_pct(e2e_kill, 50),
+                                                   p99=_pct(e2e_kill, 99), n=len(e2e_kill)),
+               e2e_direct_ms=dict(p50=_pct(direct_ms, 50), p99=_pct(direct_ms, 99),
+                                  n=len(direct_ms)),
+               failover_s=t_failover - t_kill, restart_serving_s=restart_serving_s,
+               restart_first_answer_s=first_answer_s, cross_check=check,
+               router={k: counters.get(k, 0) for k in (
+                   mn.ROUTER_ROUTED, mn.ROUTER_HEDGES, mn.ROUTER_RESULTS_DEDUPED,
+                   mn.ROUTER_FAILOVERS, mn.ROUTER_RECOVERIES, mn.LINK_FAILURES,
+                   mn.LINK_RECOVERIES, mn.ROUTER_HEDGE_WINS, mn.ROUTER_HEDGE_WASTED)},
+               routed_by_replica={r["name"]: r["routed"] for r in routed["registry"]},
+               second_writer_refused=True, compute_apps=dict(
+                   before_router=len(apps_before), while_routing=len(apps_routing)),
+               serving=serving)
+    # within the link deadline and one 1 s health sweep (on the card; a
+    # CPU rehearsal's four processes share this box's cores)
+    if dev.type == "cuda" and out["failover_s"] > REPL_LINK_DEADLINE_S + 1.0:
+        raise AssertionError(f"replication cli: failover took {out['failover_s']:.2f} s")
+    return out
+
+
+def replication_verify(root: str, copy: str):
+    """Phase 14 (c): the port's verifier on (a)'s state dir (rc 0) and on
+    the copy with one base64 byte of an acknowledged record flipped (rc 2),
+    in two subprocesses; returns a function that waits for them and
+    returns their verdicts."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    wal = os.path.join(copy, "enroll.wal")
+    with open(wal) as f:
+        lines = f.read().splitlines()
+    k = max(i for i, line in enumerate(lines) if json.loads(line).get("kind") == "enroll")
+    rec = json.loads(lines[k])
+    rec["emb"] = ("B" if rec["emb"][0] != "B" else "C") + rec["emb"][1:]
+    lines[k] = json.dumps(rec)
+    with open(wal, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    t = time.perf_counter()
+    runs = {tag: (subprocess.Popen([sys.executable, "-m",
+                                    "opencv_facerecognizer_tpu_torch.apps.verify_checkpoint",
+                                    path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True, env=env), want)
+            for tag, path, want in (("sound", root, 0), ("flipped", copy, 2))}
+    def verdicts() -> dict:
+        out = {}
+        for tag, (proc, want) in runs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != want:
+                raise AssertionError(f"replication verify {tag}: rc {proc.returncode}: "
+                                     f"{stdout[-2000:]} {stderr[-2000:]}")
+            report = json.loads(stdout)
+            out[tag] = dict(rc=proc.returncode, seconds=time.perf_counter() - t,
+                            checkpoints=len(report["checkpoints"]),
+                            corrupt_records=(report.get("wal") or {}).get("corrupt_records"))
+        return out
+
+    return verdicts
+
+
+def replication_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 14 (module docstring); returns the ``{"replication": ...}``
+    numbers, (a)'s kernel launches among them."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "replication_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t = time.perf_counter()
+    inproc = replication_inproc(dev, seed, card, ctx, os.path.join(root, "state"))
+    inproc_s = time.perf_counter() - t
+    log(f"replication (a) ({card}): {json.dumps(inproc)}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    verdicts = replication_verify(os.path.join(root, "state"), inproc.pop("copy"))
+    if "cli_paths" not in ctx:
+        ctx["cli_paths"], ctx["cli_frames"] = write_cli_inputs(
+            dev, seed, os.path.join(root, "cli_inputs"))
+    if "cli_direct" not in ctx:
+        ctx["cli_direct"] = direct_pipeline(ctx["cli_paths"], dev)
+    t = time.perf_counter()
+    try:
+        cli = replication_cli(dev, ctx, root, card)
+    finally:
+        verify = verdicts()  # the verifiers ran beside (b)
+    cli_s = time.perf_counter() - t
+    log(f"replication (b) ({card}): {json.dumps(cli)}")
+    log(f"replication (c) ({card}): {json.dumps(verify)}")
+    return dict(card=card, inproc=inproc, inproc_s=inproc_s, cli=cli, cli_s=cli_s,
+                verify=verify, phase_s=time.perf_counter() - t_phase)
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3773,8 +4716,10 @@ def main() -> int:
     ingest = ingest_phase(dev, args.seed, card, ctx)
     rollout = rollout_phase(dev, args.seed, card, ctx)
     cascade = cascade_phase(dev, args.seed, card, ctx)
+    replication = replication_phase(dev, args.seed, card, ctx)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        # the main path's launches: the serving run's and the replicas'
+        e["launches"] = launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
     print(json.dumps({"async_grow": grow}))
     print(json.dumps({"ivf": ivf}))
@@ -3783,9 +4728,10 @@ def main() -> int:
     print(json.dumps({"overload": overload}))
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"rollout": rollout}))
-    cascade["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {cascade['total_s']:.1f} s")
     print(json.dumps({"cascade": cascade}))
+    replication["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {replication['total_s']:.1f} s")
+    print(json.dumps({"replication": replication}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -63,6 +63,18 @@ port, printed on stderr), ``--slo`` runs the burn-rate monitor (the
 ``--slo-*`` objectives), and ``--profile-dir`` writes a ``torch.profiler``
 Chrome trace (CPU and CUDA) of the first ``--profile-batches`` batches.
 
+Replication: ``--replica-role reader`` with ``--state-dir`` serves a
+read replica of a writer's dir (no lease, no writes): it anchors on the
+newest checkpoint, tails the WAL between batches (``--replica-poll-ms``),
+refuses enrolment, installs the detector or cascade a registry swap moves
+to at its re-anchor, and with ``--slo`` watches its lag
+(``--replication-lag-rows``). ``--router HOST:PORT,...`` runs a topic
+router in front of such CLIs (``--source socket`` each) and loads no
+model: rendezvous per topic, ``--router-health`` failover,
+``--router-budget-fps`` spills, ``--router-writer`` for control traffic,
+``--router-link-deadline-s`` pings, ``--router-hedge-deadline-s`` hedges,
+``--router-dedup-window``; ``/replicas`` on ``--expo-port``.
+
 The command line is the reference's, so any reference command line
 parses. ``--device`` (default ``cuda``) is the port's own: the CLI runs on
 the card and raises without one, unless ``--device cpu`` names the CPU.
@@ -83,18 +95,11 @@ import time
 
 import torch
 
-#: the ROADMAP items that bring the refused flags
-_REPLICAS = "ROADMAP A.8.6 (replication, topic router)"
+#: the ROADMAP item that brings the refused flag
 _MULTI_GPU = "ROADMAP A.11 (multi-GPU)"
 
 #: (flag, refused value or None for "any value but the default", item)
 REFUSED = (
-    ("--replica-role", "reader", _REPLICAS), ("--replica-poll-ms", None, _REPLICAS),
-    ("--replication-lag-rows", None, _REPLICAS), ("--router", None, _REPLICAS),
-    ("--router-health", None, _REPLICAS), ("--router-budget-fps", None, _REPLICAS),
-    ("--router-writer", None, _REPLICAS), ("--router-link-deadline-s", None, _REPLICAS),
-    ("--router-hedge-deadline-s", None, _REPLICAS),
-    ("--router-dedup-window", None, _REPLICAS),
     ("--parallel", "pp", _MULTI_GPU),
 )
 
@@ -276,16 +281,39 @@ def build_parser() -> argparse.ArgumentParser:
         metavar=("SHORT_S", "LONG_S"),
         help="the two burn-rate windows; a severity needs both to burn")
     add("--replica-role", choices=["writer", "reader"], default="writer",
-        help="writer (default)")
-    add("--replica-poll-ms", type=float, default=50.0)
-    add("--replication-lag-rows", type=int, default=4096)
-    add("--router", metavar="HOST:PORT[,HOST:PORT...]")
-    add("--router-health", metavar="URL[,URL...]")
-    add("--router-budget-fps", type=float, default=0.0)
-    add("--router-writer", type=int, default=0, metavar="IDX")
-    add("--router-link-deadline-s", type=float, default=0.0)
-    add("--router-hedge-deadline-s", type=float, default=0.0)
-    add("--router-dedup-window", type=int, default=4096)
+        help="role on a shared --state-dir. writer (default): takes the writer lease "
+             "and owns enrolment (a second writer exits). reader: reads the state dir "
+             "only, anchors on its newest checkpoint, tails the WAL between batches and "
+             "refuses enrolment (reason read_replica)")
+    add("--replica-poll-ms", type=float, default=50.0,
+        help="reader: WAL tail poll interval (bounds its staleness)")
+    add("--replication-lag-rows", type=int, default=4096,
+        help="reader with --slo: the replication-lag objective's bound in unapplied WAL "
+             "rows (warn; critical at 6x)")
+    add("--router", metavar="HOST:PORT[,HOST:PORT...]",
+        help="run as a topic router instead of a recognizer: frames arriving on --source "
+             "are spread over these replica endpoints (each a --source socket CLI) by "
+             "rendezvous hashing of their topic, with health failover; results and "
+             "statuses come back to the source. Loads no model and touches no card")
+    add("--router-health", metavar="URL[,URL...]",
+        help="each replica's /health URL (--router's order): 503 or unreachable fails "
+             "it over; unset = assumed healthy")
+    add("--router-budget-fps", type=float, default=0.0,
+        help="per-replica token-bucket budget (frames/s): an over-budget topic spills "
+             "to its next replica. 0 = none")
+    add("--router-writer", type=int, default=0, metavar="IDX",
+        help="index into --router of the writer: control traffic goes there only")
+    add("--router-link-deadline-s", type=float, default=0.0,
+        help="link supervision: a ping per replica per health cycle over the data "
+             "link; no pong within this many seconds marks the link down and routes "
+             "around it. 0 = off")
+    add("--router-hedge-deadline-s", type=float, default=0.0,
+        help="an interactive frame with no result after this many seconds is sent "
+             "once more to its next replica (same frame id; the loser is deduped). "
+             "0 = off")
+    add("--router-dedup-window", type=int, default=4096,
+        help="frame ids remembered at the router's fan-in, so a duplicated or hedged "
+             "result publishes once. 0 = off")
     add("--slo-loop-stale-s", type=float, default=30.0,
         help="loop-liveness objective: seconds without a serving-loop iteration "
              "(warn; critical at 6x). 0 = off")
@@ -424,6 +452,156 @@ def run_registry_swap(args) -> int:
     finally:
         lease.release()
     return 0
+
+
+def run_router(args) -> int:
+    """``--router``: a model-free topic router (module docstring) from
+    ``--source`` (socket or JSONL) to the replica endpoints, until the
+    input ends or SIGTERM. It imports no model and never touches the
+    card."""
+    from opencv_facerecognizer_tpu_torch.runtime.connector import (
+        WILDCARD_TOPIC, JSONLConnector, SocketConnector)
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import RESULT_TOPIC, STATUS_TOPIC
+    from opencv_facerecognizer_tpu_torch.runtime.replication import (
+        ReplicaHandle, TopicRouter, http_health_probe)
+    from opencv_facerecognizer_tpu_torch.utils.metrics import Metrics
+    from opencv_facerecognizer_tpu_torch.utils.tracing import Tracer
+
+    metrics = Metrics()
+    tracer = None
+    if args.flight_dir or args.expo_port is not None:
+        tracer = Tracer(ring_size=args.trace_ring, sample=args.trace_sample,
+                        dump_dir=args.flight_dir, metrics=metrics)
+    endpoints = [e.strip() for e in args.router.split(",") if e.strip()]
+    healths = ([u.strip() or None for u in args.router_health.split(",")]
+               if args.router_health else [None] * len(endpoints))
+    if len(healths) != len(endpoints):
+        raise SystemExit(f"--router-health lists {len(healths)} URLs for {len(endpoints)} "
+                         f"--router endpoints")
+    if not 0 <= args.router_writer < len(endpoints):
+        raise SystemExit(f"--router-writer {args.router_writer} is out of range for "
+                         f"{len(endpoints)} endpoints")
+    replicas = []
+    for i, endpoint in enumerate(endpoints):
+        host, _, port = endpoint.rpartition(":")
+        try:
+            conn = SocketConnector(host=host or "127.0.0.1", port=int(port), listen=False,
+                                   metrics=metrics)
+            conn.start()  # a replica that was never there is a configuration error
+        except (OSError, ValueError) as exc:
+            raise SystemExit(f"--router endpoint {endpoint!r}: {exc}")
+        replicas.append(ReplicaHandle(
+            endpoint, conn, health_fn=http_health_probe(healths[i]) if healths[i] else None,
+            budget_fps=args.router_budget_fps or None, writer=i == args.router_writer))
+    router = TopicRouter(replicas, metrics=metrics, tracer=tracer,
+                         link_deadline_s=args.router_link_deadline_s or None,
+                         hedge_deadline_s=args.router_hedge_deadline_s or None,
+                         dedup_window=args.router_dedup_window)
+    slo_monitor = None
+    if args.slo and args.router_link_deadline_s:
+        from opencv_facerecognizer_tpu_torch.runtime.slo import (
+            SLOMonitor, link_health_objective)
+
+        # the router's /health speaks for the links, not for a model
+        slo_monitor = SLOMonitor(metrics, [link_health_objective(router.down_link_fraction)],
+                                 tracer=tracer)
+    if args.source == "socket":
+        upstream = SocketConnector(host=args.host, port=args.port, listen=True,
+                                   metrics=metrics)
+    else:
+        upstream = JSONLConnector(sys.stdin, sys.stdout, metrics=metrics)
+    upstream.subscribe(WILDCARD_TOPIC, lambda topic, msg: router.publish(topic, msg))
+    for topic in (RESULT_TOPIC, STATUS_TOPIC):
+        router.subscribe(topic, lambda _t, msg, _up=topic: upstream.publish(_up, msg))
+    expo = None
+    if args.expo_port is not None:
+        from opencv_facerecognizer_tpu_torch.runtime.expo import ExpoServer
+
+        expo = ExpoServer(metrics=metrics, tracer=tracer, router=router, slo=slo_monitor,
+                          port=args.expo_port)
+        expo.start()
+        print(f"router expo endpoint: http://{expo.host}:{expo.port}/", file=sys.stderr)
+    term_event = threading.Event()
+    try:
+        signal.signal(signal.SIGTERM, lambda signum, frame: term_event.set())
+    except ValueError:
+        pass  # not the main thread
+    router.start()
+    upstream.start()
+    if args.source == "socket":
+        print(f"serving on {args.host}:{upstream.port}", file=sys.stderr)
+    print(f"routing {len(replicas)} replicas: {', '.join(endpoints)}", file=sys.stderr)
+    try:
+        while not upstream.eof.wait(timeout=0.5):
+            if term_event.is_set():
+                break
+            _redial(router, metrics)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if expo is not None:
+            expo.stop()
+        upstream.stop()
+        router.stop()
+        for handle in router.replicas():
+            handle.connector.stop()
+        print(f"router metrics: {json.dumps(metrics.counters(), sort_keys=True)}",
+              file=sys.stderr)
+        print(f"router registry at shutdown: {json.dumps(router.registry())}",
+              file=sys.stderr)
+        print(f"router holds a CUDA context: {torch.cuda.is_initialized()}", file=sys.stderr)
+    return 0
+
+
+def _redial(router, metrics) -> None:
+    """Dial again each replica whose connector spent its reconnect budget
+    (a restart that outlasted the backoff) and hand the router the new
+    connector (``replace_connector``); an endpoint still down is tried at
+    the next call (ROADMAP C.16)."""
+    from opencv_facerecognizer_tpu_torch.runtime.connector import SocketConnector
+
+    for handle in router.replicas():
+        old = handle.connector
+        if not old.eof.is_set():
+            continue
+        conn = SocketConnector(host=old.host, port=old.port, listen=False, metrics=metrics)
+        try:
+            conn.start()
+        except OSError:
+            continue
+        router.replace_connector(handle.name, conn)
+        old.stop()
+        print(f"router: replica {handle.name} dialled again", file=sys.stderr)
+
+
+def _open_reader(args, pipeline, names, metrics, tracer=None):
+    """A read replica of ``--state-dir`` (no lease, nothing written): the
+    first resync into the pipeline's gallery and ``names`` (raising when
+    it fails), the ``--embedder-version`` fence, the read-only registry
+    and its fence, and the installer of the weights a registry re-anchor
+    moves to. Returns the ``ReadReplica``."""
+    from opencv_facerecognizer_tpu_torch.runtime.registry import ModelRegistry
+    from opencv_facerecognizer_tpu_torch.runtime.replication import (
+        ReadReplica, pipeline_model_installer)
+
+    replica = ReadReplica(args.state_dir, pipeline.gallery, names, metrics=metrics,
+                          tracer=tracer, poll_interval_s=args.replica_poll_ms / 1e3)
+    t0 = time.perf_counter()
+    report = replica.resync()
+    print(f"replica initial sync: {report}", file=sys.stderr)
+    metrics.log("resync", seconds=time.perf_counter() - t0, stages=replica.last_resync_s,
+                checkpoint=report["checkpoint"], applied_rows=report["applied_rows"],
+                gallery_size=int(pipeline.gallery.size))
+    if args.embedder_version and replica.embedder_version != args.embedder_version:
+        raise SystemExit(
+            f"ocvf-recognize-torch: --embedder-version {args.embedder_version} declared but "
+            f"the state dir's checkpoint serves embedder v{replica.embedder_version}: a "
+            f"reader never mixes versions; start the matching model (or wait for the "
+            f"writer's cutover checkpoint)")
+    replica.registry = ModelRegistry(args.state_dir, metrics=metrics, readonly=True)
+    _registry_fence(replica.registry, args)
+    replica.install_model = pipeline_model_installer(pipeline)
+    return replica
 
 
 def _open_state(args, pipeline, names, metrics, tracer=None):
@@ -586,6 +764,8 @@ def main(argv=None) -> int:
     if not (args.model and args.detector and args.gallery):
         parser.error("the following arguments are required: --model, --detector, --gallery "
                      "(only --registry-swap runs without a serving stack)")
+    if args.router:
+        return run_router(args)
     from opencv_facerecognizer_tpu_torch.runtime.connector import (
         FakeConnector, JSONLConnector, SocketConnector, encode_frame)
     from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
@@ -617,9 +797,10 @@ def main(argv=None) -> int:
     journal = (DeadLetterJournal(args.dead_letter_journal, metrics=metrics,
                                  fsync=args.journal_fsync)
                if args.dead_letter_journal else None)
-    lease = None
+    lease = state = replica = None
+    reader = bool(args.state_dir) and args.replica_role == "reader"
     try:
-        if args.state_dir:
+        if args.state_dir and not reader:
             # one writer per state dir, taken before anything is loaded or
             # touched: a second writer fails closed with no side effects
             lease = WriterLease(args.state_dir, metrics=metrics)
@@ -628,8 +809,10 @@ def main(argv=None) -> int:
             except WriterLeaseHeldError as exc:
                 raise SystemExit(f"ocvf-recognize-torch: {exc}")
         pipeline, names = _load_stack(args, metrics)
-        state = (_open_state(args, pipeline, names, metrics, tracer)
-                 if args.state_dir else None)
+        if reader:
+            replica = _open_reader(args, pipeline, names, metrics, tracer)
+        elif args.state_dir:
+            state = _open_state(args, pipeline, names, metrics, tracer)
     except BaseException:
         if lease is not None:
             lease.release()
@@ -692,9 +875,21 @@ def main(argv=None) -> int:
         shed_stale_after_s=(args.shed_stale_after_ms / 1e3
                             if args.shed_stale_after_ms > 0 else None),
         tracer=tracer, slo_monitor=slo_monitor, cascade=not args.no_cascade,
-        cascade_threshold=args.cascade_threshold)
+        cascade_threshold=args.cascade_threshold, replica=replica)
     if state is not None:
         service.registry = state.registry
+    if replica is not None:
+        # the replica grows the names the service publishes (ROADMAP C.16)
+        service.subject_names = names
+        service.registry = replica.registry
+        replica.on_registry_change = service.flush_model_caches
+        if slo_monitor is not None:
+            from opencv_facerecognizer_tpu_torch.runtime.slo import replication_lag_objective
+
+            short_s, long_s = args.slo_windows
+            slo_monitor.add_objective(replication_lag_objective(
+                replica, rows_bound=args.replication_lag_rows, short_s=short_s,
+                long_s=long_s))
     if slo_monitor is not None and args.slo_loop_stale_s > 0:
         short_s, long_s = args.slo_windows
         slo_monitor.add_objective(loop_liveness_objective(

@@ -9,10 +9,15 @@
   any number of clients and broadcasts each publish to all of them;
   connecting, it redials with bounded exponential backoff after a blip.
 
+- ``ROSConnector``: ``sensor_msgs/Image`` in (``decode_ros_image``, no
+  cv_bridge), ``std_msgs/String`` JSON for control and out; ``rospy`` is
+  imported at construction, or injected (tests pass a mock).
+
 Frames travel as base64 raw bytes with shape and dtype
 (``encode_frame``). Messages are dicts, topics strings; handlers run on
 the connector's dispatch thread, so they must be cheap (the recognizer's
-only enqueues). The ROS transport waits for a later slice.
+only enqueues). With a ``fault_injector``, a ``SocketConnector``'s sends
+and receives cross its transport boundary (``runtime.faults``).
 """
 
 from __future__ import annotations
@@ -277,11 +282,17 @@ class SocketConnector(_TopicDispatchConnector):
     RECONNECT_JITTER = 0.5
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, listen: bool = False,
-                 metrics: Optional[mn.Metrics] = None, reconnect_attempts: int = 8):
+                 metrics: Optional[mn.Metrics] = None, reconnect_attempts: int = 8,
+                 fault_injector=None, peer_name: Optional[str] = None):
         super().__init__(metrics=metrics)
         self.host = host
         self.port = port
         self.listen = listen
+        #: transport boundary: every publish crosses ``on_transport(peer,
+        #: "send", ...)`` before the wire, every received message ``(peer,
+        #: "recv", ...)`` before dispatch; ``peer_name`` defaults to host:port
+        self._faults = fault_injector
+        self._peer_name = peer_name
         self._backoff_rng = random.Random()
         self.reconnect_attempts = max(0, int(reconnect_attempts))
         # one send lock per socket: whole lines, and one stalled client
@@ -427,8 +438,31 @@ class SocketConnector(_TopicDispatchConnector):
                 return False
         return True
 
+    def _transport_peer(self) -> str:
+        return self._peer_name or f"{self.host}:{self.port}"
+
+    def _transport_sink(self, kind: str) -> None:
+        self._count(mn.TRANSPORT_FAULTS_PREFIX + kind)
+
+    def _dispatch(self, topic: str, data: Dict[str, Any]) -> None:
+        if self._faults is None:
+            super()._dispatch(topic, data)
+            return
+        for msg in self._faults.on_transport(self._transport_peer(), "recv", data,
+                                             sink=self._transport_sink):
+            super()._dispatch(topic, msg)
+
     def publish(self, topic: str, message: Dict[str, Any]) -> None:
-        payload = (json.dumps({"topic": topic, "data": message}) + "\n").encode()
+        messages = [message]
+        if self._faults is not None:
+            # a dropped or cut message never reaches the wire; a duplicate
+            # is framed twice in one payload
+            messages = self._faults.on_transport(self._transport_peer(), "send", message,
+                                                 sink=self._transport_sink)
+            if not messages:
+                return
+        payload = "".join(json.dumps({"topic": topic, "data": m}) + "\n"
+                          for m in messages).encode()
         with self._lock:
             socks = [(s, self._send_locks[s]) for s in self._client_socks]
         dead = []
@@ -480,3 +514,154 @@ class SocketConnector(_TopicDispatchConnector):
         for thread in self._threads:
             thread.join(timeout=2.0)
         self._threads.clear()
+
+
+def decode_ros_image(msg) -> np.ndarray:
+    """``sensor_msgs/Image`` -> float32 grayscale ``[H, W]`` without
+    cv_bridge: mono8 and mono16 (``is_bigendian`` honoured) directly,
+    rgb8, bgr8, rgba8 and bgra8 through the luma weights; ``step`` is the
+    row stride."""
+    h, w, step = int(msg.height), int(msg.width), int(msg.step)
+    enc = str(msg.encoding).lower()
+    raw = np.frombuffer(bytes(msg.data), dtype=np.uint8)
+    channels = {"mono8": 1, "mono16": 2, "rgb8": 3, "bgr8": 3, "rgba8": 4, "bgra8": 4}
+    if enc not in channels:
+        raise ValueError(f"unsupported image encoding: {msg.encoding!r}")
+    rows = raw.reshape(h, step)[:, : w * channels[enc]]
+    if enc == "mono8":
+        return rows.astype(np.float32)
+    if enc == "mono16":
+        dt = ">u2" if getattr(msg, "is_bigendian", 0) else "<u2"
+        img16 = rows.reshape(h, w, 2).copy().view(dt)[..., 0]
+        return img16.astype(np.float32) / 257.0  # 16 bits onto 0..255
+    rgb = rows.reshape(h, w, channels[enc])[..., :3].astype(np.float32)
+    if enc.startswith("bgr"):
+        rgb = rgb[..., ::-1]
+    return rgb @ np.asarray([0.299, 0.587, 0.114], np.float32)
+
+
+class ROSConnector(_TopicDispatchConnector):
+    """The ROS transport of the reference's recognizer node:
+
+    - ``sensor_msgs/Image`` on ``image_topic``, decoded to a grayscale
+      frame, dispatched to ``FRAME_TOPIC`` subscribers (the other
+      connectors' message schema);
+    - ``std_msgs/String`` JSON on ``control_topic`` (a wire line or a bare
+      command) to ``CONTROL_TOPIC``;
+    - ``publish`` writes results and statuses as ``std_msgs/String`` JSON
+      on ``result_topic`` / ``status_topic``.
+
+    ``rospy`` is imported at construction unless ``rospy_module`` is given
+    (tests pass a mock)."""
+
+    def __init__(self, image_topic: str = "/camera/image_raw",
+                 result_topic: str = "/ocvfacerec/results",
+                 control_topic: str = "/ocvfacerec/control",
+                 status_topic: str = "/ocvfacerec/status", node_name: str = "ocvf_recognizer",
+                 rospy_module=None):
+        if rospy_module is None:
+            try:
+                import rospy as rospy_module  # type: ignore[no-redef]
+            except ImportError as e:
+                raise ImportError(
+                    "rospy is not installed in this environment; use JSONLConnector, "
+                    "SocketConnector, or FakeConnector, which implement the same "
+                    "MiddlewareConnector interface") from e
+        super().__init__()
+        self._rospy = rospy_module
+        self.image_topic = image_topic
+        self.result_topic = result_topic
+        self.control_topic = control_topic
+        self.status_topic = status_topic
+        self.node_name = node_name
+        self._publishers: Dict[str, Any] = {}
+        self._subscribers: List[Any] = []
+        self._started = False
+        self.frames_malformed = 0
+
+    def _ros_topic_for(self, topic: str) -> str:
+        from opencv_facerecognizer_tpu_torch.runtime import recognizer as rec
+
+        return {rec.RESULT_TOPIC: self.result_topic,
+                rec.STATUS_TOPIC: self.status_topic}.get(topic, topic)
+
+    def start(self) -> None:
+        if self._started:
+            return
+        rospy = self._rospy
+        rospy.init_node(self.node_name, anonymous=True, disable_signals=True)
+        self._string_cls = self._string_msg_cls()
+        self._subscribers.append(
+            rospy.Subscriber(self.image_topic, self._image_msg_cls(), self._on_image))
+        self._subscribers.append(
+            rospy.Subscriber(self.control_topic, self._string_cls, self._on_control))
+        self._started = True
+
+    @staticmethod
+    def _string_msg_cls():
+        try:
+            from std_msgs.msg import String  # only beside rospy
+        except ImportError:
+            class String:  # std_msgs/String's one field
+                def __init__(self, data: str = ""):
+                    self.data = data
+
+        return String
+
+    @staticmethod
+    def _image_msg_cls():
+        try:
+            from sensor_msgs.msg import Image  # only beside rospy
+        except ImportError:
+            class Image:  # only the Subscriber's type argument
+                pass
+
+        return Image
+
+    def _on_image(self, msg) -> None:
+        from opencv_facerecognizer_tpu_torch.runtime import recognizer as rec
+
+        try:
+            frame = decode_ros_image(msg)
+        except Exception:  # noqa: BLE001 - a malformed frame must not kill the node
+            self.frames_malformed += 1
+            self._count(mn.CONNECTOR_MALFORMED_LINES)
+            return
+        stamp = getattr(getattr(msg, "header", None), "stamp", None)
+        self._dispatch(rec.FRAME_TOPIC, {**encode_frame(frame), "meta": {
+            "stamp": str(stamp) if stamp is not None else None}})
+
+    def _on_control(self, msg) -> None:
+        from opencv_facerecognizer_tpu_torch.runtime import recognizer as rec
+
+        parsed = _parse_jsonl_line(getattr(msg, "data", ""))
+        if parsed is None:
+            return
+        topic, data = parsed
+        if data is None:
+            try:  # a bare command: {"cmd": "enroll", ...}
+                data = json.loads(msg.data)
+                topic = rec.CONTROL_TOPIC
+            except (json.JSONDecodeError, TypeError):
+                return
+        self._dispatch(topic if topic != "__malformed__" else rec.CONTROL_TOPIC, data)
+
+    def publish(self, topic: str, message: Dict[str, Any]) -> None:
+        if not self._started:
+            return
+        ros_topic = self._ros_topic_for(topic)
+        with self._lock:
+            pub = self._publishers.get(ros_topic)
+            if pub is None:
+                pub = self._rospy.Publisher(ros_topic, self._string_cls, queue_size=16)
+                self._publishers[ros_topic] = pub
+        pub.publish(self._string_cls(data=json.dumps(message)))
+
+    def stop(self) -> None:
+        for sub in self._subscribers:
+            try:
+                sub.unregister()
+            except Exception:  # noqa: BLE001 - rospy teardown is best effort
+                pass
+        self._subscribers.clear()
+        self._started = False

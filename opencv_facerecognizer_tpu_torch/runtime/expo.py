@@ -12,7 +12,9 @@ path                payload
 ``/metrics``        ``Metrics.summary()``
 ``/prom``           the same state in Prometheus text (``runtime.promtext``)
 ``/health``         the SLO monitor's last verdict: 200 for ok or warn,
-                    **503 for critical**; ``{"state": null}`` unwired
+                    **503 for critical**; ``{"state": null}`` unwired;
+                    critical while a read replica's registry install is
+                    pending (``ReadReplica.install_pending``)
 ``/ledger``         ``RecognizerService.ledger()``
 ``/brownout``       ``{"level": n}``
 ``/spans``          recent spans, ``?topic=<ring>&limit=<n>`` (alias
@@ -20,7 +22,8 @@ path                payload
                     or non-positive limit answers 400, more than
                     ``SPAN_LIMIT_MAX`` is clamped)
 ``/attribution``    the stage-attribution gauges, folded on read
-``/replicas``       ``{"replicas": null}`` (the router is ROADMAP A.8.6)
+``/replicas``       the topic router's ``registry()`` (``{"replicas": null}``
+                    without one)
 ``/rollout``        the rollout coordinator's ``status()``, or
                     ``{"rollout": null}`` while none is attached
 ``/registry``       the model registry's manifest when one is attached
@@ -149,7 +152,7 @@ class ExpoServer:
         self.tracer = tracer if tracer is not None else getattr(service, "tracer", None)
         self.metrics = metrics if metrics is not None else getattr(service, "metrics", None)
         self.slo = slo if slo is not None else getattr(service, "slo", None)
-        #: the topic router behind ``/replicas`` (ROADMAP A.8.6)
+        #: the topic router behind ``/replicas``
         self.router = router
         #: the rollout coordinator behind ``/rollout`` (else the service's)
         self.rollout = rollout
@@ -237,6 +240,10 @@ class ExpoServer:
         if path == "/metrics":
             return dict(self.metrics.summary()) if self.metrics else {}
         if path == "/health":
+            pending = getattr(getattr(service, "replica", None), "install_pending", None)
+            if pending:
+                return {"state": "critical", "state_code": STATE_CRITICAL,
+                        "detail": f"registry weights not installed: {pending}"}
             if self.slo is None:
                 return {"state": None, "detail": "no SLO monitor wired"}
             return dict(self.slo.verdict())

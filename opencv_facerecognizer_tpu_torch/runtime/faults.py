@@ -26,12 +26,21 @@ part of ``opencv_facerecognizer_tpu/runtime/faults.py``.
   crossings draw only the write kinds and reads only ``read_error``, so
   one scripted queue interleaves both.
 
+- **transport**: the link to a peer (``runtime.replication.TopicRouter``
+  and ``runtime.connector.SocketConnector`` cross it on every send and
+  receive). Link conditions are toggled per (peer, direction) and hold
+  until healed: ``partition`` and ``half_open`` eat every message (only a
+  heartbeat deadline tells a half-open link from a live one), ``slow``
+  sleeps a latency plus jitter first. Per-crossing faults are scripted or
+  drawn: ``drop``, ``duplicate`` (delivered twice) and ``reorder`` (held
+  and delivered after the link's next message).
+
 Faults are scripted (``script("wal", "torn")``: consumed in order, one
 per crossing) or drawn at ``rates`` from a ``random.Random(seed)``;
 ``injected`` counts each one fired as ``"boundary:fault"``. Without
 scripted faults and rates every hook is a no-op, and no production path
-arms an injector. The connector, batcher, readback and transport
-boundaries wait for their subsystems (ROADMAP A.8.6).
+arms an injector. The ``receive``, ``put`` and ``readback`` boundaries
+are not ported yet: they come with the chaos soak (ROADMAP A.14).
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ import errno
 import random
 import time
 from collections import Counter, deque
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -54,12 +63,20 @@ BOUNDARIES: Dict[str, tuple] = {
     "decode": ("slow", "corrupt"),
     "cascade": ("reject_all",),
     "storage": ("enospc", "eio", "slow_fsync", "read_error"),
+    "transport": ("partition", "half_open", "slow", "drop", "duplicate", "reorder"),
 }
 
 #: storage kinds by crossing direction (the filtered draw of
 #: ``on_storage`` / ``on_storage_read``)
 STORAGE_WRITE_KINDS = ("enospc", "eio", "slow_fsync")
 STORAGE_READ_KINDS = ("read_error",)
+
+#: transport kinds a crossing draws; the link conditions are toggled
+#: (``set_partition`` ...), never scripted
+TRANSPORT_DRAW_KINDS = ("drop", "duplicate", "reorder")
+
+#: a crossing's direction as the injecting side sees it
+TRANSPORT_DIRECTIONS = ("send", "recv")
 
 
 class InjectedCrashError(RuntimeError):
@@ -97,19 +114,30 @@ class FaultInjector:
         self.slow_fsync_s = float(slow_fsync_s)
         self.rates = rates or {}
         for boundary, fault_rates in self.rates.items():
-            unknown = set(fault_rates) - set(BOUNDARIES.get(boundary, ()))
+            valid = (TRANSPORT_DRAW_KINDS if boundary == "transport"
+                     else BOUNDARIES.get(boundary, ()))
+            unknown = set(fault_rates) - set(valid)
             if boundary not in BOUNDARIES or unknown:
                 raise ValueError(f"unknown fault(s) for {boundary!r}: "
                                  f"{sorted(unknown) or boundary}")
         self._scripted: Dict[str, deque] = {b: deque() for b in BOUNDARIES}
         self.injected: Counter = Counter()
         self.enabled = True
+        # transport link conditions, keyed (peer, direction): cut and
+        # half-open links, slow links' (latency, jitter), and the messages
+        # a reorder holds back
+        self._partitioned: set = set()
+        self._half_open: set = set()
+        self._slow_links: Dict[tuple, tuple] = {}
+        self._holdback: Dict[tuple, list] = {}
 
     def script(self, boundary: str, *faults: str) -> None:
         """Queue faults at ``boundary``, consumed in order, once each."""
         kinds = BOUNDARIES.get(boundary)
         if kinds is None:
             raise ValueError(f"unknown boundary {boundary!r}")
+        if boundary == "transport":
+            kinds = TRANSPORT_DRAW_KINDS
         for fault in faults:
             if fault not in kinds:
                 raise ValueError(f"boundary {boundary!r} has no fault {fault!r} "
@@ -209,6 +237,99 @@ class FaultInjector:
         """Durable-read boundary: ``read_error`` raises ``OSError(EIO)``."""
         if self._draw("storage", STORAGE_READ_KINDS) is not None:
             raise OSError(errno.EIO, f"injected storage fault (read_error) at {op}")
+
+    # ---- the transport boundary ----
+
+    @staticmethod
+    def _link_keys(peer: str, direction: str) -> List[tuple]:
+        if direction == "both":
+            return [(peer, d) for d in TRANSPORT_DIRECTIONS]
+        if direction not in TRANSPORT_DIRECTIONS:
+            raise ValueError(f"unknown transport direction {direction!r} "
+                             f"(valid: {TRANSPORT_DIRECTIONS + ('both',)})")
+        return [(peer, direction)]
+
+    def set_partition(self, peer: str, direction: str = "both") -> None:
+        """Cut the link: every crossing in ``direction`` vanishes."""
+        self._partitioned.update(self._link_keys(peer, direction))
+
+    def heal_partition(self, peer: str, direction: str = "both") -> None:
+        self._partitioned.difference_update(self._link_keys(peer, direction))
+
+    def set_half_open(self, peer: str, direction: str = "send") -> None:
+        """Blackhole crossings in ``direction`` with no error and no EOF."""
+        self._half_open.update(self._link_keys(peer, direction))
+
+    def heal_half_open(self, peer: str, direction: str = "both") -> None:
+        self._half_open.difference_update(self._link_keys(peer, direction))
+
+    def set_slow_link(self, peer: str, latency_s: float, jitter_s: float = 0.0,
+                      direction: str = "both") -> None:
+        """Each crossing sleeps ``latency_s`` plus a draw from ``[0,
+        jitter_s]`` first."""
+        for key in self._link_keys(peer, direction):
+            self._slow_links[key] = (float(latency_s), float(jitter_s))
+
+    def heal_slow_link(self, peer: str, direction: str = "both") -> None:
+        for key in self._link_keys(peer, direction):
+            self._slow_links.pop(key, None)
+
+    def heal_all_links(self) -> None:
+        """Clear every link condition (held messages stay held)."""
+        self._partitioned.clear()
+        self._half_open.clear()
+        self._slow_links.clear()
+
+    def flush_holdback(self, peer: str, direction: str = "both") -> List[Dict[str, Any]]:
+        """The messages a reorder holds on the link, now forgotten."""
+        flushed: List[Dict[str, Any]] = []
+        for key in self._link_keys(peer, direction):
+            flushed.extend(self._holdback.pop(key, ()))
+        return flushed
+
+    def on_transport(self, peer: str, direction: str, message: Dict[str, Any],
+                     sink=None) -> List[Dict[str, Any]]:
+        """One crossing of the link to ``peer``: the messages to deliver,
+        in order: ``[]`` (cut, half-open, dropped or held), ``[m, m]``
+        (duplicated), or the message followed by one a reorder held.
+        ``sink(kind)`` is told each fault enacted (the caller's
+        ``transport_fault_<kind>`` counter)."""
+        if not self.enabled:
+            return [message]
+        key = (peer, direction)
+
+        def fire(kind: str) -> None:
+            self.injected[f"transport:{kind}"] += 1
+            if sink is not None:
+                sink(kind)
+
+        # a dead link eats the message before any draw, held ones included
+        if key in self._partitioned:
+            fire("partition")
+            return []
+        if key in self._half_open:
+            fire("half_open")
+            return []
+        slow = self._slow_links.get(key)
+        if slow is not None:
+            latency_s, jitter_s = slow
+            delay = latency_s + (self._rng.random() * jitter_s if jitter_s > 0 else 0.0)
+            if delay > 0:
+                time.sleep(delay)
+            fire("slow")
+        fault = self._draw("transport", TRANSPORT_DRAW_KINDS)
+        if fault is not None and sink is not None:
+            sink(fault)  # the draw counted it in ``injected``
+        if fault == "drop":
+            return []
+        if fault == "reorder":
+            self._holdback.setdefault(key, []).append(message)
+            return []
+        held = self._holdback.pop(key, None)
+        out = [message, message] if fault == "duplicate" else [message]
+        if held:
+            out.extend(held)  # the held message lands after the newer one
+        return out
 
     def summary(self) -> Dict[str, int]:
         return dict(self.injected)

@@ -123,10 +123,19 @@ C.14), and the identity cache keys on that stamp; the publish path offers
 frames to a live swap's parity window; ``flush_model_caches`` is a swap's
 cache flush.
 
-Not ported yet: replication (ROADMAP A.8.6). The CPU fallback is not
-ported at all (ROADMAP C.7): with ``probe_backend_on_degraded`` a dead
-card is reported (``backend_usable: false``, ``cpu_fallback: false``) and
-the service stays degraded.
+**A read replica** (``replica=``, a ``runtime.replication.ReadReplica``):
+the serving loop polls it between batches (interval-gated; a failed poll
+counts ``replication_poll_errors`` and serving goes on), and an
+``enroll`` is refused (``rejected``, reason ``read_replica``,
+``replication_enroll_rejected``): the writer owns the WAL.
+
+**Link supervision**: a ping on ``LINK_PING_TOPIC`` is echoed on
+``LINK_PONG_TOPIC`` from the connector's thread, the path frames take; a
+router marks the link down when the echo stops.
+
+The CPU fallback is not ported (ROADMAP C.7): with
+``probe_backend_on_degraded`` a dead card is reported (``backend_usable:
+false``, ``cpu_fallback: false``) and the service stays degraded.
 """
 
 from __future__ import annotations
@@ -162,6 +171,9 @@ FRAME_TOPIC = "ocvfacerec/frames"
 RESULT_TOPIC = "ocvfacerec/results"
 CONTROL_TOPIC = "ocvfacerec/control"
 STATUS_TOPIC = "ocvfacerec/status"
+#: link supervision: a router's pings and this service's echoes
+LINK_PING_TOPIC = "ocvfacerec/link/ping"
+LINK_PONG_TOPIC = "ocvfacerec/link/pong"
 DEFAULT_BUCKET_SIZES = (8, 32, 128)
 #: fallback path's readiness poll while it waits out a head batch (s)
 FALLBACK_READBACK_POLL_S = 0.005
@@ -295,7 +307,7 @@ class RecognizerService:
                  slo_monitor=None, dedup_window: int = 4096,
                  ingest: Optional[IngestConfig] = None, cascade: bool = True,
                  cascade_threshold: Optional[float] = None,
-                 cascade_brownout_notch: float = CASCADE_BROWNOUT_NOTCH):
+                 cascade_brownout_notch: float = CASCADE_BROWNOUT_NOTCH, replica=None):
         if frame_shape is None:
             raise ValueError("frame_shape (H, W) is required (fixed batch shapes)")
         self.pipeline = pipeline
@@ -317,6 +329,9 @@ class RecognizerService:
         self.journal = dead_letter_journal
         self.tracer = tracer
         self.slo = slo_monitor
+        #: a ``runtime.replication.ReadReplica``: polled by the loop, and
+        #: enrolment is refused
+        self.replica = replica
         #: the model registry, a live registry swap and the rollout
         #: coordinator, set by the code that runs them; the exposition reads them
         self._registry = None
@@ -408,6 +423,7 @@ class RecognizerService:
             dur.publish = self._publish_status
         connector.subscribe(FRAME_TOPIC, self._on_frame)
         connector.subscribe(CONTROL_TOPIC, self._on_control)
+        connector.subscribe(LINK_PING_TOPIC, self._on_link_ping)
 
     @property
     def _durability(self):
@@ -671,6 +687,18 @@ class RecognizerService:
             while len(self._dedup_order) > self._dedup_window:
                 self._dedup_seen.discard(self._dedup_order.popleft())
 
+    def _on_link_ping(self, topic: str, message: Dict[str, Any]) -> None:
+        """Echo a router's ping on the pong topic, from the connector's
+        thread. A failed echo is the signal: the router's deadline turns
+        the silence into a link-down verdict."""
+        try:
+            pong = dict(message) if isinstance(message, dict) else {}
+            if self.replica is not None:
+                pong["replica"] = self.replica.name
+            self.connector.publish(LINK_PONG_TOPIC, pong)
+        except Exception:  # noqa: BLE001 - silence is the verdict
+            log.debug("link pong failed", exc_info=True)
+
     def _intake_frame(self, frame, meta, priority: int, tid: int) -> None:
         """After the decode: the brownout's intake shed, then the batcher."""
         level = self._effective_brownout_level()
@@ -704,6 +732,14 @@ class RecognizerService:
 
     def _on_control(self, topic: str, message: Dict[str, Any]) -> None:
         cmd = message.get("cmd")
+        if cmd == "enroll" and self.replica is not None:
+            # the writer owns the WAL: a reader enrolling on its own would
+            # fork its gallery from the writer's history for good
+            self.metrics.incr(mn.REPLICATION_ENROLL_REJECTED)
+            self._publish_status({"status": "rejected", "reason": "read_replica",
+                                  "detail": "enrollment is writer-only; route enroll to "
+                                            "the writer replica"})
+            return
         if cmd == "enroll":
             dur = self._durability
             if dur is not None and dur.degraded:
@@ -906,6 +942,14 @@ class RecognizerService:
             if self.slo is not None:
                 # on idle ticks too: recovery is part of the signal
                 self.slo.tick()
+            if self.replica is not None:
+                # the WAL tail between batches; a failed poll costs that
+                # poll only (the lag gauges show a replica that stalls)
+                try:
+                    self.replica.poll()
+                except Exception:  # noqa: BLE001 - replication must not kill serving
+                    log.exception("read-replica WAL poll failed")
+                    self.metrics.incr(mn.REPLICATION_POLL_ERRORS)
             if batch is None:
                 # an empty queue waits 0: the EWMA recovers when traffic stops
                 self._note_queue_wait(0.0)

@@ -31,7 +31,9 @@ A detector or cascade swap (``RegistrySwapCoordinator``) runs in phases
 - **watch**: the window starts again on new traffic; a full window below
   the gate rolls back at the next version (``auto_rollback``, with a
   flight-recorder dump), one at or above it ends the swap (``done``).
-  ``rollback`` is the same on an operator's call.
+  ``rollback`` is the same on an operator's call. The rollback stages a
+  copy of the restored version's params at its own version's path, for
+  the read replicas (ROADMAP C.15).
 """
 
 from __future__ import annotations
@@ -165,6 +167,14 @@ class ModelRegistry:
         doc = {"format_version": 1, "roles": self._roles, "updated_ts": time.time(),
                "checksum": hashlib.sha256(_canonical(self._roles)).hexdigest()}
         atomic_write_bytes(self.path, json.dumps(doc, sort_keys=True).encode("utf-8"))
+
+    def reload(self) -> None:
+        """Re-read the manifest (a read replica's re-anchor); raises
+        ``RegistryStateError``."""
+        roles = self.read_manifest(self.path)["roles"]
+        with self._lock:
+            self._roles = roles
+        self._publish_gauges()
 
     def _publish_gauges(self) -> None:
         if self.metrics is None:
@@ -528,7 +538,12 @@ class RegistrySwapCoordinator:
     def auto_rollback(self) -> int:
         """Roll the role back at the next version (numbers never repeat):
         ``rollback_install_fn`` restores the old weights, a flight dump
-        carries the swap's status."""
+        carries the swap's status. Unlike the reference, the restored
+        version's staged params (if it has any) are copied to the new
+        version's ``registry_params_path`` first, so read replicas install
+        them; a version that stages none serves version 1's weights
+        (ROADMAP C.15). The manifest and the fence record name no params,
+        as the reference's do."""
         status = self.status()
         if self.metrics is not None:
             self.metrics.incr(mn.REGISTRY_AUTO_ROLLBACKS)
@@ -541,6 +556,11 @@ class RegistrySwapCoordinator:
                     parity.agreement if parity is not None else 0.0,
                     parity.samples if parity is not None else 0,
                     parity.threshold if parity is not None else 0.0)
+        restored = registry_params_path(self.registry.state_dir, self.role, self.from_version)
+        if os.path.exists(restored):
+            with open(restored, "rb") as fh:
+                atomic_write_bytes(registry_params_path(
+                    self.registry.state_dir, self.role, self.to_version + 1), fh.read())
         seq = self.state.perform_registry_cutover(
             self.role, self.to_version + 1, config=None, params_path=None,
             params_sha256=None, install_fn=self.rollback_install_fn)

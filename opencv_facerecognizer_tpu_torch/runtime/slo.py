@@ -33,8 +33,10 @@ Readers take the last verdict dict by reference. ``clock`` is injectable.
 The objective constructors for rollout, registry, replication and link
 health take duck-typed objects (``rollout_parity_objective`` reads a
 ``runtime.rollout.RolloutCoordinator``, ``registry_parity_objective`` a
-``runtime.registry.RegistrySwapCoordinator``); replication's subsystems
-are ROADMAP A.8.6.
+``runtime.registry.RegistrySwapCoordinator``, ``replication_lag_objective``
+a ``runtime.replication.ReadReplica`` and ``link_health_objective`` a
+``TopicRouter.down_link_fraction``); the CLI wires the last two for a
+reader and a router under ``--slo``.
 """
 
 from __future__ import annotations

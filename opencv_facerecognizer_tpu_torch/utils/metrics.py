@@ -213,9 +213,52 @@ REGISTRY_GATE_RETRAINS = "registry_gate_retrains"
 REGISTRY_CACHE_FLUSHES = "registry_cache_flushes"
 REGISTRY_OBSERVE_ERRORS = "registry_observe_errors"
 WAL_REGISTRY_RECORDS = "wal_registry_records"
-# the writer lease (runtime.replication)
+# replication (runtime.replication): the writer lease, the read replica's
+# polls, applies, reopens, resyncs and refusals; REPLICATION_LAG_ROWS (WAL
+# rows seen, not applied) and REPLICATION_LAG_S (the oldest applied row's
+# age when it became visible) are gauges
 REPLICATION_LEASE_ACQUIRED = "replication_lease_acquired"
 REPLICATION_LEASE_CONFLICTS = "replication_lease_conflicts"
+REPLICATION_POLLS = "replication_polls"
+REPLICATION_POLL_ERRORS = "replication_poll_errors"
+REPLICATION_RECORDS_APPLIED = "replication_records_applied"
+REPLICATION_ROWS_APPLIED = "replication_rows_applied"
+REPLICATION_CORRUPT_RECORDS = "replication_corrupt_records"
+REPLICATION_WAL_REOPENS = "replication_wal_reopens"
+REPLICATION_RESYNCS = "replication_resyncs"
+REPLICATION_ABORTS_AFTER_APPLY = "replication_aborts_after_apply"
+REPLICATION_ENROLL_REJECTED = "replication_enroll_rejected"
+REPLICATION_LAG_ROWS = "replication_lag_rows"
+REPLICATION_LAG_S = "replication_lag_s"
+# port only (ROADMAP C.15): a reader's failed install of the weights its
+# manifest names, retried alone after a backoff
+REPLICATION_INSTALL_ERRORS = "replication_install_errors"
+# the topic router (runtime.replication.TopicRouter): routed frames,
+# ``router_rejected_<reason>``, budget spills, failovers and recoveries,
+# planned drains, probe failures, hedges and their outcomes, results
+# deduped at fan-in; ROUTER_REPLICAS and ROUTER_HEALTHY_REPLICAS are gauges
+ROUTER_ROUTED = "router_routed"
+ROUTER_BUDGET_SPILLS = "router_budget_spills"
+ROUTER_FAILOVERS = "router_failovers"
+ROUTER_RECOVERIES = "router_recoveries"
+ROUTER_CUTOVER_DRAINS = "router_cutover_drains"
+ROUTER_HEALTH_PROBE_FAILURES = "router_health_probe_failures"
+ROUTER_PROBE_ERRORS = "router_probe_errors"
+ROUTER_REPLICAS = "router_replicas"
+ROUTER_HEALTHY_REPLICAS = "router_healthy_replicas"
+ROUTER_HEDGES = "router_hedges"
+ROUTER_HEDGE_WINS = "router_hedge_wins"
+ROUTER_HEDGE_WASTED = "router_hedge_wasted"
+ROUTER_RESULTS_DEDUPED = "router_results_deduped"
+# link supervision (the router's ping/pong): heartbeats each way, link
+# transitions; LINKS_DOWN and ``link_state_<replica>`` (1 up, 0 down) are
+# gauges
+LINK_HEARTBEATS_SENT = "link_heartbeats_sent"
+LINK_HEARTBEATS_RECEIVED = "link_heartbeats_received"
+LINK_STATE_PREFIX = "link_state_"
+LINK_FAILURES = "link_failures"
+LINK_RECOVERIES = "link_recoveries"
+LINKS_DOWN = "links_down"
 # the durability monitor (runtime.resilience); DURABILITY_STATE,
 # DISK_FREE_BYTES and DISK_PRESSURE_STATE are gauges
 DURABILITY_STATE = "durability_state"
@@ -256,8 +299,8 @@ SLO_PROBE_FAILURES = "slo_probe_failures"
 SLO_TICK_ERRORS = "slo_tick_errors"
 SLO_BURN_PREFIX = "slo_burn_"
 SLO_EVENTS_PREFIX = "slo_events_"
-#: families of subsystems still to come, named so the exposition folds
-#: them as the reference does (ROADMAP A.8.6)
+#: ``transport_fault_<kind>`` (``runtime.faults``' transport boundary) and
+#: ``router_rejected_<reason>``
 TRANSPORT_FAULTS_PREFIX = "transport_fault_"
 ROUTER_REJECTED_PREFIX = "router_rejected_"
 

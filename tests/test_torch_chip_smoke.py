@@ -160,3 +160,118 @@ def test_perturbed_weights_are_seeded_and_small():
     assert all(torch.equal(a[k], b[k]) for k in params)
     assert not torch.equal(a["w"], chip_smoke.perturbed(params, 4, 1e-3)["w"])
     assert float((a["w"] - params["w"]).abs().max()) < 0.01 * float(params["w"].std())
+
+
+# ---------- phase 14: its host-side helpers ----------
+
+
+def test_ticks_feed_each_connector_and_time_each_tick():
+    import time
+
+    from opencv_facerecognizer_tpu_torch.runtime.connector import FakeConnector
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import FRAME_TOPIC, RESULT_TOPIC
+
+    conns = {"a": FakeConnector(), "b": FakeConnector()}
+    ticks = chip_smoke._Ticks(conns, np.zeros((3, 4, 4), np.uint8))
+    ticks.paused["b"].set()
+    ticks.thread.start()
+    deadline = time.monotonic() + 10
+    while len(conns["a"].messages(FRAME_TOPIC)) < 6 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    ticks.stop.set()
+    ticks.thread.join(10)
+    assert not ticks.errors and not conns["b"].messages(FRAME_TOPIC)
+    frames = conns["a"].messages(FRAME_TOPIC)
+    assert [m["meta"]["j"] for m in frames[:6]] == [0, 1, 2, 0, 1, 2]
+    for m in frames[:3]:  # the first tick's results, 5 ms after its inject
+        t = ticks.sent[m["meta"]["tick"]] + 0.005
+        conns["a"].publish(RESULT_TOPIC, {"meta": m["meta"], "faces": []})
+        ticks.published["a"][-1] = (t, *ticks.published["a"][-1][1:])
+    tick0 = frames[0]["meta"]["tick"]
+    assert ticks.tick_ms("a") == pytest.approx([5.0])
+    assert ticks.tick_ms("a", [(ticks.sent[tick0] + 1, ticks.sent[tick0] + 2)]) == []
+
+
+def test_wrap_calls_keeps_the_calls_it_is_told_to():
+    obj = type("O", (), {"f": lambda self, x: x * 2})()
+    calls = chip_smoke._wrap_calls(obj, "f", keep=lambda r: r > 2)
+    assert [obj.f(1), obj.f(3)] == [2, 6]
+    assert [r for _t, _dt, r in calls] == [6] and calls[0][1] >= 0
+
+
+def test_galleries_equal_holds_rows_labels_and_flags():
+    import torch
+
+    from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
+
+    rows = np.random.default_rng(0).standard_normal((6, 8)).astype(np.float32)
+    a, b = (ShardedGallery(8, 8, store_dtype=torch.bfloat16, device="cpu") for _ in range(2))
+    a.add(rows, np.arange(6))
+    b.load_snapshot(*a.snapshot())
+    chip_smoke.galleries_equal(a, b, "equal")
+    b.add(rows[:1], np.array([9]))
+    with pytest.raises(AssertionError, match="differs"):
+        chip_smoke.galleries_equal(a, b, "one more row")
+
+
+def test_paced_send_keeps_its_rate():
+    sent = []
+    times = chip_smoke._paced_send(5, 100.0, sent.append)
+    assert sent == list(range(5)) and times[4] - times[0] >= 0.039
+    port = chip_smoke._free_port()
+    assert 0 < port < 65536
+
+
+def test_replication_verify_reads_rc_0_then_rc_2_on_the_flipped_copy(tmp_path):
+    """Phase 14 (c) on a port-written state dir and its copy."""
+    import shutil
+
+    from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
+    from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
+
+    root = str(tmp_path / "state")
+    gallery = ShardedGallery(16, 8, device="cpu")
+    state = StateLifecycle(root, checkpoint_wal_rows=1 << 30, checkpoint_every_s=1e9)
+    state.bind(gallery, [])
+    assert state.checkpoint_now(wait=True)
+    rng = np.random.default_rng(1)
+    for i in range(3):
+        emb = rng.standard_normal((1, 8)).astype(np.float32)
+        state.append_enrollment(emb, np.array([i]), subject=f"s{i}", label=i,
+                                apply_fn=lambda e=emb, i=i: gallery.add(e, np.array([i])))
+    state.close()
+    copy = str(tmp_path / "copy")
+    shutil.copytree(root, copy)
+    out = chip_smoke.replication_verify(root, copy)()
+    assert (out["sound"]["rc"], out["flipped"]["rc"]) == (0, 2)
+    assert out["flipped"]["corrupt_records"] == 1 and out["sound"]["corrupt_records"] == 0
+
+
+
+def test_cross_check_pads_a_short_batch_to_the_top_rung():
+    """Every direct call of the cross-check runs BATCH frames: a call at a
+    size off the ladder runs other kernels than the served rungs."""
+    import types
+
+    import torch
+
+    n, k = 40, 2
+    seen = []
+
+    def recognize_batch_packed(batch):
+        seen.append(len(batch))
+        packed = np.zeros((len(batch), k, 8), np.float32)
+        packed[:, 0, :6] = (10, 20, 30, 40, 0.9, 1.0)
+        packed[:, 0, 6] = batch[:, 0, 0]  # the frame's label
+        packed[:, 0, 7] = 0.5
+        return torch.from_numpy(packed)
+
+    direct = types.SimpleNamespace(
+        recognize_batch_packed=recognize_batch_packed,
+        detector=types.SimpleNamespace(max_faces=k, score_threshold=0.5, iou_threshold=0.3))
+    frames = np.zeros((n, 4, 4), np.float32)
+    frames[:, 0, 0] = np.arange(n) % 3
+    messages = [{"faces": [{"box": [20, 10, 40, 30], "detection_score": 0.9,
+                            "label": int(i % 3), "similarity": 0.5}]} for i in range(n)]
+    out = chip_smoke.cross_check_messages(direct, frames, messages, "padded")
+    assert seen == [32, 32] and out["faces"] == n and out["max_sim"] == 0.0

@@ -45,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.utils.histogram",
                 "opencv_facerecognizer_tpu_torch.models.cascade",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
-                *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES):
+                *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES, *REPLICATION_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -87,6 +87,14 @@ INGEST_ROLLOUT_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.ingest",
 #: the cascade and registry slice's modules
 CASCADE_REGISTRY_MODULES = ("opencv_facerecognizer_tpu_torch.models.cascade",
                             "opencv_facerecognizer_tpu_torch.runtime.registry")
+
+
+#: the replication, router and verifier slice's modules
+REPLICATION_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.replication",
+                       "opencv_facerecognizer_tpu_torch.runtime.connector",
+                       "opencv_facerecognizer_tpu_torch.runtime.faults",
+                       "opencv_facerecognizer_tpu_torch.apps.recognize",
+                       "opencv_facerecognizer_tpu_torch.apps.verify_checkpoint")
 
 
 def _imported_top_names(path):
@@ -202,3 +210,27 @@ def test_cascade_registry_module_imports_only_the_port(mod):
     names = set(_imported_top_names(path))
     assert not names & FORBIDDEN, names & FORBIDDEN
     assert "opencv_facerecognizer_tpu." not in open(path).read()
+
+
+@pytest.mark.parametrize("mod", REPLICATION_MODULES)
+def test_replication_module_imports_only_the_port(mod):
+    """The replicas, the router, the transports and the offline verifier
+    keep their own copies: no JAX, no flax, nothing of the JAX package."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()
+
+
+def test_reader_cli_without_a_card_raises_and_writes_nothing(tmp_path, monkeypatch):
+    """A reader raises without a card like any entry point, and takes no
+    lease: a writer can start on the dir at once."""
+    from opencv_facerecognizer_tpu_torch.apps.recognize import main
+    from opencv_facerecognizer_tpu_torch.runtime.replication import WriterLease
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--model", "m", "--detector", "d", "--gallery", "g", "--source", "dir",
+              "--dir", "f", "--state-dir", str(tmp_path), "--replica-role", "reader"])
+    assert os.listdir(tmp_path) == []
+    WriterLease(str(tmp_path)).acquire().release()

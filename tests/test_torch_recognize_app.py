@@ -683,7 +683,7 @@ def test_durability_flag_is_served_with_the_reference_default(flag):
     dest = flag.lstrip("-").replace("-", "_")
     assert parser.get_default(dest) == ref[dest]
     assert flag not in {f for f, _v, _i in port_app.REFUSED}
-    assert ("--replica-role", "reader") in {(f, v) for f, v, _i in port_app.REFUSED}
+    assert "--replica-role" not in {f for f, _v, _i in port_app.REFUSED}
 
 
 def test_async_grow_enrolls_past_capacity(artifacts):
@@ -766,8 +766,173 @@ def test_overload_flag_is_served_with_the_reference_default(flag):
 
 def test_refused_keeps_only_the_items_still_to_come():
     items = {item.split(" (")[0] for _f, _v, item in port_app.REFUSED}
-    assert items == {"ROADMAP A.8.6", "ROADMAP A.11"}
+    assert items == {"ROADMAP A.11"}
+    assert port_app.REFUSED == (("--parallel", "pp", port_app._MULTI_GPU),)
     assert len(OVERLOAD_OBSERVE_FLAGS) == 21 and len(set(OVERLOAD_OBSERVE_FLAGS)) == 21
+    assert len(REPLICATION_FLAGS) == 10 and len(set(REPLICATION_FLAGS)) == 10
+
+
+# ---------- replication and the router (ROADMAP A.8.6) ----------
+
+REPLICATION_FLAGS = ["--replica-role", "--replica-poll-ms", "--replication-lag-rows",
+                     "--router", "--router-health", "--router-budget-fps", "--router-writer",
+                     "--router-link-deadline-s", "--router-hedge-deadline-s",
+                     "--router-dedup-window"]
+
+
+@pytest.mark.parametrize("flag", REPLICATION_FLAGS)
+def test_replication_flag_is_served_with_the_reference_default(flag):
+    parser = port_app.build_parser()
+    args = parser.parse_args(_refused_argv(parser, flag, None))
+    port_app.refuse_unported(parser, args)  # no longer refused
+    ref = {a.dest: a for a in jax_app.build_parser()._actions if a.option_strings}
+    dest = flag.lstrip("-").replace("-", "_")
+    assert parser.get_default(dest) == ref[dest].default
+    action = next(a for a in parser._actions if flag in a.option_strings)
+    assert action.choices == ref[dest].choices and action.type == ref[dest].type
+    assert flag not in {f for f, _v, _i in port_app.REFUSED}
+    assert action.help and "refused" not in action.help
+
+
+class _CliProc:
+    """A port CLI subprocess on the CPU: stdout JSON lines and stderr lines
+    collected as they come."""
+
+    def __init__(self, argv):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
+             "--device", "cpu", *argv], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+        self.out, self.err = [], []
+        threading.Thread(target=lambda: self.out.extend(
+            json.loads(line) for line in self.proc.stdout if line.startswith("{")),
+            daemon=True).start()
+        threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
+                         daemon=True).start()
+
+    def send(self, topic, data):
+        _send(self.proc, topic, data)
+
+    def wait_for(self, pred, what, timeout=120):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            assert self.proc.poll() is None, "".join(self.err)
+            assert time.monotonic() < deadline, f"{what}: {''.join(self.err)[-2000:]}"
+            time.sleep(0.05)
+
+    def port(self):
+        self.wait_for(lambda: any("serving on" in e for e in self.err), "serving on")
+        line = next(e for e in self.err if "serving on" in e)
+        return int(line.rsplit(":", 1)[1])
+
+    def results(self):
+        return [m["data"] for m in list(self.out) if m["topic"] == RESULT_TOPIC]
+
+    def statuses(self):
+        return [m["data"] for m in list(self.out) if m["topic"] == STATUS_TOPIC]
+
+    def close(self, sig=None):
+        try:
+            if sig is None:
+                self.proc.stdin.close()
+            else:
+                self.proc.send_signal(sig)
+            return self.proc.wait(timeout=120)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+
+
+def test_reader_cli_tails_a_jax_written_dir_answers_as_the_writer_and_refuses_enrolment(
+        artifacts, tmp_path, capsys):
+    """A JAX-written state dir (the JAX CLI's checkpoint), a port writer
+    CLI and a port reader CLI on it, each a subprocess: the writer's
+    enrolment reaches the reader through the WAL, both answer the scenes
+    alike, and an enrol sent to the reader is refused (``read_replica``)."""
+    a = artifacts
+    state_dir = str(tmp_path / "state")
+    assert jax_app.main(_common_args(a) + ["--source", "dir", "--dir", a["frames"],
+                                           "--state-dir", state_dir]) == 0
+    capsys.readouterr()
+    common = [*_common_args(a), "--source", "jsonl", "--flush-ms", "5", "--no-track-cache",
+              "--state-dir", state_dir]
+    writer = _CliProc(common)
+    reader = _CliProc(common + ["--replica-role", "reader", "--replica-poll-ms", "20"])
+    try:
+        _enrol_until_acknowledged(writer.proc, writer.out, a, "newcomer")
+        seq = [100]
+
+        def named():
+            reader.send(FRAME_TOPIC, {**encode_frame(a["scenes"][0]), "meta": {"seq": seq[0]}})
+            seq[0] += 1
+            time.sleep(0.05)
+            return any("newcomer" in {f["name"] for f in r["faces"]} for r in reader.results())
+
+        reader.wait_for(named, "the reader never named the writer's enrolment")
+        for proc in (writer, reader):
+            for i, scene in enumerate(a["scenes"]):
+                proc.send(FRAME_TOPIC, {**encode_frame(scene), "meta": {"seq": 1000 + i}})
+        reader.send(CONTROL_TOPIC, {"cmd": "enroll", "subject": "nope", "count": 1})
+        for proc in (writer, reader):
+            proc.wait_for(lambda p=proc: sum(r["meta"]["seq"] >= 1000 for r in p.results())
+                          == len(a["scenes"]), "scene results")
+        reader.wait_for(lambda: any(s.get("reason") == "read_replica"
+                                    for s in reader.statuses()), "the refusal")
+        assert reader.close() == 0 and writer.close() == 0
+    finally:
+        for proc in (writer, reader):
+            if proc.proc.poll() is None:
+                proc.proc.kill()
+    scenes = {p: [r for r in proc.results() if r["meta"]["seq"] >= 1000]
+              for p, proc in (("writer", writer), ("reader", reader))}
+    _assert_same_results(scenes["reader"], scenes["writer"], key=lambda m: m["seq"],
+                         sim_atol=0.0)
+    err = "".join(reader.err)
+    assert "replica initial sync" in err and "shutdown: clean" in err
+    assert not any(s.get("status") == "enrolling" for s in reader.statuses())
+
+
+def test_router_cli_in_front_of_two_clis_answers_every_frame_once(artifacts, tmp_path):
+    """``--router`` over two port CLIs on sockets: frames of eight topics
+    through the router's JSONL each come back exactly once, spread over
+    both replicas, and enrolment goes to the writer."""
+    a = artifacts
+    replicas = [_CliProc([*_common_args(a), "--source", "socket", "--port", "0",
+                          "--flush-ms", "5", "--no-track-cache"]) for _ in range(2)]
+    router = None
+    try:
+        ports = [r.port() for r in replicas]
+        router = _CliProc([*_common_args(a), "--source", "jsonl", "--router",
+                           ",".join(f"127.0.0.1:{p}" for p in ports),
+                           "--router-link-deadline-s", "5", "--router-hedge-deadline-s", "30"])
+        router.wait_for(lambda: any("routing 2 replicas" in e for e in router.err), "routing")
+        n = 0
+        for rnd in range(3):
+            for t in range(8):
+                router.send(f"camera/{t}", {**encode_frame(a["scenes"][t % len(a["scenes"])]),
+                                            "priority": "interactive",
+                                            "meta": {"cid": n, "cam": t}})
+                n += 1
+        router.wait_for(lambda: len(router.results()) >= n, "router results")
+        time.sleep(0.5)  # a late duplicate would show now
+        router.send(CONTROL_TOPIC, {"cmd": "stats"})
+        router.wait_for(lambda: any(s.get("status") == "stats" for s in router.statuses()),
+                        "stats through the router")
+        assert router.close() == 0
+    finally:
+        for proc in replicas + ([router] if router else []):
+            if proc.proc.poll() is None:
+                proc.close(signal.SIGTERM)
+    cids = sorted(r["meta"]["cid"] for r in router.results())
+    assert cids == list(range(n))
+    stats = [s for s in router.statuses() if s.get("status") == "stats"]
+    assert [s["replica"] for s in stats] == [f"127.0.0.1:{ports[0]}"]  # the writer only
+    line = next(e for e in router.err if e.startswith("router registry at shutdown: "))
+    registry = json.loads(line.split(": ", 1)[1])
+    served = [r["routed"] for r in registry]
+    assert sum(served) == n and all(served), registry
+    assert [r["writer"] for r in registry] == [True, False]
+    assert "router holds a CUDA context: False" in "".join(router.err)
 
 
 def test_cli_overload_and_observability_flags_end_to_end(artifacts, tmp_path):
