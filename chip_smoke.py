@@ -282,9 +282,36 @@ Phases (any failure exits nonzero before the result line):
    first answer, the router's hedges, dedups and failovers. One
    ``{"replication": ...}`` line, with the run's total seconds.
 
+15. (run after 14) multi-GPU, on MG_SLOTS slots of the one card (each slot
+   its own stream). (a) phase 4's 2^20 rows (5% invalid) in
+   bf16, Q 512 (64 planted), on ``make_mesh`` (dp, tp) = (1, 2), (1, 4) and
+   (2, 2) (every shard 2^18 rows or more, so kernel A runs per shard):
+   ``match_pod`` against single-device kernel A at k = 1, 5 and 17, indices
+   and labels equal and sims bit for bit; a sparse layout (MG_SPARSE_ROWS
+   valid rows, all in shard 0: ``-1`` and the pad label in the empty
+   slots); dp x tp launches of kernel A a match; ``match_pod``'s ms (events
+   around 20 eager calls) beside the single-device kernel's; a mesh
+   gallery picks ``match_pod`` (C.18) and equals kernel A. (b)
+   ``split_mesh(make_mesh(*pp_layout(n)))``, the CLI's own layout ((4, 2)
+   for 8 slots), the serving detector and the unfused serving embedder in
+   bf16 over the rows on mesh_b: the first batch against the single-device
+   eager unfused step run on each dp row's frames (labels and valid equal,
+   boxes within XCHECK_BOX_PX, sims within XCHECK_SIM; bit for bit
+   recorded) and against it on the whole batch (labels gated, sims
+   recorded: bf16 convolutions over 32 frames may take other algorithms
+   than over 16); launches a batch exactly mesh_b's slots of kernel A and
+   mesh_a's dp of kernel C (none of B); MG_STREAM_BATCHES batches through
+   ``recognize_stream``, each once and in order; host-clock ms a batch back
+   to back beside the single-device step's, in turns. (c) a
+   ``RecognizerService`` over it: every frame one result, an enrolment
+   lands live and names its subject. (d) the CLI's ``--parallel pp``
+   refusals on this host (one card: the device count, and the three flags
+   that are single-mesh only), each before any checkpoint loads. One
+   ``{"multi_gpu": ...}`` line with the run's total seconds.
+
 The line before the last is the per-kernel JSON (kernels A, B and C, their
-launches those of phase 4's serving run and of the reader alone in phase
-14 (a)); the last
+launches those of phase 4's serving run, of the reader alone in phase
+14 (a) and of the two-stage pipeline in phase 15 (b) and (c)); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -4685,6 +4712,317 @@ def replication_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     return dict(card=card, inproc=inproc, inproc_s=inproc_s, cli=cli, cli_s=cli_s,
                 verify=verify, phase_s=time.perf_counter() - t_phase)
 
+# ---------- phase 15: multi-GPU (ROADMAP A.11) ----------
+
+#: phase 15 (a): (dp, tp) meshes over slots of one card, and the k checked
+MG_MESHES = ((1, 2), (1, 4), (2, 2))
+MG_KS = (1, 5, 17)
+#: phase 15's slots on one card: the CLI's device count for its layout
+#: over 8 cards, (4, 2), split into two (2, 2) stage meshes
+MG_SLOTS = 8
+MG_STREAM_BATCHES = 16
+MG_TIME_BATCHES = 20
+#: phase 15 (a): the sparse layout's valid rows (all in shard 0, fewer
+#: than k in the others)
+MG_SPARSE_ROWS = 3
+
+
+
+
+def _pod_vs_single(q, g, valid, labels, mesh, k: int, shards=None) -> float:
+    """``match_pod`` on ``mesh`` (over ``shards``, the rows placed there)
+    against single-device kernel A on the same rows: indices and labels
+    equal, sims bit for bit. Returns the largest sim difference (0.0)."""
+    from opencv_facerecognizer_tpu_torch.parallel.gallery import (
+        match_pod, take_labels_with_sentinel)
+
+    got_l, got_v, got_i = (x.to(q.device) for x in match_pod(
+        q, g, valid, labels, k=k, mesh=mesh, labels_pad=-1, shards=shards))
+    want_v, want_i = streaming_match_topk(q, g, valid, k=k)
+    want_l = take_labels_with_sentinel(labels, want_i, -1)
+    err = float((got_v - want_v).abs().max().item())
+    if not (torch.equal(got_i, want_i) and torch.equal(got_l, want_l) and err == 0.0):
+        raise AssertionError(
+            f"multi_gpu (a) mesh {mesh.shape} k={k}: match_pod differs from single-device "
+            f"kernel A: {(got_i != want_i).sum().item()} indices, "
+            f"{(got_l != want_l).sum().item()} labels, max |sim diff| {err}")
+    return err
+
+
+def sharded_match_check(dev, ctx: dict, devices: list) -> dict:
+    """Phase 15 (a) (module docstring), meshes over the first slots of
+    ``devices``."""
+    from opencv_facerecognizer_tpu_torch.parallel import ShardedGallery as Gallery
+    from opencv_facerecognizer_tpu_torch.parallel.gallery import match_pod, shard_arrays
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    rows, labels = ctx["rows"], ctx["labels"]
+    gen = torch.Generator().manual_seed(15)
+    g = torch.from_numpy(rows).to(torch.bfloat16).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    valid = torch.ones(len(rows), dtype=torch.bool, device=dev)
+    valid[torch.randperm(len(rows), generator=gen)[:len(rows) // 20].to(dev)] = False
+    q = torch.randn(512, DIM, generator=gen)
+    q = (q / q.norm(dim=1, keepdim=True)).to(dev)
+    q[:64] = g[-64:].float()  # planted rows (of which some are invalid)
+    out = {"meshes": {}}
+    zero_counters()
+    for dp, tp in MG_MESHES:
+        mesh = make_mesh(dp=dp, tp=tp, devices=devices[:dp * tp])
+        if len(rows) // tp < ShardedGallery.KERNEL_MIN_CAPACITY:
+            raise AssertionError(f"multi_gpu (a): shards of {len(rows) // tp} rows take no kernel")
+        shards = shard_arrays(mesh, g, valid, lab)  # views on one card, copies across cards
+        errs = [_pod_vs_single(q, g, valid, lab, mesh, k, shards) for k in MG_KS]
+        before = streaming_match_topk.launches
+        match_pod(q, g, valid, lab, k=1, mesh=mesh, shards=shards)
+        torch.cuda.synchronize()
+        per_call = streaming_match_topk.launches - before
+        if dev.type == "cuda" and per_call != dp * tp:  # the CPU launches no kernel
+            raise AssertionError(f"multi_gpu (a) mesh ({dp}, {tp}): {per_call} kernel A "
+                                 f"launches a match, want {dp * tp}")
+        pod_ms = cuda_ms(lambda: match_pod(q, g, valid, lab, k=1, mesh=mesh, shards=shards))
+        single_ms = cuda_ms(lambda: streaming_match_topk(q, g, valid, k=1))
+        # sparse: every valid row in shard 0, fewer than k anywhere else
+        sparse = torch.zeros_like(valid)
+        sparse[:MG_SPARSE_ROWS] = True
+        s_shards = shard_arrays(mesh, g, sparse, lab, shards.emb)
+        s_l, s_v, s_i = (x.to(dev) for x in match_pod(q, g, sparse, lab, k=5, mesh=mesh,
+                                                       labels_pad=-1, shards=s_shards))
+        empty = s_i == -1
+        if not (empty.sum(dim=1) == 5 - MG_SPARSE_ROWS).all() or not (s_l[empty] == -1).all() \
+                or not (s_v[empty] == NEG_INF).all() or not (s_i[~empty] < MG_SPARSE_ROWS).all():
+            raise AssertionError(f"multi_gpu (a) mesh ({dp}, {tp}): the sparse layout's empty "
+                                 "slots are not -1 with the pad label")
+        _pod_vs_single(q, g, sparse, lab, mesh, 5, s_shards)
+        del shards, s_shards
+        out["meshes"][f"{dp}x{tp}"] = dict(max_sim_diff=max(errs), launches_per_match=per_call,
+                                           match_pod_ms=pod_ms, single_kernel_ms=single_ms)
+        log(f"multi_gpu (a) mesh dp={dp} tp={tp} on {len(set(devices[:dp * tp]))} card(s): "
+            f"match_pod equal to single-device "
+            f"kernel A at k={MG_KS} (indices, labels; sims bit for bit), sparse layout -1 and "
+            f"pad; {per_call} kernel A launches a match; match_pod {pod_ms:.4f} ms against "
+            f"{single_ms:.4f} ms single-device (events around 20 eager calls, Q 512, k 1)")
+    # the gallery's own choice on a mesh: match_pod (C.18), equal again
+    mesh = make_mesh(dp=2, tp=2, devices=devices[:4])
+    gal = Gallery(len(rows), DIM, store_dtype=torch.bfloat16, mesh=mesh)
+    gal.load_snapshot(rows, labels, valid.cpu().numpy(), len(rows))
+    if not gal.kernel_enabled() or gal.match_fn(1).__name__ != "pod":
+        raise AssertionError("multi_gpu (a): the mesh gallery did not pick match_pod")
+    got = [x.to(dev) for x in gal.match(q, k=5)]
+    want_v, want_i = streaming_match_topk(q, g, valid, k=5)
+    if not (torch.equal(got[2], want_i) and torch.equal(got[1], want_v)):
+        raise AssertionError("multi_gpu (a): the mesh gallery's match differs from kernel A")
+    out["gallery_match_equal"] = True
+    out["launches"] = read_launches()
+    del gal, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_results_close(got, want, what: str, threshold: float, iou_threshold: float,
+                      sim_atol=XCHECK_SIM) -> dict:
+    """pp against the single-device step, face by face (``cross_check_frame``:
+    faces pair by box, since two slots may swap where scores tie to
+    rounding; a face on one side only passes at a decision boundary):
+    labels equal, boxes within XCHECK_BOX_PX, sims within ``sim_atol``
+    (None: recorded only)."""
+    a = unpack_result(pack_result(got).cpu().numpy(), 1)
+    b = unpack_result(pack_result(want).cpu().numpy(), 1)
+    faces = swaps = 0
+    box = sim = 0.0
+    for i in range(len(a.valid)):
+        pairs, lone = cross_check_frame(a, b, i, threshold, iou_threshold)
+        swaps += lone
+        for j, m, dbox in pairs:
+            if a.labels[i, j, 0] != b.labels[i, m, 0]:
+                raise AssertionError(f"multi_gpu (b) {what}: frame {i} labels differ")
+            faces += 1
+            box = max(box, float(dbox))
+            sim = max(sim, abs(float(a.similarities[i, j, 0] - b.similarities[i, m, 0])))
+    if sim_atol is not None and sim > sim_atol:
+        raise AssertionError(f"multi_gpu (b) {what}: sim differs by {sim}")
+    return dict(faces=faces, boundary_swaps=swaps, max_box_diff=box, max_sim_diff=sim,
+                valid_equal=bool((a.valid == b.valid).all()))
+
+
+def pp_stack(dev, seed: int, rows, labels, devices: list):
+    """The two-stage pipeline over ``devices`` in the CLI's layout
+    (``split_mesh(make_mesh(*pp_layout(n)))``: (4, 2) halves for 8), the
+    serving detector and the unfused serving embedder (``build_stack``'s
+    weights, on ``dev``), the rows on mesh_b in bf16; and the
+    single-device eager unfused stack on ``dev`` it is held against."""
+    from opencv_facerecognizer_tpu_torch.parallel import ShardedGallery as Gallery
+    from opencv_facerecognizer_tpu_torch.parallel import TwoStagePipeline, split_mesh
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    mesh_a, mesh_b = split_mesh(make_mesh(*recognize_app.pp_layout(len(devices)),
+                                          devices=devices))
+    gal = Gallery(len(rows), DIM, store_dtype=torch.bfloat16, mesh=mesh_b)
+    gal.add(rows, labels)
+    ref = build_stack(dev, seed, bf16_gallery(dev, rows, labels), fused=False,
+                      cuda_graphs=False)
+    pp = TwoStagePipeline(ref.detector, ref.embed_net, None, gal, mesh_a,
+                          face_size=embedder_mod.SERVING_FACE_SIZE)
+    return pp, ref
+
+
+def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 15 (module docstring) over MG_SLOTS slots of ``dev``; returns
+    the ``{"multi_gpu": ...}`` numbers, the pp path's kernel launches
+    among them."""
+    t_phase = time.perf_counter()
+    devices = [dev] * MG_SLOTS
+    out = {"card": card, "devices": [str(d) for d in devices]}
+    t = time.perf_counter()
+    out["sharded_match"] = sharded_match_check(dev, ctx, devices)
+    out["sharded_match_s"] = time.perf_counter() - t
+
+    # (b) the two-stage pipeline
+    t = time.perf_counter()
+    frames = ctx["frames"]
+    pp, ref = pp_stack(dev, seed, ctx["rows"], ctx["labels"], devices)
+    dp_a = pp.mesh_a.shape["dp"]
+    batch = frames[:BATCH]
+    # against the single-device step on each dp row's frames (the batch
+    # each convolution sees in pp): the same kernels, so bit for bit is
+    # expected; against the whole batch at once, bf16 convolutions over 32
+    # frames may take other algorithms, so its sims are recorded, not gated
+    got = pp.recognize_batch(batch)
+    per = BATCH // dp_a
+    by_row = RecognitionResult(*(torch.cat(parts) for parts in zip(*(
+        ref.recognize_batch(batch[r * per:(r + 1) * per]) for r in range(dp_a)))))
+    thresholds = (ref.detector.score_threshold, ref.detector.iou_threshold)
+    out["pp_vs_single"] = _pp_results_close(got, by_row, "first batch by dp row", *thresholds)
+    out["pp_vs_single"]["bit_equal"] = bool(torch.equal(pack_result(got).cpu(),
+                                                         pack_result(by_row).cpu()))
+    out["pp_vs_single_whole_batch"] = _pp_results_close(
+        got, ref.recognize_batch(batch), "first batch whole", *thresholds, sim_atol=None)
+    zero_counters()
+    pp.recognize_batch_packed(batch).cpu()
+    per_batch = read_launches()
+    want = {"streaming_match": pp.mesh_b.size, "nms": dp_a, "sepblock": 0}
+    if dev.type == "cuda" and per_batch != want:  # the CPU launches no kernel
+        raise AssertionError(f"multi_gpu (b): launches a batch {per_batch}, want {want}")
+    n_distinct = len(frames) // BATCH
+    batches = [frames[(i % n_distinct) * BATCH:(i % n_distinct + 1) * BATCH]
+               for i in range(MG_STREAM_BATCHES)]
+    solo = [pp.recognize_batch(b) for b in batches[:n_distinct]]
+    zero_counters()
+    streamed = list(pp.recognize_stream(iter(batches)))
+    torch.cuda.synchronize()
+    stream_launches = read_launches()
+    if len(streamed) != len(batches):
+        raise AssertionError(f"multi_gpu (b): {len(streamed)} results for {len(batches)} batches")
+    for i, res in enumerate(streamed):
+        if not (torch.equal(res.labels, solo[i % n_distinct].labels)
+                and torch.equal(res.valid, solo[i % n_distinct].valid)):
+            raise AssertionError(f"multi_gpu (b): streamed batch {i} differs from its solo run")
+    if dev.type == "cuda" and stream_launches != {k: v * len(batches)
+                                                  for k, v in want.items()}:
+        raise AssertionError(f"multi_gpu (b): stream launches {stream_launches}")
+    ms_pp = back_to_back_ms(pp, batch, iters=MG_TIME_BATCHES)
+    ms_ref = back_to_back_ms(ref, batch, iters=MG_TIME_BATCHES)
+    ms_pp2 = back_to_back_ms(pp, batch, iters=MG_TIME_BATCHES)
+    ms_ref2 = back_to_back_ms(ref, batch, iters=MG_TIME_BATCHES)
+    out["pp"] = dict(launches_per_batch=per_batch, stream_batches=len(streamed),
+                     stream_launches=stream_launches,
+                     back_to_back_ms=[ms_pp, ms_pp2],
+                     single_device_eager_unfused_back_to_back_ms=[ms_ref, ms_ref2])
+    out["pp_s"] = time.perf_counter() - t
+    log(f"multi_gpu (b) pp over {out['devices']} (mesh_a {pp.mesh_a.shape}, mesh_b "
+        f"{pp.mesh_b.shape}): first batch {out['pp_vs_single']} against the single-device "
+        f"unfused step on each dp row's frames, {out['pp_vs_single_whole_batch']} against it "
+        f"on the whole batch; launches a batch {per_batch}; {len(streamed)} streamed batches in "
+        f"order; host-clock ms a batch back to back {ms_pp:.3f}, {ms_pp2:.3f} against "
+        f"{ms_ref:.3f}, {ms_ref2:.3f} for the single-device eager unfused step")
+
+    # (c) the service over the two-stage pipeline
+    t = time.perf_counter()
+    names = [f"p{i}" for i in range(ctx["n_plant"])]
+    conn = FakeConnector()
+    service = RecognizerService(pp, conn, batch_size=BATCH, frame_shape=FRAME,
+                                transfer_dtype=np.uint8, flush_timeout=0.05,
+                                similarity_threshold=0.5, subject_names=names)
+    service.start(warmup=True)
+    zero_counters()
+    try:
+        served = frames[:4 * BATCH] if len(frames) >= 4 * BATCH else frames
+        for i, frame in enumerate(served):
+            conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i}})
+        if not service.drain(timeout=120.0):
+            raise AssertionError("multi_gpu (c): service did not drain")
+        results = conn.messages(RESULT_TOPIC)
+        if sorted(r["meta"]["i"] for r in results) != list(range(len(served))):
+            raise AssertionError("multi_gpu (c): not one result per frame")
+        steps = int(service.metrics.counter(BATCHES_DISPATCHED))
+        service_launches = read_launches()
+        if dev.type == "cuda" and (service_launches["streaming_match"]
+                                   != steps * want["streaming_match"]):
+            raise AssertionError(f"multi_gpu (c): launches {service_launches} in {steps} steps")
+        # a subject from a frame with no planted row lands live and is named
+        scene = frames[BATCH + faced_frames(pp, frames[BATCH:2 * BATCH], 1)[0]]
+        subject = "pp_enrolled"
+        t_enrol = time.perf_counter()
+        enrol_through_control(conn, scene, subject)
+        enrol_s = time.perf_counter() - t_enrol
+        n_before = len(conn.messages(RESULT_TOPIC))
+        for j in range(BATCH):
+            conn.inject(FRAME_TOPIC, {**encode_frame(scene), "meta": {"after": j}})
+        if not service.drain(timeout=120.0):
+            raise AssertionError("multi_gpu (c): service did not drain after the enrolment")
+        after = conn.messages(RESULT_TOPIC)[n_before:]
+        named = sum(any(f["name"] == subject for f in r["faces"]) for r in after)
+        if named == 0:
+            raise AssertionError("multi_gpu (c): the enrolled subject was named in no frame")
+        ledger = service.ledger()
+    finally:
+        service.stop()
+    if ledger["in_system"]:
+        raise AssertionError(f"multi_gpu (c): ledger does not close: {ledger}")
+    out["service"] = dict(frames=len(served), steps=steps, launches=service_launches,
+                          enrol_s=enrol_s, named_after_enrol=named, of=len(after))
+    out["service_s"] = time.perf_counter() - t
+    log(f"multi_gpu (c) service: {len(served)} frames answered once in {steps} steps, "
+        f"launches {service_launches}; an enrolment landed in {enrol_s:.3f} s and named "
+        f"{named} of {len(after)} frames after it")
+
+    # (d) the CLI on one card
+    missing = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "no_such_ckpt")
+    base = ["--model", missing, "--detector", missing, "--gallery", missing,
+            "--source", "dir", "--dir", missing, "--parallel", "pp",
+            *(["--device", "cpu"] if dev.type == "cpu" else [])]
+    n_dev = 1 if dev.type == "cpu" else torch.cuda.device_count()
+    refusals = {}
+    for case, extra, text in (
+            ("one_device", [], f"needs an even device count >= 2 (have {n_dev})"),
+            ("fused_embedder", ["--fused-embedder"], "--fused-embedder applies to"),
+            ("match_mode_ivf", ["--match-mode", "ivf"], "--match-mode ivf applies to"),
+            ("cascade", ["--cascade", missing], "--cascade applies to")):
+        if case == "one_device" and n_dev >= 2 and n_dev % 2 == 0:
+            continue  # served on such a host: nothing to refuse
+        try:
+            recognize_app.main(base + extra)
+        except SystemExit as exc:
+            if text not in str(exc):
+                raise AssertionError(f"multi_gpu (d) {case}: refused with {exc}")
+            refusals[case] = str(exc)
+        else:
+            raise AssertionError(f"multi_gpu (d) {case}: --parallel pp was not refused")
+    out["cli_refusals"] = refusals
+    log(f"multi_gpu (d) the CLI on {n_dev} card(s): --parallel pp refused as the reference "
+        f"refuses: {json.dumps(refusals)}")
+    out["pp_launches"] = {k: stream_launches[k] + service_launches[k] for k in stream_launches}
+    drop_stack(ref)
+    for hooks, fn in ((pp.gallery.prewarm_hooks, pp.prewarm_capacity),
+                      (pp.gallery.evict_hooks, pp.evict_below)):
+        hooks.remove(fn)
+    del pp, ref, service
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4717,9 +5055,13 @@ def main() -> int:
     rollout = rollout_phase(dev, args.seed, card, ctx)
     cascade = cascade_phase(dev, args.seed, card, ctx)
     replication = replication_phase(dev, args.seed, card, ctx)
+    replication_end_s = time.perf_counter() - t_run
+    multi_gpu = multi_gpu_phase(dev, args.seed, card, ctx)
     for e in entries:
-        # the main path's launches: the serving run's and the replicas'
-        e["launches"] = launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
+        # the main path's launches: the serving run's, the replicas' and
+        # the two-stage pipeline's
+        e["launches"] = (launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
+                         + multi_gpu["pp_launches"][e["name"]])
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
     print(json.dumps({"async_grow": grow}))
     print(json.dumps({"ivf": ivf}))
@@ -4729,9 +5071,11 @@ def main() -> int:
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"rollout": rollout}))
     print(json.dumps({"cascade": cascade}))
-    replication["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {replication['total_s']:.1f} s")
+    replication["total_s"] = replication_end_s
     print(json.dumps({"replication": replication}))
+    multi_gpu["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {multi_gpu['total_s']:.1f} s")
+    print(json.dumps({"multi_gpu": multi_gpu}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -75,11 +75,20 @@ model: rendezvous per topic, ``--router-health`` failover,
 ``--router-link-deadline-s`` pings, ``--router-hedge-deadline-s`` hedges,
 ``--router-dedup-window``; ``/replicas`` on ``--expo-port``.
 
+Pipeline parallelism: ``--parallel pp`` detects and aligns on one half
+of the cards and embeds and matches on the other, the gallery sharded
+over the second half's tp axis (``parallel.pp``): 8 or more cards (a
+multiple of 4) give dp x tp = (n / 2) x 2, fewer tp 1. It needs an even
+card count >= 2, and refuses ``--fused-embedder``, ``--match-mode ivf``
+and ``--cascade`` (each single-mesh only), before any checkpoint loads,
+with the reference's messages. ``--parallel fused`` serves on
+``--device`` alone (a fused step over a multi-card mesh is ROADMAP
+A.11.1).
+
 The command line is the reference's, so any reference command line
-parses. ``--device`` (default ``cuda``) is the port's own: the CLI runs on
-the card and raises without one, unless ``--device cpu`` names the CPU.
-A flag whose subsystem is not ported yet, set away from its default,
-exits naming its ROADMAP item (``REFUSED``) instead of being ignored.
+parses, and every flag of it is served. ``--device`` (default ``cuda``) is
+the port's own: the CLI runs on the card and raises without one, unless
+``--device cpu`` names the CPU.
 """
 
 from __future__ import annotations
@@ -95,27 +104,11 @@ import time
 
 import torch
 
-#: the ROADMAP item that brings the refused flag
-_MULTI_GPU = "ROADMAP A.11 (multi-GPU)"
-
-#: (flag, refused value or None for "any value but the default", item)
-REFUSED = (
-    ("--parallel", "pp", _MULTI_GPU),
-)
-
-
 def build_parser() -> argparse.ArgumentParser:
     """The reference's flags, names, defaults and choices, plus ``--device``."""
     p = argparse.ArgumentParser(prog="ocvf-recognize-torch",
                                 description="Live face recognition on an NVIDIA card")
-    refused = {flag: (value, item) for flag, value, item in REFUSED}
-
-    def add(flag, *args, help=None, **kwargs):
-        if flag in refused:  # the help names the item from REFUSED, the one source
-            value, item = refused[flag]
-            note = f"refused: {item}" if value is None else f"{value} is refused: {item}"
-            help = f"{help}; {note}" if help else note
-        p.add_argument(flag, *args, help=help, **kwargs)
+    add = p.add_argument
 
     add("--device", default="cuda",
         help="torch device to serve on (default cuda; raises without a card). "
@@ -134,7 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="batches dispatched before the --profile-dir trace stops")
     add("--frame-size", type=int, nargs=2, default=(256, 256), metavar=("H", "W"))
     add("--parallel", choices=["fused", "pp"], default="fused",
-        help="fused: the whole step on one card")
+        help="fused: the whole step on one card; pp: two-stage pipeline parallelism, "
+             "detector on one half of the cards, embedder + sharded gallery on the "
+             "other (an even card count >= 2)")
     add("--fused-embedder", action="store_true",
         help="run the embed stage as one fused kernel per block (ops.sepblock)")
     add("--batch-size", type=int, default=8)
@@ -320,25 +315,53 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """``SystemExit`` naming the ROADMAP item of the first flag whose
-    subsystem is not ported yet and which is set away from its default."""
-    for flag, value, item in REFUSED:
-        dest = flag.lstrip("-").replace("-", "_")
-        got = getattr(args, dest)
-        default = parser.get_default(dest)
-        refused = got == value if value is not None else (
-            got != default and not (isinstance(default, (list, tuple))
-                                    and list(got) == list(default)))
-        if refused:
-            raise SystemExit(f"ocvf-recognize-torch: {flag} {got!r} is not ported yet: "
-                             f"{item}")
+def _pp_devices(device: torch.device) -> list:
+    """The devices ``--parallel pp`` lays its mesh over: every card, or the
+    one CPU for ``--device cpu``."""
+    if device.type == "cpu":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def pp_layout(n: int) -> tuple:
+    """(dp, tp) of ``--parallel pp`` over ``n`` devices: 8 -> (4, 2), halved
+    into two (2, 2) stage meshes; below 8, tp 2 would leave each half one
+    dp row, so tp stays 1."""
+    tp = 2 if n % 4 == 0 and n >= 8 else 1
+    return n // tp, tp
+
+
+def _pp_meshes(args, device: torch.device):
+    """(stage A mesh, gallery mesh) of ``--parallel pp``, or the
+    reference's refusals (module docstring), raised before any checkpoint
+    loads."""
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+    from opencv_facerecognizer_tpu_torch.parallel.pp import split_mesh
+
+    if args.fused_embedder:
+        raise SystemExit("--fused-embedder applies to --parallel fused only "
+                         "(stage-B meshes aren't single-device)")
+    if args.match_mode == "ivf":
+        raise SystemExit("--match-mode ivf applies to --parallel fused only "
+                         "(the two-stage path is single-device, like the "
+                         "pallas streaming matcher)")
+    if args.cascade:
+        raise SystemExit("--cascade applies to --parallel fused only (the "
+                         "pipeline-parallel path carries no stage-1 gate)")
+    devices = _pp_devices(device)
+    n = len(devices)
+    try:
+        return split_mesh(make_mesh(*pp_layout(n), devices=devices))
+    except ValueError as e:
+        raise SystemExit(f"--parallel pp needs an even device count >= 2 (have {n}): "
+                         f"{e}; use --parallel fused on this host")
 
 
 def _load_stack(args, metrics):
     """Checkpoints, the gallery directory embedded into a gallery, and the
-    serving pipeline on ``--device``; returns (pipeline, subject names).
-    Logs a ``startup`` record of its load and embed seconds to
+    serving pipeline on ``--device`` (with ``--parallel pp``, a
+    ``TwoStagePipeline`` over the cards); returns (pipeline, subject
+    names). Logs a ``startup`` record of its load and embed seconds to
     ``metrics``' sink."""
     from opencv_facerecognizer_tpu_torch.models.detector import CNNFaceDetector
     from opencv_facerecognizer_tpu_torch.models.embedder import CNNEmbedding
@@ -350,6 +373,9 @@ def _load_stack(args, metrics):
     from opencv_facerecognizer_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    mesh_a = gallery_mesh = None
+    if args.parallel == "pp":
+        mesh_a, gallery_mesh = _pp_meshes(args, device)
     t0 = time.perf_counter()
     model = serialization.load_model(args.model, device=device)
     feature = model.feature
@@ -376,8 +402,13 @@ def _load_stack(args, metrics):
         max(args.capacity, 2 * len(emb)), emb.shape[1],
         store_dtype=torch.bfloat16 if args.gallery_dtype == "bf16" else torch.float32,
         device=device, embedder_version=args.embedder_version or 1,
-        async_grow=args.async_grow)
+        async_grow=args.async_grow, mesh=gallery_mesh)
     gallery.add(emb, labels)
+    if mesh_a is not None:
+        from opencv_facerecognizer_tpu_torch.parallel.pp import TwoStagePipeline
+
+        return TwoStagePipeline(detector, feature.net, None, gallery, mesh_a,
+                                face_size=feature.input_size), names
     if args.match_mode != "exact":
         # attached after the startup enrolment: main() runs the one build
         gallery.attach_quantizer(
@@ -758,7 +789,6 @@ class _Profile:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args)
     if args.registry_swap:
         return run_registry_swap(args)
     if not (args.model and args.detector and args.gallery):

@@ -117,9 +117,12 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
     order, boxes_sorted, scores_sorted = (
         t.contiguous() for t in (order, boxes_sorted, scores_sorted))
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = _lib().nms_keep(boxes_sorted.data_ptr(), scores_sorted.data_ptr(),
-                          order.data_ptr(), keep.data_ptr(), batch, k,
-                          iou_threshold, score_threshold, stream)
+    # the library sets its shared-memory attribute and launches on the
+    # current device: make that the tensors' device
+    with torch.cuda.device(boxes.device):
+        err = _lib().nms_keep(boxes_sorted.data_ptr(), scores_sorted.data_ptr(),
+                              order.data_ptr(), keep.data_ptr(), batch, k,
+                              iou_threshold, score_threshold, stream)
     _build.count_launch(nms_mask)
     _build.check(err, "nms")
     return keep

@@ -197,10 +197,13 @@ def streaming_match_topk(q: torch.Tensor, g: torch.Tensor,
                torch.empty(qn, dtype=torch.int32, device=dev)) if k > kp else None)
     bound_ptrs = (bounds[0].data_ptr(), bounds[1].data_ptr()) if bounds else (None, None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(q.data_ptr(), g.data_ptr(), int(g_bf16), valid.data_ptr(),
-             part_vals.data_ptr(), part_idx.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), *bound_ptrs, qn, n, d, k, kp,
-             int(path == "wgmma"), splits, rows, stream)
+    # the library sets its shared-memory attribute and launches on the
+    # current device: make that the tensors' device
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), g.data_ptr(), int(g_bf16), valid.data_ptr(),
+                 part_vals.data_ptr(), part_idx.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), *bound_ptrs, qn, n, d, k, kp,
+                 int(path == "wgmma"), splits, rows, stream)
     _build.count_launch(streaming_match_topk)
     streaming_match_topk.last_path = path
     _build.check(err, "streaming_match")

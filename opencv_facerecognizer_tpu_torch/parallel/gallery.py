@@ -1,5 +1,5 @@
-"""Enrolled gallery on one device: port of the single-device exact path
-of ``opencv_facerecognizer_tpu/parallel/gallery.py``.
+"""Enrolled gallery: port of ``opencv_facerecognizer_tpu/parallel/gallery.py``,
+on one device (``device=``) or row-sharded over a mesh (``mesh=``).
 
 - Fixed ``capacity`` rows; rows beyond ``size`` are invalid and never
   match. ``add`` doubles the capacity when the rows do not fit.
@@ -42,7 +42,23 @@ of ``opencv_facerecognizer_tpu/parallel/gallery.py``.
   ``swap_from`` (install another gallery's contents, cast to this
   gallery's ``store_dtype``).
 
-Multi-device sharding is a later slice.
+**On a mesh** (``parallel.mesh``, more than one slot): the capacity is a
+multiple of tp; the snapshot holds the whole arrays on the mesh's first
+slot (``embeddings``, ``labels``, ``valid``, as reading a sharded array
+gives the whole) and ``shards``, each tp shard's rows and flags on every
+slot of its tp column (replicated over dp) and the labels on each dp
+row's first slot. A shard on the first slot's device is a view of the
+whole array, so in-place appends reach it; one on another device is a
+copy that an append writes too. Queries split over dp (a count dp does
+not divide is refused). The match is ``match_pod`` (kernel A on each
+shard's slot, the ``[Q, k]`` candidates merged on each dp row's first
+slot) when every slot is a card and a shard holds at least
+``KERNEL_MIN_CAPACITY`` rows, else ``match_global`` (a plain product and
+a local top-k per shard, the same merge): the two compute the same
+function. The reference picks its GSPMD matcher on a mesh because its
+compiler cannot partition a custom call; on the card kernel A is ~12x
+matmul + top-k (ROADMAP C.18). IVF stays single-device, as the
+reference's.
 """
 
 from __future__ import annotations
@@ -60,6 +76,8 @@ from opencv_facerecognizer_tpu_torch.ops.ivf_match import ivf_match_topk
 from opencv_facerecognizer_tpu_torch.ops.nms import stable_topk
 from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
     NEG_INF, streaming_match_topk)
+from opencv_facerecognizer_tpu_torch.parallel.mesh import (
+    DP_AXIS, TP_AXIS, Mesh, on_slot, record_event, single_slot_mesh)
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, resolve_device)
 
@@ -75,16 +93,143 @@ def take_labels_with_sentinel(labels: torch.Tensor, idx: torch.Tensor,
     return torch.where(idx < 0, torch.full_like(taken, labels_pad), taken)
 
 
-def match_global(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor,
-                 labels: torch.Tensor, *, k: int):
-    """Plain small-gallery matcher (the reference's single-shard branch):
-    bf16 operands, f32 accumulation, invalid rows at -1e30, then a stable
-    top-k (ties to the lowest row). Returns (labels [Q, k], sims [Q, k],
-    row indices [Q, k])."""
+def _plain_topk(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor, k: int):
+    """bf16 operands, f32 accumulation, invalid rows at -1e30, then a
+    stable top-k (ties to the lowest row): (sims [Q, k], rows [Q, k])."""
     sims = q.to(torch.bfloat16).float() @ g.to(torch.bfloat16).float().T
     sims = torch.where(valid[None, :], sims, torch.full_like(sims, NEG_INF))
-    top_vals, top_idx = stable_topk(sims, min(k, g.shape[0]))
-    return labels[top_idx], top_vals, top_idx.to(torch.int32)
+    return stable_topk(sims, min(k, g.shape[0]))
+
+
+class MeshShards(NamedTuple):
+    """A gallery's arrays placed on a mesh: ``emb[r][t]`` and
+    ``valid[r][t]`` tp shard ``t``'s rows and flags on slot ``(r, t)``,
+    ``labels[r]`` the whole labels on dp row ``r``'s first slot."""
+
+    chunk: int  # rows per tp shard
+    emb: tuple
+    valid: tuple
+    labels: tuple
+
+
+def _place(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: itself (or the view it is) on its own device,
+    else a copy."""
+    return t if t.device == device else t.to(device)
+
+
+def shard_arrays(mesh: Mesh, g: torch.Tensor, valid: torch.Tensor, labels: torch.Tensor,
+                 emb: Optional[tuple] = None) -> MeshShards:
+    """Place whole gallery arrays on ``mesh`` (``MeshShards``); ``emb``
+    reuses placed rows (only the flags and labels changed)."""
+    dp, tp = mesh.devices.shape
+    if g.shape[0] % tp:
+        raise ValueError(f"capacity {g.shape[0]} is not a multiple of tp={tp}")
+    chunk = g.shape[0] // tp
+
+    def rows(x, r, t):
+        return _place(x[t * chunk:(t + 1) * chunk], mesh.devices[r, t].device)
+
+    if emb is None:
+        emb = tuple(tuple(rows(g, r, t) for t in range(tp)) for r in range(dp))
+    return MeshShards(chunk, emb,
+                      tuple(tuple(rows(valid, r, t) for t in range(tp)) for r in range(dp)),
+                      tuple(_place(labels, mesh.devices[r, 0].device) for r in range(dp)))
+
+
+def _handoff(t: torch.Tensor, stream) -> torch.Tensor:
+    """``t``, made on one stream, is read on ``stream`` next: its memory
+    is not reused before that stream's reads are done."""
+    if stream is not None and t.is_cuda:
+        t.record_stream(stream)
+    return t
+
+
+def _match_sharded(q: torch.Tensor, shards: MeshShards, *, k: int, mesh: Mesh,
+                   pod: bool, labels_pad: int):
+    """Two-phase top-k over ``shards``: dp row ``r`` takes query rows
+    ``r * Q / dp ..``; on each slot ``(r, t)`` (its device and stream) a
+    local top-k of shard ``t`` (kernel A when ``pod``, else the plain
+    product), row indices offset to the whole gallery (``-1`` sentinels
+    kept); the ``tp * k`` candidates are merged on row ``r``'s first slot
+    by a stable top-k (candidates in shard order, so equal sims keep the
+    lowest row). Results land on the mesh's first slot."""
+    dp, tp = mesh.devices.shape
+    qn = q.shape[0]
+    if qn % dp:
+        raise ValueError(f"query count {qn} not divisible by dp={dp}")
+    per, chunk, lk = qn // dp, shards.chunk, min(k, shards.chunk)
+    out_dev = mesh.first.device
+    caller = torch.cuda.current_stream(out_dev) if out_dev.type == "cuda" else None
+    start = [e for e in (record_event(q.device),) if e is not None]
+    rows, row_done = [], []
+    for r in range(dp):
+        home = mesh.devices[r, 0]
+        cand, done = [], []
+        for t in range(tp):
+            slot = mesh.devices[r, t]
+            with on_slot(slot, start):
+                q_rt = q[r * per:(r + 1) * per].to(slot.device, non_blocking=True)
+                g_t, v_t = shards.emb[r][t], shards.valid[r][t]
+                if pod:
+                    vals, idx = streaming_match_topk(q_rt, g_t, v_t, k=lk)
+                    idx = torch.where(idx < 0, idx, idx + t * chunk)
+                else:
+                    vals, idx = _plain_topk(q_rt, g_t, v_t, lk)
+                    idx = (idx + t * chunk).to(torch.int32)
+                cand.append(tuple(_handoff(x.to(home.device, non_blocking=True),
+                                           home.stream) for x in (vals, idx)))
+                done += [e for e in (record_event(slot.device),) if e is not None]
+        with on_slot(home, done):
+            cand_v = torch.cat([v for v, _ in cand], dim=1)
+            cand_i = torch.cat([i for _, i in cand], dim=1)
+            top_v, pos = stable_topk(cand_v, min(k, cand_v.shape[1]))
+            top_i = torch.gather(cand_i, 1, pos)
+            labels = shards.labels[r]
+            top_l = (take_labels_with_sentinel(labels, top_i, labels_pad) if pod
+                     else labels[top_i.long()])
+            rows.append(tuple(_handoff(x.to(out_dev, non_blocking=True), caller)
+                              for x in (top_l, top_v, top_i)))
+            row_done += [e for e in (record_event(home.device),) if e is not None]
+    if caller is not None:
+        for ev in row_done:
+            caller.wait_event(ev)
+    if dp == 1:
+        return rows[0]
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*rows))
+
+
+def match_global(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor,
+                 labels: torch.Tensor, *, k: int, mesh: Optional[Mesh] = None,
+                 shards: Optional[MeshShards] = None):
+    """The plain matcher (the reference's ``match_global``): bf16
+    operands, f32 accumulation, invalid rows at -1e30, a stable top-k
+    (ties to the lowest row). Without a mesh (or on one slot) the direct
+    top-k on ``g``'s device; on a mesh the two-phase top-k of
+    ``_match_sharded`` over ``shards`` (placed from the whole arrays when
+    None). Invalid rows surface as in the reference (their rows, -1e30,
+    their labels), never as sentinels. Returns (labels [Q, k], sims
+    [Q, k], row indices [Q, k] int32)."""
+    if mesh is None or mesh.size == 1:
+        top_vals, top_idx = _plain_topk(q, g, valid, k)
+        return labels[top_idx], top_vals, top_idx.to(torch.int32)
+    if shards is None:
+        shards = shard_arrays(mesh, g, valid, labels)
+    return _match_sharded(q, shards, k=k, mesh=mesh, pod=False, labels_pad=0)
+
+
+def match_pod(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor,
+              labels: torch.Tensor, *, k: int, mesh: Mesh, labels_pad: int = -1,
+              shards: Optional[MeshShards] = None):
+    """The pod matcher (the reference's ``match_pod_pallas``): kernel A
+    (``ops.streaming_match``; its plain version on CPU slots) on each
+    shard's own slot, then the merge of ``_match_sharded``. A shard with
+    fewer valid rows than k gives ``-1`` indices, never offset into a
+    neighbour's rows, and their labels are ``labels_pad``. Returns
+    (labels [Q, k], sims [Q, k], row indices [Q, k] int32)."""
+    if shards is None:
+        shards = shard_arrays(mesh, g, valid, labels)
+    return _match_sharded(q, shards, k=k, mesh=mesh, pod=True, labels_pad=labels_pad)
 
 
 class GalleryData(NamedTuple):
@@ -102,6 +247,8 @@ class GalleryData(NamedTuple):
     #: against, never from a version a concurrent cutover set meanwhile
     #: (ROADMAP C.12)
     embedder_version: int = 1
+    #: the arrays placed on a mesh of more than one slot, else None
+    shards: Optional[MeshShards] = None
 
     @property
     def capacity(self) -> int:
@@ -109,18 +256,20 @@ class GalleryData(NamedTuple):
 
 
 def empty_data(capacity: int, dim: int, store_dtype: torch.dtype, labels_pad: int,
-               device, epoch: int = 0,
-               embeddings: Optional[torch.Tensor] = None) -> GalleryData:
+               device, epoch: int = 0, embeddings: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> GalleryData:
     """A snapshot of ``capacity`` rows with none valid: zero rows (or
-    ``embeddings``), pad labels. What a step is warmed or captured over
-    before a tier holds its rows."""
+    ``embeddings``), pad labels, placed on ``mesh`` when it has more than
+    one slot. What a step is warmed or captured over before a tier holds
+    its rows."""
     if embeddings is None:
         embeddings = torch.zeros((capacity, dim), dtype=store_dtype, device=device)
-    return GalleryData(
-        embeddings=embeddings,
-        labels=torch.full((capacity,), labels_pad, dtype=torch.int32, device=device),
-        valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
-        size=0, epoch=epoch)
+    labels = torch.full((capacity,), labels_pad, dtype=torch.int32, device=device)
+    valid = torch.zeros((capacity,), dtype=torch.bool, device=device)
+    shards = (shard_arrays(mesh, embeddings, valid, labels)
+              if mesh is not None and mesh.size > 1 else None)
+    return GalleryData(embeddings=embeddings, labels=labels, valid=valid, size=0,
+                       epoch=epoch, shards=shards)
 
 
 class EmbeddingDimMismatchError(ValueError):
@@ -128,7 +277,8 @@ class EmbeddingDimMismatchError(ValueError):
 
 
 class ShardedGallery:
-    """Enrolled gallery of L2-normalized embeddings on one device."""
+    """Enrolled gallery of L2-normalized embeddings on one device, or
+    row-sharded over the tp axis of ``mesh``."""
 
     #: capacity from which the streaming kernel serves the match. 65536 is
     #: the TPU's measured crossover (the reference's PALLAS_MIN_CAPACITY),
@@ -165,12 +315,16 @@ class ShardedGallery:
                  use_kernel: Optional[bool] = None,
                  store_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = DEFAULT_DEVICE, embedder_version: int = 1,
-                 async_grow: bool = False):
-        self.device = resolve_device(device)
+                 async_grow: bool = False, mesh: Optional[Mesh] = None):
+        #: the slots the rows live on; ``device=`` means a 1x1 mesh on it
+        self.mesh = mesh if mesh is not None else single_slot_mesh(resolve_device(device))
+        #: the mesh's first slot's device: whole arrays and results land there
+        self.device = self.mesh.first.device
         #: the embedder version whose space the rows live in: the service
         #: stamps results and identity-cache entries with it
         self.embedder_version = int(embedder_version)
-        self.capacity = int(capacity)
+        tp = self.mesh.shape[TP_AXIS]
+        self.capacity = -(-int(capacity) // tp) * tp  # equal tp shards
         self.dim = int(dim)
         self.labels_pad = int(labels_pad)
         self.store_dtype = store_dtype
@@ -213,30 +367,58 @@ class ShardedGallery:
     def data(self) -> GalleryData:
         return self._data
 
+    # the whole arrays of the live snapshot (on a mesh: on its first slot)
+    @property
+    def embeddings(self) -> torch.Tensor:
+        return self._data.embeddings
+
+    @property
+    def labels(self) -> torch.Tensor:
+        return self._data.labels
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self._data.valid
+
     @property
     def size(self) -> int:
         return self._data.size
+
+    def _shards(self, emb: torch.Tensor, valid: torch.Tensor, labels: torch.Tensor,
+                placed: Optional[tuple] = None) -> Optional[MeshShards]:
+        """The snapshot's placement on a mesh of more than one slot."""
+        if self.mesh.size == 1:
+            return None
+        return shard_arrays(self.mesh, emb, valid, labels, placed)
 
     def _upload_rows(self, rows: np.ndarray) -> torch.Tensor:
         """Host rows cast to ``store_dtype`` on the host (the transfer
         carries the narrow bytes), as a new tensor on the device."""
         return torch.from_numpy(rows).to(self.store_dtype).to(self.device, copy=True)
 
+    def _sync_mesh(self) -> None:
+        """Wait for the current stream of every card of the mesh."""
+        for dev in {s.device for s in self.mesh.devices.flat}:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+
     def _install(self, size: int) -> None:
         """Upload the host mirrors and publish one snapshot over a new
         embeddings tensor (copies: a snapshot never aliases the mirrors)."""
+        emb = self._upload_rows(self._host_emb)
+        labels = torch.from_numpy(self._host_lab).to(self.device, copy=True)
+        valid = torch.from_numpy(self._host_val).to(self.device, copy=True)
         self._data = GalleryData(
-            embeddings=self._upload_rows(self._host_emb),
-            labels=torch.from_numpy(self._host_lab).to(self.device, copy=True),
-            valid=torch.from_numpy(self._host_val).to(self.device, copy=True),
-            size=size, epoch=self._epoch, embedder_version=self.embedder_version)
+            embeddings=emb, labels=labels, valid=valid, size=size, epoch=self._epoch,
+            embedder_version=self.embedder_version, shards=self._shards(emb, valid, labels))
         self._drop_next_tiers(self.capacity)
 
     def _append_locked(self, size: int, emb: np.ndarray, lab: np.ndarray) -> None:
         """Publish rows ``size .. size + n`` of the mirrors within the
-        tier: the rows written in place into the live embeddings tensor,
-        new ``valid``/``labels`` tensors (clone + set, so a held snapshot
-        keeps its own), one snapshot write. Caller holds the write lock."""
+        tier: the rows written in place into the live embeddings tensor
+        (and into each shard copy on another device that holds them), new
+        ``valid``/``labels`` tensors (clone + set, so a held snapshot keeps
+        its own), one snapshot write. Caller holds the write lock."""
         data = self._data
         n = len(emb)
         data.embeddings[size:size + n].copy_(torch.from_numpy(emb).to(self.store_dtype))
@@ -244,12 +426,20 @@ class ShardedGallery:
         valid[size:size + n] = True
         labels = data.labels.clone()
         labels[size:size + n] = torch.from_numpy(lab).to(self.device)
-        if self.device.type == "cuda":
-            # the writes are complete before any reader, on any stream,
-            # can see the snapshot that makes them matchable
-            torch.cuda.current_stream(self.device).synchronize()
+        shards = None
+        if data.shards is not None:
+            chunk = data.shards.chunk
+            for row in data.shards.emb:
+                for t, shard in enumerate(row):
+                    lo, hi = max(size, t * chunk), min(size + n, (t + 1) * chunk)
+                    if shard.device != self.device and lo < hi:
+                        shard[lo - t * chunk:hi - t * chunk].copy_(data.embeddings[lo:hi])
+            shards = self._shards(data.embeddings, valid, labels, data.shards.emb)
+        # the writes are complete before any reader, on any stream, can
+        # see the snapshot that makes them matchable
+        self._sync_mesh()
         self._data = GalleryData(data.embeddings, labels, valid, size + n, self._epoch,
-                                 data.embedder_version)
+                                 data.embedder_version, shards)
 
     @staticmethod
     def _normalize_rows(embeddings: np.ndarray) -> np.ndarray:
@@ -338,10 +528,13 @@ class ShardedGallery:
         return self._grow_done.wait(timeout)
 
     def _next_capacity(self, needed: int) -> int:
+        """Capacity doubled until ``needed`` rows fit, then rounded up to
+        a multiple of tp."""
+        tp = self.mesh.shape[TP_AXIS]
         new_capacity = max(self.capacity, 1)
         while new_capacity < needed:
             new_capacity *= 2
-        return new_capacity
+        return -(-new_capacity // tp) * tp
 
     def _grow_locked(self, needed: int) -> None:
         new_capacity = self._next_capacity(needed)
@@ -397,7 +590,7 @@ class ShardedGallery:
         try:
             data = empty_data(capacity, self.dim, self.store_dtype, self.labels_pad,
                               self.device, self._epoch,
-                              embeddings=self._next_tier_tensor(capacity))
+                              embeddings=self._next_tier_tensor(capacity), mesh=self.mesh)
             for hook in list(self.prewarm_hooks):
                 try:
                     hook(capacity, data)
@@ -492,12 +685,13 @@ class ShardedGallery:
                         info["chunk_pacing_timeout"] = True
             labels = torch.from_numpy(lab).to(self.device, copy=True)
             valid = torch.from_numpy(val).to(self.device, copy=True)
+            shards = self._shards(dst, valid, labels)  # behind the uploads
             event = None
             if cuda:
                 event = torch.cuda.Event()
                 event.record(side)
         data = GalleryData(embeddings=dst, labels=labels, valid=valid, size=pos, epoch=epoch,
-                           embedder_version=old.embedder_version)
+                           embedder_version=old.embedder_version, shards=shards)
         return data, event
 
     def _grow_worker(self) -> None:
@@ -706,7 +900,8 @@ class ShardedGallery:
                 f"swap_from refused: donor gallery dim {other.dim} != serving dim "
                 f"{self.dim}; a different-D embedder rolls out through the staged "
                 f"re-embed, never a swap")
-        rebuild = other.store_dtype != self.store_dtype or other.device != self.device
+        rebuild = (other.store_dtype != self.store_dtype
+                   or other.mesh.layout() != self.mesh.layout())
         with self._write_lock:
             self.embedder_version = int(getattr(other, "embedder_version",
                                                 self.embedder_version))
@@ -761,6 +956,8 @@ class ShardedGallery:
         and threshold only: the build trigger asks before any build.)"""
         if self.quantizer is None or self.match_mode == "exact":
             return False
+        if self.mesh.size != 1:
+            return False  # the two-stage path is single-device, as the reference's
         if self.match_mode == "ivf":
             return True
         return ((self.capacity if capacity is None else capacity)
@@ -796,12 +993,15 @@ class ShardedGallery:
 
     def kernel_enabled(self, capacity: Optional[int] = None) -> bool:
         """Streaming-kernel selection (the reference's ``_pallas_enabled``):
-        forced by ``use_kernel``, else a CUDA device at
-        ``capacity >= KERNEL_MIN_CAPACITY``."""
+        forced by ``use_kernel``, else every slot a card and each tp
+        shard (the whole gallery on one device) holding at least
+        ``KERNEL_MIN_CAPACITY`` rows. On a mesh it picks ``match_pod``
+        over ``match_global`` (C.18)."""
         if self._use_kernel_cfg is not None:
             return bool(self._use_kernel_cfg)
         cap = self.capacity if capacity is None else capacity
-        return self.device.type == "cuda" and cap >= self.KERNEL_MIN_CAPACITY
+        return (all(s.device.type == "cuda" for s in self.mesh.devices.flat)
+                and cap // self.mesh.shape[TP_AXIS] >= self.KERNEL_MIN_CAPACITY)
 
     def match_fn(self, k: int, capacity: Optional[int] = None,
                  use_ivf: Optional[bool] = None):
@@ -822,6 +1022,19 @@ class ShardedGallery:
                 return take_labels_with_sentinel(labels, idx, labels_pad), vals, idx
 
             return ivf_fn
+        if self.mesh.size > 1:
+            mesh, labels_pad = self.mesh, self.labels_pad
+            if self.kernel_enabled(capacity):
+                def pod(q, g, valid, labels, shards=None):
+                    return match_pod(q, g, valid, labels, k=k, mesh=mesh,
+                                     labels_pad=labels_pad, shards=shards)
+
+                return pod
+
+            def sharded(q, g, valid, labels, shards=None):
+                return match_global(q, g, valid, labels, k=k, mesh=mesh, shards=shards)
+
+            return sharded
         if self.kernel_enabled(capacity):
             labels_pad = self.labels_pad
 
@@ -839,12 +1052,18 @@ class ShardedGallery:
     @torch.no_grad()
     def match(self, queries, k: int = 1):
         """[Q, D] L2-normalized queries -> (labels [Q, k], cosine sims
-        [Q, k], row indices [Q, k]) on the gallery's device."""
+        [Q, k], row indices [Q, k]) on the gallery's device (the mesh's
+        first slot); Q must divide by the dp axis size."""
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         if q.ndim != 2 or q.shape[1] != self.dim:
             raise ValueError(f"queries must be [Q, {self.dim}], got {tuple(q.shape)}")
+        dp = self.mesh.shape[DP_AXIS]
+        if q.shape[0] % dp:
+            raise ValueError(f"query count {q.shape[0]} not divisible by dp={dp}")
         data = self._data  # one snapshot read
         ivf = self._ivf_data(data)  # one epoch-checked quantizer read
         fn = self.match_fn(int(k), data.capacity, use_ivf=ivf is not None)
         args = (q, data.embeddings, data.valid, data.labels)
-        return fn(*args, ivf) if ivf is not None else fn(*args)
+        if ivf is not None:
+            return fn(*args, ivf)
+        return fn(*args) if data.shards is None else fn(*args, shards=data.shards)

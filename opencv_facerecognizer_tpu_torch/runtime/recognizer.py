@@ -209,8 +209,10 @@ class _Readback:
         self.host = packed.to("cpu", non_blocking=True)  # pinned for a CUDA source
         self.event = None
         if packed.is_cuda:
+            # the copy is queued on the current stream of the result's
+            # device, which need not be the current device
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(packed.device))
 
     @property
     def pending(self) -> bool:
@@ -809,8 +811,15 @@ class RecognizerService:
         as a CUDA graph) and run one enrolment chunk before frames arrive
         (kernel builds, convolution algorithm search)."""
         t0 = time.perf_counter()
-        self.pipeline.prewarm_batch_shapes(self._bucket_ladder, self.batcher.frame_shape,
-                                           self.batcher.dtype)
+        prewarm = getattr(self.pipeline, "prewarm_batch_shapes", None)
+        if prewarm is not None:
+            prewarm(self._bucket_ladder, self.batcher.frame_shape, self.batcher.dtype)
+        else:
+            # a pipeline without the helper (``TwoStagePipeline``) runs
+            # each rung once
+            for bucket in self._bucket_ladder:
+                zeros = np.zeros((bucket, *self.batcher.frame_shape), self.batcher.dtype)
+                self._start_readback(self.pipeline.recognize_batch_packed(zeros)).result()
         if getattr(self.pipeline, "embed_net", None) is not None:
             self._run_embed_chunk(np.zeros((ENROL_CHUNK, *self.pipeline.face_size),
                                            np.float32))

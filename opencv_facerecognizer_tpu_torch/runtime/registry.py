@@ -45,7 +45,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -196,6 +196,10 @@ class ModelRegistry:
         """``{role: version}`` for every role."""
         with self._lock:
             return {role: int(entry["version"]) for role, entry in self._roles.items()}
+
+    def stamp_key(self) -> Tuple[Tuple[str, int], ...]:
+        """Hashable form of ``stamp()`` (cache keys compare by equality)."""
+        return tuple(sorted(self.stamp().items()))
 
     def status(self) -> Dict[str, Any]:
         with self._lock:

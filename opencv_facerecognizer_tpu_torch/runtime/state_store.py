@@ -709,6 +709,12 @@ class StateLifecycle:
     def _gallery_version(gallery) -> int:
         return int(getattr(gallery, "embedder_version", 1))
 
+    @property
+    def embedder_version(self) -> int:
+        """The serving embedder version, read from the live gallery."""
+        gallery, _names = self._targets()
+        return self._gallery_version(gallery)
+
     def _role_stamp(self) -> Optional[Dict[str, int]]:
         """``{"detector": v, "cascade": v}`` for WAL rows, or None."""
         if self.registry is None:

@@ -275,3 +275,51 @@ def test_cross_check_pads_a_short_batch_to_the_top_rung():
                             "label": int(i % 3), "similarity": 0.5}]} for i in range(n)]
     out = chip_smoke.cross_check_messages(direct, frames, messages, "padded")
     assert seen == [32, 32] and out["faces"] == n and out["max_sim"] == 0.0
+
+
+def test_pod_vs_single_holds_the_sharded_match_to_one_kernel_call(monkeypatch):
+    """Phase 15 (a)'s gate on CPU slots: ``match_pod`` equal to the single
+    call (0.0), and a merge that loses a row is refused."""
+    import torch
+
+    from opencv_facerecognizer_tpu_torch.parallel import gallery as port_gallery
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator().manual_seed(3)
+    g = torch.randn(256, 32, generator=gen)
+    q = torch.randn(16, 32, generator=gen)
+    valid = torch.rand(256, generator=gen) > 0.2
+    labels = torch.arange(256, dtype=torch.int32)
+    mesh = make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
+    assert chip_smoke._pod_vs_single(q, g, valid, labels, mesh, 5) == 0.0
+    real = port_gallery.match_pod
+
+    def lossy(*args, **kwargs):
+        lab, sims, idx = real(*args, **kwargs)
+        return lab, sims, torch.where(idx == idx[0, 0], -1, idx)
+
+    monkeypatch.setattr(port_gallery, "match_pod", lossy)
+    with pytest.raises(AssertionError, match="differs from single-device"):
+        chip_smoke._pod_vs_single(q, g, valid, labels, mesh, 5)
+
+
+def test_pp_check_pairs_faces_by_box_and_refuses_a_label_flip():
+    """Phase 15 (b)'s gate: two slots in another order pass, a flipped
+    label does not."""
+    import torch
+
+    from opencv_facerecognizer_tpu_torch.parallel.pipeline import RecognitionResult
+
+    def result(order, label_of_first=1):
+        boxes = torch.tensor([BOXES[i] for i in order] + [[0, 0, 0, 0]], dtype=torch.float32)
+        scores = torch.tensor([[0.9, 0.8, 0.7][i] for i in order] + [0.0])
+        labels = torch.tensor([[label_of_first, 2, 3][i] for i in order] + [0])
+        return RecognitionResult(boxes=boxes[None], det_scores=scores[None],
+                                 valid=torch.tensor([[True, True, True, False]]),
+                                 labels=labels[None, :, None],
+                                 similarities=torch.full((1, 4, 1), 0.9))
+
+    got = chip_smoke._pp_results_close(result([0, 1, 2]), result([2, 0, 1]), "t", 0.3, 0.4)
+    assert got["faces"] == 3 and got["boundary_swaps"] == 0 and got["max_box_diff"] == 0.0
+    with pytest.raises(AssertionError, match="labels differ"):
+        chip_smoke._pp_results_close(result([0, 1, 2]), result([0, 1, 2], 5), "t", 0.3, 0.4)

@@ -20,7 +20,8 @@ PORT = os.path.join(REPO, "opencv_facerecognizer_tpu_torch")
 STEP_MODULES = ("parallel/pipeline.py", "models/detector.py", "models/embedder.py",
                 "models/cascade.py", "models/_layers.py", "ops/image.py", "ops/nms.py",
                 "ops/streaming_match.py", "ops/sepblock.py", "ops/ivf_match.py",
-                "utils/tracing.py", "runtime/ingest.py")
+                "utils/tracing.py", "runtime/ingest.py", "parallel/pp.py",
+                "parallel/mesh.py")
 #: the serving loop's functions that emit spans or run the overload
 #: control around the step: host timestamps only, never a wait for the card
 #: (the one wait stays the readback's, in ``_Readback`` and the worker)
@@ -39,6 +40,8 @@ SYNC_ATTRS = {"item", "cpu", "tolist", "numpy", "synchronize", "query"}
 ALLOWED = {
     ("parallel/pipeline.py", "RecognitionPipeline.prewarm_batch_shapes"):
         "warmup, before serving: it waits for each rung's capture to land",
+    ("parallel/pp.py", "TwoStagePipeline.prewarm_capacity"):
+        "the gallery's grow hook, off the serving path: it waits for stage B at the new tier",
     ("models/detector.py", "CNNFaceDetector.detect"):
         "the one-image host API (Python box tuples), never on the batched step",
     ("models/cascade.py", "evaluate_gate"):

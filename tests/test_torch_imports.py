@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.utils.histogram",
                 "opencv_facerecognizer_tpu_torch.models.cascade",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
-                *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES, *REPLICATION_MODULES):
+                *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES, *REPLICATION_MODULES,
+                *MULTI_GPU_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -95,6 +96,13 @@ REPLICATION_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.replication",
                        "opencv_facerecognizer_tpu_torch.runtime.faults",
                        "opencv_facerecognizer_tpu_torch.apps.recognize",
                        "opencv_facerecognizer_tpu_torch.apps.verify_checkpoint")
+
+
+#: the multi-GPU slice's modules
+MULTI_GPU_MODULES = ("opencv_facerecognizer_tpu_torch.parallel",
+                     "opencv_facerecognizer_tpu_torch.parallel.mesh",
+                     "opencv_facerecognizer_tpu_torch.parallel.pp",
+                     "opencv_facerecognizer_tpu_torch.parallel.gallery")
 
 
 def _imported_top_names(path):
@@ -234,3 +242,32 @@ def test_reader_cli_without_a_card_raises_and_writes_nothing(tmp_path, monkeypat
               "--dir", "f", "--state-dir", str(tmp_path), "--replica-role", "reader"])
     assert os.listdir(tmp_path) == []
     WriterLease(str(tmp_path)).acquire().release()
+
+
+@pytest.mark.parametrize("mod", MULTI_GPU_MODULES)
+def test_multi_gpu_module_imports_only_the_port(mod):
+    """The mesh, the sharded gallery and the two-stage pipeline keep their
+    own copies: no JAX, no flax, nothing of the JAX package."""
+    parts = mod.split(".")
+    path = os.path.join(REPO, *parts) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(REPO, *parts, "__init__.py")
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()
+
+
+def test_make_mesh_and_the_pp_pipeline_default_to_the_card(monkeypatch):
+    """``make_mesh`` lays its mesh over the cards unless given devices,
+    and raises without one; ``split_mesh`` and ``TwoStagePipeline`` load
+    lazily from ``parallel``."""
+    import opencv_facerecognizer_tpu_torch.parallel as parallel
+    from opencv_facerecognizer_tpu_torch.parallel import pp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        parallel.make_mesh()
+    assert parallel.split_mesh is pp.split_mesh
+    assert parallel.TwoStagePipeline is pp.TwoStagePipeline
+    with pytest.raises(AttributeError):
+        parallel.NoSuchThing  # noqa: B018

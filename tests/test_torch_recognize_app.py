@@ -454,21 +454,77 @@ def _refused_argv(parser, flag, value):
     return [flag, "7"]
 
 
-@pytest.mark.parametrize("flag, value, item", port_app.REFUSED,
-                         ids=[f[0] for f in port_app.REFUSED])
-def test_unported_flag_exits_naming_its_roadmap_item(flag, value, item):
-    argv = _refused_argv(port_app.build_parser(), flag, value)
-    with pytest.raises(SystemExit, match="ROADMAP A") as exc:
-        port_app.main(argv)
-    assert flag in str(exc.value) and item in str(exc.value)
+# ---------- pipeline parallelism (ROADMAP A.11) ----------
+
+PP_REFUSALS = {"fused_embedder": ["--fused-embedder"],
+               "match_mode_ivf": ["--match-mode", "ivf"],
+               "cascade": ["--cascade", "gate.params"],
+               "one_device": []}
 
 
-@pytest.mark.parametrize("flag, value, item", port_app.REFUSED,
-                         ids=[f[0] for f in port_app.REFUSED])
-def test_refused_flag_help_names_its_item(flag, value, item):
-    action = next(a for a in port_app.build_parser()._actions if flag in a.option_strings)
-    assert action.help.endswith(f"refused: {item}")
-    assert value is None or f"{value} is refused" in action.help
+@pytest.mark.parametrize("case", sorted(PP_REFUSALS))
+def test_parallel_pp_refuses_like_the_reference(artifacts, monkeypatch, tmp_path, case):
+    """The reference's four ``--parallel pp`` refusals, word for word: the
+    three flags that are single-mesh only, and a host with one device
+    (the port's ``--device cpu``; the reference's devices cut to one).
+    The port refuses each before any checkpoint loads: its paths here do
+    not exist."""
+    a = artifacts
+    extra = ["--parallel", "pp", "--source", "dir", "--dir", a["frames"]] + PP_REFUSALS[case]
+    monkeypatch.setattr(jax, "devices", lambda *args: jax.local_devices()[:1])
+    with pytest.raises(SystemExit) as want:
+        jax_app.main(_common_args(a) + extra)
+    missing = str(tmp_path / "missing")
+    argv = ["--model", missing, "--detector", missing, "--gallery", missing, "--device", "cpu"]
+    with pytest.raises(SystemExit) as got:
+        port_app.main(argv + extra)
+    assert str(got.value) == str(want.value)
+    assert "parallel fused" in str(got.value)
+    if case == "one_device":
+        assert "needs an even device count >= 2 (have 1)" in str(got.value)
+
+
+def test_parallel_pp_jsonl_matches_jax_cli(artifacts, f32_stacks, monkeypatch, capsys):
+    """``--parallel pp`` served: the port's device count set to 8 CPU slots
+    (the reference's 8 virtual devices), so both CLIs split (4, 2) into
+    two (2, 2) stage meshes; every frame is answered as the JAX CLI
+    answers it, and the gallery lives on the second half."""
+    a = artifacts
+    monkeypatch.setattr(port_app, "_pp_devices", lambda device: [torch.device("cpu")] * 8)
+    built = []
+    real_load = port_app._load_stack
+
+    def load(args, metrics):
+        pipeline, names = real_load(args, metrics)
+        built.append(pipeline)
+        return pipeline, names
+
+    monkeypatch.setattr(port_app, "_load_stack", load)
+    n = 7
+    lines = [json.dumps({"topic": FRAME_TOPIC,
+                         "data": {**encode_frame(a["scenes"][i % 5].astype(np.float32)),
+                                  "meta": {"seq": i}}}) for i in range(n)]
+    argv = _common_args(a) + ["--source", "jsonl", "--parallel", "pp"]
+    want = _run_jsonl(jax_app.main, argv, "\n".join(lines), monkeypatch, capsys)
+    got = _run_jsonl(port_app.main, argv + ["--device", "cpu"], "\n".join(lines),
+                     monkeypatch, capsys)
+    results = [m["data"] for m in got if m["topic"] == RESULT_TOPIC]
+    assert sorted(r["meta"]["seq"] for r in results) == list(range(n))
+    _assert_same_results(results, [m["data"] for m in want if m["topic"] == RESULT_TOPIC],
+                         key=lambda m: m["seq"])
+    (pipeline,) = built
+    assert type(pipeline).__name__ == "TwoStagePipeline"
+    assert pipeline.mesh_a.shape == pipeline.mesh_b.shape == {"dp": 2, "tp": 2}
+    assert [s.id for s in pipeline.mesh_b.devices.flat] == [4, 5, 6, 7]
+    assert pipeline.gallery.mesh is pipeline.mesh_b
+
+
+def test_parallel_pp_is_served_not_refused():
+    action = next(a for a in port_app.build_parser()._actions
+                  if "--parallel" in a.option_strings)
+    assert action.choices == ["fused", "pp"] and "refused" not in action.help
+    assert port_app.build_parser().parse_args(["--parallel", "pp"]).parallel == "pp"
+    assert port_app.pp_layout(8) == (4, 2) and port_app.pp_layout(4) == (4, 1)
 
 
 def test_every_reference_flag_parses_with_its_default():
@@ -678,12 +734,9 @@ DURABILITY_FLAGS = ["--state-dir", "--checkpoint-every-s", "--checkpoint-wal-row
 def test_durability_flag_is_served_with_the_reference_default(flag):
     parser = port_app.build_parser()
     args = parser.parse_args(_refused_argv(parser, flag, None))
-    port_app.refuse_unported(parser, args)  # no longer refused
     ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
     dest = flag.lstrip("-").replace("-", "_")
     assert parser.get_default(dest) == ref[dest]
-    assert flag not in {f for f, _v, _i in port_app.REFUSED}
-    assert "--replica-role" not in {f for f, _v, _i in port_app.REFUSED}
 
 
 def test_async_grow_enrolls_past_capacity(artifacts):
@@ -754,20 +807,20 @@ OVERLOAD_OBSERVE_FLAGS = [
 def test_overload_flag_is_served_with_the_reference_default(flag):
     parser = port_app.build_parser()
     args = parser.parse_args(_refused_argv(parser, flag, None))
-    port_app.refuse_unported(parser, args)  # no longer refused
     ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
     dest = flag.lstrip("-").replace("-", "_")
     got, want = parser.get_default(dest), ref[dest]
     assert got == want or list(got) == list(want)
-    assert flag not in {f for f, _v, _i in port_app.REFUSED}
     action = next(a for a in parser._actions if flag in a.option_strings)
     assert action.help and "refused" not in action.help
 
 
 def test_refused_keeps_only_the_items_still_to_come():
-    items = {item.split(" (")[0] for _f, _v, item in port_app.REFUSED}
-    assert items == {"ROADMAP A.11"}
-    assert port_app.REFUSED == (("--parallel", "pp", port_app._MULTI_GPU),)
+    """Nothing is refused any more: no flag's help names a refusal, and
+    the table of refused flags is gone with its last entry."""
+    assert not hasattr(port_app, "REFUSED") and not hasattr(port_app, "refuse_unported")
+    assert not [a for a in port_app.build_parser()._actions
+                if a.help and "refused:" in a.help]
     assert len(OVERLOAD_OBSERVE_FLAGS) == 21 and len(set(OVERLOAD_OBSERVE_FLAGS)) == 21
     assert len(REPLICATION_FLAGS) == 10 and len(set(REPLICATION_FLAGS)) == 10
 
@@ -784,13 +837,11 @@ REPLICATION_FLAGS = ["--replica-role", "--replica-poll-ms", "--replication-lag-r
 def test_replication_flag_is_served_with_the_reference_default(flag):
     parser = port_app.build_parser()
     args = parser.parse_args(_refused_argv(parser, flag, None))
-    port_app.refuse_unported(parser, args)  # no longer refused
     ref = {a.dest: a for a in jax_app.build_parser()._actions if a.option_strings}
     dest = flag.lstrip("-").replace("-", "_")
     assert parser.get_default(dest) == ref[dest].default
     action = next(a for a in parser._actions if flag in a.option_strings)
     assert action.choices == ref[dest].choices and action.type == ref[dest].type
-    assert flag not in {f for f, _v, _i in port_app.REFUSED}
     assert action.help and "refused" not in action.help
 
 
@@ -1011,11 +1062,9 @@ INGEST_FLAGS = ["--ingest-mode", "--ingest-ring-depth", "--ingest-decode-workers
 def test_ingest_flag_is_served_with_the_reference_default(flag):
     parser = port_app.build_parser()
     args = parser.parse_args(_refused_argv(parser, flag, None))
-    port_app.refuse_unported(parser, args)  # no longer refused
     ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
     dest = flag.lstrip("-").replace("-", "_")
     assert parser.get_default(dest) == ref[dest]
-    assert flag not in {f for f, _v, _i in port_app.REFUSED}
     action = next(a for a in parser._actions if flag in a.option_strings)
     assert action.help and "refused" not in action.help
 
@@ -1121,11 +1170,9 @@ CASCADE_REGISTRY_FLAGS = ["--cascade", "--cascade-threshold", "--no-cascade",
 def test_cascade_and_registry_flag_is_served_with_the_reference_default(flag):
     parser = port_app.build_parser()
     args = parser.parse_args(_refused_argv(parser, flag, None))
-    port_app.refuse_unported(parser, args)  # no longer refused
     ref = {a.dest: a.default for a in jax_app.build_parser()._actions}
     dest = flag.lstrip("-").replace("-", "_")
     assert parser.get_default(dest) == ref[dest]
-    assert flag not in {f for f, _v, _i in port_app.REFUSED}
     action = next(a for a in parser._actions if flag in a.option_strings)
     assert action.help and "refused" not in action.help
 

@@ -249,6 +249,37 @@ def test_registry_manifest_bytes_equal(tmp_path, monkeypatch):
         assert got.describe("cascade")["retired"] == 3
 
 
+def test_registry_stamp_key_equals_the_reference(tmp_path):
+    """C.17: ``ModelRegistry.stamp_key`` is the hashable form of
+    ``stamp()``, equal to the reference's on one manifest, before and
+    after an install."""
+    port = port_registry.ModelRegistry(str(tmp_path))
+    ref = jax_registry.ModelRegistry(str(tmp_path))
+    assert port.stamp_key() == ref.stamp_key() == tuple(sorted(port.stamp().items()))
+    port.install("detector", 3, params_path="p", params_sha256="ab")
+    ref = jax_registry.ModelRegistry(str(tmp_path))
+    assert port.stamp_key() == ref.stamp_key()
+    assert hash(port.stamp_key()) == hash(ref.stamp_key())
+
+
+@pytest.mark.parametrize("version", [1, 3])
+def test_state_lifecycle_embedder_version_equals_the_reference(tmp_path, version):
+    """C.17: ``StateLifecycle.embedder_version`` reads the bound gallery's
+    version, as the reference's does, and follows a whole-set install."""
+    got = {}
+    for pkg in ("jax", "torch"):
+        p = PKGS[pkg]
+        g = p.gallery()
+        g.load_snapshot(*g.snapshot(), embedder_version=version)
+        st = p.state.StateLifecycle(str(tmp_path / pkg), metrics=p.Metrics())
+        st.bind(g, [])
+        before = st.embedder_version
+        g.load_snapshot(*g.snapshot(), embedder_version=version + 1)
+        got[pkg] = (before, st.embedder_version)
+        st.close()
+    assert got["torch"] == got["jax"] == (version, version + 1)
+
+
 def test_registry_flipped_manifest_is_corrupt(tmp_path):
     reg = port_registry.ModelRegistry(str(tmp_path))
     doc = json.loads(open(reg.path).read())
