@@ -307,12 +307,39 @@ Phases (any failure exits nonzero before the result line):
    lands live and names its subject. (d) the CLI's ``--parallel pp``
    refusals on this host (one card: the device count, and the three flags
    that are single-mesh only), each before any checkpoint loads. One
-   ``{"multi_gpu": ...}`` line with the run's total seconds.
+   ``{"multi_gpu": ...}`` line with the run's total seconds to its end.
+
+16. (run after 15) the chaos soak (``apps.chaos_soak``). (a) ``run_soak``
+   on phase 4's stack (the serving detector and fused embedder over the
+   2^20-row bf16 gallery, every rung a CUDA graph captured at warmup, batch
+   32 of 256x256 uint8 frames through the pinned staging ring) under a
+   ``ServiceSupervisor`` and a ``Tracer`` at sample 1.0 with flight dumps:
+   phase 4's frames offered at CHAOS_FPS for CHAOS_SECONDS with the
+   reference's fault rates drawn from CHAOS_SEED (receive corrupt, drop
+   and duplicate up to 5% each, put corrupt up to 5%, dispatch unavailable
+   up to 10%, readback stuck up to 5%) and the reference's service
+   settings, the service's, batcher's, metrics', pipeline's, gallery's and
+   ring's locks ``DebugLock``s of one ``LockOrderMonitor``. It passes on
+   the reference's criteria (the probe burst answered after ``disarm``,
+   crashes equal to restarts, delivered batches equal to dispatched plus
+   failed, ledger ``in_system`` 0, flight dumps that parse with their
+   settle spans equal to the ledger), and: the probe's faces find their
+   own frame's planted rows; no capture after warmup unless a restart
+   caused it; A and C once and B six times a dispatched step (replays
+   counted); the ring's pinned allocations past its preallocation equal
+   its forfeits less its open heal credits; no lock-order inversion; the
+   thread count back within CHAOS_THREAD_MARGIN of its count before. (b)
+   one supervised crash (a result subscriber raises in the readback
+   worker) with CHAOS_ADDED_ROWS rows added after the checkpoint: the
+   gallery equals its checkpoint bit for bit (host mirrors and device
+   rows), the restarted loop names the planted faces; the seconds from
+   the crash to the restart and to the first answer, and the
+   re-captures. One ``{"chaos": ...}`` line with the run's total seconds.
 
 The line before the last is the per-kernel JSON (kernels A, B and C, their
 launches those of phase 4's serving run, of the reader alone in phase
-14 (a) and of the two-stage pipeline in phase 15 (b) and (c)); the last
-line is ``{"ok": true, "device": {...}}``.
+14 (a), of the two-stage pipeline in phase 15 (b) and (c) and of the
+chaos soak in phase 16); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -336,6 +363,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from opencv_facerecognizer_tpu_torch.apps import chaos_soak
 from opencv_facerecognizer_tpu_torch.apps import recognize as recognize_app
 from opencv_facerecognizer_tpu_torch.models import cascade as cascade_mod
 from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
@@ -371,12 +399,13 @@ from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
 from opencv_facerecognizer_tpu_torch.runtime.registry import (
     ModelRegistry, RegistrySwapCoordinator, _file_sha256, registry_params_path)
 from opencv_facerecognizer_tpu_torch.runtime.replication import TopicRouter
-from opencv_facerecognizer_tpu_torch.runtime.resilience import ServiceSupervisor
+from opencv_facerecognizer_tpu_torch.runtime.resilience import ResiliencePolicy, ServiceSupervisor
 from opencv_facerecognizer_tpu_torch.runtime.rollout import RolloutCoordinator, RolloutGateError
 from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
 from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
 from opencv_facerecognizer_tpu_torch.utils import native, serialization, tracing
+from opencv_facerecognizer_tpu_torch.utils.debug_lock import LockOrderMonitor
 from opencv_facerecognizer_tpu_torch.utils.metrics import (
     BATCHES_DISPATCHED, FRAMES_DROPPED_CRASHED, IVF_INCREMENTAL_ROWS, LOOP_CRASHES,
     SUPERVISOR_RESTARTS, Metrics)
@@ -5023,6 +5052,269 @@ def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     return out
 
 
+# ---------- phase 16: the chaos soak (ROADMAP A.14) ----------
+
+#: phase 16 (a): the soak's seed (its fault rates follow from it), seconds
+#: of offered frames and the offer rate
+CHAOS_SEED = 7
+CHAOS_SECONDS = 20.0
+CHAOS_FPS = 800.0
+#: threads the process may hold after the soak beyond its count before (a
+#: daemon thread of another phase that is still winding down)
+CHAOS_THREAD_MARGIN = 2
+#: phase 16 (b): rows added after the supervisor's checkpoint (the
+#: half-done enrolment a crash rolls back)
+CHAOS_ADDED_ROWS = 3
+
+
+def chaos_launch_check(launches: dict, steps: int, restarts: int) -> dict:
+    """Kernels A and C once and B six times a dispatched step, replays
+    counted; exactly so unless a restart re-captured a rung (its eager
+    warm-up runs launch too), then at least so. Returns the per-step
+    launches."""
+    want = {"streaming_match": steps, "sepblock": 6 * steps, "nms": steps}
+    ok = (all(launches[k] >= n for k, n in want.items()) if restarts
+          else launches == want)
+    if steps < 1 or not ok:
+        raise AssertionError(f"chaos (a): launches {launches} in {steps} dispatched steps "
+                             f"({restarts} restarts); want {want}")
+    return {k: launches[k] / steps for k in want}
+
+
+def chaos_staging_check(allocs: float, forfeits: float, ring) -> dict:
+    """The pinned ring's allocations past its preallocation are forfeits
+    healed: each forfeited buffer (a dead-lettered, abandoned or crashed
+    batch's) opens one replacement allocation, taken when its rung runs
+    out; those not taken yet are the ring's open heal credits."""
+    past = int(allocs) - ring.preallocated
+    open_credits = int(sum(ring._forfeited.values()))
+    if past != ring.alloc_count - ring.preallocated or past + open_credits != int(forfeits):
+        raise AssertionError(f"chaos (a): {past} pinned allocations past the preallocation and "
+                             f"{open_credits} open heal credits for {forfeits} forfeits")
+    return dict(preallocated=ring.preallocated, allocs_past_prealloc=past,
+                forfeits=int(forfeits), open_heal_credits=open_credits, pinned=ring.pinned)
+
+
+def chaos_thread_check(before: int, after: int, margin: int = CHAOS_THREAD_MARGIN) -> dict:
+    if after > before + margin:
+        raise AssertionError(f"chaos (a): {after} threads after the soak, {before} before "
+                             f"(margin {margin}): a thread leaked")
+    return dict(before=before, after=after, margin=margin)
+
+
+def planted_ranges(stack, frames: np.ndarray) -> list:
+    """Phase 4 planted the first batch's faces in frame order, labels
+    0 .. n - 1: frame i's faces own labels [start_i, start_i + count_i)."""
+    _b, _s, valid, _e = stack.embed_frames(frames[:BATCH])
+    counts = valid.reshape(BATCH, -1).sum(1).cpu().numpy().astype(int)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return [(int(a), int(a + c)) for a, c in zip(starts, counts)]
+
+
+def chaos_probe_check(probe_results: list, ranges: list, key: str = "probe") -> dict:
+    """Each answered frame's faces found planted rows of its own frame
+    (``ranges`` by frame index, ``meta[key]``) at similarity >= 0.99."""
+    faces = 0
+    for r in probe_results:
+        lo, hi = ranges[r["meta"][key]]
+        for f in r["faces"]:
+            if not lo <= f["label"] < hi or f["similarity"] < 0.99:
+                raise AssertionError(f"chaos: frame {r['meta'][key]}'s face {f} did not find "
+                                     f"its planted rows [{lo}, {hi})")
+            faces += 1
+    if faces < 1:
+        raise AssertionError("chaos: the probe found no face")
+    return dict(frames=len(probe_results), faces=faces)
+
+
+def _e2e_ms(sent: dict, done: dict) -> dict:
+    lat = [done[k] - t for k, t in sent.items() if k in done]
+    if not lat:
+        return dict(n=0, p50=None, p99=None)
+    return dict(n=len(lat), p50=float(np.percentile(lat, 50)) * 1e3,
+                p99=float(np.percentile(lat, 99)) * 1e3)
+
+
+def chaos_soak_run(dev, card: str, ctx: dict) -> dict:
+    """Phase 16 (a) (module docstring): ``apps.chaos_soak.run_soak`` on
+    phase 4's stack under the reference's fault rates."""
+    stack, frames = ctx["stack"], ctx["frames"]
+    ranges = planted_ranges(stack, frames)
+    monitor = LockOrderMonitor()
+    restores, done_at, at_start = [], {}, {}
+
+    def prepare(service):
+        restores.append(chaos_soak.instrument_locks(service, monitor))
+
+        def on_result(topic, message):
+            meta = message.get("meta") or {}
+            key = ("seq", meta["seq"]) if "seq" in meta else ("probe", meta.get("probe"))
+            done_at.setdefault(key, time.monotonic())
+
+        service.connector.subscribe(RESULT_TOPIC, on_result)
+
+    def on_start(service):
+        # the path's launches from here (the warmup captured the rungs)
+        zero_counters()
+        at_start.update(captures=stack.captures, recaptures=stack.recaptures)
+
+    handles = {}
+    threads_before = threading.active_count()
+    t = time.perf_counter()
+    try:
+        report = chaos_soak.run_soak(
+            seconds=CHAOS_SECONDS, seed=CHAOS_SEED, frame_shape=FRAME, device=dev,
+            pipeline=stack, batch_size=BATCH, frames=frames, offer_fps=CHAOS_FPS,
+            service_kwargs=dict(ingest=IngestConfig("uint8")), prepare=prepare,
+            on_start=on_start, handles=handles)
+    finally:
+        for restore in restores:
+            restore()
+    soak_s = time.perf_counter() - t
+    launches = read_launches()
+    if not report["ok"]:
+        raise AssertionError(f"chaos (a): the soak failed: {report['failures']}")
+    acct = report.get("span_accounting", {})
+    if not acct or acct.get("ring_wrapped"):
+        raise AssertionError(f"chaos (a): no span accounting of the final dump: {acct}")
+    service = handles["service"]
+    counters = report["counters"]
+    restarts = int(report["supervisor_restarts"])
+    probe = chaos_probe_check(handles["probe_results"], ranges)
+    recaptures = dict(captures=stack.captures - at_start["captures"],
+                      recaptures=stack.recaptures - at_start["recaptures"],
+                      recompiles_post_warmup=counters.get(mn.RECOMPILES_POST_WARMUP, 0))
+    if not restarts and any(recaptures.values()):
+        raise AssertionError(f"chaos (a): a step was captured after warmup: {recaptures}")
+    steps = int(counters.get(BATCHES_DISPATCHED, 0))
+    per_step = chaos_launch_check(launches, steps, restarts) if dev.type == "cuda" else {}
+    staging = chaos_staging_check(counters.get(mn.INGEST_STAGING_ALLOCS, 0),
+                                  counters.get(mn.INGEST_STAGING_FORFEITS, 0),
+                                  service.ingest.staging)
+    monitor.check()
+    edges = sorted(f"{a} -> {b}" for a, b in monitor.edges())
+    threads = chaos_thread_check(threads_before, threading.active_count())
+    sent_seq = {("seq", k): v for k, v in handles["sent_at"].items()}
+    sent_probe = {("probe", k): v for k, v in handles["probe_sent_at"].items()}
+    out = dict(card=card, seed=report["seed"], seconds=CHAOS_SECONDS, offer_fps=CHAOS_FPS,
+               sent=report["sent"], results=report["results"], rates=report["rates"],
+               injected=report["injected"], ledger=report["ledger"],
+               restarts=restarts, loop_crashes=counters.get(LOOP_CRASHES, 0),
+               dead_letters=dict(batches=counters.get(mn.BATCHES_DEAD_LETTERED, 0),
+                                 frames=counters.get(mn.FRAMES_DEAD_LETTERED, 0)),
+               counters=counters, e2e_chaos_ms=_e2e_ms(sent_seq, done_at),
+               e2e_probe_ms=_e2e_ms(sent_probe, done_at), probe=probe, steps=steps,
+               launches=launches, launches_per_step=per_step, recaptures=recaptures,
+               staging=staging, threads=threads, lock_edges=edges,
+               flight_dumps=report["flight_dumps"], span_accounting=acct, soak_s=soak_s)
+    log(f"chaos (a) ({card}): {report['sent']} frames offered at {CHAOS_FPS:.0f}/s for "
+        f"{CHAOS_SECONDS:.0f} s under seed {CHAOS_SEED} rates {json.dumps(report['rates'])}: "
+        f"injected {report['injected']}; ledger {report['ledger']}; {restarts} restarts; "
+        f"dead letters {out['dead_letters']}; {steps} steps launched {launches}; e2e ms "
+        f"chaos {out['e2e_chaos_ms']} probe {out['e2e_probe_ms']}; staging {staging}; "
+        f"threads {threads}; {len(edges)} lock edges, no inversion; {soak_s:.1f} s")
+    return out
+
+
+def chaos_restart(dev, card: str, ctx: dict) -> dict:
+    """Phase 16 (b) (module docstring): one supervised crash at full width;
+    the 2^20-row gallery rolled back to the checkpoint bit for bit and the
+    planted faces named after the restart."""
+    stack, frames, n_plant = ctx["stack"], ctx["frames"], ctx["n_plant"]
+    gallery = stack.gallery
+    ranges = planted_ranges(stack, frames)
+    names = [f"p{i}" for i in range(n_plant)]
+    crash, first_after = {"left": 1, "t": None}, {}
+
+    class CrashOnce(FakeConnector):
+        """Raises from the first result publish: the readback worker dies."""
+
+        def publish(self, topic, message):
+            if topic == RESULT_TOPIC and crash["left"]:
+                crash["left"] = 0
+                crash["t"] = time.monotonic()
+                raise RuntimeError("result consumer blew up")
+            if topic == RESULT_TOPIC and (message.get("meta") or {}).get("k") == "after":
+                first_after.setdefault("t", time.monotonic())
+            super().publish(topic, message)
+
+        inject = publish
+
+    conn = CrashOnce()
+    service = RecognizerService(stack, conn, batch_size=BATCH, frame_shape=FRAME,
+                                flush_timeout=0.02, ingest=IngestConfig("uint8"),
+                                similarity_threshold=0.5, subject_names=names,
+                                resilience=ResiliencePolicy(readback_deadline_s=5.0))
+    supervisor = ServiceSupervisor(service, max_restarts=3, poll_interval_s=0.05)
+    supervisor.start()
+    zero_counters()
+    captures0 = (stack.captures, stack.recaptures)
+    try:
+        snap = gallery.snapshot()  # what the supervisor's checkpoint holds
+        dev_emb = gallery.data.embeddings[:snap[3]].cpu()
+        dev_lab = gallery.data.labels[:snap[3]].cpu()
+        rng = np.random.default_rng(16)
+        gallery.add(rng.standard_normal((CHAOS_ADDED_ROWS, DIM), dtype=np.float32),
+                    np.full(CHAOS_ADDED_ROWS, -7, np.int32))
+        if gallery.size != snap[3] + CHAOS_ADDED_ROWS:
+            raise AssertionError("chaos (b): the rows after the checkpoint did not land")
+        for i in range(BATCH):
+            conn.inject(FRAME_TOPIC, {**encode_frame(frames[i]), "meta": {"k": "bait", "i": i}})
+        wait_for(lambda: service.metrics.counter(SUPERVISOR_RESTARTS) >= 1, 60.0,
+                 "chaos (b): the supervisor's restart", poll=0.005)
+        restart_s = time.monotonic() - crash["t"]
+        # the frames first, the checks after: the first answer's seconds
+        # are the service's, not the checks'
+        for i in range(BATCH):
+            conn.inject(FRAME_TOPIC, {**encode_frame(frames[i]), "meta": {"k": "after", "i": i}})
+        wait_for(lambda: sum((m.get("meta") or {}).get("k") == "after"
+                             for m in conn.messages(RESULT_TOPIC)) >= BATCH, 60.0,
+                 "chaos (b): the answers after the restart")
+        got = gallery.snapshot()
+        if not (got[3] == snap[3] and all(np.array_equal(a, b) for a, b in zip(got, snap))
+                and torch.equal(gallery.data.embeddings[:snap[3]].cpu(), dev_emb)
+                and torch.equal(gallery.data.labels[:snap[3]].cpu(), dev_lab)):
+            raise AssertionError("chaos (b): the gallery does not equal its checkpoint")
+        after = [m for m in conn.messages(RESULT_TOPIC)
+                 if (m.get("meta") or {}).get("k") == "after"]
+        found = chaos_probe_check(after, ranges, key="i")
+        named = sum(f["name"] == names[f["label"]] for r in after for f in r["faces"])
+        if named != found["faces"]:
+            raise AssertionError("chaos (b): a planted face was not named after the restart")
+        counters = service.metrics.counters()
+    finally:
+        supervisor.stop()
+    if counters.get(LOOP_CRASHES, 0) != 1 or supervisor.restarts != 1 or supervisor.gave_up:
+        raise AssertionError(f"chaos (b): {counters.get(LOOP_CRASHES, 0)} crashes, "
+                             f"{supervisor.restarts} restarts (gave up: {supervisor.gave_up})")
+    out = dict(crash_to_restart_s=restart_s,
+               crash_to_first_answer_s=first_after["t"] - crash["t"],
+               captures=stack.captures - captures0[0],
+               recaptures=stack.recaptures - captures0[1],
+               recompiles_post_warmup=counters.get(mn.RECOMPILES_POST_WARMUP, 0),
+               gallery_rows=int(snap[3]), added_rows=CHAOS_ADDED_ROWS,
+               frames_dropped_crashed=counters.get(FRAMES_DROPPED_CRASHED, 0),
+               faces_named=named, launches=read_launches())
+    log(f"chaos (b) ({card}): a crash in the readback worker; the supervisor restored the "
+        f"{snap[3]}-row gallery bit for bit ({CHAOS_ADDED_ROWS} rows after the checkpoint "
+        f"rolled back) and restarted the loop in {restart_s:.3f} s; first answer "
+        f"{out['crash_to_first_answer_s']:.3f} s after the crash; {named} planted faces named; "
+        f"{out['recaptures']} re-captures, {out['captures']} captures")
+    return out
+
+
+def chaos_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 16 (module docstring); returns the ``{"chaos": ...}`` numbers,
+    the soak's and the restart's kernel launches among them."""
+    t_phase = time.perf_counter()
+    out = {"card": card, "soak": chaos_soak_run(dev, card, ctx)}
+    out["restart"] = chaos_restart(dev, card, ctx)
+    out["launches"] = {k: out["soak"]["launches"][k] + out["restart"]["launches"][k]
+                       for k in out["soak"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5057,11 +5349,13 @@ def main() -> int:
     replication = replication_phase(dev, args.seed, card, ctx)
     replication_end_s = time.perf_counter() - t_run
     multi_gpu = multi_gpu_phase(dev, args.seed, card, ctx)
+    multi_gpu_end_s = time.perf_counter() - t_run
+    chaos = chaos_phase(dev, args.seed, card, ctx)
     for e in entries:
-        # the main path's launches: the serving run's, the replicas' and
-        # the two-stage pipeline's
+        # the main path's launches: the serving run's, the replicas', the
+        # two-stage pipeline's and the chaos soak's
         e["launches"] = (launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
-                         + multi_gpu["pp_launches"][e["name"]])
+                         + multi_gpu["pp_launches"][e["name"]] + chaos["launches"][e["name"]])
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
     print(json.dumps({"async_grow": grow}))
     print(json.dumps({"ivf": ivf}))
@@ -5073,9 +5367,11 @@ def main() -> int:
     print(json.dumps({"cascade": cascade}))
     replication["total_s"] = replication_end_s
     print(json.dumps({"replication": replication}))
-    multi_gpu["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {multi_gpu['total_s']:.1f} s")
+    multi_gpu["total_s"] = multi_gpu_end_s
     print(json.dumps({"multi_gpu": multi_gpu}))
+    chaos["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {chaos['total_s']:.1f} s")
+    print(json.dumps({"chaos": chaos}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

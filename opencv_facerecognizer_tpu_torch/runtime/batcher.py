@@ -2,7 +2,9 @@
 batches. Port of ``opencv_facerecognizer_tpu/runtime/batcher.py``.
 
 - ``put`` validates shape and dtype and drops malformed frames, so one
-  camera glitch cannot poison a batch.
+  camera glitch cannot poison a batch. A ``fault_injector``
+  (``runtime.faults``) is crossed first (``on_put``), before the check
+  and before any copy into a staging buffer.
 - ``get_batch`` blocks until ``batch_size`` frames are queued or the
   oldest queued frame is as old as the flush deadline, then returns a
   zero-padded ``[B, H, W]`` batch with its metadata and real count. The
@@ -73,7 +75,8 @@ class FrameBatcher:
                  dtype=np.float32, metrics: Optional[mn.Metrics] = None,
                  buffer_pool_size: int = 8, target_latency_s: Optional[float] = None,
                  stale_after_s: Optional[float] = None, drop_log=None, tracer=None,
-                 trace_topic: Optional[str] = None, staging_ring=None):
+                 trace_topic: Optional[str] = None, staging_ring=None,
+                 fault_injector=None):
         self.batch_size = int(batch_size)
         self.target_latency_s = (None if target_latency_s is None
                                  else float(target_latency_s))
@@ -101,6 +104,9 @@ class FrameBatcher:
         self._drop_log = drop_log
         self._tracer = tracer
         self._trace_topic = trace_topic
+        #: ``runtime.faults.FaultInjector`` at the put boundary (never in
+        #: production)
+        self._faults = fault_injector
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         # (frame, meta, enqueue_ts, priority, trace_id), oldest first
@@ -123,6 +129,8 @@ class FrameBatcher:
         False when it was dropped (malformed, closed, or the overflow's
         victim itself)."""
         self._count(mn.BATCHER_FRAMES_OFFERED)
+        if self._faults is not None:
+            frame = self._faults.on_put(frame)
         frame = np.asarray(frame)
         if frame.shape != self.frame_shape or not np.issubdtype(frame.dtype, np.number):
             self._count(mn.BATCHER_DROPPED_MALFORMED)

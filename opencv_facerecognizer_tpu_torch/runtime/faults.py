@@ -1,8 +1,20 @@
-"""Fault injection at the durability and dispatch boundaries: port of that
-part of ``opencv_facerecognizer_tpu/runtime/faults.py``.
+"""Fault injection at the serving, durability and transport boundaries:
+port of ``opencv_facerecognizer_tpu/runtime/faults.py``.
 
+- **receive**: the connector delivery (``RecognizerService._on_frame``
+  crosses it once per message): ``drop``, ``duplicate`` (delivered
+  twice), ``flood`` (delivered ``flood_factor`` times) or ``corrupt`` (a
+  ``__frame__`` payload that cannot decode; the service counts it
+  ``frames_malformed``).
+- **put**: ``FrameBatcher.put``, before validation and before any copy
+  into a staging buffer: ``corrupt`` replaces the frame with a ``(1, 1)``
+  NaN frame that the shape check drops.
 - **dispatch**: the backend fast-fails at call time (``unavailable``); the
   service's retry path classifies it as transient.
+- **readback**: the readback of a dispatched batch (the service wraps the
+  ``_Readback`` its dispatch returned): ``stuck`` never becomes ready
+  (``StuckReadback``), ``slow`` becomes ready ``slow_readback_s`` late
+  (``SlowReadback``).
 - **wal** and **checkpoint**: simulated process death while the state
   store writes. ``torn`` leaves a partial record or file on disk,
   ``crash`` dies before the write becomes visible, and checkpoint
@@ -39,8 +51,7 @@ Faults are scripted (``script("wal", "torn")``: consumed in order, one
 per crossing) or drawn at ``rates`` from a ``random.Random(seed)``;
 ``injected`` counts each one fired as ``"boundary:fault"``. Without
 scripted faults and rates every hook is a no-op, and no production path
-arms an injector. The ``receive``, ``put`` and ``readback`` boundaries
-are not ported yet: they come with the chaos soak (ROADMAP A.14).
+arms an injector.
 """
 
 from __future__ import annotations
@@ -55,7 +66,10 @@ import numpy as np
 
 #: boundary name -> the fault kinds it understands
 BOUNDARIES: Dict[str, tuple] = {
+    "receive": ("drop", "duplicate", "corrupt", "flood"),
+    "put": ("corrupt",),
     "dispatch": ("unavailable",),
+    "readback": ("stuck", "slow"),
     "wal": ("torn", "crash"),
     "checkpoint": ("torn", "crash", "late"),
     "stage": ("torn", "crash"),
@@ -96,6 +110,57 @@ class InjectedUnavailableError(RuntimeError):
         super().__init__(msg)
 
 
+class StuckReadback:
+    """A readback that never lands (the hang-mode outage), in the
+    interface of ``runtime.recognizer._Readback``. ``ready()`` is False
+    for good; ``wait()`` raises at once instead of blocking, so the
+    service's readback worker polls ``ready()`` until the batch's deadline
+    and dead-letters it, and no blocker thread is left waiting on it;
+    ``result()`` raises, so a batch materialized by mistake fails loudly
+    rather than serving the wrapped data."""
+
+    pending = True
+
+    def __init__(self, wrapped: Any):
+        self._wrapped = wrapped
+
+    def ready(self) -> bool:
+        return False
+
+    def wait(self) -> None:
+        raise RuntimeError("blocked forever on an injected stuck readback")
+
+    def result(self):
+        raise RuntimeError("materialized an injected stuck readback — the drain "
+                           "loop must dead-letter it at the deadline")
+
+
+class SlowReadback:
+    """A readback that lands ``delay_s`` late (a congested link, not an
+    outage), in the interface of ``runtime.recognizer._Readback``: ready
+    once the delay has passed and the wrapped readback is ready; ``wait``
+    sleeps out the delay, then waits for the wrapped one."""
+
+    pending = True
+
+    def __init__(self, wrapped: Any, delay_s: float):
+        self._wrapped = wrapped
+        self._ready_at = time.monotonic() + float(delay_s)
+
+    def ready(self) -> bool:
+        return time.monotonic() >= self._ready_at and self._wrapped.ready()
+
+    def wait(self) -> None:
+        delay = self._ready_at - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        self._wrapped.wait()
+
+    def result(self):
+        self.wait()
+        return self._wrapped.result()
+
+
 class FaultInjector:
     """Deterministic, seedable faults at the boundaries of ``BOUNDARIES``.
 
@@ -105,9 +170,14 @@ class FaultInjector:
 
     def __init__(self, seed: int = 0,
                  rates: Optional[Dict[str, Dict[str, float]]] = None,
+                 slow_readback_s: float = 0.05, flood_factor: int = 8,
                  slow_decode_s: float = 0.05, slow_fsync_s: float = 0.05):
         self.seed = int(seed)
         self._rng = random.Random(self.seed)
+        #: lateness of a ``readback: slow`` fault
+        self.slow_readback_s = float(slow_readback_s)
+        #: deliveries of one ``receive: flood`` message (at least 2)
+        self.flood_factor = max(2, int(flood_factor))
         #: stall of a ``decode: slow`` fault, before the worker decodes
         self.slow_decode_s = float(slow_decode_s)
         #: stall of a ``storage: slow_fsync`` fault
@@ -174,10 +244,48 @@ class FaultInjector:
 
     # ---- boundary hooks ----
 
+    def on_receive(self, message: Dict[str, Any]) -> List[Dict[str, Any]]:
+        """Connector delivery: the messages to handle, ``[]`` (dropped),
+        ``[m, m]`` (duplicated), ``[m] * flood_factor`` (flooded), or one
+        copy whose ``__frame__`` cannot decode (corrupt; its meta and
+        other fields survive)."""
+        fault = self._draw("receive")
+        if fault is None:
+            return [message]
+        if fault == "drop":
+            return []
+        if fault == "duplicate":
+            return [message, message]
+        if fault == "flood":
+            return [message] * self.flood_factor
+        corrupted = dict(message)
+        corrupted["__frame__"] = "corrupt!"
+        corrupted.setdefault("shape", [1])
+        corrupted.setdefault("dtype", "float32")
+        return [corrupted]
+
+    def on_put(self, frame):
+        """Batcher put: ``corrupt`` returns a ``(1, 1)`` NaN frame for the
+        shape check to drop; otherwise ``frame`` unchanged."""
+        if self._draw("put") is None:
+            return frame
+        return np.full((1, 1), np.nan, np.float32)
+
     def on_dispatch(self) -> None:
         """Device-dispatch boundary: raises the fast-fail outage."""
         if self._draw("dispatch") is not None:
             raise InjectedUnavailableError()
+
+    def on_readback(self, readback: Any) -> Any:
+        """A dispatched batch's readback: wrapped in a ``StuckReadback``
+        (``stuck``) or a ``SlowReadback`` of ``slow_readback_s``
+        (``slow``); otherwise ``readback`` unchanged."""
+        fault = self._draw("readback")
+        if fault is None:
+            return readback
+        if fault == "slow":
+            return SlowReadback(readback, self.slow_readback_s)
+        return StuckReadback(readback)
 
     def on_wal_append(self) -> Optional[str]:
         """WAL append: ``"torn"`` or ``"crash"`` for the writer to enact

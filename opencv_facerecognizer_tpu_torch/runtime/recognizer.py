@@ -21,7 +21,10 @@ the batch sliced to the smallest rung of a bucket ladder that holds it)
   attempts publish ``degraded`` on ``STATUS_TOPIC`` and the next success
   ``recovered``. A readback not ready by its deadline is dead-lettered
   (``frames_dead_lettered``, a ``dead_letter`` status with the frames'
-  metas) and the loop moves on.
+  metas) and the loop moves on. A ``fault_injector`` (``runtime.faults``,
+  chaos tests only) is crossed at each delivery (``receive``), handed to
+  the batcher (``put``), and crossed at each dispatch attempt and on each
+  dispatched batch's readback; the warmup crosses none of them.
 - **Identity cache** (``runtime.tracker``, optional): frames whose
   stream's tracks are all fresh settle as ``completed_cached`` with the
   cached identities before dispatch; every full result re-verifies its
@@ -237,20 +240,29 @@ class _ReadbackBlocker:
     readback, so the worker's wait can be bounded by the batch's deadline.
     ``block`` returns "ready", "raised" (the wait raised) or "timeout".
     After a timeout the thread may be stuck in a CUDA call: the caller
-    abandons this instance and builds a new one."""
+    closes this instance and builds a new one. ``close`` ends the thread
+    once its current wait (if any) returns."""
 
     def __init__(self):
         self._cv = threading.Condition()
         self._pending: Any = None
+        self._closed = False
         self._done = threading.Event()
         self._ok = False
         threading.Thread(target=self._run, daemon=True, name="ocvf-readback-blocker").start()
 
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify()
+
     def _run(self) -> None:
         while True:
             with self._cv:
-                while self._pending is None:
+                while self._pending is None and not self._closed:
                     self._cv.wait()
+                if self._pending is None:
+                    return
                 readback = self._pending
             try:
                 readback.wait()
@@ -391,7 +403,8 @@ class RecognizerService:
                                     drop_log=self._journal_drop, tracer=tracer,
                                     trace_topic=FRAME_TOPIC,
                                     staging_ring=(None if self.ingest is None
-                                                  else self.ingest.staging))
+                                                  else self.ingest.staging),
+                                    fault_injector=fault_injector)
         self._inflight: deque = deque()
         # guards the in-flight queue and the completion count; drain() waits on it
         self._inflight_cv = threading.Condition()
@@ -408,8 +421,9 @@ class RecognizerService:
         #: set by ``warmup``: a step built after it is a capture on the
         #: serving thread, counted as ``recompiles_post_warmup``
         self._warmed = False
-        #: ``runtime.faults.FaultInjector`` at the dispatch boundary (never
-        #: in production)
+        #: ``runtime.faults.FaultInjector`` at the receive, dispatch and
+        #: readback boundaries, handed to the batcher for put (never in
+        #: production); warmup crosses none of them
         self._faults = fault_injector
         #: the degraded-mode probe, injectable for tests; default
         #: ``utils.backend_probe.probe_for_recovery``
@@ -623,6 +637,13 @@ class RecognizerService:
     # ---- connector handlers (the connector's thread; keep cheap) ----
 
     def _on_frame(self, topic: str, message: Dict[str, Any]) -> None:
+        # the receive boundary: a fault may drop, duplicate, flood or
+        # corrupt the delivery; each message it returns is handled alone
+        messages = [message] if self._faults is None else self._faults.on_receive(message)
+        for msg in messages:
+            self._receive_one(topic, msg)
+
+    def _receive_one(self, topic: str, message: Dict[str, Any]) -> None:
         tracer = self.tracer
         priority = parse_priority(message.get("priority"))
         # tid 0: sampled out, every emit below is a no-op
@@ -656,10 +677,13 @@ class RecognizerService:
         if tid:
             tracer.emit(tid, "receive", topic=topic, t0=t_recv, dur=time.monotonic() - t_recv,
                         verdict="admitted", priority=priority)
-        if JPEG_KEY in message and self.ingest is not None and self.ingest.decoder is not None:
+        if (JPEG_KEY in message and "__frame__" not in message
+                and self.ingest is not None and self.ingest.decoder is not None):
             # the decode pool decodes it off this thread; a full queue is a
             # counted drop (without a pool the pixel decode below fails:
-            # malformed)
+            # malformed). A message that also carries a pixel payload (a
+            # corrupted delivery) is decoded as pixels below, so it counts
+            # malformed before it reaches the pool or a staging slot.
             if not self.ingest.submit_decode(message, priority, tid):
                 self.metrics.incr(mn.FRAMES_DROPPED_DECODE)
                 self._trace_settle([tid], mn.FRAMES_DROPPED_DECODE, "ingest.decode_backlog")
@@ -859,6 +883,9 @@ class RecognizerService:
             if t is not None:
                 t.join(timeout=30.0)
         self._thread = self._worker = None
+        if self._blocker is not None:
+            self._blocker.close()
+            self._blocker = None
         if not self._use_worker and (thread is None or not thread.is_alive()):
             self._drain(force=True)
         self.connector.stop()
@@ -907,6 +934,8 @@ class RecognizerService:
             return
         self._crashed = False
         if worker_dead:
+            if self._blocker is not None:
+                self._blocker.close()
             self._blocker = _ReadbackBlocker()
             self._worker = threading.Thread(target=self._readback_thread, daemon=True,
                                             name="ocvf-readback")
@@ -1161,6 +1190,10 @@ class RecognizerService:
             self._consecutive_dispatch_failures = 0
             if self._degraded:
                 self._exit_degraded()
+            if self._faults is not None:
+                # the readback boundary: the batch's readback may never land
+                # (stuck) or land late (slow)
+                readback = self._faults.on_readback(readback)
             return readback
 
     def _start_readback(self, packed) -> _Readback:
@@ -1516,8 +1549,12 @@ class RecognizerService:
         if outcome == "ready":
             return True
         if outcome == "timeout":
-            self._blocker = _ReadbackBlocker()  # the old one may be stuck
-            return False
+            # the old one may be stuck in the wait: it exits when that returns
+            blocker.close()
+            self._blocker = _ReadbackBlocker()
+            # a starved blocker may not have reported a readback that landed
+            # in time: only one still not ready is dead-lettered
+            return self._is_ready(readback)
         # "raised": poll until the deadline; a failed computation reports
         # ready and raises again in result()
         while self._running and time.monotonic() < deadline:

@@ -11,7 +11,7 @@
   mode on the status topic, with the bounded backend probe's verdict
   when ``probe_backend_on_degraded``.
 - ``DurabilityMonitor``: the degraded-durability state machine of one
-  writer's state dir. ``DEGRADED_AFTER`` consecutive WAL append failures
+  writer's state dir. ``degraded_after`` (3) consecutive WAL append failures
   (or a critical disk watermark, or an unreachable state dir) flip it to
   degraded: enrolments are refused closed while serving goes on. A
   background probe (write, fsync, unlink in the state dir) re-arms it.
@@ -144,6 +144,9 @@ class DurabilityDegradedError(RuntimeError):
 DISK_OK, DISK_WARN, DISK_CRITICAL = 0, 1, 2
 #: the critical watermark is the low one over this (the reference's default)
 CRITICAL_DIVISOR = 6.0
+#: consecutive WAL append (or state-dir reach) failures that flip the
+#: durability monitor (the reference's default)
+DEGRADED_AFTER = 3
 
 
 class DurabilityMonitor:
@@ -159,19 +162,22 @@ class DurabilityMonitor:
 
     PROBE_NAME = ".durability_probe"
 
-    #: consecutive WAL append (or state-dir reach) failures that flip it
-    DEGRADED_AFTER = 3
 
     def __init__(self, state, metrics=None, tracer=None,
-                 probe_interval_s: float = 5.0, low_watermark_bytes: int = 0,
+                 degraded_after: int = DEGRADED_AFTER, probe_interval_s: float = 5.0,
+                 low_watermark_bytes: int = 0, critical_divisor: float = CRITICAL_DIVISOR,
                  publish: Optional[Callable[[dict], None]] = None,
                  fault_injector=None, statvfs_fn=None):
         self.state = state
         self.metrics = metrics
         #: ``utils.tracing.Tracer``: a lifecycle span per flip and re-arm
         self.tracer = tracer
+        #: consecutive failures that flip it (the reference's argument)
+        self.degraded_after = max(1, int(degraded_after))
         self.probe_interval_s = float(probe_interval_s)
         self.low_watermark_bytes = max(0, int(low_watermark_bytes))
+        #: the critical watermark is the low one over this
+        self.critical_divisor = max(1.0, float(critical_divisor))
         #: status announcements ({"status": ...}); the service wires its
         #: status publisher here
         self.publish = publish
@@ -253,11 +259,11 @@ class DurabilityMonitor:
 
     def note_wal_failure(self, exc: BaseException) -> None:
         """One strict WAL append failed with a storage error; the
-        ``DEGRADED_AFTER``-th in a row flips the writer."""
+        ``degraded_after``-th in a row flips the writer."""
         with self._lock:
             self._consecutive_wal_failures += 1
             should_flip = (not self._degraded
-                           and self._consecutive_wal_failures >= self.DEGRADED_AFTER)
+                           and self._consecutive_wal_failures >= self.degraded_after)
         if should_flip:
             self._flip_degraded("wal_append_failures", error=repr(exc),
                                 consecutive=self._consecutive_wal_failures)
@@ -338,7 +344,7 @@ class DurabilityMonitor:
 
     def _check_lease(self) -> None:
         """A writer whose state dir (home of its lease) is unreachable
-        ``DEGRADED_AFTER`` times in a row flips degraded: it can no
+        ``degraded_after`` times in a row flips degraded: it can no
         longer prove it owns enrolment."""
         state_dir = getattr(self.state, "state_dir", None)
         if state_dir is None:
@@ -353,7 +359,7 @@ class DurabilityMonitor:
             with self._lock:
                 self._consecutive_lease_failures += 1
                 should_flip = (not self._degraded
-                               and self._consecutive_lease_failures >= self.DEGRADED_AFTER)
+                               and self._consecutive_lease_failures >= self.degraded_after)
             if should_flip:
                 self._flip_degraded("lease_unreachable",
                                     consecutive=self._consecutive_lease_failures)
@@ -379,7 +385,7 @@ class DurabilityMonitor:
         if not self.low_watermark_bytes or self._free_bytes is None:
             return
         free = self._free_bytes
-        critical_at = self.low_watermark_bytes / CRITICAL_DIVISOR
+        critical_at = self.low_watermark_bytes / self.critical_divisor
         new_state = (DISK_CRITICAL if free < critical_at
                      else DISK_WARN if free < self.low_watermark_bytes else DISK_OK)
         prev = self._disk_state

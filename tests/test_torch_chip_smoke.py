@@ -323,3 +323,110 @@ def test_pp_check_pairs_faces_by_box_and_refuses_a_label_flip():
     assert got["faces"] == 3 and got["boundary_swaps"] == 0 and got["max_box_diff"] == 0.0
     with pytest.raises(AssertionError, match="labels differ"):
         chip_smoke._pp_results_close(result([0, 1, 2]), result([0, 1, 2], 5), "t", 0.3, 0.4)
+
+
+# ---------- phase 16: the chaos soak ----------
+
+
+def test_chaos_launch_check_holds_each_kernel_to_its_count_a_step():
+    want = {"streaming_match": 40, "sepblock": 240, "nms": 40}
+    assert chip_smoke.chaos_launch_check(dict(want), 40, 0) == {
+        "streaming_match": 1.0, "sepblock": 6.0, "nms": 1.0}
+    for name in want:  # one launch too many or too few, and no restart
+        for delta in (-1, 1):
+            with pytest.raises(AssertionError, match="launches"):
+                chip_smoke.chaos_launch_check({**want, name: want[name] + delta}, 40, 0)
+    # a restart's re-capture launches more, never fewer
+    chip_smoke.chaos_launch_check({**want, "sepblock": 252}, 40, 1)
+    with pytest.raises(AssertionError):
+        chip_smoke.chaos_launch_check({**want, "nms": 39}, 40, 1)
+    with pytest.raises(AssertionError):
+        chip_smoke.chaos_launch_check({k: 0 for k in want}, 0, 0)
+
+
+def test_chaos_staging_check_holds_allocations_to_forfeits():
+    """A real ring: two forfeits, one healed by the acquire that found its
+    rung empty, one still an open credit."""
+    from opencv_facerecognizer_tpu_torch.runtime.ingest import StagingRing
+    from opencv_facerecognizer_tpu_torch.utils.metrics import (
+        INGEST_STAGING_ALLOCS, INGEST_STAGING_FORFEITS, Metrics)
+
+    metrics = Metrics()
+    ring = StagingRing((4, 8), (2, 2), np.uint8, depth=1, metrics=metrics)
+    a = ring.acquire(8)
+    ring.forfeit(a)
+    b = ring.acquire(4)
+    ring.forfeit(b)
+    healed = ring.acquire(8)  # the 8-rung is empty: the forfeit's heal
+    assert healed is not None
+    counters = metrics.counters()
+    got = chip_smoke.chaos_staging_check(counters[INGEST_STAGING_ALLOCS],
+                                         counters[INGEST_STAGING_FORFEITS], ring)
+    assert got == dict(preallocated=2, allocs_past_prealloc=1, forfeits=2,
+                       open_heal_credits=1, pinned=False)
+    with pytest.raises(AssertionError, match="forfeits"):  # an allocation no forfeit opened
+        chip_smoke.chaos_staging_check(counters[INGEST_STAGING_ALLOCS] + 1,
+                                       counters[INGEST_STAGING_FORFEITS], ring)
+
+
+def test_chaos_thread_check_allows_only_its_margin():
+    assert chip_smoke.chaos_thread_check(10, 12, 2) == dict(before=10, after=12, margin=2)
+    assert chip_smoke.chaos_thread_check(10, 9, 2)["after"] == 9
+    with pytest.raises(AssertionError, match="leaked"):
+        chip_smoke.chaos_thread_check(10, 13, 2)
+
+
+def test_chaos_probe_check_wants_each_face_in_its_frames_planted_rows():
+    ranges = [(0, 2), (2, 3), (3, 3)]
+
+    def result(i, labels, sim=0.995):
+        return {"meta": {"probe": i},
+                "faces": [{"label": lab, "similarity": sim} for lab in labels]}
+
+    got = chip_smoke.chaos_probe_check([result(0, [1, 0]), result(1, [2]), result(2, [])],
+                                       ranges)
+    assert got == dict(frames=3, faces=3)
+    with pytest.raises(AssertionError, match="planted"):  # frame 1's row in frame 0
+        chip_smoke.chaos_probe_check([result(0, [2])], ranges)
+    with pytest.raises(AssertionError, match="planted"):
+        chip_smoke.chaos_probe_check([result(0, [0], sim=0.98)], ranges)
+    with pytest.raises(AssertionError, match="no face"):
+        chip_smoke.chaos_probe_check([result(2, [])], ranges)
+
+
+def test_e2e_ms_reads_the_answered_offers_only():
+    sent = {("seq", i): 10.0 + i for i in range(4)}
+    done = {("seq", 0): 10.010, ("seq", 1): 11.030, ("seq", 3): 13.020}
+    got = chip_smoke._e2e_ms(sent, done)
+    assert got["n"] == 3 and abs(got["p50"] - 20.0) < 1e-6
+    assert chip_smoke._e2e_ms(sent, {}) == dict(n=0, p50=None, p99=None)
+
+
+def test_chaos_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 16 end to end at a tiny size on the CPU (no kernel launches
+    here): the soak passes its gates, and the crash rolls the gallery back
+    to its checkpoint and names the planted faces after the restart."""
+    import torch
+
+    for name, value in (("BATCH", 8), ("FRAME", (64, 64)), ("GALLERY_ROWS", 1024),
+                        ("CHAOS_SECONDS", 1.0), ("CHAOS_FPS", 100.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((1024, chip_smoke.DIM), dtype=np.float32)
+    labels = np.arange(1024, dtype=np.int32) + 100000
+    frames = rng.integers(0, 256, (16, 64, 64), dtype=np.uint8)
+    stack = chip_smoke.build_stack(dev, 0, chip_smoke.ShardedGallery(
+        1024, chip_smoke.DIM, store_dtype=torch.bfloat16, device=dev))
+    _b, _s, valid, emb = stack.embed_frames(frames[:8])
+    planted = emb[valid.reshape(-1)].float().numpy()
+    n = len(planted)
+    rows[-n:] = planted
+    labels[-n:] = np.arange(n)
+    stack.gallery.add(rows, labels)
+    out = chip_smoke.chaos_phase(dev, 0, "cpu", dict(stack=stack, frames=frames, n_plant=n))
+    soak = out["soak"]
+    assert soak["ledger"]["in_system"] == 0 and soak["probe"]["faces"] >= 1
+    assert soak["threads"]["after"] <= soak["threads"]["before"] + 2
+    assert out["restart"]["gallery_rows"] == 1024 and out["restart"]["faces_named"] >= 1
+    assert stack.gallery.size == 1024

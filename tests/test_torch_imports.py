@@ -46,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.models.cascade",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
                 *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES, *REPLICATION_MODULES,
-                *MULTI_GPU_MODULES):
+                *MULTI_GPU_MODULES, *CHAOS_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -103,6 +103,17 @@ MULTI_GPU_MODULES = ("opencv_facerecognizer_tpu_torch.parallel",
                      "opencv_facerecognizer_tpu_torch.parallel.mesh",
                      "opencv_facerecognizer_tpu_torch.parallel.pp",
                      "opencv_facerecognizer_tpu_torch.parallel.gallery")
+
+
+#: the chaos soak slice's modules
+CHAOS_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.faults",
+                 "opencv_facerecognizer_tpu_torch.runtime.batcher",
+                 "opencv_facerecognizer_tpu_torch.runtime.recognizer",
+                 "opencv_facerecognizer_tpu_torch.runtime.fakes",
+                 "opencv_facerecognizer_tpu_torch.utils.metric_names",
+                 "opencv_facerecognizer_tpu_torch.utils.metrics",
+                 "opencv_facerecognizer_tpu_torch.utils.debug_lock",
+                 "opencv_facerecognizer_tpu_torch.apps.chaos_soak")
 
 
 def _imported_top_names(path):
@@ -271,3 +282,60 @@ def test_make_mesh_and_the_pp_pipeline_default_to_the_card(monkeypatch):
     assert parallel.TwoStagePipeline is pp.TwoStagePipeline
     with pytest.raises(AttributeError):
         parallel.NoSuchThing  # noqa: B018
+
+
+@pytest.mark.parametrize("mod", CHAOS_MODULES)
+def test_chaos_module_imports_only_the_port(mod):
+    """Each module of the chaos soak slice imports no JAX, flax or JAX
+    package (its own copies: the fakes, the lock monitor, the names)."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()
+
+
+def test_chaos_soak_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """``--device`` defaults to cuda: without a card every scenario exits
+    with the missing card, never a quiet CPU run; so do the Python entry
+    points of the card's stack."""
+    from opencv_facerecognizer_tpu_torch.apps import chaos_soak
+
+    for fn in (chaos_soak.build_stack, chaos_soak.run_soak):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for scenario in ("soak", "video"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            chaos_soak.main(["--scenario", scenario, "--seconds", "0.1", "--seed", "7"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        chaos_soak.build_stack()
+
+
+def test_metric_names_equal_the_references_but_two():
+    """``utils/metric_names.py`` holds the reference's names, less
+    ``cpu_fallbacks`` (no CPU fallback: ROADMAP C.7) and plus the port's
+    ``replication_install_errors`` (C.15); ``utils.metrics`` re-exports
+    the same objects, so the list lives once."""
+    import importlib.util
+
+    from opencv_facerecognizer_tpu_torch.utils import metric_names, metrics
+
+    spec = importlib.util.spec_from_file_location(
+        "ref_metric_names", os.path.join(REPO, "opencv_facerecognizer_tpu", "utils",
+                                         "metric_names.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    got = set(metric_names.all_names())
+    want = set(ref.all_names())
+    assert want - got == {"cpu_fallbacks"}
+    assert got - want == {"replication_install_errors"}
+    assert metric_names.all_prefixes() == ref.all_prefixes()
+    assert len(metric_names.all_names()) == len(got)  # no name registered twice
+    for table in ("LEDGER_COMPLETION_COUNTERS", "LEDGER_DROP_COUNTERS", "PROM_FOLDED_PREFIXES"):
+        assert getattr(metric_names, table) == getattr(ref, table)
+        assert getattr(metrics, table) is getattr(metric_names, table)
+    for name in dir(metric_names):
+        if name.isupper():
+            assert getattr(metrics, name) is getattr(metric_names, name), name
+    source = open(os.path.join(PORT, "utils", "metrics.py")).read()
+    assert not any(line.split("=")[0].strip().isupper() and "= \"" in line
+                   for line in source.splitlines()), "a name is defined in metrics.py too"
