@@ -336,10 +336,39 @@ Phases (any failure exits nonzero before the result line):
    the crash to the restart and to the first answer, and the
    re-captures. One ``{"chaos": ...}`` line with the run's total seconds.
 
+17. (run after 16) ``ocvf-train`` on the card (ROADMAP A.9, A.12 and the
+   classic trainer). (a) the embedder variants at the serving widths,
+   64x64, weights from ``--seed``, VAR_FACES faces: ``space_to_depth`` 2
+   and 4, ``norm="light"``, ``block="dense"``. Each eager forward in f32
+   on the card equals its plain f32 version on the CPU within XCHECK_SIM
+   (the bf16 forward's cosine to it recorded); for s = 2 and 4 the fused
+   forward (kernel B) against the unfused one (cosine >= VAR_FUSED_COS),
+   kernel B against its plain version at every block shape the serving
+   net lacks (SEP_BATCHES, bf16 and f32), and ms per forward, eager
+   (events) and device time (a graph). Phase 4's detector and 2^20-row
+   gallery with the s = 2 embedder, fused: a graphed step equal bit for
+   bit to the eager step, then VAR_SERVE_BATCHES batches through a
+   ``RecognizerService`` (A and C once, B six times a step); the fused
+   pipeline refuses the light and dense variants. (b) ``TheTrainer`` at
+   10-fold on the six published protocols of ``scripts/measure_accuracy.py``
+   (ACC_PROTOCOLS, 70x70): each mean accuracy within ACC_TOL of its
+   ``BASELINE.md`` row; LBP codes (radius 2 and 3) on the card equal to the
+   CPU's on at least LBP_AGREE of pixels. (c) ``ocvf-train-torch`` in a
+   subprocess on Extended Yale-B's size (38 x 64 PGM images from
+   ``make_synthetic_faces`` with the Yale-B analog's hard arguments,
+   ``build/train_smoke/``): at its defaults (Fisherfaces with Tan-Triggs,
+   NN, 3-fold), with ``--model lbph`` and with ``--model lbp_fisherfaces
+   --classifier kernel_svm``; each run's rc 0, its seconds by stage (its
+   ``train stages:`` line), ``torch.cuda.max_memory_allocated`` and mean
+   k-fold accuracy, and its checkpoint loaded on the card and on the CPU
+   predicting the same labels for TRAIN_CHECK_QUERIES images. One
+   ``{"train": ...}`` line with the run's total seconds.
+
 The line before the last is the per-kernel JSON (kernels A, B and C, their
 launches those of phase 4's serving run, of the reader alone in phase
-14 (a), of the two-stage pipeline in phase 15 (b) and (c) and of the
-chaos soak in phase 16); the last line is ``{"ok": true, "device": {...}}``.
+14 (a), of the two-stage pipeline in phase 15 (b) and (c), of the
+chaos soak in phase 16 and of the s = 2 embedder's serving in phase 17
+(a)); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -373,6 +402,7 @@ from opencv_facerecognizer_tpu_torch.models.model import PredictableModel
 from opencv_facerecognizer_tpu_torch.ops.distance import CosineDistance
 from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
+from opencv_facerecognizer_tpu_torch.ops import lbp as lbp_mod
 from opencv_facerecognizer_tpu_torch.ops.ivf_match import (
     gather_bucket, ivf_match_topk, shortlist_cells, tie_aware_agreement)
 from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask, nms_mask_plain
@@ -402,6 +432,7 @@ from opencv_facerecognizer_tpu_torch.runtime.replication import TopicRouter
 from opencv_facerecognizer_tpu_torch.runtime.resilience import ResiliencePolicy, ServiceSupervisor
 from opencv_facerecognizer_tpu_torch.runtime.rollout import RolloutCoordinator, RolloutGateError
 from opencv_facerecognizer_tpu_torch.runtime.state_store import StateLifecycle
+from opencv_facerecognizer_tpu_torch.runtime import trainer as trainer_mod
 from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
 from opencv_facerecognizer_tpu_torch.utils import metrics as mn
 from opencv_facerecognizer_tpu_torch.utils import native, serialization, tracing
@@ -5315,6 +5346,333 @@ def chaos_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     return out
 
 
+#: phase 17 (a): the embedder variants at the serving widths (ROADMAP A.9),
+#: each built from --seed: (name, FaceEmbedNet kwargs over the serving ones)
+VAR_VARIANTS = (("s2", dict(space_to_depth=2)), ("s4", dict(space_to_depth=4)),
+                ("light", dict(norm="light")), ("dense", dict(block="dense")))
+#: faces a forward takes (batch 32 x 16 slots, the serving step's)
+VAR_FACES = BATCH * MAX_FACES
+#: the fused schedule against the unfused forward, both bf16, the least
+#: cosine over VAR_FACES random faces: two rounding schedules (kernel B
+#: keeps f32 between a block's stages, the unfused blocks round each op to
+#: bf16). The serving net (s = 1) gives 0.99988 on the CPU's tiny config,
+#: and the JAX package's own fused forward is 0.99984 from flax at s = 2
+#: there (tests/test_torch_embedder_variants.py); s = 1 on these faces is
+#: recorded beside the variants'
+VAR_FUSED_COS = 0.999
+#: batches the s = 2 stack serves through a ``RecognizerService``
+VAR_SERVE_BATCHES = 2
+#: (b) the published accuracy protocols (``scripts/measure_accuracy.py``,
+#: ``BASELINE.md``'s MEASURED block): (row, model, subjects, images per
+#: subject, make_synthetic_faces arguments, the row's accuracy)
+ACC_HARD_POSE = dict(rotation=8.0, scale_jitter=0.08, elastic=1.2, occlusion=0.25)
+ACC_HARD_WILD = dict(rotation=12.0, scale_jitter=0.12, elastic=1.8, occlusion=0.3)
+ACC_PROTOCOLS = (
+    ("eigenfaces_orl", "eigenfaces", 40, 10, dict(seed=1, **ACC_HARD_POSE), 0.8950),
+    ("fisherfaces_yaleb", "fisherfaces", 30, 12,
+     dict(seed=2, illumination=0.7, noise=14.0, **ACC_HARD_POSE), 0.8283),
+    ("lbph_lfw", "lbph", 40, 8, dict(seed=3, noise=18.0, **ACC_HARD_WILD), 0.9250),
+    ("lbp_fisherfaces_yaleb", "lbp_fisherfaces", 30, 12,
+     dict(seed=2, illumination=0.7, noise=14.0, **ACC_HARD_POSE), 0.9817),
+    ("lbp_fisherfaces_lfw", "lbp_fisherfaces", 40, 8,
+     dict(seed=3, noise=18.0, **ACC_HARD_WILD), 0.9625),
+    ("lbp_fisherfaces_orl", "lbp_fisherfaces", 40, 10, dict(seed=1, **ACC_HARD_POSE), 0.9975))
+ACC_SIZE = (70, 70)
+ACC_KFOLD = 10
+ACC_TOL = 0.01
+#: LBP codes on the card against the CPU's: a code on a float tie may flip
+LBP_AGREE = 0.999
+#: (c) ``ocvf-train-torch`` at Extended Yale-B's size (``BASELINE.json:8``):
+#: 38 subjects x 64 images, the Yale-B analog's hard arguments
+YALEB_SUBJECTS = 38
+YALEB_PER_SUBJECT = 64
+YALEB_FACES = dict(seed=2, illumination=0.7, noise=14.0, **ACC_HARD_POSE)
+#: the three CLI runs: (name, flags beyond the defaults)
+TRAIN_RUNS = (("fisherfaces", ()), ("lbph", ("--model", "lbph")),
+              ("lbp_fisherfaces_kernel_svm", ("--model", "lbp_fisherfaces",
+                                               "--classifier", "kernel_svm")))
+#: images each checkpoint predicts on the card and on the CPU
+TRAIN_CHECK_QUERIES = 64
+
+
+def variant_net(dev, seed: int, kw: dict, dtype=torch.bfloat16) -> embedder_mod.FaceEmbedNet:
+    """A serving-width ``FaceEmbedNet`` with ``kw`` on top, weights from
+    ``seed`` (the same for every dtype and device)."""
+    return embedder_mod.FaceEmbedNet(
+        **{**embedder_mod.SERVING_EMBEDDER_KWARGS, **kw},
+        input_size=embedder_mod.SERVING_FACE_SIZE, dtype=dtype,
+        generator=torch.Generator().manual_seed(seed + 1)).to(dev).eval()
+
+
+def block_shapes(net: embedder_mod.FaceEmbedNet) -> list:
+    """(H, W, C, F, stride) of each stage block of ``net`` at its input size."""
+    h, w = net.input_size
+    s = net.space_to_depth
+    h, w = h // s // net.stem.stride, w // s // net.stem.stride
+    shapes = []
+    for blk in net.blocks:
+        c, f = blk.dw.weight.shape[0], blk.pw.weight.shape[0]
+        shapes.append((h, w, c, f, blk.stride))
+        h, w = h // blk.stride, w // blk.stride
+    return shapes
+
+
+def _min_cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float().cpu() * b.float().cpu()).sum(-1).min())
+
+
+def check_new_blocks(dev, gen, shapes: list) -> dict:
+    """Kernel B against its plain version at block shapes the serving net
+    does not have (SEP_BATCHES, bf16 and f32), each timed at B = VAR_FACES
+    in bf16: events around eager calls and device time from a graph."""
+    out = {}
+    for h, w, c, f, stride in shapes:
+        res = stride == 1 and c == f
+        _blk, args = _sep_args(gen, c, f, stride, dev)
+        what = f"{h}x{w}x{c}->{h // stride}x{w // stride}x{f} s{stride}"
+        errs = {}
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            xs = torch.randn(max(SEP_BATCHES), h, w, c, generator=gen).to(dev, dtype)
+            for nb in SEP_BATCHES:
+                errs[f"{name} B={nb}"] = _sep_case(xs[:nb], args, stride, res,
+                                                   f"{what} {name} B={nb}")
+        x = torch.randn(VAR_FACES, h, w, c, generator=gen).to(dev, torch.bfloat16)
+        entry = {"max_err": max(errs.values()), "residual": res}
+        if dev.type == "cuda":
+            with torch.no_grad():
+                entry["ms"] = cuda_ms(lambda: fused_sep_block(x, *args, stride=stride,
+                                                              residual=res))
+                entry["device_ms"] = graph_ms(lambda: fused_sep_block(x, *args, stride=stride,
+                                                                      residual=res))
+            entry["plan"] = sepblock_launch_info(x, f, stride)
+        log(f"kernel B new block {what}: max err "
+            + ", ".join(f"{t} {e:.3e}" for t, e in errs.items())
+            + (f"; {entry['ms']:.4f} ms eager, {entry['device_ms']:.4f} ms device time at "
+               f"B={VAR_FACES}; {entry['plan']}" if "ms" in entry else ""))
+        out[what] = entry
+    return out
+
+
+def _forward_times(dev, fn) -> dict:
+    if dev.type != "cuda":
+        return {}
+    with torch.no_grad():
+        return {"ms": cuda_ms(fn, iters=10), "device_ms": graph_ms(fn, iters=10)}
+
+
+def variant_forwards(dev, seed: int, faces: np.ndarray) -> tuple:
+    """Each variant's eager forward on ``dev`` (bf16 and f32) against its
+    plain f32 version on the CPU; for the space-to-depth variants the
+    fused forward (kernel B) against the unfused one, and the new block
+    shapes. Returns ({variant: numbers}, the new block shapes)."""
+    out, new_shapes = {}, []
+    x_cpu = torch.as_tensor(faces)
+    x = x_cpu.to(dev)
+    serving = variant_net(dev, seed, {})
+    with torch.no_grad():
+        out["serving_s1_fused_min_cos_vs_unfused"] = _min_cos(
+            embedder_mod.fused_forward(serving, x), serving(x))
+    for name, kw in VAR_VARIANTS:
+        plain = variant_net("cpu", seed, kw, torch.float32)
+        with torch.no_grad():
+            want = plain(x_cpu)
+            got32 = variant_net(dev, seed, kw, torch.float32)(x)
+            net = variant_net(dev, seed, kw)
+            got = net(x)
+        err = 1.0 - _min_cos(got32, want)
+        log(f"variant {name}: f32 on {dev} vs the CPU's, 1 - min cos {err:.3e}")
+        if err > XCHECK_SIM or float((got32.cpu() - want).abs().max()) > XCHECK_SIM:
+            raise AssertionError(f"variant {name}: the eager f32 forward on {dev} differs from "
+                                 f"the plain f32 version by 1 - cos {err:.3e}")
+        entry = {"f32_one_minus_cos": err, "bf16_min_cos_vs_f32": _min_cos(got, want),
+                 "eager": _forward_times(dev, lambda: net(x))}
+        if dict(kw).get("space_to_depth", 1) > 1:
+            with torch.no_grad():
+                fused = embedder_mod.fused_forward(net, x)
+            cos = _min_cos(fused, got)
+            log(f"variant {name}: fused vs unfused min cos {cos}")
+            if cos < VAR_FUSED_COS:
+                raise AssertionError(f"variant {name}: fused forward min cos {cos} against "
+                                     f"the unfused one (bar {VAR_FUSED_COS})")
+            entry["fused_min_cos_vs_unfused"] = cos
+            entry["fused"] = _forward_times(dev, lambda: embedder_mod.fused_forward(net, x))
+            entry["blocks"] = [list(s) for s in block_shapes(net)]
+            new_shapes += [s for s in block_shapes(net)
+                           if list(s) not in map(list, SERVING_BLOCKS) and s not in new_shapes]
+        log(f"variant {name}: {entry}")
+        out[name] = entry
+    return out, new_shapes
+
+
+def variant_serving(dev, seed: int, ctx: dict) -> dict:
+    """Phase 4's detector and 2^20-row gallery with the s = 2 embedder,
+    fused: one graphed step against the eager step (bit for bit), then
+    VAR_SERVE_BATCHES batches through a ``RecognizerService`` (launches
+    counted from zero in ``run_service``); the light and dense variants
+    refused by the fused pipeline."""
+    base = ctx["stack"]
+    net = variant_net(dev, seed, dict(space_to_depth=2))
+    graphed = RecognitionPipeline(base.detector, net, base.gallery, face_size=base.face_size,
+                                  fused_embedder=True, device=dev)
+    eager = RecognitionPipeline(base.detector, net, base.gallery, face_size=base.face_size,
+                                fused_embedder=True, device=dev, cuda_graphs=False)
+    batch = ctx["frames"][:BATCH]
+    try:
+        a = graphed.recognize_batch_packed(batch)
+        a = graphed.recognize_batch_packed(batch)  # a replay on the card
+        b = eager.recognize_batch_packed(batch)
+        if not torch.equal(a, b):
+            raise AssertionError("s = 2 fused: the graphed step differs from the eager step "
+                                 f"(max {(a - b).abs().max().item()})")
+        results, launches, service, serve_s = run_service(
+            graphed, ctx["frames"][:VAR_SERVE_BATCHES * BATCH])
+        refused = {}
+        for name, kw in VAR_VARIANTS:
+            if "space_to_depth" in kw:
+                continue
+            try:
+                RecognitionPipeline(base.detector, variant_net(dev, seed, kw), base.gallery,
+                                    face_size=base.face_size, fused_embedder=True, device=dev)
+            except ValueError as exc:
+                refused[name] = str(exc)
+            else:
+                raise AssertionError(f"the fused pipeline took the {name} embedder")
+        step = ({"graphed_host_ms": step_time_ms(graphed, batch),
+                 "eager_host_ms": step_time_ms(eager, batch)} if dev.type == "cuda" else {})
+    finally:
+        drop_stack(graphed)
+        drop_stack(eager)
+    out = {"graphed_equals_eager": True, "results": len(results), "launches": launches,
+           "serve_s": serve_s, "ledger": service.ledger(), "refused": refused, "step": step}
+    log(f"s = 2 fused serving: {out}")
+    return out
+
+
+def lbp_agreement(dev, images: np.ndarray) -> dict:
+    """Share of LBP codes (radius 2 and 3) equal on ``dev`` and the CPU."""
+    out = {}
+    for radius in (2, 3):
+        got = lbp_mod.extended_lbp(torch.as_tensor(images, device=dev), radius).cpu()
+        want = lbp_mod.extended_lbp(torch.as_tensor(images), radius)
+        share = float((got == want).float().mean())
+        if share < LBP_AGREE:
+            raise AssertionError(f"LBP r={radius}: {share} of codes agree with the CPU's "
+                                 f"(bar {LBP_AGREE})")
+        out[f"r{radius}"] = share
+    return out
+
+
+def accuracy_protocols(dev) -> dict:
+    """Phase 17 (b): ``TheTrainer`` at 10-fold on each published protocol;
+    each mean accuracy within ACC_TOL of its ``BASELINE.md`` row."""
+    out = {}
+    for row, model, subjects, per, kw, want in ACC_PROTOCOLS:
+        X, y, names = dataset_utils.make_synthetic_faces(
+            num_subjects=subjects, per_subject=per, size=ACC_SIZE, **kw)
+        t0 = time.perf_counter()
+        trainer = trainer_mod.TheTrainer(trainer_mod.TrainerConfig(model=model, kfold=ACC_KFOLD),
+                                         device=dev)
+        trainer.train(X, y, names, validate=True)
+        acc = trainer.mean_accuracy
+        out[row] = {"accuracy": acc, "baseline": want, "seconds": time.perf_counter() - t0}
+        if abs(acc - want) > ACC_TOL:
+            raise AssertionError(f"{row}: 10-fold accuracy {acc:.4f} on {dev}, BASELINE.md "
+                                 f"{want} (tolerance {ACC_TOL})")
+        if row == "fisherfaces_yaleb":
+            out["lbp_agreement"] = lbp_agreement(dev, X)
+        log(f"protocol {row}: {out[row]}")
+    return out
+
+
+def write_dataset(root: str, images: np.ndarray, labels: np.ndarray, names: list) -> None:
+    """``root/<subject>/<i>.pgm``, the layout ``read_images`` walks."""
+    shutil.rmtree(root, ignore_errors=True)
+    for i, (img, label) in enumerate(zip(images, labels)):
+        subject = os.path.join(root, names[label])
+        os.makedirs(subject, exist_ok=True)
+        write_pgm(os.path.join(subject, f"{i:05d}.pgm"), np.clip(np.round(img), 0, 255))
+
+
+def train_cli(dev, data: str, ckpt: str, flags) -> dict:
+    """``ocvf-train-torch`` in a subprocess; returns its stage report, mean
+    k-fold accuracy and wall seconds."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.train", data, ckpt,
+           *flags, "--image-size", *map(str, ACC_SIZE),
+           *(["--device", "cpu"] if dev.type == "cpu" else [])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"ocvf-train-torch {' '.join(flags)}: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    stages = [json.loads(line.split("train stages: ", 1)[1])
+              for line in proc.stderr.splitlines() if line.startswith("train stages: ")]
+    accs = [float(line.rsplit(" ", 1)[1]) for line in proc.stdout.splitlines()
+            if line.startswith("mean k-fold accuracy: ")]
+    if len(stages) != 1 or len(accs) != 1:
+        raise AssertionError(f"ocvf-train-torch {' '.join(flags)}: no stage report or "
+                             f"accuracy in its output\n{proc.stdout}\n{proc.stderr}")
+    return {"rc": proc.returncode, "wall_s": seconds, "accuracy": accs[0], **stages[0]}
+
+
+def checkpoint_labels_agree(dev, ckpt: str, queries: np.ndarray) -> dict:
+    """The checkpoint loaded on ``dev`` and on the CPU predicts the same
+    labels for ``queries``."""
+    t0 = time.perf_counter()
+    got, _ = serialization.load_model(ckpt, device=dev).predict(queries)
+    card_s = time.perf_counter() - t0
+    want, _ = serialization.load_model(ckpt, device="cpu").predict(queries)
+    if not np.array_equal(np.asarray(got), np.asarray(want)):
+        raise AssertionError(f"{ckpt}: labels on {dev} differ from the CPU's on "
+                             f"{int((np.asarray(got) != np.asarray(want)).sum())} queries")
+    return {"queries": len(queries), "labels_equal": True, "load_predict_s": card_s}
+
+
+def train_cli_phase(dev, root: str) -> dict:
+    """Phase 17 (c): ``ocvf-train-torch`` on an Extended Yale-B-sized
+    dataset of PGM files, three runs; each checkpoint held on the card
+    against the CPU."""
+    X, y, names = dataset_utils.make_synthetic_faces(
+        num_subjects=YALEB_SUBJECTS, per_subject=YALEB_PER_SUBJECT, size=ACC_SIZE,
+        **YALEB_FACES)
+    data = os.path.join(root, "yaleb")
+    t0 = time.perf_counter()
+    write_dataset(data, X, y, names)
+    out = {"images": len(y), "subjects": len(names), "write_s": time.perf_counter() - t0}
+    queries = np.clip(np.round(X[::len(y) // TRAIN_CHECK_QUERIES][:TRAIN_CHECK_QUERIES]),
+                      0, 255).astype(np.uint8).astype(np.float32)
+    for name, flags in TRAIN_RUNS:
+        ckpt = os.path.join(root, f"{name}.ckpt")
+        run = train_cli(dev, data, ckpt, flags)
+        run["checkpoint"] = checkpoint_labels_agree(dev, ckpt, queries)
+        log(f"ocvf-train-torch {name}: {run}")
+        out[name] = run
+    return out
+
+
+def train_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 17 (module docstring); returns the ``{"train": ...}`` numbers,
+    the s = 2 serving run's kernel launches among them."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_smoke")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed + 17)
+    faces = rng.standard_normal((VAR_FACES, *embedder_mod.SERVING_FACE_SIZE)).astype(np.float32)
+    gen = torch.Generator().manual_seed(seed + 17)
+    out = {"card": card}
+    out["variants"], new_shapes = variant_forwards(dev, seed, faces)
+    out["new_blocks"] = check_new_blocks(dev, gen, new_shapes)
+    out["serving_s2"] = variant_serving(dev, seed, ctx)
+    out["launches"] = out["serving_s2"]["launches"]
+    t0 = time.perf_counter()
+    out["protocols"] = accuracy_protocols(dev)
+    out["protocols_s"] = time.perf_counter() - t0
+    out["train_cli"] = train_cli_phase(dev, root)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5351,11 +5709,14 @@ def main() -> int:
     multi_gpu = multi_gpu_phase(dev, args.seed, card, ctx)
     multi_gpu_end_s = time.perf_counter() - t_run
     chaos = chaos_phase(dev, args.seed, card, ctx)
+    chaos_end_s = time.perf_counter() - t_run
+    train = train_phase(dev, args.seed, card, ctx)
     for e in entries:
         # the main path's launches: the serving run's, the replicas', the
-        # two-stage pipeline's and the chaos soak's
+        # two-stage pipeline's, the chaos soak's and the s = 2 embedder's
         e["launches"] = (launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
-                         + multi_gpu["pp_launches"][e["name"]] + chaos["launches"][e["name"]])
+                         + multi_gpu["pp_launches"][e["name"]] + chaos["launches"][e["name"]]
+                         + train["launches"][e["name"]])
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
     print(json.dumps({"async_grow": grow}))
     print(json.dumps({"ivf": ivf}))
@@ -5369,9 +5730,11 @@ def main() -> int:
     print(json.dumps({"replication": replication}))
     multi_gpu["total_s"] = multi_gpu_end_s
     print(json.dumps({"multi_gpu": multi_gpu}))
-    chaos["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {chaos['total_s']:.1f} s")
+    chaos["total_s"] = chaos_end_s
     print(json.dumps({"chaos": chaos}))
+    train["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {train['total_s']:.1f} s")
+    print(json.dumps({"train": train}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -1,1 +1,3 @@
-"""Models of the serving path: the CNN face detector and embedder."""
+"""Models: the CNN face detector, embedder and cascade gate of the serving
+path, and the plugin boundary of the classic models (features,
+classifiers, operators, ``PredictableModel``)."""

@@ -2,7 +2,8 @@
 ``opencv_facerecognizer_tpu/models/embedder.py``.
 
 ``FaceEmbedNet`` is the MobileFaceNet-lite net: stem conv -> separable
-stages -> global depthwise conv (GDC) -> linear embedding, L2-normalized.
+(or dense) stages -> global depthwise conv (GDC) -> linear embedding,
+L2-normalized.
 ``fused_forward`` runs the same parameters with each stage block fused
 into one kernel launch (``ops.sepblock``, the port of the Pallas
 schedule). ``CNNEmbedding`` puts the net behind the ``AbstractFeature``
@@ -10,9 +11,15 @@ boundary, so ``PredictableModel(CNNEmbedding(...), NearestNeighbor(
 CosineDistance()))`` is the JAX package's CNN model, checkpoints included.
 Training (ArcFace) stays in the JAX package (ROADMAP A.13).
 
-The port covers the serving configuration: separable blocks, full norm,
-no space-to-depth. Other variants raise ``NotImplementedError`` (ROADMAP
-A.9).
+Every variant of the reference is ported: ``block`` "separable" or
+"dense", ``norm`` "full" or "light" (a light separable block drops the
+norm between its depthwise and pointwise convs), and ``space_to_depth``
+s > 1, which folds s x s pixel blocks into the stem's channels in the
+reference's (dy, dx, c) order and drops stem and stage strides to 1 once
+the fold covers them, so the net's total downsample and its GDC are the
+same for every s. ``fused_forward`` (kernel B) takes separable blocks
+with full norm at any s; like the reference's it refuses dense blocks
+and the light norm.
 
 Numerics follow flax: bf16 compute with float32 parameters, GroupNorm
 statistics in float32, the embedding normalized in float32.
@@ -28,7 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from opencv_facerecognizer_tpu_torch.models._layers import (
-    ConvSame, GroupNorm, cast_param, reset_all, track_casts)
+    ConvSame, GroupNorm, cast_param, reset_all, space_to_depth_nhwc, track_casts)
 from opencv_facerecognizer_tpu_torch.models.feature import AbstractFeature
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.ops.sepblock import fused_sep_block
@@ -55,20 +62,24 @@ SERVING_FACE_SIZE = (64, 64)
 class _SepBlock(nn.Module):
     """Depthwise-separable block: dw3x3 -> GN -> ReLU -> pw1x1 -> GN ->
     (+ residual when stride 1 and C == F) -> ReLU. Parameters mirror the
-    flax block's ``Conv_0``, ``GroupNorm_0``, ``Conv_1``, ``GroupNorm_1``."""
+    flax block's ``Conv_0``, ``GroupNorm_0``, ``Conv_1``, ``GroupNorm_1``;
+    any ``norm`` but "full" (the reference's "light") drops the first
+    norm, and its one norm is the flax block's ``GroupNorm_0``."""
 
-    def __init__(self, in_ch: int, features: int, stride: int = 1):
+    def __init__(self, in_ch: int, features: int, stride: int = 1, norm: str = "full"):
         super().__init__()
         self.stride = int(stride)
         self.residual = stride == 1 and in_ch == features
         self.dw = ConvSame(in_ch, in_ch, (3, 3), stride=stride, groups=in_ch)
-        self.gn1 = GroupNorm(4, in_ch)
+        self.gn1 = GroupNorm(4, in_ch) if norm == "full" else None
         self.pw = ConvSame(in_ch, features, (1, 1))
         self.gn2 = GroupNorm(4, features)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = torch.relu(self.gn1(self.dw(x, dtype), dtype))
-        y = self.gn2(self.pw(y, dtype), dtype)
+        y = self.dw(x, dtype)
+        if self.gn1 is not None:
+            y = self.gn1(y, dtype)
+        y = self.gn2(self.pw(torch.relu(y), dtype), dtype)
         if self.residual:
             y = y + x
         return torch.relu(y)
@@ -82,10 +93,43 @@ class _SepBlock(nn.Module):
             residual=self.residual)
 
 
+class _DenseBlock(nn.Module):
+    """Plain 3x3 conv block: conv3x3 -> GN -> (+ residual when stride 1
+    and C == F) -> ReLU; flax's ``Conv_0`` and ``GroupNorm_0``. It has one
+    norm whatever ``norm`` says."""
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1, norm: str = "full"):
+        super().__init__()
+        self.residual = stride == 1 and in_ch == features
+        self.conv = ConvSame(in_ch, features, (3, 3), stride=stride)
+        self.gn = GroupNorm(4, features)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = self.gn(self.conv(x, dtype), dtype)
+        if self.residual:
+            y = y + x
+        return torch.relu(y)
+
+
+_BLOCKS = {"separable": _SepBlock, "dense": _DenseBlock}
+
+
+def check_fusable(net: "FaceEmbedNet") -> None:
+    """Raise ``ValueError`` as the reference's ``fused_forward`` does for a
+    net whose blocks the fused schedule does not cover."""
+    if net.block != "separable":
+        raise ValueError("fused_forward covers block='separable' only")
+    if net.norm != "full":
+        raise ValueError("fused_forward covers norm='full' only")
+
+
 class FaceEmbedNet(nn.Module):
-    """MobileFaceNet-lite: stem conv -> separable stages -> GDC -> linear
-    embedding, L2-normalized. ``input_size`` fixes the GDC kernel (flax
-    infers it from the first input)."""
+    """MobileFaceNet-lite: (space-to-depth) -> stem conv -> stages of
+    separable or dense blocks -> GDC -> linear embedding, L2-normalized.
+    ``input_size`` fixes the GDC kernel (flax infers it from the first
+    input). Parameter names mirror flax's: ``Conv_0`` / ``GroupNorm_0``
+    stem, ``_SepBlock_i`` or ``_DenseBlock_i`` blocks, ``Conv_1`` GDC,
+    ``Dense_0``."""
 
     def __init__(self, embed_dim: int = 128, stem_features: int = 32,
                  stage_features: Sequence[int] = (64, 128, 128),
@@ -95,28 +139,36 @@ class FaceEmbedNet(nn.Module):
                  input_size: Tuple[int, int] = SERVING_FACE_SIZE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if block != "separable" or norm != "full" or int(space_to_depth) != 1:
-            raise NotImplementedError(
-                "the port covers block='separable', norm='full', "
-                f"space_to_depth=1; got {block!r}, {norm!r}, {space_to_depth} "
-                "(the other variants: ROADMAP A.9)")
+        if block not in _BLOCKS:
+            raise KeyError(block)
         self.embed_dim = int(embed_dim)
         self.stage_features = tuple(int(f) for f in stage_features)
         self.stage_blocks = tuple(int(b) for b in stage_blocks)
+        self.block = block
+        self.norm = norm
+        self.space_to_depth = s = int(space_to_depth)
         self.dtype = dtype
         self.input_size = tuple(input_size)
         total_stride = 2 ** (1 + len(self.stage_features))
-        self.stem = ConvSame(1, stem_features, (3, 3), stride=2)  # Conv_0
+        if s > 1 and total_stride % s:
+            raise ValueError(f"space_to_depth={s} must divide the net's total "
+                             f"downsample {total_stride}")
+        remaining = total_stride // s
+        accum = 1
+        stem_stride = 2 if accum < remaining else 1
+        accum *= stem_stride
+        self.stem = ConvSame(s * s, stem_features, (3, 3), stride=stem_stride)  # Conv_0
         self.stem_norm = GroupNorm(4, stem_features)  # GroupNorm_0
+        block_cls = _BLOCKS[block]
         blocks = []
-        in_ch, accum = stem_features, 2
+        in_ch = stem_features
         for feats, nblocks in zip(self.stage_features, self.stage_blocks):
-            stride = 2 if accum < total_stride else 1
+            stride = 2 if accum < remaining else 1
             accum *= stride
-            blocks.append(_SepBlock(in_ch, feats, stride))
-            blocks.extend(_SepBlock(feats, feats, 1) for _ in range(nblocks - 1))
+            blocks.append(block_cls(in_ch, feats, stride, norm))
+            blocks.extend(block_cls(feats, feats, 1, norm) for _ in range(nblocks - 1))
             in_ch = feats
-        self.blocks = nn.ModuleList(blocks)  # _SepBlock_i
+        self.blocks = nn.ModuleList(blocks)
         gh = -(-self.input_size[0] // total_stride)
         gw = -(-self.input_size[1] // total_stride)
         self.gdc = ConvSame(in_ch, in_ch, (gh, gw), groups=in_ch,
@@ -133,7 +185,16 @@ class FaceEmbedNet(nn.Module):
         if tuple(x.shape[1:]) != self.input_size:
             raise ValueError(f"faces must be {self.input_size}, got "
                              f"{tuple(x.shape[1:])}")
-        x = x[:, None].to(self.dtype).contiguous(memory_format=torch.channels_last)
+        s = self.space_to_depth
+        x = x.to(self.dtype)
+        if s > 1:
+            h, w = x.shape[1:]
+            if h % s or w % s:
+                raise ValueError(f"input {h}x{w} not divisible by space_to_depth={s}")
+            x = space_to_depth_nhwc(x[..., None], s).permute(0, 3, 1, 2)
+        else:
+            x = x[:, None]
+        x = x.contiguous(memory_format=torch.channels_last)
         return torch.relu(self.stem_norm(self.stem(x, self.dtype), self.dtype))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,8 +215,11 @@ class FaceEmbedNet(nn.Module):
 def fused_forward(net: FaceEmbedNet, x: torch.Tensor) -> torch.Tensor:
     """Serving forward of ``net`` with each stage block fused into one
     ``fused_sep_block`` launch: same parameters, same math, another
-    schedule (port of the reference's ``fused_forward``). The stem and
-    head stay framework ops; the GDC runs as a multiply-reduce."""
+    schedule (port of the reference's ``fused_forward``, which covers
+    separable blocks with full norm and raises ``ValueError`` otherwise).
+    The stem and head stay framework ops; the GDC runs as a
+    multiply-reduce."""
+    check_fusable(net)
     x = net._stem(x).permute(0, 2, 3, 1)  # NHWC view of channels_last: free
     for blk in net.blocks:
         x = blk.fused(x)

@@ -205,7 +205,10 @@ class RecognitionPipeline:
         # The fused embed schedule (ops.sepblock, one kernel per stage
         # block): same parameters and math, off by default as in the
         # reference. It is part of every cached step: flip it only before
-        # the first step, or clear ``_step_cache``.
+        # the first step, or clear ``_step_cache``. Like the reference's,
+        # it refuses dense blocks and the light norm (no unfused fallback).
+        if fused_embedder:
+            embedder_mod.check_fusable(embed_net)
         self.fused_embedder = bool(fused_embedder)
         #: capture each step key as a CUDA graph (on a CUDA device)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"

@@ -1,2 +1,3 @@
 """Host-side helpers of the port: device resolution, parameter import
-from the JAX package's flax layout, and serving metrics."""
+from the JAX package's flax layout, checkpoints, datasets, validation,
+verification, plots, stage timing and serving metrics."""

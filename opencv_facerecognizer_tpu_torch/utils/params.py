@@ -11,6 +11,9 @@ module. Layout conversions:
 - Dense kernel ``[in, out]`` -> ``[out, in]``;
 - GroupNorm scale and bias as they are.
 
+The embedder's blocks are ``_SepBlock_i`` (full or light norm) or
+``_DenseBlock_i``, each named as flax names it (``_embedder_blocks``).
+
 ``cascade_params_from_flax`` loads the stage-1 gate (``Conv_i`` /
 ``GroupNorm_i`` per block, the 1x1 head as the last ``Conv_*`` with its
 bias).
@@ -70,10 +73,28 @@ def detector_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch
     return _load(net, state)
 
 
+def _embedder_blocks(net: torch.nn.Module):
+    """(flax name, port prefix, [(port param, flax module)]) of each block
+    of a port ``FaceEmbedNet``: ``_SepBlock_i`` with ``Conv_0`` (depthwise),
+    ``Conv_1`` (pointwise) and its norms (``GroupNorm_0`` and
+    ``GroupNorm_1``, or the light block's one ``GroupNorm_0``), or
+    ``_DenseBlock_i`` with ``Conv_0`` and ``GroupNorm_0``."""
+    for i, blk in enumerate(net.blocks):
+        if net.block == "dense":
+            yield f"_DenseBlock_{i}", f"blocks.{i}", [("conv", "Conv_0"), ("gn", "GroupNorm_0")]
+        elif blk.gn1 is not None:
+            yield f"_SepBlock_{i}", f"blocks.{i}", [
+                ("dw", "Conv_0"), ("pw", "Conv_1"), ("gn1", "GroupNorm_0"),
+                ("gn2", "GroupNorm_1")]
+        else:
+            yield f"_SepBlock_{i}", f"blocks.{i}", [
+                ("dw", "Conv_0"), ("pw", "Conv_1"), ("gn2", "GroupNorm_0")]
+
+
 def embedder_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch.nn.Module:
     """Load flax ``FaceEmbedNet`` params (``Conv_0``/``GroupNorm_0`` stem,
-    ``_SepBlock_i`` blocks, ``Conv_1`` GDC, ``Dense_0`` head) into a port
-    ``FaceEmbedNet``."""
+    ``_SepBlock_i`` or ``_DenseBlock_i`` blocks, ``Conv_1`` GDC,
+    ``Dense_0`` head) into a port ``FaceEmbedNet`` of any variant."""
     state: Dict[str, torch.Tensor] = {
         "stem.weight": _conv(params["Conv_0"]),
         "stem_norm.weight": _t(params["GroupNorm_0"]["scale"]),
@@ -82,13 +103,14 @@ def embedder_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch
         "dense.weight": _t(params["Dense_0"]["kernel"]).T.contiguous(),
         "dense.bias": _t(params["Dense_0"]["bias"]),
     }
-    for i in range(len(net.blocks)):
-        p = params[f"_SepBlock_{i}"]
-        state[f"blocks.{i}.dw.weight"] = _conv(p["Conv_0"])
-        state[f"blocks.{i}.pw.weight"] = _conv(p["Conv_1"])
-        for gn, src in (("gn1", "GroupNorm_0"), ("gn2", "GroupNorm_1")):
-            state[f"blocks.{i}.{gn}.weight"] = _t(p[src]["scale"])
-            state[f"blocks.{i}.{gn}.bias"] = _t(p[src]["bias"])
+    for flax_name, prefix, members in _embedder_blocks(net):
+        p = params[flax_name]
+        for attr, src in members:
+            if src.startswith("Conv"):
+                state[f"{prefix}.{attr}.weight"] = _conv(p[src])
+            else:
+                state[f"{prefix}.{attr}.weight"] = _t(p[src]["scale"])
+                state[f"{prefix}.{attr}.bias"] = _t(p[src]["bias"])
     return _load(net, state)
 
 
@@ -151,13 +173,12 @@ def embedder_params_to_flax(net: torch.nn.Module) -> Dict[str, Any]:
         "Conv_1": {"kernel": _hwio(net.gdc.weight)},
         "Dense_0": {"kernel": _np(net.dense.weight.T), "bias": _np(net.dense.bias)},
     }
-    for i, blk in enumerate(net.blocks):
-        tree[f"_SepBlock_{i}"] = {
-            "Conv_0": {"kernel": _hwio(blk.dw.weight)},
-            "Conv_1": {"kernel": _hwio(blk.pw.weight)},
-            "GroupNorm_0": {"scale": _np(blk.gn1.weight), "bias": _np(blk.gn1.bias)},
-            "GroupNorm_1": {"scale": _np(blk.gn2.weight), "bias": _np(blk.gn2.bias)},
-        }
+    for (flax_name, _prefix, members), blk in zip(_embedder_blocks(net), net.blocks):
+        node = tree[flax_name] = {}
+        for attr, dst in members:
+            mod = getattr(blk, attr)
+            node[dst] = ({"kernel": _hwio(mod.weight)} if dst.startswith("Conv")
+                         else {"scale": _np(mod.weight), "bias": _np(mod.bias)})
     return tree
 
 

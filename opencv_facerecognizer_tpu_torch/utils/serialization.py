@@ -8,11 +8,11 @@ holds its arrays. The bytes are flax's (``utils._msgpack``), so the two
 packages read each other's checkpoints. Writes are atomic (tmp + fsync +
 rename + directory fsync).
 
-The registry holds the types a CNN checkpoint uses (``CNNEmbedding``,
-``NearestNeighbor``, ``PredictableModel``, ``ExtendedPredictableModel``);
-the classic features and the SVMs are refused by name until ROADMAP A.12.
-A plugin's ``from_config(config, device)`` puts its tensors on ``device``
-(the card unless the caller names another).
+The registry holds every plugin of the reference's: the classic
+features and preprocessing plugins, the operators, ``NearestNeighbor``,
+``SVM``, ``KernelSVM``, ``CNNEmbedding`` and the two models. A plugin's
+``from_config(config, device)`` puts its tensors on ``device`` (the card
+unless the caller names another).
 """
 
 from __future__ import annotations
@@ -28,13 +28,6 @@ from opencv_facerecognizer_tpu_torch.utils import _msgpack
 from opencv_facerecognizer_tpu_torch.utils.device import DEFAULT_DEVICE, DeviceLike
 
 FORMAT_VERSION = 1
-
-#: registry names of the reference's plugins that wait for ROADMAP A.12
-NOT_PORTED = ("identity", "pca", "lda", "fisherfaces", "spatial_histogram",
-              "tan_triggs", "histogram_equalization", "resize",
-              "minmax_normalize", "chain_operator", "combine_operator",
-              "combine_operator_nd", "svm", "kernel_svm")
-
 
 class CheckpointCorruptError(ValueError):
     """A checkpoint failed decode or validation: truncated, garbage, or
@@ -119,10 +112,15 @@ def _registry() -> Dict[str, type]:
     if not _REGISTRY:
         from opencv_facerecognizer_tpu_torch.models import classifier as c
         from opencv_facerecognizer_tpu_torch.models import embedder as e
+        from opencv_facerecognizer_tpu_torch.models import feature as f
         from opencv_facerecognizer_tpu_torch.models import model as m
+        from opencv_facerecognizer_tpu_torch.models import operators as o
 
-        for cls in (c.NearestNeighbor, m.PredictableModel,
-                    m.ExtendedPredictableModel, e.CNNEmbedding):
+        for cls in (f.Identity, f.PCA, f.LDA, f.Fisherfaces, f.SpatialHistogram,
+                    f.TanTriggsPreprocessing, f.HistogramEqualization, f.Resize,
+                    f.MinMaxNormalize, o.ChainOperator, o.CombineOperator,
+                    o.CombineOperatorND, c.NearestNeighbor, c.SVM, c.KernelSVM,
+                    m.PredictableModel, m.ExtendedPredictableModel, e.CNNEmbedding):
             _REGISTRY[cls.name] = cls
     return _REGISTRY
 
@@ -142,9 +140,7 @@ def deserialize_spec(spec: dict, device: DeviceLike = DEFAULT_DEVICE) -> Any:
     """Spec -> object; every plugin's ``from_config`` takes ``device``."""
     reg = _registry()
     if spec["type"] not in reg:
-        hint = " (not ported yet: ROADMAP A.12)" if spec["type"] in NOT_PORTED else ""
-        raise KeyError(f"unknown plugin type {spec['type']!r}{hint}; "
-                       f"registered: {sorted(reg)}")
+        raise KeyError(f"unknown plugin type {spec['type']!r}; registered: {sorted(reg)}")
     return reg[spec["type"]].from_config(spec["config"], device=device)
 
 

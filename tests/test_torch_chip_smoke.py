@@ -2,6 +2,8 @@
 results (the script itself needs a card): faces pair by box, and a face
 seen on one device only passes only at a decision boundary."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -430,3 +432,74 @@ def test_chaos_phase_rehearses_on_the_cpu(monkeypatch):
     assert soak["threads"]["after"] <= soak["threads"]["before"] + 2
     assert out["restart"]["gallery_rows"] == 1024 and out["restart"]["faces_named"] >= 1
     assert stack.gallery.size == 1024
+
+
+def test_block_shapes_follow_the_space_to_depth_strides():
+    """Phase 17's new kernel-B shapes: s = 2 opens stage 1 at 16x16 and
+    stage 3 stride 1 without a residual; s = 4 has stages 2 and 3 stride 1."""
+    nets = {s: chip_smoke.variant_net("cpu", 0, dict(space_to_depth=s)) for s in (1, 2, 4)}
+    assert chip_smoke.block_shapes(nets[1]) == [tuple(b) for b in chip_smoke.SERVING_BLOCKS]
+    assert chip_smoke.block_shapes(nets[2]) == [
+        (16, 16, 32, 64, 2), (8, 8, 64, 64, 1), (8, 8, 64, 128, 2), (4, 4, 128, 128, 1),
+        (4, 4, 128, 256, 1), (4, 4, 256, 256, 1)]
+    assert chip_smoke.block_shapes(nets[4])[:3] == [
+        (8, 8, 32, 64, 2), (4, 4, 64, 64, 1), (4, 4, 64, 128, 1)]
+    assert [b.residual for b in nets[2].blocks] == [False, True, False, True, False, True]
+
+
+def test_train_cli_reads_its_report_and_refuses_a_silent_run(tmp_path, monkeypatch):
+    """``train_cli`` runs ``ocvf-train-torch`` (here on the CPU) and reads
+    its stage line and accuracy; ``checkpoint_labels_agree`` holds the
+    checkpoint on two devices (here the CPU twice)."""
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "ACC_SIZE", (32, 32))
+    X, y, names = chip_smoke.dataset_utils.make_synthetic_faces(3, 4, (32, 32), seed=1)
+    data = str(tmp_path / "data")
+    chip_smoke.write_dataset(data, X, y, names)
+    assert sorted(os.listdir(data)) == names
+    ckpt = str(tmp_path / "m.ckpt")
+    run = chip_smoke.train_cli(torch.device("cpu"), data, ckpt, ("--model", "eigenfaces"))
+    assert run["rc"] == 0 and 0.0 <= run["accuracy"] <= 1.0 and run["folds"] == 3
+    assert {"read", "fit", "predict", "save"} <= set(run["seconds"])
+    got = chip_smoke.checkpoint_labels_agree(torch.device("cpu"), ckpt, X[:5])
+    assert got["labels_equal"] and got["queries"] == 5
+    with pytest.raises(AssertionError, match="rc 2"):
+        chip_smoke.train_cli(torch.device("cpu"), data, ckpt, ("--model", "auto"))
+
+
+def test_train_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 17 end to end at a tiny size on the CPU (no kernel launches
+    here; ``torch.cuda.synchronize`` a no-op): the variants against their
+    CPU versions, kernel B's plain version at the new shapes, the s = 2
+    stack served and the light and dense variants refused, two protocols
+    at 2-fold and the CLI's three runs on a 4 x 6 dataset."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    protocols = tuple((row, model, 6, 4, kw, acc) for row, model, _n, _p, kw, acc
+                      in chip_smoke.ACC_PROTOCOLS[:2])
+    for name, value in (("BATCH", 4), ("FRAME", (64, 64)), ("VAR_FACES", 8),
+                        ("SEP_BATCHES", (3, 2)), ("ACC_PROTOCOLS", protocols),
+                        ("ACC_TOL", 1.0), ("ACC_KFOLD", 2), ("ACC_SIZE", (40, 40)),
+                        ("YALEB_SUBJECTS", 4), ("YALEB_PER_SUBJECT", 6),
+                        ("TRAIN_CHECK_QUERIES", 8)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    gallery = chip_smoke.ShardedGallery(1024, chip_smoke.DIM, store_dtype=torch.bfloat16,
+                                        device=dev)
+    stack = chip_smoke.build_stack(dev, 0, gallery)
+    gallery.add(rng.standard_normal((512, chip_smoke.DIM)).astype(np.float32),
+                np.arange(512, dtype=np.int32))
+    frames = rng.integers(0, 256, (8, 64, 64), dtype=np.uint8)
+    out = chip_smoke.train_phase(dev, 0, "cpu", {"stack": stack, "frames": frames})
+    assert set(out["variants"]) == {"serving_s1_fused_min_cos_vs_unfused", "s2", "s4",
+                                    "light", "dense"}
+    assert len(out["new_blocks"]) == 8
+    assert out["serving_s2"]["results"] == 8 and set(out["serving_s2"]["refused"]) == {
+        "light", "dense"}
+    assert out["protocols"]["lbp_agreement"] == {"r2": 1.0, "r3": 1.0}
+    for name, _flags in chip_smoke.TRAIN_RUNS:
+        assert out["train_cli"][name]["checkpoint"]["labels_equal"]
+    assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}

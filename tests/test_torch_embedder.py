@@ -90,9 +90,19 @@ def test_serving_config_loads_flax_params():
 
 
 def test_uncovered_variants_raise():
+    """Every variant of the reference is covered (ROADMAP A.9,
+    tests/test_torch_embedder_variants.py); what the reference refuses,
+    the port refuses alike: an unknown block kind, a space-to-depth that
+    does not divide the net's total downsample."""
     for kw in (dict(block="dense"), dict(norm="light"), dict(space_to_depth=2)):
-        with pytest.raises(NotImplementedError):
-            port_embedder.FaceEmbedNet(**TINY, **kw)
+        port_embedder.FaceEmbedNet(**TINY, **kw)
+    with pytest.raises(KeyError):
+        port_embedder.FaceEmbedNet(**TINY, block="conv")
+    with pytest.raises(KeyError):
+        jax_embedder.FaceEmbedNet(**TINY, block="conv").init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 32, 32)))
+    with pytest.raises(ValueError, match="must divide"):
+        port_embedder.FaceEmbedNet(**TINY, space_to_depth=3)
 
 
 def test_normalize_faces_matches_reference():

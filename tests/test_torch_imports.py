@@ -46,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.models.cascade",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
                 *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES, *REPLICATION_MODULES,
-                *MULTI_GPU_MODULES, *CHAOS_MODULES):
+                *MULTI_GPU_MODULES, *CHAOS_MODULES, *CLASSIC_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -114,6 +114,28 @@ CHAOS_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.faults",
                  "opencv_facerecognizer_tpu_torch.utils.metrics",
                  "opencv_facerecognizer_tpu_torch.utils.debug_lock",
                  "opencv_facerecognizer_tpu_torch.apps.chaos_soak")
+
+
+#: the ocvf-train slice's modules: the embedder variants, the classic
+#: models and the classic trainer with its CLI
+CLASSIC_MODULES = ("opencv_facerecognizer_tpu_torch.models.embedder",
+                   "opencv_facerecognizer_tpu_torch.models.feature",
+                   "opencv_facerecognizer_tpu_torch.models.classifier",
+                   "opencv_facerecognizer_tpu_torch.models.operators",
+                   "opencv_facerecognizer_tpu_torch.ops.image",
+                   "opencv_facerecognizer_tpu_torch.ops.lbp",
+                   "opencv_facerecognizer_tpu_torch.ops.histogram",
+                   "opencv_facerecognizer_tpu_torch.ops.distance",
+                   "opencv_facerecognizer_tpu_torch.ops.linalg",
+                   "opencv_facerecognizer_tpu_torch.utils.dataset",
+                   "opencv_facerecognizer_tpu_torch.utils.validation",
+                   "opencv_facerecognizer_tpu_torch.utils.verification",
+                   "opencv_facerecognizer_tpu_torch.utils.visual",
+                   "opencv_facerecognizer_tpu_torch.utils.serialization",
+                   "opencv_facerecognizer_tpu_torch.utils.stage_clock",
+                   "opencv_facerecognizer_tpu_torch.utils.params",
+                   "opencv_facerecognizer_tpu_torch.runtime.trainer",
+                   "opencv_facerecognizer_tpu_torch.apps.train")
 
 
 def _imported_top_names(path):
@@ -339,3 +361,42 @@ def test_metric_names_equal_the_references_but_two():
     source = open(os.path.join(PORT, "utils", "metrics.py")).read()
     assert not any(line.split("=")[0].strip().isupper() and "= \"" in line
                    for line in source.splitlines()), "a name is defined in metrics.py too"
+
+
+@pytest.mark.parametrize("mod", CLASSIC_MODULES)
+def test_classic_module_imports_only_the_port(mod):
+    """The ocvf-train slice keeps its own copies (the numpy dataset and
+    validation code among them): no JAX, flax or optax, nothing of the
+    JAX package, and matplotlib only inside the functions that draw."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()
+    tree = ast.parse(open(path).read())
+    top = {a.name.split(".")[0] for node in tree.body if isinstance(node, ast.Import)
+           for a in node.names}
+    top |= {node.module.split(".")[0] for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.module}
+    assert "matplotlib" not in top
+
+
+def test_classic_entry_points_default_to_the_card_and_raise_without_one(tmp_path, monkeypatch):
+    from opencv_facerecognizer_tpu_torch.apps import train as train_app
+    from opencv_facerecognizer_tpu_torch.models import classifier, feature
+    from opencv_facerecognizer_tpu_torch.runtime import trainer
+
+    entries = (trainer.TheTrainer, trainer.select_model, feature.PCA, feature.LDA,
+               feature.Fisherfaces, feature.SpatialHistogram, feature.TanTriggsPreprocessing,
+               feature.Identity, feature.Resize, feature.HistogramEqualization,
+               feature.MinMaxNormalize, feature.as_row_matrix, classifier.SVM,
+               classifier.KernelSVM)
+    for entry in entries:
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry
+    assert train_app.build_parser().get_default("device") == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.TheTrainer()
+    with pytest.raises(RuntimeError, match="cuda"):
+        feature.Fisherfaces()
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_app.main([str(tmp_path), str(tmp_path / "m.ckpt")])

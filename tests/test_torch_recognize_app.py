@@ -148,6 +148,30 @@ def test_dir_mode_matches_jax_cli(artifacts, f32_stacks, capsys):
     assert {f["name"] for r in got for f in r["faces"]} <= set(a["names"])
 
 
+@pytest.mark.parametrize("variant", [dict(space_to_depth=2), dict(norm="light", block="dense")])
+def test_dir_mode_with_an_embedder_variant_matches_jax_cli(variant, artifacts, f32_stacks,
+                                                          tmp_path, capsys):
+    """A JAX-written checkpoint of an embedder variant (ROADMAP A.9) serves
+    in the port's CLI as in the reference's; with ``--fused-embedder`` a
+    dense or light embedder is refused, as the reference's ``fused_forward``
+    refuses it (held to it in tests/test_torch_embedder_variants.py)."""
+    a = dict(artifacts)
+    X, y, _names = make_synthetic_faces(3, 3, (32, 32), seed=5)
+    model = PredictableModel(jax_embedder.CNNEmbedding(**EMB, **variant),
+                             NearestNeighbor(CosineDistance()))
+    model.compute(X, y)
+    a["model"] = str(tmp_path / "variant.ckpt")
+    jax_serialization.save_model(a["model"], model)
+    argv = _common_args(a) + ["--source", "dir", "--dir", a["frames"]]
+    assert jax_app.main(argv) == 0
+    want = _json_lines(capsys.readouterr().out)
+    assert port_app.main(argv + ["--device", "cpu"]) == 0
+    _assert_same_results(_json_lines(capsys.readouterr().out), want, key=lambda m: m["file"])
+    if "block" in variant:
+        with pytest.raises(ValueError, match="covers"):
+            port_app.main(argv + ["--fused-embedder", "--device", "cpu"])
+
+
 def test_dir_mode_through_the_ivf_match(artifacts, f32_stacks, capsys):
     """``--match-mode ivf`` builds the quantizer at start and serves two
     stage; probing every cell (nprobe = nlist) it finds what the exact

@@ -216,19 +216,24 @@ def test_header_errors_match_the_reference(tmp_path):
 
 
 def test_unported_plugins_are_refused_by_name(tmp_path):
+    """Since ROADMAP A.12 every plugin of the reference is registered: a
+    classic checkpoint (PCA, once refused by name) loads and predicts as
+    the reference's; only a type neither package knows is refused."""
     from opencv_facerecognizer_tpu.models.feature import PCA
 
     model = jax_model.PredictableModel(PCA(num_components=2), jax_classifier.NearestNeighbor())
-    model.compute(np.random.default_rng(0).random((4, 3, 3)).astype(np.float32),
-                  np.array([0, 0, 1, 1]))
+    X = np.random.default_rng(0).random((4, 3, 3)).astype(np.float32)
+    model.compute(X, np.array([0, 0, 1, 1]))
     path = str(tmp_path / "pca.ckpt")
     jax_serialization.save_model(path, model)
-    with pytest.raises(KeyError, match="ROADMAP A.12"):
-        port_serialization.load_model(path, device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP A.12"):
-        port_distance.distance_from_spec({"type": "chi_square", "config": {}})
+    got = port_serialization.load_model(path, device="cpu")
+    np.testing.assert_array_equal(got.predict(X)[0], np.asarray(model.predict(X)[0]))
+    assert port_distance.distance_from_spec({"type": "chi_square", "config": {}}).name == "chi_square"
+    assert sorted(port_serialization._registry()) == sorted(jax_serialization._registry())
     with pytest.raises(KeyError, match="unknown plugin type 'mystery'"):
         port_serialization.deserialize_spec({"type": "mystery", "config": {}}, device="cpu")
+    with pytest.raises(KeyError, match="unknown distance 'mystery'"):
+        port_distance.distance_from_spec({"type": "mystery", "config": {}})
 
 
 def test_training_and_other_embedder_variants_are_refused():
@@ -236,8 +241,10 @@ def test_training_and_other_embedder_variants_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         emb.compute(np.zeros((2, 32, 32), np.float32), [0, 1])
     for kw in (dict(block="dense"), dict(norm="light"), dict(space_to_depth=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            port_embedder.CNNEmbedding(**EMB, **kw, device="cpu")
+        # the variants are ported (ROADMAP A.9): they build, and still refuse training
+        variant = port_embedder.CNNEmbedding(**dict(EMB, train_steps=5), **kw, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+            variant.compute(np.zeros((2, 32, 32), np.float32), [0, 1])
     with pytest.raises(RuntimeError, match="before compute"):
         port_embedder.CNNEmbedding(**EMB, device="cpu").extract(np.zeros((32, 32)))
 
