@@ -61,8 +61,8 @@ Phases (any failure exits nonzero before the result line):
    again (one result each, planted rows found, kernel A launched, every
    step through the IVF path), time the serving step through IVF, time
    ``gallery.match`` through IVF (split into stage 1, bucket, rerank) and
-   through the exact kernel at Q = 512 down to 16 on 2^18, 2^20 and 2^22
-   rows, print the two-stage recall against the exact scan at 2^20, and
+   through the exact kernel at Q = 512 down to 16 on 2^18 and 2^20 rows
+   (the 2^22-row timing was cut for phase 18's time), print the two-stage recall against the exact scan at 2^20, and
    run the reference's ``bench.py --ivf-smoke`` recall gate (>= 0.99).
    Its numbers are one ``{"ivf": ...}`` line;
 7. cli: the serving detector and embedder (the weights of phase 4) written
@@ -117,7 +117,7 @@ Phases (any failure exits nonzero before the result line):
    calls), written to ``opencv_facerecognizer_tpu_torch/
    stage_quotes_h100.json`` with the card's name and power limit. Then the
    CLI (phase 7's checkpoints, ``--capacity 1048576 --match-mode exact
-   --fused-embedder --batch-size 32``) on ``--source socket`` in four
+   --fused-embedder --batch-size 32``) on ``--source socket`` in three
    subprocesses, fed 256x256 uint8 frames from ``--seed`` as pre-encoded
    JSONL lines by a producer thread. (a0) untraced: R, answered frames/s
    over an unpaced burst of 256 frames, then 600 interactive frames at
@@ -125,9 +125,9 @@ Phases (any failure exits nonzero before the result line):
    --flight-dir --expo-port 0 --slo --profile-dir --profile-batches 8``:
    the span split (queue wait, dispatch, ready wait, publish, e2e; p50,
    p99), ``/attribution``, ``/health`` and a lint of ``/prom`` (0
-   problems), and the profile must name kernels A, B and C. (a1) spans
-   in the rings only (no JSONL), read from ``/spans``: the tracer's cost
-   apart from its sink. (b) 1000 deliveries at 3 R over four connections,
+   problems), and the profile must name kernels A, B and C. (An (a1) run,
+   spans in the rings only, the tracer's cost apart from its sink, was
+   cut for phase 18's time.) (b) 1000 deliveries at 3 R over four connections,
    one interactive in four, every twentieth repeating an answered
    ``_fid``, with ``--max-inflight-frames 256 --brownout-queue-wait-ms 20
    --shed-stale-after-ms 250 --dead-letter-journal --journal-fsync
@@ -356,19 +356,53 @@ Phases (any failure exits nonzero before the result line):
    CPU's on at least LBP_AGREE of pixels. (c) ``ocvf-train-torch`` in a
    subprocess on Extended Yale-B's size (38 x 64 PGM images from
    ``make_synthetic_faces`` with the Yale-B analog's hard arguments,
-   ``build/train_smoke/``): at its defaults (Fisherfaces with Tan-Triggs,
-   NN, 3-fold), with ``--model lbph`` and with ``--model lbp_fisherfaces
-   --classifier kernel_svm``; each run's rc 0, its seconds by stage (its
-   ``train stages:`` line), ``torch.cuda.max_memory_allocated`` and mean
-   k-fold accuracy, and its checkpoint loaded on the card and on the CPU
+   ``build/train_smoke/``) at its defaults (Fisherfaces with Tan-Triggs,
+   NN, 3-fold) and with ``--model lbph`` (the kernel SVM's run is phase
+   18 (e)'s ``--model auto --classifier kernel_svm``): each run's rc 0,
+   its seconds by stage (its ``train stages:`` line),
+   ``torch.cuda.max_memory_allocated`` and mean k-fold accuracy, and its
+   checkpoint loaded on the card and on the CPU
    predicting the same labels for TRAIN_CHECK_QUERIES images. One
-   ``{"train": ...}`` line with the run's total seconds.
+   ``{"train": ...}`` line with the seconds up to its end.
+18. (run after 17) training on the card (ROADMAP A.13). (a) one f32 step
+   from one set of weights (``--seed``) on the card and on the CPU: an
+   ArcFace step at the serving widths (batch ARC_BATCH, 64x64, one set
+   of augmentation draws), a ``detector_loss`` step of the serving
+   detector and a ``gate_loss`` step of the default gate (DET_GRAD_BATCH
+   256x256 scenes): every gradient tensor within ARC_GRAD_RTOL of the
+   CPU's (relative to its largest |g|), the loss within ARC_LOSS_ATOL.
+   (b) ``apps.measure_accuracy.cnn_verification`` (the HARD protocol) at
+   ARC_STEPS steps of batch 192 in bf16 with augmentation, cosine decay
+   and flip TTA: ms a step (CUDA events over ARC_TIME_STEPS), device ms
+   and the card's busy share (``torch.profiler`` over ARC_PROFILE_STEPS
+   steps), peak ``max_memory_allocated``, the mean loss of the first and
+   last ARC_LOSS_WINDOW steps, verification accuracy (>= ARC_MIN_ACC),
+   std and fold minimum. (c) ARC_ENROL held-out faces of each of the 48
+   identities enrolled among phase 4's random rows in a 2^20-row bf16
+   gallery, the others queried through ``gallery.match`` (kernel A):
+   rank-1 >= ARC_RANK1_MIN; the trained net's fused forward (kernel B)
+   against its unfused one (cosine >= VAR_FUSED_COS); ``finetune_embedder``
+   from it on the enrolled faces (FINETUNE_STEPS steps), the serving
+   feature's tensors equal bit for bit afterwards. (d) the reference's
+   small detector recipe held to its bands on held-out scenes (recall and
+   precision >= 0.9, matched IoU >= 0.7; ``evaluate_detector`` runs
+   ``detect_batch``, kernel C), the default gate's recipe with
+   ``evaluate_gate``, and the serving detector's recipe
+   (``bench_serving.py:64-71``), its recall within DET_SERVING_RECALL_TOL
+   of the JAX package's on the CPU (DET_SERVING_JAX_RECALL). (e)
+   ``ocvf-train-torch --model cnn`` at its defaults on phase 17's Yale-B
+   set and ``--model auto --classifier kernel_svm`` on AUTO_SUBJECTS x
+   AUTO_PER_SUBJECT images (every family k-folded with the kernel SVM):
+   rc 0, stages, peak bytes, k-fold accuracy, each checkpoint predicting
+   alike on the card and the CPU. One ``{"training": ...}`` line with the
+   run's total seconds.
 
 The line before the last is the per-kernel JSON (kernels A, B and C, their
 launches those of phase 4's serving run, of the reader alone in phase
 14 (a), of the two-stage pipeline in phase 15 (b) and (c), of the
-chaos soak in phase 16 and of the s = 2 embedder's serving in phase 17
-(a)); the last line is ``{"ok": true, "device": {...}}``.
+chaos soak in phase 16, of the s = 2 embedder's serving in phase 17
+(a), and of the trained nets in phase 18 (c) and (d)); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -508,14 +542,14 @@ XCHECK_IOU = 1e-3
 #: IVF phase: the reference recognizer's quantizer (``--match-mode auto``:
 #: nprobe 8, nlist from the row count); the query batches checked (the
 #: serving batch's 512 face slots, and 32) and timed (down to one frame's
-#: 16 slots); k checked; the other gallery sizes timed, match alone (the
-#: reference's IVF threshold 2^18, and 2^22); the queries' noise
-#: (perturbed gallery rows)
+#: 16 slots); k checked; the other gallery size timed, match alone (the
+#: reference's IVF threshold 2^18; 2^22, whose host setup took ~52 s, was
+#: cut for phase 18's time); the queries' noise (perturbed gallery rows)
 IVF_NPROBE = 8
 IVF_QS = (512, 32)
 IVF_TIME_QS = (512, 128, 32, 16)
 IVF_KS = (1, 5)
-IVF_OTHER_ROWS = (1 << 18, 1 << 22)
+IVF_OTHER_ROWS = (1 << 18,)
 IVF_QUERY_NOISE = 0.05
 #: the reference's ``bench.py --ivf-smoke`` recall gate: rows, dim, nlist,
 #: nprobe, data seed, queries, quantizer seed, k-means iterations and
@@ -2618,17 +2652,14 @@ def _burst_rate(cli: SocketCli, lines: list, fids: list, timeout: float = 120) -
 
 
 def steady_run(dev, paths: dict, root: str, tag: str, b64: list, rate_hint: float,
-               sample: float, sink: bool = True, profile: bool = False) -> dict:
+               sample: float, profile: bool = False) -> dict:
     """Phase 10 (a): a burst of OVL_BURST frames (R), then OVL_STEADY
     interactive frames at OVL_STEADY_SHARE x R (of ``rate_hint`` when
     given), with the exposition and the SLO monitor; spans at ``sample``,
-    streamed to a JSONL when ``sink`` (else read from ``/spans``), and the
-    profile when ``profile``."""
+    streamed to a JSONL, and the profile when ``profile``."""
     spans_path = os.path.join(root, f"{tag}_spans.jsonl")
     args = ["--trace-sample", str(sample), "--flight-dir", os.path.join(root, f"{tag}_flight"),
-            "--expo-port", "0", "--slo"]
-    if sink:
-        args += ["--trace-jsonl", spans_path]
+            "--expo-port", "0", "--slo", "--trace-jsonl", spans_path]
     if profile:
         args += ["--profile-dir", os.path.join(root, f"{tag}_profile"),
                  "--profile-batches", str(OVL_PROFILE_BATCHES)]
@@ -2651,9 +2682,6 @@ def steady_run(dev, paths: dict, root: str, tag: str, b64: list, rate_hint: floa
         status, health_body = cli.get("/health")
         prom = cli.get("/prom")[1]
         problems = lint_prometheus_text(prom)
-        ring = [] if sink or not sample else [
-            {**span, "topic": topic} for topic in (FRAME_TOPIC, "_batch")
-            for span in cli.get_json(f"/spans?topic={topic}&limit=10000")["spans"]]
     finally:
         rec = cli.stop()
     _close_ledger(tag, rec["ledger"])
@@ -2670,7 +2698,7 @@ def steady_run(dev, paths: dict, root: str, tag: str, b64: list, rate_hint: floa
                             if k == "device_busy_fraction" or k.startswith("stage_share_b32")},
                prom_problems=len(problems), prom_bytes=len(prom), serving=delta)
     if sample:
-        spans = span_records(spans_path) if sink else ring
+        spans = span_records(spans_path)
         out["split"] = span_split(spans, first_frame=n0)
         t_lo = min(s["t0"] for s in spans if s.get("topic") == FRAME_TOPIC
                    and s["trace"] > 2 * n0)
@@ -2837,13 +2865,9 @@ def overload_phase(dev, seed: int, card: str, ctx: dict) -> dict:
         f"{a['busy_steady']:.4f}; /attribution {a['attribution']}; /health {a['health']} "
         f"({a['health_http']}); /prom problems {a['prom_problems']}; profile names kernels "
         f"{a['profile_names_kernels']}; serving {a['serving']}")
-    # the tracer's cost apart from its JSONL sink: spans in the rings only
-    a1 = steady_run(dev, paths, root, "a1", b64, rate, sample=1.0, sink=False)
     log(f"overload (a) tracer cost ({card}): p50 ms (metrics windows, burst and steady) "
-        f"untraced {a0['summary_p50_ms']}, rings only {a1['summary_p50_ms']}, rings and JSONL "
-        f"(profiled burst) {a['summary_p50_ms']}; steady dispatch p50 from the spans "
-        f"{a1['split']['dispatch']['p50']:.3f} ms rings only, "
-        f"{a['split']['dispatch']['p50']:.3f} ms with the JSONL")
+        f"untraced {a0['summary_p50_ms']}, rings and JSONL (profiled burst) "
+        f"{a['summary_p50_ms']}")
     b = overload_run(dev, paths, root, b64, rate)
     log(f"overload (b) ({card}): {b['deliveries']} deliveries at {b['rate_fps']:.1f}/s in "
         f"{b['send_s']:.3f} s; ledger {b['ledger']}; rejected {b['rejected']}; deduped "
@@ -2851,8 +2875,7 @@ def overload_phase(dev, seed: int, card: str, ctx: dict) -> dict:
         f"transitions (s, from, to, ewma ms) {b['brownout_transitions']}, back to 0 "
         f"{b['brownout_back_to_0_s']:.3f} s after the burst; e2e by priority "
         f"{json.dumps(b['e2e_by_priority'])}; serving {b['serving']}")
-    return dict(card=card, rate_fps=rate, quotes=quotes, steady=a, untraced=a0, rings_only=a1,
-                overload=b,
+    return dict(card=card, rate_fps=rate, quotes=quotes, steady=a, untraced=a0, overload=b,
                 phase_s=time.perf_counter() - t_phase)
 
 
@@ -5387,10 +5410,10 @@ LBP_AGREE = 0.999
 YALEB_SUBJECTS = 38
 YALEB_PER_SUBJECT = 64
 YALEB_FACES = dict(seed=2, illumination=0.7, noise=14.0, **ACC_HARD_POSE)
-#: the three CLI runs: (name, flags beyond the defaults)
-TRAIN_RUNS = (("fisherfaces", ()), ("lbph", ("--model", "lbph")),
-              ("lbp_fisherfaces_kernel_svm", ("--model", "lbp_fisherfaces",
-                                               "--classifier", "kernel_svm")))
+#: the CLI runs: (name, flags beyond the defaults). The kernel SVM trains
+#: in phase 18 (e)'s ``--model auto --classifier kernel_svm`` run, which
+#: k-folds every family with it and saves its winner with it
+TRAIN_RUNS = (("fisherfaces", ()), ("lbph", ("--model", "lbph")))
 #: images each checkpoint predicts on the card and on the CPU
 TRAIN_CHECK_QUERIES = 64
 
@@ -5610,10 +5633,18 @@ def train_cli(dev, data: str, ckpt: str, flags) -> dict:
               for line in proc.stderr.splitlines() if line.startswith("train stages: ")]
     accs = [float(line.rsplit(" ", 1)[1]) for line in proc.stdout.splitlines()
             if line.startswith("mean k-fold accuracy: ")]
+    accs += [float(line.split("(", 1)[1].split(" ", 1)[0]) for line in proc.stdout.splitlines()
+             if line.startswith("selected: ")]
     if len(stages) != 1 or len(accs) != 1:
         raise AssertionError(f"ocvf-train-torch {' '.join(flags)}: no stage report or "
                              f"accuracy in its output\n{proc.stdout}\n{proc.stderr}")
-    return {"rc": proc.returncode, "wall_s": seconds, "accuracy": accs[0], **stages[0]}
+    out = {"rc": proc.returncode, "wall_s": seconds, "accuracy": accs[0], **stages[0]}
+    selected = [line for line in proc.stdout.splitlines() if line.startswith("selected: ")]
+    if selected:
+        out["selected"] = selected[0].split()[1]
+        out["scores"] = {line.split(":")[0].strip(): float(line.split(":")[1].split()[0])
+                         for line in proc.stdout.splitlines() if line.endswith(" k-fold")}
+    return out
 
 
 def checkpoint_labels_agree(dev, ckpt: str, queries: np.ndarray) -> dict:
@@ -5631,7 +5662,7 @@ def checkpoint_labels_agree(dev, ckpt: str, queries: np.ndarray) -> dict:
 
 def train_cli_phase(dev, root: str) -> dict:
     """Phase 17 (c): ``ocvf-train-torch`` on an Extended Yale-B-sized
-    dataset of PGM files, three runs; each checkpoint held on the card
+    dataset of PGM files, the TRAIN_RUNS; each checkpoint held on the card
     against the CPU."""
     X, y, names = dataset_utils.make_synthetic_faces(
         num_subjects=YALEB_SUBJECTS, per_subject=YALEB_PER_SUBJECT, size=ACC_SIZE,
@@ -5669,6 +5700,396 @@ def train_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     out["protocols"] = accuracy_protocols(dev)
     out["protocols_s"] = time.perf_counter() - t0
     out["train_cli"] = train_cli_phase(dev, root)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------- phase 18: training on the card (ROADMAP A.13) ----------
+
+#: (a) the card's f32 step against the CPU's, per gradient tensor relative
+#: to its largest |g|: the same f32 arithmetic, cuDNN's and the CPU's
+#: convolution algorithms summing in other orders (TF32 off). A depthwise
+#: weight's gradient sums 192 x 16 x 16 products that largely cancel (the
+#: GroupNorm after it removes their mean): the first card run measured
+#: 4.7e-3 at block 2's (NVIDIA H100 80GB HBM3, 700.00 W); the bar leaves 4x. The norm-wise error of each
+#: tensor is recorded beside it
+ARC_GRAD_RTOL = 2e-2
+#: (a) the loss of that step, absolute
+ARC_LOSS_ATOL = 1e-4
+#: (a) the serving widths' batch, and the detector's and gate's batches
+ARC_BATCH = 192
+DET_GRAD_BATCH = 16
+#: (b) ArcFace steps at the HARD protocol's recipe (the reference's round-2
+#: net reached 0.9342 at 2000 steps without augmentation), the steps timed
+#: by CUDA events, the profiled steps, and the accuracy bar (a broken
+#: trainer lands near 0.5)
+ARC_STEPS = 2000
+ARC_TIME_STEPS = (100, 300)
+ARC_PROFILE_STEPS = 5
+ARC_MIN_ACC = 0.85
+#: (b) mean loss over the first and the last ARC_LOSS_WINDOW steps
+ARC_LOSS_WINDOW = 100
+#: (c) held-out faces of each identity enrolled (the other half query);
+#: then ``finetune_embedder`` on the enrolled faces at its defaults (100
+#: steps of 8 identities x 4 faces)
+ARC_ENROL = 6
+ARC_RANK1_MIN = 0.80
+FINETUNE_STEPS = 100
+#: (d) the reference's small recipes (tests/test_detector.py:60-65,
+#: tests/test_cascade.py:411-417) and their held-out bands
+DET_SMALL = dict(features=(8, 16, 32), head_features=32, max_faces=4, score_threshold=0.25,
+                 space_to_depth=1)
+DET_SMALL_TRAIN = dict(steps=250, batch_size=16, learning_rate=2e-3)
+DET_BANDS = dict(recall=0.9, precision=0.9, mean_matched_iou=0.7)
+GATE_TRAIN = dict(steps=300, batch_size=32)
+#: (d) the serving detector's recipe (bench_serving.py:64-71) and the JAX
+#: package's recall at it on the CPU, from flax's init at seed 0:
+#: ``JAX_PLATFORMS=cpu python tests/reference_recipes.py serving-detector``
+#: gave 125 of 126 faces, precision 1.0, matched IoU 0.8968
+DET_SERVING_TRAIN = dict(num_scenes=48, scene_size=(256, 256), max_faces=8,
+                         face_size_range=(24, 56), seed=7)
+DET_SERVING_HELD = dict(DET_SERVING_TRAIN, num_scenes=32, seed=9)
+DET_SERVING_STEPS = 150
+DET_SERVING_JAX_RECALL = 125 / 126
+DET_SERVING_RECALL_TOL = 0.05
+#: (e) ``--model auto``'s smaller set: subjects x images; the two runs:
+#: (name, dataset, flags beyond the defaults). Auto runs with the kernel
+#: SVM: the one CLI run of it on the card
+AUTO_SUBJECTS, AUTO_PER_SUBJECT = 12, 16
+TRAINING_CLI_RUNS = (("cnn", "yaleb", ("--model", "cnn")),
+                     ("auto", "auto", ("--model", "auto", "--classifier", "kernel_svm")))
+
+
+def _grads_vs_cpu(dev, build, loss_of, what: str) -> dict:
+    """One f32 forward and backward of ``build(device)`` on the card and on
+    the CPU from the same weights and inputs: ``ok`` when each gradient
+    tensor is within ARC_GRAD_RTOL of the CPU's (relative to its largest
+    |g|) and the loss within ARC_LOSS_ATOL."""
+    from opencv_facerecognizer_tpu_torch.utils.device import disable_tf32
+
+    if dev.type == "cuda":
+        disable_tf32()
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        net = build(d)
+        t0 = time.perf_counter()
+        loss = loss_of(net, d)
+        loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+        out[d.type] = (loss.item(), {n: p.grad.float().cpu() for n, p in net.named_parameters()},
+                       time.perf_counter() - t0)
+    (l_cpu, g_cpu, s_cpu), (l_dev, g_dev, s_dev) = out["cpu"], out[dev.type]
+    worst = max((float((g_dev[n] - g).abs().max() / max(float(g.abs().max()), 1e-30)), n)
+                for n, g in g_cpu.items())
+    worst_l2 = max(float((g_dev[n] - g).norm() / max(float(g.norm()), 1e-30))
+                   for n, g in g_cpu.items())
+    res = {"loss": l_dev, "loss_cpu": l_cpu, "max_grad_rel_err": worst[0],
+           "worst_tensor": worst[1], "max_grad_l2_rel_err": worst_l2, "tensors": len(g_cpu),
+           "step_s": s_dev, "cpu_step_s": s_cpu,
+           "ok": worst[0] <= ARC_GRAD_RTOL and abs(l_dev - l_cpu) <= ARC_LOSS_ATOL}
+    log(f"(a) {what}: {res}")
+    return res
+
+
+def train_steps_vs_cpu(dev, seed: int) -> dict:
+    """Phase 18 (a): one ArcFace step at the serving widths (batch
+    ARC_BATCH, 64x64, one set of augmentation draws), one ``detector_loss``
+    step of the serving detector and one ``gate_loss`` step of the
+    default gate (DET_GRAD_BATCH 256x256 scenes), card against CPU."""
+    rng = np.random.default_rng(seed + 18)
+    x = rng.standard_normal((ARC_BATCH, *embedder_mod.SERVING_FACE_SIZE)).astype(np.float32)
+    y = rng.integers(0, 64, ARC_BATCH)
+    head = embedder_mod.draw_head(64, DIM, seed)
+    draws = embedder_mod.augment_draws(torch.Generator().manual_seed(seed), ARC_BATCH,
+                                       *embedder_mod.SERVING_FACE_SIZE)
+
+    def arc_loss(net, d):
+        faces = embedder_mod.augment_transform(torch.as_tensor(x).to(d),
+                                               {k: v.to(d) for k, v in draws.items()})
+        return embedder_mod.arcface_loss(net(faces), torch.as_tensor(y).to(d), head.to(d), 0.5)
+
+    out = {"arcface": _grads_vs_cpu(
+        dev, lambda d: variant_net(d, seed, {}, torch.float32).train(), arc_loss,
+        f"ArcFace step, batch {ARC_BATCH}")}
+    scenes, boxes, counts = dataset_utils.make_synthetic_scenes(
+        **dict(DET_SERVING_TRAIN, num_scenes=DET_GRAD_BATCH))
+    targets = dict(zip(("heatmap", "size", "offset", "mask"),
+                       detector_mod.gaussian_heatmap_targets(boxes, counts, FRAME, boxes.shape[1])))
+    out["detector"] = _grads_vs_cpu(
+        dev, lambda d: detector_mod.DetectorNet(
+            features=(64, 64), head_features=64, space_to_depth=4, dtype=torch.float32,
+            generator=torch.Generator().manual_seed(seed)).to(d),
+        lambda net, d: detector_mod.detector_loss(
+            net(torch.as_tensor(scenes).to(d)),
+            {k: torch.as_tensor(v).to(d) for k, v in targets.items()}),
+        f"detector_loss step, batch {DET_GRAD_BATCH}")
+    tiles = cascade_mod.tile_targets(boxes, counts, FRAME, 4 * cascade_mod.TILE_CONV_STRIDE)
+    out["gate"] = _grads_vs_cpu(
+        dev, lambda d: cascade_mod.CascadeNet(
+            dtype=torch.float32, generator=torch.Generator().manual_seed(seed)).to(d),
+        lambda net, d: cascade_mod.gate_loss(net(torch.as_tensor(scenes).to(d)),
+                                             torch.as_tensor(tiles).to(d)),
+        f"gate_loss step, batch {DET_GRAD_BATCH}")
+    bad = {k: v for k, v in out.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"(a) the card's step differs from the CPU's (gradient bar "
+                             f"{ARC_GRAD_RTOL}, loss bar {ARC_LOSS_ATOL}): {bad}")
+    return out
+
+
+class StepRecorder:
+    """``CNNEmbedding.train_callback``: the losses (device scalars), CUDA
+    events at the two ARC_TIME_STEPS, and a ``torch.profiler`` over the
+    ARC_PROFILE_STEPS steps after them with the host clock around them."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.losses = []
+        self.events = {}
+        self.prof = None
+        self.prof_wall_s = 0.0
+        self.prof_rows = []
+        first, last = ARC_TIME_STEPS
+        self.prof_span = (last + 10, last + 10 + ARC_PROFILE_STEPS)
+
+    def __call__(self, i: int, loss: torch.Tensor) -> None:
+        self.losses.append(loss)
+        if self.dev.type != "cuda":
+            return
+        if i in ARC_TIME_STEPS:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events[i] = ev
+        start, stop = self.prof_span
+        if i == start - 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize(self.dev)
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+            self._t0 = time.perf_counter()
+        elif i == stop - 1 and self.prof is not None:
+            from torch.autograd import DeviceType
+
+            torch.cuda.synchronize(self.dev)
+            self.prof_wall_s = time.perf_counter() - self._t0
+            self.prof.stop()
+            self.prof_rows = [e for e in self.prof.key_averages()
+                              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            self.prof = None
+
+    def report(self, steps: int) -> dict:
+        losses = torch.stack(self.losses).float().cpu().numpy() if self.losses else np.zeros(0)
+        w = min(ARC_LOSS_WINDOW, len(losses))
+        out = {"steps": steps, "loss_first": float(losses[:w].mean()) if w else None,
+               "loss_last": float(losses[-w:].mean()) if w else None}
+        first, last = ARC_TIME_STEPS
+        if first in self.events and last in self.events:
+            out["ms_per_step"] = self.events[first].elapsed_time(self.events[last]) / (last - first)
+        if self.prof_rows:
+            n = ARC_PROFILE_STEPS
+            device_ms = sum(e.self_device_time_total for e in self.prof_rows) / 1e3 / n
+            wall_ms = self.prof_wall_s * 1e3 / n
+            out.update(device_ms_per_step=device_ms, profiled_wall_ms_per_step=wall_ms,
+                       busy=device_ms / wall_ms,
+                       device_ops_per_step=sum(e.count for e in self.prof_rows) / n)
+            for e in sorted(self.prof_rows, key=lambda e: -e.self_device_time_total)[:8]:
+                log(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms  x{e.count // n:<5d} "
+                    f"{e.key[:90]}")
+        return out
+
+
+def arcface_run(dev, steps: int) -> tuple:
+    """Phase 18 (b): ``apps.measure_accuracy.cnn_verification`` at
+    ``steps`` steps on ``dev``. Returns (numbers, the trained embedder,
+    the protocol's data)."""
+    from opencv_facerecognizer_tpu_torch.apps import measure_accuracy
+
+    t0 = time.perf_counter()
+    data = measure_accuracy.hard_protocol()
+    data_s = time.perf_counter() - t0
+    emb = measure_accuracy.hard_embedder(steps, dev)
+    rec = emb.train_callback = StepRecorder(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    result = measure_accuracy.cnn_verification(steps, dev, embedder=emb, data=data)
+    out = {**result, "data_s": data_s, "run_s": time.perf_counter() - t0, **rec.report(steps)}
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log(f"(b) ArcFace at the HARD protocol, {steps} steps: {out}")
+    if result["accuracy"] < ARC_MIN_ACC:
+        raise AssertionError(f"ArcFace: verification accuracy {result['accuracy']} after "
+                             f"{steps} steps (bar {ARC_MIN_ACC})")
+    return out, emb, data
+
+
+def trained_embedder_served(dev, ctx: dict, emb, data) -> dict:
+    """Phase 18 (c): ARC_ENROL held-out faces of each identity in a
+    2^20-row bf16 gallery among phase 4's random rows, the others queried
+    through ``gallery.match`` (kernel A): rank-1 identification; the
+    trained net's fused forward (kernel B) against its unfused one
+    (launches counted from zero); then the fine-tune."""
+    _X_tr, _y_tr, X_te, y_te = data
+    X_te = np.asarray(X_te, np.float32)
+    y_te = np.asarray(y_te)
+    enrol = np.concatenate([np.flatnonzero(y_te == c)[:ARC_ENROL] for c in np.unique(y_te)])
+    query = np.setdiff1d(np.arange(len(y_te)), enrol)
+    zero_counters()
+    e_enrol = emb.extract(X_te[enrol]).float().cpu().numpy()
+    e_query = emb.extract(X_te[query]).to(dev)
+    rows = ctx["rows"][:GALLERY_ROWS - len(enrol)]
+    gallery = ShardedGallery(GALLERY_ROWS, DIM, store_dtype=torch.bfloat16, device=dev)
+    gallery.add(np.concatenate([rows / np.linalg.norm(rows, axis=1, keepdims=True), e_enrol]),
+                np.concatenate([ctx["labels"][:len(rows)], y_te[enrol]]).astype(np.int32))
+    labels, sims, _ = gallery.match(e_query, k=1)
+    rank1 = float((labels[:, 0].cpu().numpy() == y_te[query]).mean())
+    with torch.no_grad():
+        faces = embedder_mod.normalize_faces(torch.as_tensor(X_te).to(dev), emb.input_size)
+        cos = _min_cos(embedder_mod.fused_forward(emb.net, faces), emb.net(faces))
+    launches = read_launches()
+    del gallery
+    out = {"enrolled": len(enrol), "queries": len(query), "rank1": rank1,
+           "fused_min_cos_vs_unfused": cos, "launches": launches,
+           "finetune": finetune_check(dev, emb, X_te[enrol], y_te[enrol])}
+    log(f"(c) the trained embedder served: {out}")
+    if rank1 < ARC_RANK1_MIN:
+        raise AssertionError(f"rank-1 {rank1} through kernel A (bar {ARC_RANK1_MIN})")
+    if cos < VAR_FUSED_COS:
+        raise AssertionError(f"trained net: fused forward min cos {cos} (bar {VAR_FUSED_COS})")
+    if dev.type == "cuda" and (launches["streaming_match"] < 1 or launches["sepblock"] < 6):
+        raise AssertionError(f"(c) did not launch kernels A and B: {launches}")
+    return out
+
+
+def finetune_check(dev, emb, images: np.ndarray, labels: np.ndarray) -> dict:
+    """``TheTrainer.finetune_embedder`` (FINETUNE_STEPS multibatch steps)
+    from the trained embedder serving in a trainer's model: the serving
+    feature's tensors equal bit for bit afterwards, the new one's moved."""
+    trainer = trainer_mod.TheTrainer(model="cnn", device=dev)
+    trainer.model = trainer_mod.ExtendedPredictableModel(
+        emb, NearestNeighbor(CosineDistance(), device=dev), image_size=emb.input_size)
+    before = {k: v.clone() for k, v in emb.net.state_dict().items()}
+    head = emb._head.clone()
+    tuned = []
+    seconds = _timed_train(dev, lambda: tuned.append(trainer.finetune_embedder(
+        images, labels, steps=FINETUNE_STEPS)))
+    new = tuned[0]
+    unchanged = (all(torch.equal(v, before[k]) for k, v in emb.net.state_dict().items())
+                 and torch.equal(emb._head, head))
+    if not unchanged:
+        raise AssertionError("finetune_embedder changed the serving feature's tensors")
+    moved = any(not torch.equal(v, before[k]) for k, v in new.net.state_dict().items())
+    out = {"steps": FINETUNE_STEPS, "seconds": seconds, "ms_per_step": seconds * 1e3 /
+           FINETUNE_STEPS, "serving_unchanged": unchanged, "copy_moved": moved}
+    log(f"(c) finetune_embedder: {out}")
+    return out
+
+
+def _timed_train(dev, fn) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def detector_recipes(dev) -> dict:
+    """Phase 18 (d): the small detector and gate recipes with the
+    reference's bands, and the serving detector's recipe against the JAX
+    package's recall. ``evaluate_detector`` runs ``detect_batch`` (kernel
+    C); its launches are counted from zero."""
+    zero_counters()
+    scenes, boxes, counts = dataset_utils.make_synthetic_scenes(48, (96, 96), max_faces=2, seed=3)
+    det = detector_mod.CNNFaceDetector(**DET_SMALL, device=dev)
+    small = {"train_s": _timed_train(dev, lambda: det.train(scenes, boxes, counts,
+                                                              **DET_SMALL_TRAIN))}
+    held = dataset_utils.make_synthetic_scenes(32, (96, 96), max_faces=2, seed=99)
+    small.update(detector_mod.evaluate_detector(det, *held, iou_threshold=0.5))
+    small["ms_per_step"] = small["train_s"] * 1e3 / DET_SMALL_TRAIN["steps"]
+    for key, bar in DET_BANDS.items():
+        if not small[key] >= bar:
+            raise AssertionError(f"small detector recipe: {key} {small[key]} (bar {bar}): {small}")
+    g_scenes, g_boxes, g_counts = dataset_utils.make_synthetic_scenes(96, (96, 96), max_faces=2,
+                                                                      seed=3)
+    gate = cascade_mod.FaceGate(device=dev)
+    gate_s = _timed_train(dev, lambda: gate.train(g_scenes, g_boxes, g_counts, **GATE_TRAIN))
+    g_held = dataset_utils.make_synthetic_scenes(48, (96, 96), max_faces=2, seed=99)
+    scores = gate.score_batch(g_held[0]).cpu().numpy()
+    has = g_held[2] > 0
+    gate_out = {"train_s": gate_s, "ms_per_step": gate_s * 1e3 / GATE_TRAIN["steps"],
+                "face_kept": float((scores[has] >= gate.threshold).mean()),
+                "facefree_rejected": float((scores[~has] < gate.threshold).mean()),
+                "evaluate_gate": cascade_mod.evaluate_gate(gate, det, g_held[0],
+                                                           gt_counts=g_held[2])}
+    serving = detector_mod.CNNFaceDetector(max_faces=8, score_threshold=0.3, device=dev)
+    train = dataset_utils.make_synthetic_scenes(**DET_SERVING_TRAIN)
+    s_out = {"train_s": _timed_train(dev, lambda: serving.train(
+        *train, steps=DET_SERVING_STEPS, batch_size=16))}
+    s_out["ms_per_step"] = s_out["train_s"] * 1e3 / DET_SERVING_STEPS
+    s_out.update(detector_mod.evaluate_detector(
+        serving, *dataset_utils.make_synthetic_scenes(**DET_SERVING_HELD), iou_threshold=0.5))
+    s_out["jax_cpu_recall"] = DET_SERVING_JAX_RECALL
+    if abs(s_out["recall"] - DET_SERVING_JAX_RECALL) > DET_SERVING_RECALL_TOL:
+        raise AssertionError(f"serving detector recipe: recall {s_out['recall']} against the JAX "
+                             f"package's {DET_SERVING_JAX_RECALL} (tolerance "
+                             f"{DET_SERVING_RECALL_TOL}): {s_out}")
+    out = {"small": small, "gate": gate_out, "serving": s_out, "launches": read_launches()}
+    log(f"(d) detector and gate recipes: {out}")
+    if dev.type == "cuda" and out["launches"]["nms"] < 1:
+        raise AssertionError("(d) evaluate_detector did not launch kernel C")
+    return out
+
+
+def train_cli_cnn(dev, root: str) -> dict:
+    """Phase 18 (e): ``ocvf-train-torch --model cnn`` at its defaults on
+    phase 17's Extended Yale-B-sized set, and ``--model auto --classifier
+    kernel_svm`` on an AUTO_SUBJECTS x AUTO_PER_SUBJECT set; each
+    checkpoint held on the card against the CPU."""
+    out = {}
+    X, y, names = dataset_utils.make_synthetic_faces(
+        num_subjects=YALEB_SUBJECTS, per_subject=YALEB_PER_SUBJECT, size=ACC_SIZE,
+        **YALEB_FACES)
+    write_dataset(os.path.join(root, "yaleb"), X, y, names)
+    X, y, names = dataset_utils.make_synthetic_faces(
+        num_subjects=AUTO_SUBJECTS, per_subject=AUTO_PER_SUBJECT, size=ACC_SIZE, **YALEB_FACES)
+    write_dataset(os.path.join(root, "auto"), X, y, names)
+    for name, data, flags in TRAINING_CLI_RUNS:
+        data = os.path.join(root, data)
+        ckpt = os.path.join(root, f"{name}.ckpt")
+        run = train_cli(dev, data, ckpt, flags)
+        Xq = dataset_utils.read_images(data, image_size=ACC_SIZE)[0]
+        queries = Xq[::max(1, len(Xq) // TRAIN_CHECK_QUERIES)][:TRAIN_CHECK_QUERIES]
+        run["checkpoint"] = checkpoint_labels_agree(dev, ckpt, queries)
+        log(f"(e) ocvf-train-torch {' '.join(flags)}: {run}")
+        out[name] = run
+    return out
+
+
+def training_phase(dev, seed: int, card: str, ctx: dict) -> dict:
+    """Phase 18 (module docstring); returns the ``{"training": ...}``
+    numbers, (c)'s and (d)'s kernel launches among them."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_smoke")
+    os.makedirs(root, exist_ok=True)
+    out = {"card": card}
+    t0 = time.perf_counter()
+    out["steps_vs_cpu"] = train_steps_vs_cpu(dev, seed)
+    out["steps_vs_cpu_s"] = time.perf_counter() - t0
+    out["arcface"], emb, data = arcface_run(dev, ARC_STEPS)
+    out["served"] = trained_embedder_served(dev, ctx, emb, data)
+    del emb, data
+    t0 = time.perf_counter()
+    out["recipes"] = detector_recipes(dev)
+    out["recipes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train_cli"] = train_cli_cnn(dev, root)
+    out["train_cli_s"] = time.perf_counter() - t0
+    out["launches"] = {k: out["served"]["launches"][k] + out["recipes"]["launches"][k]
+                       for k in out["served"]["launches"]}
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -5711,12 +6132,15 @@ def main() -> int:
     chaos = chaos_phase(dev, args.seed, card, ctx)
     chaos_end_s = time.perf_counter() - t_run
     train = train_phase(dev, args.seed, card, ctx)
+    train_end_s = time.perf_counter() - t_run
+    training = training_phase(dev, args.seed, card, ctx)
     for e in entries:
         # the main path's launches: the serving run's, the replicas', the
-        # two-stage pipeline's, the chaos soak's and the s = 2 embedder's
+        # two-stage pipeline's, the chaos soak's, the s = 2 embedder's and
+        # the trained nets' (phase 18 (c), (d))
         e["launches"] = (launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
                          + multi_gpu["pp_launches"][e["name"]] + chaos["launches"][e["name"]]
-                         + train["launches"][e["name"]])
+                         + train["launches"][e["name"]] + training["launches"][e["name"]])
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
     print(json.dumps({"async_grow": grow}))
     print(json.dumps({"ivf": ivf}))
@@ -5732,9 +6156,11 @@ def main() -> int:
     print(json.dumps({"multi_gpu": multi_gpu}))
     chaos["total_s"] = chaos_end_s
     print(json.dumps({"chaos": chaos}))
-    train["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {train['total_s']:.1f} s")
+    train["total_s"] = train_end_s
     print(json.dumps({"train": train}))
+    training["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {training['total_s']:.1f} s")
+    print(json.dumps({"training": training}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -8,16 +8,16 @@ with Tan-Triggs and a nearest neighbour by default), k-fold validate it
 and save it; the checkpoint loads in either package. It takes every flag
 of ``ocvf-train`` and ``--device`` (default ``cuda``; without a card it
 raises, ``cpu`` runs the plain PyTorch path). ``--profile-dir`` writes a
-``torch.profiler`` Chrome trace of the run. ``--model auto`` (whose
-candidates include the CNN) and ``--model cnn`` with ``--train-steps``
-above 0 train an ArcFace embedder, which is not ported yet: both exit
-with the parser's error, naming ROADMAP A.13.
+``torch.profiler`` Chrome trace of the run. ``--model cnn`` trains an
+ArcFace embedder for ``--train-steps`` steps; ``--model auto`` k-folds
+every family, the CNN last, and fits the winner.
 
 Besides the reference's output it prints one stderr line, ``train
 stages: {...}``: seconds and entries by stage (read; preprocess: Tan-
 Triggs, LBP; pca and lda: the subspace fits; fit: the rest of a fit, the
-classifier's; predict; save; other; ``utils.stage_clock``), the folds,
-the device and, on the card, ``torch.cuda.max_memory_allocated``.
+classifier's or the ArcFace steps; predict; save; other;
+``utils.stage_clock``), the folds, the device and, on the card,
+``torch.cuda.max_memory_allocated``.
 """
 
 from __future__ import annotations
@@ -67,6 +67,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _print_report(clock, device, trainer) -> None:
+    report = {**clock.report(), "device": str(device),
+              "folds": len(trainer.validation.results) if trainer.validation else 0}
+    if device.type == "cuda":
+        report["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    print(f"train stages: {json.dumps(report)}", file=sys.stderr)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -76,19 +84,39 @@ def main(argv=None) -> int:
         parser.error(f"--knn-k only applies with --classifier nn "
                      f"(got --classifier {args.classifier})")
     from opencv_facerecognizer_tpu_torch.runtime.trainer import (
-        TRAINING_ITEM, TheTrainer, TrainerConfig)
+        TheTrainer, TrainerConfig, select_model)
     from opencv_facerecognizer_tpu_torch.utils import stage_clock
     from opencv_facerecognizer_tpu_torch.utils.device import resolve_device
 
-    if args.model == "auto":
-        parser.error("--model auto k-folds every family, the ArcFace CNN among them: "
-                     f"CNN training is not ported yet ({TRAINING_ITEM}); pick a classic "
-                     "--model")
-    if args.model == "cnn" and args.train_steps > 0:
-        parser.error(f"--model cnn --train-steps {args.train_steps} trains an ArcFace "
-                     f"embedder: training is not ported yet ({TRAINING_ITEM}); use "
-                     "--train-steps 0 or a classic --model")
+    if args.model == "auto" and (args.profile_dir or args.eigenfaces_plot
+                                 or args.keep_checkpoints):
+        # flags that select one artifact's shape don't compose with selection
+        parser.error("--profile-dir/--eigenfaces-plot/--keep-checkpoints "
+                     "don't apply with --model auto (selection saves "
+                     "candidate models repeatedly; run the winner "
+                     "single-model to use them)")
     device = resolve_device(args.device)
+    if args.model == "auto":
+        from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
+
+        with stage_clock.record(device) as clock:
+            with stage_clock.stage("read"):
+                images, labels, names = dataset_utils.read_images(
+                    args.dataset, image_size=tuple(args.image_size))
+            trainer, scores = select_model(
+                images, labels, names, model_path=args.model_path, device=device,
+                image_size=tuple(args.image_size), kfold=args.kfold,
+                num_components=args.num_components, knn_k=args.knn_k,
+                tan_triggs=not args.no_tan_triggs, embed_dim=args.embed_dim,
+                train_steps=args.train_steps, classifier=args.classifier,
+                svm_kernel=args.svm_kernel)
+        _print_report(clock, device, trainer)
+        for kind in sorted(scores, key=scores.get, reverse=True):
+            print(f"  {kind:>16}: {scores[kind]:.4f} k-fold")
+        print(f"selected: {trainer.config.model} "
+              f"({trainer.mean_accuracy:.4f} mean k-fold accuracy)")
+        print(f"model saved to {args.model_path}")
+        return 0
     config = TrainerConfig(
         model=args.model, image_size=tuple(args.image_size), kfold=args.kfold,
         num_components=args.num_components, knn_k=args.knn_k,
@@ -116,11 +144,7 @@ def main(argv=None) -> int:
             path = os.path.join(args.profile_dir, f"trace-{os.getpid()}.json")
             prof.export_chrome_trace(path)
             print(f"profile trace written to {path}", file=sys.stderr)
-    report = {**clock.report(), "device": str(device),
-              "folds": len(trainer.validation.results) if trainer.validation else 0}
-    if device.type == "cuda":
-        report["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
-    print(f"train stages: {json.dumps(report)}", file=sys.stderr)
+    _print_report(clock, device, trainer)
     if trainer.validation:
         for result in trainer.validation.results:
             print(result)

@@ -11,7 +11,9 @@ numerics: NCHW tensors, float32 parameters, compute in ``dtype``.
   call. The copy is made once and refreshed in place (``copy_``) when the
   parameter changes, so it keeps its address and a CUDA graph captured
   over it sees new weights; ``load_state_dict`` refreshes every copy at
-  once (``track_casts``).
+  once (``track_casts``). Under autograd (a training step) the cast is a
+  tracked ``param.to(dtype)`` instead, so the float32 parameter gets its
+  gradient through the cast, as flax's does.
 """
 
 from __future__ import annotations
@@ -32,14 +34,18 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 def cast_param(owner: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
     """Parameter ``name`` of ``owner`` in ``dtype``: the parameter itself
-    when it has that dtype, else one cached copy. The copy follows the
-    parameter (its identity and version counter), so an in-place change
-    (``copy_``, ``fill_``) or a swapped-in tensor (``functional_call``)
-    refreshes it in place on the next read; a new device or shape makes
-    a new copy."""
+    when it has that dtype; with grad enabled on a parameter that requires
+    it, ``param.to(dtype)``, which autograd tracks (nothing cached: the
+    next optimizer step changes the parameter); else one cached copy. The
+    copy follows the parameter (its identity and version counter), so an
+    in-place change (``copy_``, ``fill_``, an optimizer step) or a
+    swapped-in tensor (``functional_call``) refreshes it in place on the
+    next read; a new device or shape makes a new copy."""
     param = getattr(owner, name)
     if param.dtype == dtype:
         return param
+    if param.requires_grad and torch.is_grad_enabled():
+        return param.to(dtype)
     casts = owner.__dict__.setdefault("_casts", {})
     entry = casts.get((name, dtype))
     if entry is None or entry[0].shape != param.shape or entry[0].device != param.device:
@@ -51,8 +57,11 @@ def cast_param(owner: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
     return entry[0]
 
 
+@torch.no_grad()
 def refresh_casts(module: nn.Module) -> None:
-    """Bring every cached cast below ``module`` up to date in place."""
+    """Bring every cached cast below ``module`` up to date in place (under
+    ``no_grad``, so a load with grad enabled still refreshes the copies a
+    captured graph reads)."""
     for m in module.modules():
         for (name, dtype) in list(m.__dict__.get("_casts", {})):
             cast_param(m, name, dtype)

@@ -16,8 +16,10 @@ Numerics follow the flax module: parameters in float32, compute in
 dtype, GroupNorm statistics in float32, the 1x1 head in float32 with its
 bias initialized at -2.0. ``FaceGate.save`` / ``load`` write and read the
 JAX package's gate file (a msgpack blob of ``header.config_json`` and the
-flax-layout ``params``). Training (``gate_loss``, ``train_face_gate``)
-stays in the JAX package (ROADMAP A.13).
+flax-layout ``params``). Training is the reference's: per-tile weighted
+BCE (``gate_loss``, ``pos_weight`` buying recall) against
+``tile_targets``, Adam steps over the reference's batches
+(``train_face_gate``), on the scenes ``train_detector`` takes.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ import torch.nn.functional as F
 
 from opencv_facerecognizer_tpu_torch.models._layers import (
     ConvSame, GroupNorm, reset_all, track_casts)
+from opencv_facerecognizer_tpu_torch.models._train import adam, fixed_batches
 from opencv_facerecognizer_tpu_torch.utils import _msgpack, serialization
 from opencv_facerecognizer_tpu_torch.utils.device import (
-    DEFAULT_DEVICE, DeviceLike, resolve_device)
+    DEFAULT_DEVICE, DeviceLike, disable_tf32, resolve_device)
 from opencv_facerecognizer_tpu_torch.utils.params import (
     cascade_params_from_flax, cascade_params_to_flax)
 
@@ -121,10 +124,56 @@ def tile_targets(boxes: np.ndarray, num_boxes: np.ndarray,
     return targets
 
 
+def gate_loss(logits: torch.Tensor, targets: torch.Tensor,
+              pos_weight: float = 2.0) -> torch.Tensor:
+    """Per-tile weighted BCE: a missed face tile costs ``pos_weight``
+    times a passed background tile."""
+    p = torch.clamp(torch.sigmoid(logits), 1e-6, 1.0 - 1e-6)
+    bce = -(pos_weight * targets * torch.log(p) + (1.0 - targets) * torch.log(1.0 - p))
+    return bce.mean()
+
+
+def train_face_gate(net: CascadeNet, images, boxes, num_boxes, *, steps: int = 400,
+                    batch_size: int = 32, learning_rate: float = 3e-3,
+                    pos_weight: float = 2.0, seed: int = 0,
+                    params: Optional[Dict[str, torch.Tensor]] = None,
+                    log_every: int = 0) -> Dict[str, torch.Tensor]:
+    """Train ``net`` in place on (images [N, H, W] in 0..255, padded
+    boxes, counts), the scenes ``train_detector`` takes, on its device:
+    from ``params`` (a state dict) or, when None, from a fresh init drawn
+    from ``seed``. Returns its state dict."""
+    images = np.asarray(images, np.float32)
+    h, w = images.shape[1], images.shape[2]
+    tile_px = net.downsample * TILE_CONV_STRIDE
+    targets = tile_targets(np.asarray(boxes, np.float32), num_boxes, (h, w), tile_px)
+    if params is None:
+        net.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        net.load_state_dict(params)
+    dev = next(net.parameters()).device
+    if dev.type == "cuda":
+        disable_tf32()
+    optimizer = adam(net.parameters(), learning_rate)
+    n = images.shape[0]
+    batch_size = min(batch_size, n)
+    batches = fixed_batches(n, batch_size, steps, seed, dev)
+    x_all = torch.as_tensor(images).to(dev)
+    t_all = torch.as_tensor(targets).to(dev)
+    for i in range(steps):
+        idx = batches[i]
+        optimizer.zero_grad(set_to_none=True)
+        loss = gate_loss(net(x_all[idx]), t_all[idx], pos_weight)
+        loss.backward()
+        optimizer.step()
+        if log_every and (i + 1) % log_every == 0:
+            print(f"  gate step {i + 1}/{steps}: loss {float(loss):.4f}")
+    return net.state_dict()
+
+
 class FaceGate:
-    """Stage-1 wrapper with ``CNNFaceDetector``'s lifecycle: ``score_batch``,
-    ``load_params``, ``save`` / ``load``, and the operating ``threshold``
-    the serving runtime defaults to. ``train`` raises (ROADMAP A.13)."""
+    """Stage-1 wrapper with ``CNNFaceDetector``'s lifecycle: ``train``,
+    ``score_batch``, ``load_params``, ``save`` / ``load``, and the
+    operating ``threshold`` the serving runtime defaults to."""
 
     def __init__(self, features: Sequence[int] = (8, 16), downsample: int = 4,
                  threshold: float = DEFAULT_THRESHOLD, dtype: torch.dtype = torch.bfloat16,
@@ -134,6 +183,9 @@ class FaceGate:
         self.net = CascadeNet(features=features, downsample=downsample, dtype=dtype,
                               generator=generator).to(self.device).eval()
         self.threshold = float(threshold)
+        #: weights were loaded or trained: ``train`` fine-tunes them (else
+        #: it starts from a fresh init, as the reference's does)
+        self._loaded = False
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -143,15 +195,19 @@ class FaceGate:
         """Load a state dict (``utils.params.cascade_params_from_flax``
         turns the JAX package's params into one) in place."""
         self.net.load_state_dict(params)
+        self._loaded = True
 
     @property
     def tile_px(self) -> int:
         return self.net.downsample * TILE_CONV_STRIDE
 
-    def train(self, *_args, **_kwargs) -> "FaceGate":
-        raise NotImplementedError(
-            "FaceGate.train: training is not ported yet (ROADMAP A.13); load a gate "
-            "trained by the JAX package (FaceGate.load)")
+    def train(self, images, boxes, num_boxes, **kwargs) -> "FaceGate":
+        """``train_face_gate`` on this gate's net and device; fine-tunes
+        loaded or trained weights, else starts from ``seed``'s init."""
+        train_face_gate(self.net, images, boxes, num_boxes,
+                        params=self.net.state_dict() if self._loaded else None, **kwargs)
+        self._loaded = True
+        return self
 
     @torch.no_grad()
     def score_batch(self, frames) -> torch.Tensor:
@@ -190,6 +246,7 @@ class FaceGate:
                    threshold=config.get("threshold", DEFAULT_THRESHOLD), dtype=dtype,
                    device=device)
         cascade_params_from_flax(payload["params"], gate.net)
+        gate._loaded = True
         return gate
 
 

@@ -6,8 +6,14 @@ size and offset heads; ``decode_detections`` turns the maps into exactly
 ``max_faces`` boxes per image (sigmoid, 3x3 max-pool peaks, top-k, box
 assembly, fixed-K NMS, clip). ``CNNFaceDetector.save`` / ``load`` write
 and read the JAX package's detector checkpoint (a msgpack blob of
-``header.config_json`` and the flax-layout ``params``). Training stays in
-the JAX package.
+``header.config_json`` and the flax-layout ``params``).
+
+Training is the reference's center-heatmap recipe: ``gaussian_heatmap_targets``
+(host numpy, the reference's code), ``detector_loss`` (penalty-reduced
+focal loss on the heatmap plus masked L1 on size and offset), Adam steps
+over the reference's batches (``train_detector``), and
+``evaluate_detector``'s greedy matching of ``detect_batch``'s boxes on
+the host.
 
 Numerics follow the flax module: bf16 compute with float32 parameters,
 the input divided by 255 in the compute dtype, GroupNorm statistics in
@@ -19,7 +25,7 @@ reference's layouts: frames [N, H, W], maps [N, Hs, Ws] and
 from __future__ import annotations
 
 import json
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +38,7 @@ from opencv_facerecognizer_tpu_torch.ops import nms as nms_ops
 from opencv_facerecognizer_tpu_torch.utils import _msgpack, serialization
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, disable_tf32, resolve_device)
+from opencv_facerecognizer_tpu_torch.models._train import adam, fixed_batches
 from opencv_facerecognizer_tpu_torch.utils.params import (
     detector_params_from_flax, detector_params_to_flax)
 
@@ -160,9 +167,158 @@ def clip_boxes(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor
     return torch.stack([y[..., 0], x[..., 0], y[..., 1], x[..., 1]], dim=-1)
 
 
+# ---------- training (the reference's detector.py:162-326) ----------
+
+
+def gaussian_heatmap_targets(boxes: np.ndarray, num_boxes: np.ndarray,
+                             image_size: Tuple[int, int], max_boxes: int):
+    """Host-side target builder: padded pixel yxyx boxes [N, B, 4] + counts
+    -> (heatmap [N, Hs, Ws], size [N, Hs, Ws, 2], offset [N, Hs, Ws, 2],
+    mask [N, Hs, Ws]), float32 numpy, the reference's arithmetic. The
+    Gaussian splat's radius follows the box size."""
+    n = boxes.shape[0]
+    hs, ws = image_size[0] // STRIDE, image_size[1] // STRIDE
+    heat = np.zeros((n, hs, ws), dtype=np.float32)
+    size = np.zeros((n, hs, ws, 2), dtype=np.float32)
+    offset = np.zeros((n, hs, ws, 2), dtype=np.float32)
+    mask = np.zeros((n, hs, ws), dtype=np.float32)
+    ys, xs = np.mgrid[0:hs, 0:ws]
+    for i in range(n):
+        for b in range(int(num_boxes[i])):
+            y0, x0, y1, x1 = boxes[i, b] / STRIDE
+            cy, cx = (y0 + y1) / 2, (x0 + x1) / 2
+            bh, bw = max(y1 - y0, 1e-3), max(x1 - x0, 1e-3)
+            iy, ix = int(np.clip(cy, 0, hs - 1)), int(np.clip(cx, 0, ws - 1))
+            sigma = max((bh + bw) / 8.0, 0.7)
+            g = np.exp(-((ys - iy) ** 2 + (xs - ix) ** 2) / (2 * sigma**2))
+            heat[i] = np.maximum(heat[i], g)
+            size[i, iy, ix] = (bh, bw)
+            offset[i, iy, ix] = (cy - iy, cx - ix)
+            mask[i, iy, ix] = 1.0
+    return heat, size, offset, mask
+
+
+def detector_loss(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
+                  alpha: float = 2.0, beta: float = 4.0) -> torch.Tensor:
+    """Penalty-reduced focal loss on the heatmap + masked L1 on size and
+    offset, each summed over the batch and divided by the positives."""
+    pred = torch.clamp(torch.sigmoid(outputs["heatmap"]), 1e-6, 1.0 - 1e-6)
+    gt = targets["heatmap"]
+    pos = (gt >= 0.999).to(torch.float32)
+    pos_loss = -pos * ((1 - pred) ** alpha) * torch.log(pred)
+    neg_loss = -(1 - pos) * ((1 - gt) ** beta) * (pred ** alpha) * torch.log(1 - pred)
+    num_pos = torch.clamp(pos.sum(), min=1.0)
+    heat_loss = (pos_loss.sum() + neg_loss.sum()) / num_pos
+    m = targets["mask"][..., None]
+    size_loss = (torch.abs(outputs["size"] - targets["size"]) * m).sum() / num_pos
+    off_loss = (torch.abs(outputs["offset"] - targets["offset"]) * m).sum() / num_pos
+    return heat_loss + 0.1 * size_loss + off_loss
+
+
+def make_detector_train_step(model: DetectorNet, optimizer):
+    """``step(images, targets) -> loss``: one Adam step of ``model`` in place."""
+
+    def step(images: torch.Tensor, targets: Dict[str, torch.Tensor]) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = detector_loss(model(images), targets)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def train_detector(model: DetectorNet, images, boxes, num_boxes, *, steps: int = 300,
+                   batch_size: int = 16, learning_rate: float = 1e-3, seed: int = 0,
+                   params: Optional[Dict[str, torch.Tensor]] = None,
+                   log_every: int = 0) -> Dict[str, torch.Tensor]:
+    """Train ``model`` in place on (images [N, H, W] in 0..255, padded
+    boxes [N, B, 4], counts [N]) on its device, from ``params`` (a state
+    dict) or, when None, from a fresh init drawn from ``seed``. Returns
+    its state dict."""
+    images = np.asarray(images, np.float32)
+    boxes = np.asarray(boxes, np.float32)
+    h, w = images.shape[1], images.shape[2]
+    heat, size, offset, mask = gaussian_heatmap_targets(boxes, num_boxes, (h, w),
+                                                        boxes.shape[1])
+    if params is None:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(params)
+    dev = next(model.parameters()).device
+    if dev.type == "cuda":
+        disable_tf32()
+    step = make_detector_train_step(model, adam(model.parameters(), learning_rate))
+    n = images.shape[0]
+    batch_size = min(batch_size, n)
+    batches = fixed_batches(n, batch_size, steps, seed, dev)
+    x = torch.as_tensor(images).to(dev)
+    t_all = {k: torch.as_tensor(v).to(dev) for k, v in
+             (("heatmap", heat), ("size", size), ("offset", offset), ("mask", mask))}
+    for i in range(steps):
+        idx = batches[i]
+        loss = step(x[idx], {k: v[idx] for k, v in t_all.items()})
+        if log_every and (i + 1) % log_every == 0:
+            print(f"  detector step {i + 1}/{steps}: loss {float(loss):.4f}")
+    return model.state_dict()
+
+
+def _host(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def evaluate_detector(detector: "CNNFaceDetector", scenes, gt_boxes, gt_counts,
+                      iou_threshold: float = 0.5, batch_size: int = 32) -> Dict[str, float]:
+    """Detection quality against oracle boxes: recall / precision at IoU.
+    Greedy matching per image on the host, as the reference's: predictions
+    in descending score order claim the best still-unmatched ground-truth
+    box with IoU >= threshold. Returns {"recall", "precision", "f1",
+    "mean_matched_iou", "num_gt", "num_pred"}."""
+    scenes = np.asarray(scenes, np.float32)
+    gt_boxes = np.asarray(gt_boxes, np.float32)
+    gt_counts = np.asarray(gt_counts)
+    tp = fp = 0
+    total_gt = int(gt_counts.sum())
+    matched_ious = []
+    for start in range(0, len(scenes), batch_size):
+        chunk = scenes[start:start + batch_size]
+        boxes, scores, valid = (_host(v) for v in detector.detect_batch(chunk))
+        for i in range(len(chunk)):
+            gi = start + i
+            gts = gt_boxes[gi, :int(gt_counts[gi])]
+            taken = np.zeros(len(gts), dtype=bool)
+            for j in np.argsort(-scores[i]):
+                if not valid[i, j]:
+                    continue
+                py0, px0, py1, px1 = boxes[i, j]
+                best_iou, best_g = 0.0, -1
+                for gidx, (gy0, gx0, gy1, gx1) in enumerate(gts):
+                    if taken[gidx]:
+                        continue
+                    iy = max(0.0, min(py1, gy1) - max(py0, gy0))
+                    ix = max(0.0, min(px1, gx1) - max(px0, gx0))
+                    inter = iy * ix
+                    union = (py1 - py0) * (px1 - px0) + (gy1 - gy0) * (gx1 - gx0) - inter
+                    iou = inter / union if union > 0 else 0.0
+                    if iou > best_iou:
+                        best_iou, best_g = iou, gidx
+                if best_g >= 0 and best_iou >= iou_threshold:
+                    taken[best_g] = True
+                    tp += 1
+                    matched_ious.append(best_iou)
+                else:
+                    fp += 1
+    recall = tp / total_gt if total_gt else float("nan")
+    precision = tp / (tp + fp) if (tp + fp) else float("nan")
+    f1 = 2 * precision * recall / (precision + recall) if precision + recall > 0 else 0.0
+    return {"recall": recall, "precision": precision, "f1": f1,
+            "mean_matched_iou": float(np.mean(matched_ious)) if matched_ious else 0.0,
+            "num_gt": total_gt, "num_pred": tp + fp}
+
+
 class CNNFaceDetector:
-    """Inference wrapper: ``detect_batch`` on device tensors, ``detect``
-    -> host list of (x0, y0, x1, y1) like the reference's CascadedDetector.
+    """``detect_batch`` on device tensors, ``detect`` -> host list of
+    (x0, y0, x1, y1) like the reference's CascadedDetector, and ``train``.
 
     Defaults are the serving detector of the JAX package: features
     (64, 64), space_to_depth 4, 16 faces per image."""
@@ -180,6 +336,17 @@ class CNNFaceDetector:
         self.max_faces = int(max_faces)
         self.score_threshold = float(score_threshold)
         self.iou_threshold = float(iou_threshold)
+        #: weights were loaded or trained: ``train`` fine-tunes them (else
+        #: it starts from a fresh init, as the reference's does)
+        self._loaded = False
+
+    def train(self, images, boxes, num_boxes, **kwargs) -> "CNNFaceDetector":
+        """``train_detector`` on this detector's net and device; fine-tunes
+        loaded or trained weights, else starts from ``seed``'s init."""
+        train_detector(self.net, images, boxes, num_boxes,
+                       params=self.net.state_dict() if self._loaded else None, **kwargs)
+        self._loaded = True
+        return self
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -191,6 +358,7 @@ class CNNFaceDetector:
         and its cached compute-dtype copy keep their addresses, so a
         captured serving step runs the new weights on its next replay."""
         self.net.load_state_dict(params)
+        self._loaded = True
 
     # -- checkpoints: the reference's format, both ways --
 
@@ -228,6 +396,7 @@ class CNNFaceDetector:
                   space_to_depth=config.get("space_to_depth", 1),
                   device=device)
         detector_params_from_flax(payload["params"], det.net)
+        det._loaded = True
         return det
 
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""TheTrainer, enrolment end to end: port of the classic half of
+"""TheTrainer, enrolment end to end: port of
 ``opencv_facerecognizer_tpu/runtime/trainer.py``.
 
 Walk a folder-per-subject dataset, resize, fit a model, k-fold validate
@@ -9,15 +9,16 @@ it, checkpoint it:
   (Tan-Triggs at sigmas 2 / 4 before Fisherfaces, radius-2 LBP for LBPH,
   raw radius-3 LBP on a 6x6 grid before Fisherfaces and a cosine NN);
 - ``classifier="nn" | "svm" | "kernel_svm"`` over any of them;
-- ``model="cnn"`` embeds with a ``CNNEmbedding``'s loaded or seeded
-  weights when ``train_steps`` is 0; ``build_gallery`` and
-  ``make_reembed_fn`` hand a loaded CNN to the serving side.
+- ``model="cnn"``: a ``CNNEmbedding`` trained with ArcFace for
+  ``train_steps`` steps (0: its loaded or seeded weights) and a cosine
+  NN; ``build_gallery`` and ``make_reembed_fn`` hand it to the serving
+  side, and ``finetune_embedder`` fine-tunes a copy of it on enrolments
+  (the multibatch sampler) for a rollout.
 
-ArcFace training (``model="cnn"`` with ``train_steps > 0``),
-``finetune_embedder`` and a ``select_model`` whose candidates include
-``"cnn"`` raise, naming ROADMAP A.13. Every fit and prediction runs on
-``device`` (the card unless the caller names another); checkpoints are
-``utils.serialization``'s, which the JAX package reads and writes too.
+``select_model`` k-folds every candidate, the CNN among them. Every fit
+and prediction runs on ``device`` (the card unless the caller names
+another); checkpoints are ``utils.serialization``'s, which the JAX
+package reads and writes too.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ import torch
 
 from opencv_facerecognizer_tpu_torch.models.classifier import (
     KernelSVM, NearestNeighbor, SVM)
-from opencv_facerecognizer_tpu_torch.models.embedder import CNNEmbedding
+from opencv_facerecognizer_tpu_torch.models._train import adam
+from opencv_facerecognizer_tpu_torch.models.embedder import (
+    CNNEmbedding, draw_head, make_train_step, normalize_faces)
 from opencv_facerecognizer_tpu_torch.models.feature import (
     Fisherfaces, PCA, SpatialHistogram, TanTriggsPreprocessing)
 from opencv_facerecognizer_tpu_torch.models.model import ExtendedPredictableModel
@@ -42,12 +45,9 @@ from opencv_facerecognizer_tpu_torch.ops.distance import (
 from opencv_facerecognizer_tpu_torch.utils import dataset as dataset_utils
 from opencv_facerecognizer_tpu_torch.utils import serialization
 from opencv_facerecognizer_tpu_torch.utils.device import (
-    DEFAULT_DEVICE, DeviceLike, resolve_device)
+    DEFAULT_DEVICE, DeviceLike, disable_tf32, resolve_device)
 from opencv_facerecognizer_tpu_torch.utils.stage_clock import stage
 from opencv_facerecognizer_tpu_torch.utils.validation import KFoldCrossValidation
-
-#: why CNN training raises: the item of ROADMAP.md that ports it
-TRAINING_ITEM = "ROADMAP A.13"
 
 
 @dataclass
@@ -116,11 +116,6 @@ class TheTrainer:
                 Fisherfaces(cfg.num_components, device=dev))
             classifier = NearestNeighbor(CosineDistance(), k=cfg.knn_k, device=dev)
         elif cfg.model == "cnn":
-            if cfg.train_steps > 0:
-                raise NotImplementedError(
-                    f"model='cnn' with train_steps={cfg.train_steps} trains an ArcFace "
-                    f"embedder: training is not ported yet ({TRAINING_ITEM}); set "
-                    "train_steps=0 to embed with loaded or seeded weights")
             feature = CNNEmbedding(embed_dim=cfg.embed_dim, input_size=cfg.image_size,
                                    train_steps=cfg.train_steps, **cfg.cnn_kwargs, device=dev)
             classifier = NearestNeighbor(CosineDistance(), k=cfg.knn_k, device=dev)
@@ -207,11 +202,62 @@ class TheTrainer:
         gallery.add(emb, np.asarray(labels, np.int32))
         return gallery
 
-    def finetune_embedder(self, *args, **kwargs):
-        """The reference's multibatch metric-learning fine-tune of the CNN."""
-        raise NotImplementedError(
-            f"finetune_embedder trains the CNN embedder: training is not ported yet "
-            f"({TRAINING_ITEM})")
+    def finetune_embedder(self, images: np.ndarray, labels: np.ndarray, *,
+                          steps: int = 100, identities_per_batch: int = 8,
+                          samples_per_identity: int = 4, learning_rate: float = 1e-4,
+                          margin: float = 0.5, scale: float = 32.0,
+                          seed: int = 0) -> CNNEmbedding:
+        """Multibatch metric-learning fine-tune (arxiv 1605.07270) of the
+        trained CNN embedder on accumulated enrolments: each step samples
+        ``identities_per_batch`` identities x ``samples_per_identity``
+        crops (with replacement inside an identity that has fewer), drawn
+        with numpy as the reference draws them. It starts from the serving
+        model's weights and trains a copy: ``self.model``'s tensors do not
+        change. Returns the fine-tuned ``CNNEmbedding`` (hand it to
+        ``make_reembed_fn`` and a ``RolloutCoordinator``)."""
+        if self.model is None or not isinstance(self.model.feature, CNNEmbedding):
+            raise RuntimeError("finetune_embedder requires a trained cnn model "
+                               "(TheTrainer(model='cnn').train first)")
+        old = self.model.feature
+        dev = old.device
+        if dev.type == "cuda":
+            disable_tf32()
+        with torch.no_grad():
+            x = normalize_faces(torch.as_tensor(np.asarray(images, np.float32)).to(dev),
+                                old.input_size)
+        classes, y = np.unique(np.asarray(labels, np.int32), return_inverse=True)
+        y = y.reshape(-1)
+        new_feature = CNNEmbedding(
+            embed_dim=old.embed_dim, input_size=old.input_size,
+            stem_features=old.stem_features, stage_features=old.stage_features,
+            stage_blocks=old.stage_blocks, block=old.block,
+            space_to_depth=old.space_to_depth, norm=old.norm, train_steps=0,
+            seed=old.seed, tta=old.tta, device=dev)
+        new_feature.net.load_state_dict(old.net.state_dict())  # a copy of each tensor
+        num_classes = max(1, len(classes))
+        head = (old._head.clone() if old._head.shape[0] == num_classes
+                else draw_head(num_classes, old.embed_dim, seed + 1))
+        head = head.to(dev, torch.float32).requires_grad_(True)
+        optimizer = adam([*new_feature.net.parameters(), head], float(learning_rate))
+        step = make_train_step(new_feature.net, head, optimizer, float(margin), float(scale))
+        by_class = [np.flatnonzero(y == c) for c in range(num_classes)]
+        k = min(int(identities_per_batch), num_classes)
+        m = max(1, int(samples_per_identity))
+        rng = np.random.default_rng(seed)
+        batches = []
+        for _ in range(int(steps)):
+            ids = rng.choice(num_classes, size=k, replace=False)
+            batches.append(np.concatenate([
+                rng.choice(by_class[c], size=m, replace=len(by_class[c]) < m) for c in ids]))
+        if batches:
+            batches = torch.as_tensor(np.stack(batches), dtype=torch.long).to(dev)
+        y_dev = torch.as_tensor(y, dtype=torch.long).to(dev)
+        warmup = max(1, int(0.1 * steps))
+        for i in range(int(steps)):
+            idx = batches[i]
+            step(x[idx], y_dev[idx], None, min(1.0, i / warmup))
+        new_feature._head = head.detach().cpu()
+        return new_feature
 
     @staticmethod
     def make_reembed_fn(feature, source_images: np.ndarray):
@@ -235,13 +281,8 @@ def select_model(images: np.ndarray, labels: np.ndarray, subject_names: List[str
                  **config_overrides) -> Tuple[TheTrainer, Dict[str, float]]:
     """K-fold every candidate model kind on the same data and fit the
     winner (ties to the earlier, cheaper one) on the whole set; returns
-    (the winning trainer, {kind: mean k-fold accuracy}). The default
-    candidates include ``"cnn"``, whose training raises (ROADMAP A.13)."""
+    (the winning trainer, {kind: mean k-fold accuracy})."""
     candidates = tuple(candidates or TheTrainer.SELECT_CANDIDATES)
-    if "cnn" in candidates:
-        raise NotImplementedError(
-            f"select_model over 'cnn' trains an ArcFace embedder: training is not "
-            f"ported yet ({TRAINING_ITEM}); pass candidates without 'cnn'")
     trainers = {kind: TheTrainer(TrainerConfig(model=kind), device=device,
                                  **config_overrides) for kind in candidates}
     images = trainers[candidates[0]]._at_size(images)

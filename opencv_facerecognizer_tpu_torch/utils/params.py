@@ -21,7 +21,12 @@ bias).
 ``detector_params_to_flax``, ``embedder_params_to_flax`` and
 ``cascade_params_to_flax`` are the inverses: a port module's weights as
 the flax tree (numpy float32), which the checkpoint writers store in the
-JAX package's layout.
+JAX package's layout; a trained detector or gate goes back the same way.
+
+``embedder_train_params_from_flax`` / ``embedder_train_params_to_flax``
+carry the ArcFace trainer's ``{"net", "head"}`` params (the reference's
+``init_embedder`` / ``train_embedder`` tree) both ways: the net's weights
+into a port ``FaceEmbedNet``, the head [C, E] as a float32 tensor.
 
 ``ivf_data_from_numpy`` takes the reference's ``IVFDeviceData`` (its
 arrays read back as numpy) to the port's, on a device.
@@ -114,6 +119,14 @@ def embedder_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch
     return _load(net, state)
 
 
+def embedder_train_params_from_flax(params: FlaxParams,
+                                    net: torch.nn.Module) -> torch.Tensor:
+    """Load the reference's ``{"net": flax tree, "head": [C, E]}`` into
+    ``net``; returns the head as a float32 tensor on the net's device."""
+    embedder_params_from_flax(params["net"], net)
+    return _t(params["head"]).to(next(net.parameters()).device)
+
+
 def cascade_params_from_flax(params: FlaxParams, net: torch.nn.Module) -> torch.nn.Module:
     """Load flax ``CascadeNet`` params into a port ``CascadeNet``."""
     nb = len(net.convs)
@@ -180,6 +193,12 @@ def embedder_params_to_flax(net: torch.nn.Module) -> Dict[str, Any]:
             node[dst] = ({"kernel": _hwio(mod.weight)} if dst.startswith("Conv")
                          else {"scale": _np(mod.weight), "bias": _np(mod.bias)})
     return tree
+
+
+def embedder_train_params_to_flax(net: torch.nn.Module, head: torch.Tensor) -> Dict[str, Any]:
+    """A port ``FaceEmbedNet`` and its ArcFace head as the reference's
+    ``{"net": flax tree, "head": [C, E]}`` (numpy float32)."""
+    return {"net": embedder_params_to_flax(net), "head": _np(head)}
 
 
 #: dtypes of IVFDeviceData's seven arrays, in field order

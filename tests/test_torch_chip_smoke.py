@@ -449,8 +449,9 @@ def test_block_shapes_follow_the_space_to_depth_strides():
 
 def test_train_cli_reads_its_report_and_refuses_a_silent_run(tmp_path, monkeypatch):
     """``train_cli`` runs ``ocvf-train-torch`` (here on the CPU) and reads
-    its stage line and accuracy; ``checkpoint_labels_agree`` holds the
-    checkpoint on two devices (here the CPU twice)."""
+    its stage line and accuracy (for ``--model auto``, the selection's); ``checkpoint_labels_agree`` holds the
+    checkpoint on two devices (here the CPU twice); a run that exits
+    nonzero raises."""
     import torch
 
     monkeypatch.setattr(chip_smoke, "ACC_SIZE", (32, 32))
@@ -464,8 +465,11 @@ def test_train_cli_reads_its_report_and_refuses_a_silent_run(tmp_path, monkeypat
     assert {"read", "fit", "predict", "save"} <= set(run["seconds"])
     got = chip_smoke.checkpoint_labels_agree(torch.device("cpu"), ckpt, X[:5])
     assert got["labels_equal"] and got["queries"] == 5
+    auto = chip_smoke.train_cli(torch.device("cpu"), data, ckpt,
+                                ("--model", "auto", "--train-steps", "2", "--embed-dim", "16"))
+    assert auto["selected"] in auto["scores"] and auto["accuracy"] == max(auto["scores"].values())
     with pytest.raises(AssertionError, match="rc 2"):
-        chip_smoke.train_cli(torch.device("cpu"), data, ckpt, ("--model", "auto"))
+        chip_smoke.train_cli(torch.device("cpu"), data, ckpt, ("--svm-kernel", "poly"))
 
 
 def test_train_phase_rehearses_on_the_cpu(monkeypatch):
@@ -473,7 +477,7 @@ def test_train_phase_rehearses_on_the_cpu(monkeypatch):
     here; ``torch.cuda.synchronize`` a no-op): the variants against their
     CPU versions, kernel B's plain version at the new shapes, the s = 2
     stack served and the light and dense variants refused, two protocols
-    at 2-fold and the CLI's three runs on a 4 x 6 dataset."""
+    at 2-fold and the CLI's TRAIN_RUNS on a 4 x 6 dataset."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -503,3 +507,76 @@ def test_train_phase_rehearses_on_the_cpu(monkeypatch):
     for name, _flags in chip_smoke.TRAIN_RUNS:
         assert out["train_cli"][name]["checkpoint"]["labels_equal"]
     assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}
+
+
+def test_training_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 18 end to end at a tiny size on the CPU (no kernel launches
+    here): the card-against-CPU steps (the CPU against itself), a short
+    ArcFace run through ``cnn_verification`` with its recorder, the
+    trained net served from a small gallery, the three detector and gate
+    recipes at a few steps, and ``ocvf-train-torch --model cnn`` and
+    ``--model auto`` in subprocesses, each checkpoint on two devices."""
+    import torch
+
+    from opencv_facerecognizer_tpu_torch.apps import measure_accuracy
+    from opencv_facerecognizer_tpu_torch.models.embedder import CNNEmbedding
+
+    data = (*chip_smoke.dataset_utils.make_synthetic_faces(6, 4, (32, 32), seed=11)[:2],
+            *chip_smoke.dataset_utils.make_synthetic_faces(4, 4, (32, 32), seed=77)[:2])
+    monkeypatch.setattr(measure_accuracy, "hard_protocol", lambda: data)
+    monkeypatch.setattr(measure_accuracy, "hard_embedder", lambda steps, device: CNNEmbedding(
+        embed_dim=16, input_size=(32, 32), stem_features=8, stage_features=(8, 16),
+        stage_blocks=(1, 1), train_steps=steps, batch_size=8, augment=True,
+        lr_schedule="cosine", tta=True, device=device))
+    small_serving = dict(chip_smoke.DET_SERVING_TRAIN, num_scenes=4, scene_size=(64, 64),
+                         face_size_range=(12, 20))
+    for name, value in (
+            ("ARC_BATCH", 8), ("DET_GRAD_BATCH", 2), ("FRAME", (64, 64)), ("ARC_STEPS", 12),
+            ("ARC_MIN_ACC", 0.0), ("ARC_ENROL", 2), ("ARC_RANK1_MIN", 0.0), ("FINETUNE_STEPS", 3),
+            ("GALLERY_ROWS", 512), ("DET_SMALL_TRAIN", dict(steps=3, batch_size=4)),
+            ("DET_BANDS", {}), ("GATE_TRAIN", dict(steps=3, batch_size=8)),
+            ("DET_SERVING_TRAIN", small_serving),
+            ("DET_SERVING_HELD", dict(small_serving, seed=9)), ("DET_SERVING_STEPS", 2),
+            ("DET_SERVING_RECALL_TOL", 1.0), ("VAR_FUSED_COS", 0.99),
+            ("ACC_SIZE", (32, 32)), ("YALEB_SUBJECTS", 3), ("YALEB_PER_SUBJECT", 4),
+            ("AUTO_SUBJECTS", 3), ("AUTO_PER_SUBJECT", 4), ("TRAIN_CHECK_QUERIES", 4),
+            ("TRAINING_CLI_RUNS", tuple((n, d, (*f, "--train-steps", "2", "--embed-dim", "16"))
+                                        for n, d, f in chip_smoke.TRAINING_CLI_RUNS))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "variant_net", lambda dev, seed, kw, dtype=torch.bfloat16:
+                        chip_smoke.embedder_mod.FaceEmbedNet(
+                            embed_dim=16, stem_features=8, stage_features=(8, 16),
+                            stage_blocks=(1, 1), input_size=(64, 64), dtype=dtype,
+                            generator=torch.Generator().manual_seed(seed + 1)).to(dev))
+    monkeypatch.setattr(chip_smoke, "DIM", 16)
+    rng = np.random.default_rng(0)
+    ctx = {"rows": rng.standard_normal((512, 16)).astype(np.float32),
+           "labels": np.arange(512, dtype=np.int32) + 100000}
+    monkeypatch.chdir(tmp_path)
+    out = chip_smoke.training_phase(torch.device("cpu"), 0, "cpu", ctx)
+    for what in ("arcface", "detector", "gate"):
+        assert out["steps_vs_cpu"][what]["max_grad_rel_err"] == 0.0
+    arc = out["arcface"]
+    assert arc["steps"] == 12 and 0.0 <= arc["accuracy"] <= 1.0
+    assert arc["loss_first"] is not None and arc["loss_last"] is not None
+    assert out["served"]["enrolled"] == 8 and out["served"]["queries"] == 8
+    assert out["served"]["finetune"]["serving_unchanged"] and out["served"]["finetune"]["copy_moved"]
+    assert set(out["recipes"]) == {"small", "gate", "serving", "launches"}
+    assert out["recipes"]["serving"]["jax_cpu_recall"] == 125 / 126
+    assert {"cnn", "auto"} == set(out["train_cli"])
+    assert out["train_cli"]["auto"]["selected"] in out["train_cli"]["auto"]["scores"]
+    for run in out["train_cli"].values():
+        assert run["rc"] == 0 and run["checkpoint"]["labels_equal"]
+        assert run["counts"]["fit"] >= 1
+    assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}
+
+
+def test_step_recorder_reports_the_losses_windows():
+    import torch
+
+    rec = chip_smoke.StepRecorder(torch.device("cpu"))
+    for i in range(250):
+        rec(i, torch.tensor(float(i)))
+    out = rec.report(250)
+    assert out["loss_first"] == 49.5 and out["loss_last"] == 199.5
+    assert "ms_per_step" not in out  # no card: no events

@@ -855,3 +855,16 @@ def test_detector_install_under_replays_never_mixes(cuda):
     assert {v for v, _o in outs} <= {1, 2}
     for version, out in outs:
         assert torch.equal(out, want[version]), version
+
+
+@pytest.mark.gpu
+def test_scalar_chain_ms_times_a_chain_on_the_card(cuda):
+    """``utils.benchtime.scalar_chain_ms`` on a 1024^2 matmul-sum:
+    resolved, positive and below 50 ms a call."""
+    from opencv_facerecognizer_tpu_torch.utils.benchtime import scalar_chain_ms
+
+    a = torch.randn(1024, 1024, device=cuda)
+    x = torch.randn(1024, 1024, device=cuda)
+    ms = scalar_chain_ms(lambda a, x: (a @ x).sum(), (a, x),
+                         k2_ladder=(34, 154), pairs=2)
+    assert ms is not None and 0.0 < ms < 50.0

@@ -51,6 +51,12 @@ ALLOWED = {
         "scores decide whether the full step runs at all; once per scored batch",
     ("models/embedder.py", "CNNEmbedding.get_state"):
         "the checkpoint writer: parameters to numpy",
+    ("models/embedder.py", "CNNEmbedding.compute"):
+        "training, never on the step: the trained ArcFace head to the host once, after the "
+        "last step",
+    ("models/detector.py", "_host"):
+        "evaluate_detector's offline matching loop on the host (the reference's): one "
+        "chunk's detections to numpy",
     ("runtime/ingest.py", "StagingRing._alloc"):
         "ring construction and outage heals: the numpy view of a pinned host tensor",
     ("runtime/ingest.py", "StagingRing._sweep_fenced_locked"):

@@ -46,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.models.cascade",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
                 *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES, *REPLICATION_MODULES,
-                *MULTI_GPU_MODULES, *CHAOS_MODULES, *CLASSIC_MODULES):
+                *MULTI_GPU_MODULES, *CHAOS_MODULES, *CLASSIC_MODULES, *TRAINING_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -400,3 +400,52 @@ def test_classic_entry_points_default_to_the_card_and_raise_without_one(tmp_path
         feature.Fisherfaces()
     with pytest.raises(RuntimeError, match="cuda"):
         train_app.main([str(tmp_path), str(tmp_path / "m.ckpt")])
+
+
+#: the training slice's modules: ArcFace, detector and gate training, the
+#: CNN half of the trainer, the accuracy protocol and the timing instrument
+TRAINING_MODULES = ("opencv_facerecognizer_tpu_torch.models._train",
+                    "opencv_facerecognizer_tpu_torch.models.embedder",
+                    "opencv_facerecognizer_tpu_torch.models.detector",
+                    "opencv_facerecognizer_tpu_torch.models.cascade",
+                    "opencv_facerecognizer_tpu_torch.runtime.trainer",
+                    "opencv_facerecognizer_tpu_torch.apps.train",
+                    "opencv_facerecognizer_tpu_torch.apps.measure_accuracy",
+                    "opencv_facerecognizer_tpu_torch.utils.benchtime",
+                    "opencv_facerecognizer_tpu_torch.utils.params")
+
+
+@pytest.mark.parametrize("mod", TRAINING_MODULES)
+def test_training_module_imports_only_the_port(mod):
+    """No JAX, flax or optax (the port's Adam and cosine decay are its
+    own), nothing of the JAX package."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    names = set(_imported_top_names(path))
+    assert not names & FORBIDDEN, names & FORBIDDEN
+    assert "opencv_facerecognizer_tpu." not in open(path).read()
+
+
+def test_training_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    import numpy as np
+
+    from opencv_facerecognizer_tpu_torch.apps import measure_accuracy
+    from opencv_facerecognizer_tpu_torch.models import cascade, detector, embedder
+    from opencv_facerecognizer_tpu_torch.utils import benchtime
+
+    for entry in (embedder.CNNEmbedding, detector.CNNFaceDetector, cascade.FaceGate,
+                  measure_accuracy.hard_embedder, measure_accuracy.cnn_verification):
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        benchtime.scalar_chain_ms(lambda x: x.sum(), (torch.ones(3),))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: embedder.CNNEmbedding(), lambda: detector.CNNFaceDetector(),
+                  lambda: cascade.FaceGate(), lambda: measure_accuracy.cnn_verification(3),
+                  lambda: measure_accuracy.main(["--steps", "3"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+    # the trainers run where their net lives: a CPU net trains on the CPU only
+    net = embedder.FaceEmbedNet(embed_dim=8, stem_features=4, stage_features=(4, 8),
+                                stage_blocks=(1, 1), input_size=(16, 16))
+    head = embedder.train_embedder(net, embedder.draw_head(2, 8, 0),
+                                   np.zeros((4, 16, 16), np.float32), [0, 1, 0, 1], steps=1)
+    assert head.device.type == "cpu"

@@ -237,14 +237,16 @@ def test_unported_plugins_are_refused_by_name(tmp_path):
 
 
 def test_training_and_other_embedder_variants_are_refused():
-    emb = port_embedder.CNNEmbedding(**dict(EMB, train_steps=5), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        emb.compute(np.zeros((2, 32, 32), np.float32), [0, 1])
-    for kw in (dict(block="dense"), dict(norm="light"), dict(space_to_depth=2)):
-        # the variants are ported (ROADMAP A.9): they build, and still refuse training
-        variant = port_embedder.CNNEmbedding(**dict(EMB, train_steps=5), **kw, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-            variant.compute(np.zeros((2, 32, 32), np.float32), [0, 1])
+    """Kept under its name from when training was refused: ``compute`` with ``train_steps > 0``
+    trains every variant (A.9, A.13), and its state is the reference's
+    layout; extracting before ``compute`` still raises."""
+    X = np.random.default_rng(2).standard_normal((4, 32, 32)).astype(np.float32)
+    for kw in ({}, dict(block="dense"), dict(norm="light"), dict(space_to_depth=2)):
+        emb = port_embedder.CNNEmbedding(**dict(EMB, train_steps=2), **kw, device="cpu")
+        before = emb.net.stem.weight.detach().clone()
+        assert emb.compute(X, [3, 3, 8, 8]).shape[0] == 4
+        assert not torch.equal(emb.net.stem.weight.detach(), before), kw
+        assert emb.get_state()["head"].shape == (2, EMB["embed_dim"])
     with pytest.raises(RuntimeError, match="before compute"):
         port_embedder.CNNEmbedding(**EMB, device="cpu").extract(np.zeros((32, 32)))
 

@@ -9,10 +9,11 @@ the JAX package's ``TheTrainer`` and ``ocvf-train``.
   ``tests/test_apps.py::test_train_app_classic`` run on the port (on the
   CPU), and the two CLIs print the same per-fold results on one dataset
   directory.
-- CNN training is refused, naming ROADMAP A.13: ``model="cnn"`` with
-  ``train_steps > 0``, ``finetune_embedder``, ``select_model`` over
-  ``"cnn"``, and the CLI's ``--model auto`` and ``--model cnn
-  --train-steps N``.
+- CNN training, once refused naming ROADMAP A.13, runs:
+  ``model="cnn"`` with ``train_steps > 0``, ``finetune_embedder``,
+  ``select_model`` over ``"cnn"``, and the CLI's ``--model auto`` and
+  ``--model cnn --train-steps N`` (held to the JAX package in
+  ``tests/test_torch_trainer_train.py``).
 """
 
 import os
@@ -34,6 +35,7 @@ from opencv_facerecognizer_tpu_torch.utils import dataset as port_dataset
 from opencv_facerecognizer_tpu_torch.utils import serialization
 from opencv_facerecognizer_tpu_torch.utils import validation as port_validation
 from opencv_facerecognizer_tpu_torch.utils.dataset import make_synthetic_faces
+from torch_train_support import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 
@@ -137,15 +139,18 @@ def test_trainer_lbp_fisherfaces_checkpoint(tmp_path):
 
 
 def test_trainer_cnn_gallery_handoff():
-    """The reference trains the CNN first; the port refuses that (A.13)
-    and hands a CNN with seeded weights (``train_steps=0``) to a gallery:
-    every enrolled row finds itself."""
+    """The twin of the reference's: the CNN trains (40 ArcFace steps),
+    then hands off to a gallery where every enrolled row finds itself;
+    a CNN with seeded weights (``train_steps=0``) hands off the same way."""
     X, y, names = make_synthetic_faces(4, 6, (32, 32), seed=47, noise=8.0)
     kw = dict(model="cnn", image_size=(32, 32), kfold=0, embed_dim=32,
               cnn_kwargs=dict(stem_features=8, stage_features=(8, 16), stage_blocks=(1, 1),
                               batch_size=16, learning_rate=3e-3))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        TheTrainer(**kw, train_steps=40, **CPU).train(X, y, names, validate=False)
+    trained = TheTrainer(**kw, train_steps=40, **CPU)
+    trained.train(X, y, names, validate=False)
+    emb = trained.model.feature.extract(X[:8]).numpy()
+    labels, _sims, _ = (np.asarray(v) for v in trained.build_gallery(X, y).match(emb, k=1))
+    assert (labels[:, 0] == y[:8]).all()
     trainer = TheTrainer(**kw, train_steps=0, **CPU)
     trainer.train(X, y, names, validate=False)
     gallery = trainer.build_gallery(X, y, store_dtype=torch.bfloat16)
@@ -203,16 +208,25 @@ def test_select_model_picks_measured_winner(tmp_path):
 
 
 def test_cnn_training_is_refused_naming_a13():
+    """Kept under its name from when training was refused: each case it refused now trains (the
+    parity with the JAX package is ``tests/test_torch_trainer_train.py``'s).
+    ``finetune_embedder`` without a trained CNN still raises, as the
+    reference's does."""
     X, y, names = make_synthetic_faces(3, 4, (32, 32), seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        select_model(X, y, names, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        TheTrainer(model="cnn", image_size=(32, 32), **CPU).train(X, y, names)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+    small = dict(image_size=(32, 32), embed_dim=16, train_steps=2)
+    winner, scores = select_model(X, y, names, kfold=2, **small, **CPU)
+    assert "cnn" in scores and winner.config.model == max(scores, key=scores.get)
+    trainer = TheTrainer(model="cnn", kfold=2, **small, **CPU)
+    trainer.train(X, y, names)
+    assert 0.0 <= trainer.mean_accuracy <= 1.0
+    assert isinstance(trainer.finetune_embedder(X, y, steps=2), CNNEmbedding)
+    with pytest.raises(RuntimeError, match="trained cnn model"):
         TheTrainer(**CPU).finetune_embedder(X, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        CNNEmbedding(input_size=(32, 32), embed_dim=16, stem_features=8,
-                     stage_features=(8, 16), stage_blocks=(1, 1), **CPU).compute(X, y)
+    emb = CNNEmbedding(input_size=(32, 32), embed_dim=16, stem_features=8,
+                       stage_features=(8, 16), stage_blocks=(1, 1), train_steps=2, **CPU)
+    before = emb.net.stem.weight.detach().clone()
+    assert emb.compute(X, y).shape == (len(y), 16)
+    assert not torch.equal(emb.net.stem.weight.detach(), before)
 
 
 # ---- the CLI ----
@@ -299,12 +313,25 @@ def test_train_app_rejects_bad_dataset(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--model", "auto"], ["--model", "cnn", "--train-steps", "5"],
-                                  ["--model", "cnn"]])
-def test_train_app_refuses_cnn_training_naming_a13(argv, tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_train_app.main([str(tmp_path), str(tmp_path / "m.ckpt"), *argv, "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "ROADMAP A.13" in capsys.readouterr().err
+                                  ["--model", "cnn", "--train-steps", "0"]])
+def test_train_app_refuses_cnn_training_naming_a13(argv, data_dir, tmp_path, capsys):
+    """Kept under its name from when training was refused: each run it refused now trains and
+    saves (the JAX package's CLI prints the same in
+    ``tests/test_torch_trainer_train.py``); ``--model auto`` still refuses
+    the flags that select one artifact, as the reference's does."""
+    root, names = data_dir
+    path = str(tmp_path / "m.ckpt")
+    small = ["--image-size", "32", "32", "--kfold", "2", "--embed-dim", "16"]
+    if "--train-steps" not in argv:
+        small += ["--train-steps", "2"]
+    assert port_train_app.main([root, path, *argv, *small, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert ("selected: " if "auto" in argv else "mean k-fold accuracy: ") in out
+    assert serialization.load_model(path, **CPU).subject_names == names
+    if "auto" in argv:
+        with pytest.raises(SystemExit) as exc:
+            port_train_app.main([root, path, *argv, "--keep-checkpoints", "1", "--device", "cpu"])
+        assert exc.value.code == 2
 
 
 def test_train_app_flags_are_the_references_plus_device():
