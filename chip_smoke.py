@@ -103,7 +103,7 @@ Phases (any failure exits nonzero before the result line):
    that batch as crashed drops): two restarts, one result per frame
    outside that batch, a ledger that closes, the planted faces found,
    both kernels launched after the restarts. Then the CLI with
-   ``--state-dir``: enrol and SIGKILL; a second writer refused while the
+   ``--state-dir`` (``--capacity`` CLI_STATE_CAPACITY): enrol and SIGKILL; a second writer refused while the
    first lives; a restart names the subject (WAL replay); SIGTERM exits
    0 with a clean report; a third start recovers that checkpoint with
    nothing to replay and names the subject. Its numbers are one ``{"durability": ...}`` line: checkpoint
@@ -117,17 +117,18 @@ Phases (any failure exits nonzero before the result line):
    calls), written to ``opencv_facerecognizer_tpu_torch/
    stage_quotes_h100.json`` with the card's name and power limit. Then the
    CLI (phase 7's checkpoints, ``--capacity 1048576 --match-mode exact
-   --fused-embedder --batch-size 32``) on ``--source socket`` in three
+   --fused-embedder --batch-size 32``) on ``--source socket`` in two
    subprocesses, fed 256x256 uint8 frames from ``--seed`` as pre-encoded
-   JSONL lines by a producer thread. (a0) untraced: R, answered frames/s
-   over an unpaced burst of 256 frames, then 600 interactive frames at
-   0.5 R. (a) the same with ``--trace-sample 1.0 --trace-jsonl
-   --flight-dir --expo-port 0 --slo --profile-dir --profile-batches 8``:
-   the span split (queue wait, dispatch, ready wait, publish, e2e; p50,
-   p99), ``/attribution``, ``/health`` and a lint of ``/prom`` (0
-   problems), and the profile must name kernels A, B and C. (An (a1) run,
-   spans in the rings only, the tracer's cost apart from its sink, was
-   cut for phase 18's time.) (b) 1000 deliveries at 3 R over four connections,
+   JSONL lines by a producer thread. (a) with ``--trace-sample 1.0
+   --trace-jsonl --flight-dir --expo-port 0 --slo --profile-dir
+   --profile-batches 8``: an unpaced burst of 256 frames (the profiled
+   batches), then R, answered frames/s over a second burst of 256, then
+   600 interactive frames at 0.5 R; the span split (queue wait, dispatch,
+   ready wait, publish, e2e; p50, p99), ``/attribution``, ``/health`` and
+   a lint of ``/prom`` (0 problems), and the profile must name kernels A,
+   B and C. (The untraced run (a0), whose R this was, and (a1), spans in
+   the rings only, were cut for phases 15 (d) and 18's time: the tracer's
+   cost is no longer measured.) (b) 1000 deliveries at 3 R over four connections,
    one interactive in four, every twentieth repeating an answered
    ``_fid``, with ``--max-inflight-frames 256 --brownout-queue-wait-ms 20
    --shed-stale-after-ms 250 --dead-letter-journal --journal-fsync
@@ -162,8 +163,9 @@ Phases (any failure exits nonzero before the result line):
    ``decode_error``, the ledger must close, and each JPEG frame's result
    must agree with a direct pipeline call on the same bytes decoded on the
    host (XCHECK_*, labels equal). One ``{"ingest": ...}`` line.
-12. (run after 11) rollout: phase 4's stack over the same 2^20 rows in a
-   bf16 gallery with a ``StateLifecycle`` (``build/rollout_smoke/``, a
+12. (run after 11) rollout: phase 4's stack over the last RO_ROWS (2^19)
+   of its rows, the planted faces among them (cut from all 2^20 for phase
+   15 (d)'s time), in a bf16 gallery with a ``StateLifecycle`` (``build/rollout_smoke/``, a
    first checkpoint), served through the pinned ring while a producer
    injects a batch every RO_TICK_S. A ``RolloutCoordinator`` to version 2:
    ``reembed_fn`` a seeded orthogonal rotation of the rows, ``new_embed_fn``
@@ -217,7 +219,8 @@ Phases (any failure exits nonzero before the result line):
    result equals a direct call of the version it names; no stage-2 graph
    captured (a same-architecture swap). (c) the CLI: ``--registry-swap
    cascade=2`` offline in-process, then ``--source socket`` with ``--cascade
-   PATH --cascade-version 2 --state-dir`` in a subprocess: every frame
+   PATH --cascade-version 2 --state-dir --capacity`` CLI_STATE_CAPACITY in
+   a subprocess: every frame
    answered, the rejects as predicted, the ledger closed, nothing captured
    after warmup. Numbers: stage-1 ms per rung (events around the graph's
    replays, and the device time of its kernels in a graph of back-to-back
@@ -259,7 +262,8 @@ Phases (any failure exits nonzero before the result line):
    (``python -m ...apps.verify_checkpoint``) on (a)'s dir: rc 0, and rc 2
    on a copy (taken before the compaction) with one base64 byte of an
    acknowledged record flipped. (b) the CLI (phase 7's checkpoints, phase
-   10's configuration) as a writer and a reader on one ``--state-dir``,
+   10's configuration at ``--capacity`` CLI_STATE_CAPACITY) as a writer
+   and a reader on one ``--state-dir``,
    each on a socket with fixed ports (the reader starts once the writer's
    first checkpoint is on disk), and a router CLI in front of both with
    ``--router-health`` on their ``/health``, ``--router-link-deadline-s``
@@ -304,7 +308,22 @@ Phases (any failure exits nonzero before the result line):
    ``recognize_stream``, each once and in order; host-clock ms a batch back
    to back beside the single-device step's, in turns. (c) a
    ``RecognizerService`` over it: every frame one result, an enrolment
-   lands live and names its subject. (d) the CLI's ``--parallel pp``
+   lands live and names its subject. (d) the fused step over a mesh
+   (ROADMAP A.11.1): ``RecognitionPipeline`` over a gallery of the rows on
+   ``make_mesh`` (dp, tp) = MG_FUSED_MESHES ((1, 2) and (2, 2)), the
+   serving detector and the unfused serving embedder in bf16 (a mesh
+   refuses the fused one), each step key one CUDA graph (the dp rows fork
+   onto their slots' streams inside it, and the shards' kernel A launches
+   with them): the first batch equal bit for bit to the eager mesh step and
+   to the single-device graphed unfused step run on each dp row's frames
+   (each row's convolutions see the batch they see there); launches a batch
+   exactly dp x tp of A, dp of C and none of B; host-clock ms a batch with a
+   readback each and back to back, mesh and single device in turns; device
+   ms under ``torch.profiler``; then a ``RecognizerService`` with
+   ``--bucket-sizes`` MG_FUSED_LADDER (each rung captured at warmup, its
+   capture ms recorded) serves 4 batches, every frame answered once (the
+   first batch's planted faces recorded), and a lone frame goes out at the
+   first rung dp divides (8 on dp 2: C.24). (e) the CLI's ``--parallel pp``
    refusals on this host (one card: the device count, and the three flags
    that are single-mesh only), each before any checkpoint loads. One
    ``{"multi_gpu": ...}`` line with the run's total seconds to its end.
@@ -399,10 +418,12 @@ Phases (any failure exits nonzero before the result line):
 
 The line before the last is the per-kernel JSON (kernels A, B and C, their
 launches those of phase 4's serving run, of the reader alone in phase
-14 (a), of the two-stage pipeline in phase 15 (b) and (c), of the
+14 (a), of the two-stage pipeline in phase 15 (b) and (c) and the fused
+mesh step's services in (d), of the
 chaos soak in phase 16, of the s = 2 embedder's serving in phase 17
 (a), and of the trained nets in phase 18 (c) and (d)); the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Before the per-kernel JSON,
+``{"phase_s": ...}`` holds each phase's seconds.
 """
 
 from __future__ import annotations
@@ -566,6 +587,10 @@ CLI_SUBJECTS = 4
 CLI_IMAGES = 2
 CLI_FRAMES = 2 * BATCH
 CLI_CAPACITY = 1 << 20
+#: the gallery capacity of the CLIs that keep a state dir in phases 8 and
+#: 14 (b): each start, SIGTERM and resync writes or reads a checkpoint of
+#: it (1 GiB at CLI_CAPACITY; cut for phase 15 (d)'s time)
+CLI_STATE_CAPACITY = 1 << 18
 CLI_JSONL_FRAMES = 8
 CLI_ENROL_COUNT = 2
 CLI_NEW_NAME = "enrolled_subject"
@@ -606,11 +631,13 @@ ING_PROFILE_BATCHES = 4
 ING_FLUSH_S = 1.0
 ING_JPEG_QUALITY = 85
 ING_CORRUPT_EVERY = 50
-#: phase 12: rows per stage chunk (64 MiB of f32 rows, 16 chunks at 2^20),
+#: phase 12: rows per stage chunk (64 MiB of f32 rows, 8 chunks at RO_ROWS),
+#: the rows rolled out,
 #: chunks staged before the scripted stage crash, the parity window's
 #: sample floor, the producer's tick (one batch each) and the batches
 #: awaited after the cutover
 RO_CHUNK_ROWS = 1 << 16
+RO_ROWS = 1 << 19
 RO_CRASH_AFTER_CHUNKS = 5
 RO_PARITY_SAMPLES = 64
 RO_TICK_S = 0.05
@@ -1087,6 +1114,22 @@ def back_to_back_ms(pipeline, batch, iters: int = 20) -> float:
         pipeline.recognize_batch_packed(batch)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def host_call_ms(pipeline, frames, iters: int = 20) -> float:
+    """Median host-clock ms of the serving call alone (its replays and
+    copies queued; ``frames`` already on the card), the queue drained
+    before each call: the host's cost of a step."""
+    for _ in range(3):
+        pipeline.recognize_batch_packed(frames)
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.recognize_batch_packed(frames)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def _profiled(fn, steps: int):
@@ -2106,7 +2149,8 @@ class CliProcess:
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "opencv_facerecognizer_tpu_torch.apps.recognize",
-             *cli_args(paths, "jsonl", dev), "--state-dir", state_dir, "--flush-ms", "5"],
+             *cli_args(paths, "jsonl", dev), "--state-dir", state_dir, "--flush-ms", "5",
+             "--capacity", str(CLI_STATE_CAPACITY)],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env)
         self.out, self.err = [], []
@@ -2641,11 +2685,13 @@ def _close_ledger(tag: str, ledger: dict) -> None:
         raise AssertionError(f"{tag}: the ledger does not close: {ledger}")
 
 
-def _burst_rate(cli: SocketCli, lines: list, fids: list, timeout: float = 120) -> float:
-    """Answered frames a second over an unpaced burst of ``lines``."""
+def _burst_rate(cli: SocketCli, lines: list, fids: list, timeout: float = 120,
+                before: int = 0) -> float:
+    """Answered frames a second over an unpaced burst of ``lines``, sent
+    after ``before`` frames were answered."""
     t0 = time.perf_counter()
     paced(cli, lines, 0)
-    wait_for(lambda: cli.n_answered() >= len(lines), timeout, "the burst's answers")
+    wait_for(lambda: cli.n_answered() >= before + len(lines), timeout, "the burst's answers")
     with cli._lock:
         last = max(cli.answered[f] for f in fids)
     return len(lines) / (last - t0)
@@ -2656,7 +2702,9 @@ def steady_run(dev, paths: dict, root: str, tag: str, b64: list, rate_hint: floa
     """Phase 10 (a): a burst of OVL_BURST frames (R), then OVL_STEADY
     interactive frames at OVL_STEADY_SHARE x R (of ``rate_hint`` when
     given), with the exposition and the SLO monitor; spans at ``sample``,
-    streamed to a JSONL, and the profile when ``profile``."""
+    streamed to a JSONL, and the profile when ``profile``. The profile
+    covers the first burst, whose R its start and export stall: R then
+    comes from a second burst after the trace is written."""
     spans_path = os.path.join(root, f"{tag}_spans.jsonl")
     args = ["--trace-sample", str(sample), "--flight-dir", os.path.join(root, f"{tag}_flight"),
             "--expo-port", "0", "--slo", "--trace-jsonl", spans_path]
@@ -2668,12 +2716,16 @@ def steady_run(dev, paths: dict, root: str, tag: str, b64: list, rate_hint: floa
         burst = [_frame_line(b64[i % len(b64)], {"_fid": i}, "interactive")
                  for i in range(OVL_BURST)]
         rate = _burst_rate(cli, burst, list(range(OVL_BURST)))
+        n0 = OVL_BURST
         if profile:
             # the profile covers the burst's first batches; its start and
             # its export stall the process, so the steady run waits for it
             cli.stderr_value("profile trace written to ", 300)
+            again = [_frame_line(b64[i % len(b64)], {"_fid": n0 + i}, "interactive")
+                     for i in range(OVL_BURST)]
+            rate = _burst_rate(cli, again, list(range(n0, n0 + OVL_BURST)), before=n0)
+            n0 += OVL_BURST
         steady_rate = OVL_STEADY_SHARE * (rate_hint or rate)
-        n0 = OVL_BURST
         steady = [_frame_line(b64[i % len(b64)], {"_fid": n0 + i}, "interactive")
                   for i in range(OVL_STEADY)]
         t_send = paced(cli, steady, steady_rate)
@@ -2855,19 +2907,16 @@ def overload_phase(dev, seed: int, card: str, ctx: dict) -> dict:
         stack = build_stack(dev, seed, ShardedGallery(CLI_CAPACITY, DIM,
                                                       store_dtype=torch.bfloat16, device=dev))
     quotes = stage_quotes(dev, card, stack, frames)
-    # R from the untraced run: the profiler's start stalls the traced one
-    a0 = steady_run(dev, paths, root, "a0", b64, 0.0, sample=0.0)
-    rate = a0["rate_fps"]
-    log(f"overload (a) with --trace-sample 0 ({card}): R {rate:.1f} frames/s; {a0}")
-    a = steady_run(dev, paths, root, "a", b64, rate, sample=1.0, profile=True)
-    log(f"overload (a) steady ({card}): {OVL_STEADY} interactive frames at "
+    a = steady_run(dev, paths, root, "a", b64, 0.0, sample=1.0, profile=True)
+    rate = a["rate_fps"]
+    log(f"overload (a) ({card}): R {rate:.1f} frames/s with every span on; "
+        f"{OVL_STEADY} interactive frames at "
         f"{a['steady_fps']:.1f}/s; span split ms {json.dumps(a['split'])}; busy "
         f"{a['busy_steady']:.4f}; /attribution {a['attribution']}; /health {a['health']} "
         f"({a['health_http']}); /prom problems {a['prom_problems']}; profile names kernels "
         f"{a['profile_names_kernels']}; serving {a['serving']}")
-    log(f"overload (a) tracer cost ({card}): p50 ms (metrics windows, burst and steady) "
-        f"untraced {a0['summary_p50_ms']}, rings and JSONL (profiled burst) "
-        f"{a['summary_p50_ms']}")
+    log(f"overload (a) p50 ms (metrics windows, bursts and steady; spans in the rings "
+        f"and the JSONL) ({card}): {a['summary_p50_ms']}")
     b = overload_run(dev, paths, root, b64, rate)
     log(f"overload (b) ({card}): {b['deliveries']} deliveries at {b['rate_fps']:.1f}/s in "
         f"{b['send_s']:.3f} s; ledger {b['ledger']}; rejected {b['rejected']}; deduped "
@@ -2875,7 +2924,7 @@ def overload_phase(dev, seed: int, card: str, ctx: dict) -> dict:
         f"transitions (s, from, to, ewma ms) {b['brownout_transitions']}, back to 0 "
         f"{b['brownout_back_to_0_s']:.3f} s after the burst; e2e by priority "
         f"{json.dumps(b['e2e_by_priority'])}; serving {b['serving']}")
-    return dict(card=card, rate_fps=rate, quotes=quotes, steady=a, untraced=a0, overload=b,
+    return dict(card=card, rate_fps=rate, quotes=quotes, steady=a, overload=b,
                 phase_s=time.perf_counter() - t_phase)
 
 
@@ -3239,8 +3288,9 @@ def rollout_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     stack, frames = ctx["stack"], ctx["frames"]
-    rows, labels, n_plant = ctx["rows"], ctx["labels"], ctx["n_plant"]
-    gallery = ShardedGallery(GALLERY_ROWS, DIM, store_dtype=torch.bfloat16, device=dev)
+    # the last RO_ROWS of phase 4's rows: the planted faces among them
+    rows, labels, n_plant = ctx["rows"][-RO_ROWS:], ctx["labels"][-RO_ROWS:], ctx["n_plant"]
+    gallery = ShardedGallery(RO_ROWS, DIM, store_dtype=torch.bfloat16, device=dev)
     gallery.add(rows, labels)
     pipeline = RecognitionPipeline(stack.detector, stack.embed_net, gallery,
                                    face_size=embedder_mod.SERVING_FACE_SIZE,
@@ -3328,7 +3378,7 @@ def rollout_phase(dev, seed: int, card: str, ctx: dict) -> dict:
         staged, staged_labels = co.stage.arrays()
         host = gallery.snapshot_rows(0, None)[0]
         want = np.concatenate([_l2norm(host[s:s + RO_CHUNK_ROWS] @ rot)
-                               for s in range(0, GALLERY_ROWS, RO_CHUNK_ROWS)])
+                               for s in range(0, RO_ROWS, RO_CHUNK_ROWS)])
         del host
         if not (np.array_equal(staged, want) and np.array_equal(staged_labels, labels)):
             raise AssertionError("rollout: the resumed stage differs from an uncrashed one")
@@ -3397,7 +3447,7 @@ def rollout_phase(dev, seed: int, card: str, ctx: dict) -> dict:
         raise AssertionError(f"rollout: steps built after warmup {built} (cutover at "
                              f"{t_cutover}); recaptures {n_re}")
     # the planted faces in the new space, through kernel A on both galleries
-    planted = _l2norm(rows[GALLERY_ROWS - n_plant:] @ rot)
+    planted = _l2norm(rows[RO_ROWS - n_plant:] @ rot)
     q = torch.from_numpy(planted).to(dev)
     streaming_match_topk.launches = 0
     la, sa, ia = gallery.match(q, k=1)
@@ -3415,7 +3465,7 @@ def rollout_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     during = [(by_tick[k] - sent[k]) * 1e3 for k in by_tick
               if k in sent and t_stage0 <= sent[k] <= t_stage1]
     after = [(by_tick[k] - sent[k]) * 1e3 for k in by_tick if k in sent and sent[k] >= t_cut]
-    out = dict(card=card, rows=GALLERY_ROWS, chunk_rows=RO_CHUNK_ROWS,
+    out = dict(card=card, rows=RO_ROWS, chunk_rows=RO_CHUNK_ROWS,
                stage_s=stage_s, stage_bytes=stage_bytes, resumed_at=watermark,
                first_checkpoint_s=first_ckpt_s, parity=parity,
                cutover_s=cutover_s, fence_s=sum(fence.seconds),
@@ -3893,7 +3943,8 @@ def registry_cli(dev, paths: dict, root: str, gate, thr: float, frames, keep) ->
     if ModelRegistry(root, readonly=True).version("cascade") != 2:
         raise AssertionError("registry: the offline swap did not install cascade v2")
     metrics_path = os.path.join(root, "cli_metrics.jsonl")
-    cli = SocketCli(paths, dev, ["--state-dir", root, "--cascade", gate_path,
+    cli = SocketCli(paths, dev, ["--state-dir", root, "--capacity", str(CLI_STATE_CAPACITY),
+                                 "--cascade", gate_path,
                                  "--cascade-version", "2", "--ingest-mode", "uint8",
                                  "--bucket-sizes", *map(str, CASC_LADDER)], metrics_path)
     try:
@@ -4521,7 +4572,8 @@ def replication_cli(dev, ctx: dict, root: str, card: str) -> dict:
     def replica_cli(name, extra):
         port, expo = ports[name]
         return SocketCli(paths, dev, ["--state-dir", state_dir, "--port", str(port),
-                                      "--expo-port", str(expo), "--flush-ms", "5", *extra],
+                                      "--expo-port", str(expo), "--flush-ms", "5",
+                                      "--capacity", str(CLI_STATE_CAPACITY), *extra],
                          os.path.join(root, f"{name}_{time.perf_counter_ns()}.jsonl"))
 
     # the reader starts once the writer's first checkpoint is on disk (else
@@ -4808,6 +4860,10 @@ MG_TIME_BATCHES = 20
 #: phase 15 (a): the sparse layout's valid rows (all in shard 0, fewer
 #: than k in the others)
 MG_SPARSE_ROWS = 3
+#: phase 15 (d): the fused step's (dp, tp) meshes over slots of the card,
+#: and its service's ladder (``--bucket-sizes``)
+MG_FUSED_MESHES = ((1, 2), (2, 2))
+MG_FUSED_LADDER = (1, 8, 32)
 
 
 
@@ -4949,6 +5005,151 @@ def pp_stack(dev, seed: int, rows, labels, devices: list):
     return pp, ref
 
 
+def fused_mesh_service(pipe, frames: np.ndarray, n_plant: int) -> dict:
+    """Phase 15 (d)'s service: 4 batches through ``pipe`` (the ladder
+    MG_FUSED_LADDER, each rung a graph captured at warmup), every frame
+    answered once (the first batch's planted faces recorded), then a lone
+    frame, which must be dispatched at the ladder's first rung that the
+    mesh's dp divides (C.24). The kernels' launches counted over the run;
+    ``capture_ms`` holds every rung's capture (the top rung's came before,
+    at the first batch)."""
+    conn = FakeConnector()
+    service = RecognizerService(pipe, conn, batch_size=BATCH, frame_shape=FRAME,
+                                transfer_dtype=np.uint8, flush_timeout=0.05,
+                                bucket_sizes=MG_FUSED_LADDER)
+    dp = pipe.mesh.shape["dp"]
+    rung = min(b for b in MG_FUSED_LADDER if b % dp == 0)
+    if service._bucket_ladder != sorted({b for b in MG_FUSED_LADDER
+                                         if b < BATCH and b % dp == 0} | {BATCH}):
+        raise AssertionError(f"multi_gpu (d): ladder {service._bucket_ladder} over dp {dp}")
+    calls = _wrap_calls(pipe, "recognize_batch_packed")
+    service.start(warmup=True)
+    warm = len(calls)
+    zero_counters()
+    t0 = time.perf_counter()
+    try:
+        for i, frame in enumerate(frames):
+            conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i}})
+        if not service.drain(timeout=120.0):
+            raise AssertionError("multi_gpu (d): service did not drain")
+        served = len(calls)
+        conn.inject(FRAME_TOPIC, {**encode_frame(frames[0]), "meta": {"i": len(frames)}})
+        if not service.drain(timeout=60.0):
+            raise AssertionError("multi_gpu (d): service did not drain the lone frame")
+    finally:
+        service.stop()
+        del pipe.recognize_batch_packed
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    results = conn.messages(RESULT_TOPIC)
+    if sorted(r["meta"]["i"] for r in results) != list(range(len(frames) + 1)):
+        raise AssertionError("multi_gpu (d): not one result per frame")
+    lone = [len(c[2]) for c in calls[served:]]
+    if lone != [rung]:
+        raise AssertionError(f"multi_gpu (d): the lone frame went out in batches {lone}, "
+                             f"want one at rung {rung}")
+    steps = int(service.metrics.counter(BATCHES_DISPATCHED))
+    want = {"streaming_match": steps * pipe.mesh.size, "nms": steps * dp, "sepblock": 0}
+    if pipe.device.type == "cuda" and launches != want:  # the CPU launches no kernel
+        raise AssertionError(f"multi_gpu (d): service launches {launches} in {steps} steps, "
+                             f"want {want}")
+    first = [f for r in results if r["meta"]["i"] < BATCH for f in r["faces"]]
+    planted = [f["similarity"] for f in first if f["label"] < n_plant]
+    return dict(frames=len(frames) + 1, steps=steps, warmup_batches=warm,
+                lone_frame_rung=rung, first_batch_faces=len(first), planted_found=len(planted),
+                n_plant=n_plant, min_planted_sim=min(planted, default=None),
+                launches=launches, capture_ms={str(k[0]): v for k, v in pipe.capture_ms.items()},
+                seconds=serve_s)
+
+
+def fused_mesh_check(dev, seed: int, ctx: dict, devices: list) -> dict:
+    """Phase 15 (d) (module docstring): ``RecognitionPipeline`` over
+    MG_FUSED_MESHES of the first slots of ``devices``, the unfused serving
+    stack over phase 4's rows in bf16, against the single-device graphed
+    unfused step."""
+    from opencv_facerecognizer_tpu_torch.parallel import ShardedGallery as Gallery
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    rows, labels, frames = ctx["rows"], ctx["labels"], ctx["frames"]
+    batch = frames[:BATCH]
+    single = build_stack(dev, seed, bf16_gallery(dev, rows, labels), fused=False)
+    out = {"meshes": {}, "launches": dict.fromkeys(("streaming_match", "sepblock", "nms"), 0)}
+    for dp, tp in MG_FUSED_MESHES:
+        t = time.perf_counter()
+        gal = Gallery(len(rows), DIM, store_dtype=torch.bfloat16,
+                      mesh=make_mesh(dp=dp, tp=tp, devices=devices[:dp * tp]))
+        gal.add(rows, labels)
+        pipe = build_stack(dev, seed, gal, fused=False)
+        eager = build_stack(dev, seed, gal, fused=False, cuda_graphs=False)
+        if not gal.kernel_enabled():
+            raise AssertionError(f"multi_gpu (d) mesh ({dp}, {tp}): shards take no kernel A")
+        got = pipe.recognize_batch_packed(batch).clone()
+        want = eager.recognize_batch_packed(batch)
+        per = BATCH // dp
+        by_row = torch.cat([single.recognize_batch_packed(batch[r * per:(r + 1) * per]).clone()
+                            for r in range(dp)])
+        diff = {"vs_eager": float((got - want).abs().max().item()),
+                "vs_single_by_row": float((got - by_row).abs().max().item())}
+        if not torch.equal(got, want):
+            raise AssertionError(f"multi_gpu (d) mesh ({dp}, {tp}): the graphed step differs "
+                                 f"from the eager mesh step: {diff}")
+        if not torch.equal(got, by_row):
+            raise AssertionError(f"multi_gpu (d) mesh ({dp}, {tp}): the graphed step differs "
+                                 f"from the single-device graphed step on each dp row: {diff}")
+        if not (got[..., 5] > 0.5).any():
+            raise AssertionError(f"multi_gpu (d) mesh ({dp}, {tp}): no face in the first batch")
+        zero_counters()
+        pipe.recognize_batch_packed(batch).cpu()
+        per_batch = read_launches()
+        if dev.type == "cuda" and per_batch != {"streaming_match": dp * tp, "sepblock": 0,
+                                               "nms": dp}:
+            raise AssertionError(f"multi_gpu (d) mesh ({dp}, {tp}): launches a batch "
+                                 f"{per_batch}, want A {dp * tp}, C {dp}, B 0")
+        first_capture = next(iter(pipe.capture_ms.values()), None)
+        # every step dropped (a tier evicted): the next capture takes fresh
+        # pools (C.25) and gives the same bytes
+        pipe.evict_below(gal.capacity + 1)
+        if pipe._step_cache or not torch.equal(pipe.recognize_batch_packed(batch), got) \
+                or pipe.captures != (2 if pipe.cuda_graphs else 0):
+            raise AssertionError(f"multi_gpu (d) mesh ({dp}, {tp}): the step captured again "
+                                 "after every step was evicted differs")
+        rec = dict(bit_equal_eager=True, bit_equal_single_by_row=True, max_abs_diff=diff,
+                   launches_per_batch=per_batch, first_capture_ms=first_capture,
+                   recapture_after_evict_equal=True, readback_ms=[], back_to_back_ms=[],
+                   host_call_ms=[])
+        dev_batch = torch.from_numpy(batch).to(dev)
+        for _ in range(2):  # mesh and single device in turns
+            rec["readback_ms"] += [step_time_ms(pipe, batch), step_time_ms(single, batch)]
+            rec["back_to_back_ms"] += [back_to_back_ms(pipe, batch),
+                                       back_to_back_ms(single, batch)]
+            if dev.type == "cuda":
+                rec["host_call_ms"] += [host_call_ms(pipe, dev_batch),
+                                        host_call_ms(single, dev_batch)]
+        if dev.type == "cuda":
+            rec["profile"] = profile_step(pipe, batch, what=f"mesh ({dp}, {tp})")
+        drop_stack(eager)
+        rec["service"] = fused_mesh_service(pipe, frames, ctx["n_plant"])
+        for k, v in rec["service"]["launches"].items():
+            out["launches"][k] += v
+        drop_stack(pipe)
+        del gal, pipe, eager
+        rec["seconds"] = time.perf_counter() - t
+        out["meshes"][f"{dp}x{tp}"] = rec
+        log(f"multi_gpu (d) the fused step over mesh dp={dp} tp={tp} (slots of the card, "
+            f"unfused, bf16, 2^20 rows): graphed = eager = the single-device graphed step on "
+            f"each dp row's frames, bit for bit, and again after every step was evicted; "
+            f"launches a batch {per_batch}; host-clock ms a batch with a readback (mesh, "
+            f"single, mesh, single) {rec['readback_ms']}, back to back "
+            f"{rec['back_to_back_ms']}, the call alone {rec['host_call_ms']}; "
+            f"service {rec['service']}")
+    out["single_device_profile"] = (profile_step(single, batch, what="single-device unfused")
+                                    if dev.type == "cuda" else None)
+    drop_stack(single)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     """Phase 15 (module docstring) over MG_SLOTS slots of ``dev``; returns
     the ``{"multi_gpu": ...}`` numbers, the pp path's kernel launches
@@ -5069,7 +5270,12 @@ def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
         f"launches {service_launches}; an enrolment landed in {enrol_s:.3f} s and named "
         f"{named} of {len(after)} frames after it")
 
-    # (d) the CLI on one card
+    # (d) the fused step over a mesh
+    t = time.perf_counter()
+    out["fused_mesh"] = fused_mesh_check(dev, seed, ctx, devices)
+    out["fused_mesh_s"] = time.perf_counter() - t
+
+    # (e) the CLI on one card
     missing = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "no_such_ckpt")
     base = ["--model", missing, "--detector", missing, "--gallery", missing,
             "--source", "dir", "--dir", missing, "--parallel", "pp",
@@ -5087,14 +5293,16 @@ def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
             recognize_app.main(base + extra)
         except SystemExit as exc:
             if text not in str(exc):
-                raise AssertionError(f"multi_gpu (d) {case}: refused with {exc}")
+                raise AssertionError(f"multi_gpu (e) {case}: refused with {exc}")
             refusals[case] = str(exc)
         else:
-            raise AssertionError(f"multi_gpu (d) {case}: --parallel pp was not refused")
+            raise AssertionError(f"multi_gpu (e) {case}: --parallel pp was not refused")
     out["cli_refusals"] = refusals
-    log(f"multi_gpu (d) the CLI on {n_dev} card(s): --parallel pp refused as the reference "
+    log(f"multi_gpu (e) the CLI on {n_dev} card(s): --parallel pp refused as the reference "
         f"refuses: {json.dumps(refusals)}")
     out["pp_launches"] = {k: stream_launches[k] + service_launches[k] for k in stream_launches}
+    out["mesh_launches"] = {k: out["pp_launches"][k] + out["fused_mesh"]["launches"][k]
+                            for k in stream_launches}
     drop_stack(ref)
     for hooks, fn in ((pp.gallery.prewarm_hooks, pp.prewarm_capacity),
                       (pp.gallery.evict_hooks, pp.evict_below)):
@@ -6115,31 +6323,54 @@ def main() -> int:
     for name in _build.KERNELS:
         log_ptxas(name)
     gen = torch.Generator().manual_seed(args.seed)
+    #: each phase's seconds (host clock, from the previous phase's end)
+    phase_s = {"build": time.perf_counter() - t0}
+    marks = [time.perf_counter()]
+
+    def done(name):
+        marks.append(time.perf_counter())
+        phase_s[name] = marks[-1] - marks[-2]
+
     entries = [check_match(dev, gen), check_sepblock(dev, gen), check_nms(dev, gen)]
+    done("1-3 kernels")
     launches, ctx = serve(dev, args.seed, args.frames)
+    done("4-5 serve")
     grow = async_grow_phase(dev, args.seed, card, ctx)
+    done("9 async_grow")
     ivf = ivf_phase(dev, args.seed, ctx)
+    done("6 ivf")
     cli = cli_phase(dev, args.seed, card, ctx)
+    done("7 cli")
     durability = durability_phase(dev, args.seed, card, ctx)
+    done("8 durability")
     overload = overload_phase(dev, args.seed, card, ctx)
+    done("10 overload")
     ingest = ingest_phase(dev, args.seed, card, ctx)
+    done("11 ingest")
     rollout = rollout_phase(dev, args.seed, card, ctx)
+    done("12 rollout")
     cascade = cascade_phase(dev, args.seed, card, ctx)
+    done("13 cascade")
     replication = replication_phase(dev, args.seed, card, ctx)
+    done("14 replication")
     replication_end_s = time.perf_counter() - t_run
     multi_gpu = multi_gpu_phase(dev, args.seed, card, ctx)
+    done("15 multi_gpu")
     multi_gpu_end_s = time.perf_counter() - t_run
     chaos = chaos_phase(dev, args.seed, card, ctx)
+    done("16 chaos")
     chaos_end_s = time.perf_counter() - t_run
     train = train_phase(dev, args.seed, card, ctx)
+    done("17 train")
     train_end_s = time.perf_counter() - t_run
     training = training_phase(dev, args.seed, card, ctx)
+    done("18 training")
     for e in entries:
         # the main path's launches: the serving run's, the replicas', the
-        # two-stage pipeline's, the chaos soak's, the s = 2 embedder's and
+        # two-stage pipeline's and the fused mesh step's services', the chaos soak's, the s = 2 embedder's and
         # the trained nets' (phase 18 (c), (d))
         e["launches"] = (launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
-                         + multi_gpu["pp_launches"][e["name"]] + chaos["launches"][e["name"]]
+                         + multi_gpu["mesh_launches"][e["name"]] + chaos["launches"][e["name"]]
                          + train["launches"][e["name"]] + training["launches"][e["name"]])
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
     print(json.dumps({"async_grow": grow}))
@@ -6161,6 +6392,7 @@ def main() -> int:
     training["total_s"] = time.perf_counter() - t_run
     log(f"chip_smoke: total {training['total_s']:.1f} s")
     print(json.dumps({"training": training}))
+    print(json.dumps({"phase_s": {"card": card, **phase_s, "total": training["total_s"]}}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

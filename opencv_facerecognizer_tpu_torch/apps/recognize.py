@@ -75,15 +75,23 @@ model: rendezvous per topic, ``--router-health`` failover,
 ``--router-link-deadline-s`` pings, ``--router-hedge-deadline-s`` hedges,
 ``--router-dedup-window``; ``/replicas`` on ``--expo-port``.
 
-Pipeline parallelism: ``--parallel pp`` detects and aligns on one half
-of the cards and embeds and matches on the other, the gallery sharded
-over the second half's tp axis (``parallel.pp``): 8 or more cards (a
-multiple of 4) give dp x tp = (n / 2) x 2, fewer tp 1. It needs an even
-card count >= 2, and refuses ``--fused-embedder``, ``--match-mode ivf``
-and ``--cascade`` (each single-mesh only), before any checkpoint loads,
-with the reference's messages. ``--parallel fused`` serves on
-``--device`` alone (a fused step over a multi-card mesh is ROADMAP
-A.11.1).
+Meshes: ``--parallel fused`` (the default) with ``--device cuda`` lays
+the reference's ``make_mesh()`` over every card, dp 1 and tp n: each
+step detects, aligns and embeds its frames on the first card (dp 1: one
+row) and matches them against the gallery sharded over all n (kernel A
+on each card's shard, the candidates merged on the first), each step key
+captured as CUDA graphs, one per card and level (``parallel.pipeline``). On one card, or
+with ``--device cuda:N``, it serves on that card alone. On a mesh it
+refuses ``--match-mode ivf`` (the reference's text; ``auto`` attaches no
+quantizer there) and ``--fused-embedder`` (the reference's
+``ValueError``); ``--cascade`` runs stage 1 on the first card. Pipeline
+parallelism: ``--parallel pp`` detects and aligns on one half of the
+cards and embeds and matches on the other, the gallery sharded over the
+second half's tp axis (``parallel.pp``): 8 or more cards (a multiple of
+4) give dp x tp = (n / 2) x 2, fewer tp 1. It needs an even card count
+>= 2, and refuses ``--fused-embedder``, ``--match-mode ivf`` and
+``--cascade`` (each single-mesh only), before any checkpoint loads, with
+the reference's messages.
 
 The command line is the reference's, so any reference command line
 parses, and every flag of it is served. ``--device`` (default ``cuda``) is
@@ -127,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="batches dispatched before the --profile-dir trace stops")
     add("--frame-size", type=int, nargs=2, default=(256, 256), metavar=("H", "W"))
     add("--parallel", choices=["fused", "pp"], default="fused",
-        help="fused: the whole step on one card; pp: two-stage pipeline parallelism, "
+        help="fused: the whole step, the gallery sharded over every card (--device cuda) "
+             "or on one (--device cuda:N); pp: two-stage pipeline parallelism, "
              "detector on one half of the cards, embedder + sharded gallery on the "
              "other (an even card count >= 2)")
     add("--fused-embedder", action="store_true",
@@ -315,9 +324,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _pp_devices(device: torch.device) -> list:
-    """The devices ``--parallel pp`` lays its mesh over: every card, or the
-    one CPU for ``--device cpu``."""
+def _mesh_devices(device: torch.device) -> list:
+    """The devices a mesh is laid over (``--parallel pp``, and ``--parallel
+    fused`` unless ``--device`` names one card): every card, or the one CPU
+    for ``--device cpu``."""
     if device.type == "cpu":
         return [device]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -348,7 +358,7 @@ def _pp_meshes(args, device: torch.device):
     if args.cascade:
         raise SystemExit("--cascade applies to --parallel fused only (the "
                          "pipeline-parallel path carries no stage-1 gate)")
-    devices = _pp_devices(device)
+    devices = _mesh_devices(device)
     n = len(devices)
     try:
         return split_mesh(make_mesh(*pp_layout(n), devices=devices))
@@ -357,12 +367,33 @@ def _pp_meshes(args, device: torch.device):
                          f"{e}; use --parallel fused on this host")
 
 
+def _fused_mesh(args, device: torch.device):
+    """The gallery mesh of ``--parallel fused``: the reference's
+    ``make_mesh()`` (dp 1, tp n) over every card of ``_mesh_devices``, or
+    None when that is one device or ``--device`` names one card. Refuses
+    ``--match-mode ivf`` on a mesh (the reference's text) before any
+    checkpoint loads."""
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(args.device).index is not None:
+        return None
+    devices = _mesh_devices(device)
+    if len(devices) < 2:
+        return None
+    mesh = make_mesh(devices=devices)
+    if args.match_mode == "ivf":
+        raise SystemExit("--match-mode ivf requires a single-device mesh "
+                         f"(got {mesh.size} devices); use "
+                         "--match-mode auto/exact on this host")
+    return mesh
+
+
 def _load_stack(args, metrics):
     """Checkpoints, the gallery directory embedded into a gallery, and the
-    serving pipeline on ``--device`` (with ``--parallel pp``, a
-    ``TwoStagePipeline`` over the cards); returns (pipeline, subject
-    names). Logs a ``startup`` record of its load and embed seconds to
-    ``metrics``' sink."""
+    serving pipeline: ``RecognitionPipeline`` over ``_fused_mesh`` (or on
+    ``--device`` alone), or with ``--parallel pp`` a ``TwoStagePipeline``
+    over the cards; returns (pipeline, subject names). Logs a ``startup``
+    record of its load and embed seconds to ``metrics``' sink."""
     from opencv_facerecognizer_tpu_torch.models.detector import CNNFaceDetector
     from opencv_facerecognizer_tpu_torch.models.embedder import CNNEmbedding
     from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
@@ -376,6 +407,8 @@ def _load_stack(args, metrics):
     mesh_a = gallery_mesh = None
     if args.parallel == "pp":
         mesh_a, gallery_mesh = _pp_meshes(args, device)
+    else:
+        gallery_mesh = _fused_mesh(args, device)
     t0 = time.perf_counter()
     model = serialization.load_model(args.model, device=device)
     feature = model.feature
@@ -409,7 +442,7 @@ def _load_stack(args, metrics):
 
         return TwoStagePipeline(detector, feature.net, None, gallery, mesh_a,
                                 face_size=feature.input_size), names
-    if args.match_mode != "exact":
+    if args.match_mode != "exact" and gallery.mesh.size == 1:
         # attached after the startup enrolment: main() runs the one build
         gallery.attach_quantizer(
             CoarseQuantizer(nlist=args.ivf_nlist or CoarseQuantizer.default_nlist(

@@ -145,15 +145,38 @@ def _handoff(t: torch.Tensor, stream) -> torch.Tensor:
     return t
 
 
+def shard_topk(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor, k: int, offset: int,
+               pod: bool):
+    """The local top-k of one shard on its own device: (sims [Q, k], row
+    indices [Q, k] int32 offset to the whole gallery). ``pod``: kernel A,
+    its ``-1`` sentinels kept; else the plain product."""
+    if pod:
+        vals, idx = streaming_match_topk(q, g, valid, k=k)
+        return vals, torch.where(idx < 0, idx, idx + offset)
+    vals, idx = _plain_topk(q, g, valid, k)
+    return vals, (idx + offset).to(torch.int32)
+
+
+def merge_candidates(cand, k: int, labels: torch.Tensor, labels_pad: int, pod: bool):
+    """Merge one dp row's ``[(sims, indices)]`` candidates (in shard order)
+    on the row's device: a stable top-k, so equal sims keep the lowest
+    row. Returns (labels [Q, k], sims [Q, k], indices [Q, k])."""
+    cand_v = torch.cat([v for v, _ in cand], dim=1)
+    cand_i = torch.cat([i for _, i in cand], dim=1)
+    top_v, pos = stable_topk(cand_v, min(k, cand_v.shape[1]))
+    top_i = torch.gather(cand_i, 1, pos)
+    top_l = (take_labels_with_sentinel(labels, top_i, labels_pad) if pod
+             else labels[top_i.long()])
+    return top_l, top_v, top_i
+
+
 def _match_sharded(q: torch.Tensor, shards: MeshShards, *, k: int, mesh: Mesh,
                    pod: bool, labels_pad: int):
     """Two-phase top-k over ``shards``: dp row ``r`` takes query rows
     ``r * Q / dp ..``; on each slot ``(r, t)`` (its device and stream) a
-    local top-k of shard ``t`` (kernel A when ``pod``, else the plain
-    product), row indices offset to the whole gallery (``-1`` sentinels
-    kept); the ``tp * k`` candidates are merged on row ``r``'s first slot
-    by a stable top-k (candidates in shard order, so equal sims keep the
-    lowest row). Results land on the mesh's first slot."""
+    local top-k of shard ``t`` (``shard_topk``); the ``tp * k`` candidates
+    are merged on row ``r``'s first slot (``merge_candidates``). Results
+    land on the mesh's first slot."""
     dp, tp = mesh.devices.shape
     qn = q.shape[0]
     if qn % dp:
@@ -170,26 +193,15 @@ def _match_sharded(q: torch.Tensor, shards: MeshShards, *, k: int, mesh: Mesh,
             slot = mesh.devices[r, t]
             with on_slot(slot, start):
                 q_rt = q[r * per:(r + 1) * per].to(slot.device, non_blocking=True)
-                g_t, v_t = shards.emb[r][t], shards.valid[r][t]
-                if pod:
-                    vals, idx = streaming_match_topk(q_rt, g_t, v_t, k=lk)
-                    idx = torch.where(idx < 0, idx, idx + t * chunk)
-                else:
-                    vals, idx = _plain_topk(q_rt, g_t, v_t, lk)
-                    idx = (idx + t * chunk).to(torch.int32)
+                found = shard_topk(q_rt, shards.emb[r][t], shards.valid[r][t], lk,
+                                   t * chunk, pod)
                 cand.append(tuple(_handoff(x.to(home.device, non_blocking=True),
-                                           home.stream) for x in (vals, idx)))
+                                           home.stream) for x in found))
                 done += [e for e in (record_event(slot.device),) if e is not None]
         with on_slot(home, done):
-            cand_v = torch.cat([v for v, _ in cand], dim=1)
-            cand_i = torch.cat([i for _, i in cand], dim=1)
-            top_v, pos = stable_topk(cand_v, min(k, cand_v.shape[1]))
-            top_i = torch.gather(cand_i, 1, pos)
-            labels = shards.labels[r]
-            top_l = (take_labels_with_sentinel(labels, top_i, labels_pad) if pod
-                     else labels[top_i.long()])
+            merged = merge_candidates(cand, k, shards.labels[r], labels_pad, pod)
             rows.append(tuple(_handoff(x.to(out_dev, non_blocking=True), caller)
-                              for x in (top_l, top_v, top_i)))
+                              for x in merged))
             row_done += [e for e in (record_event(home.device),) if e is not None]
     if caller is not None:
         for ev in row_done:

@@ -19,6 +19,7 @@ across processes is ROADMAP A.11.2).
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 from typing import Iterable, NamedTuple, Optional, Sequence
 
@@ -142,6 +143,19 @@ def record_event(device: torch.device):
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(device))
     return ev
+
+
+def _replicas(module: torch.nn.Module, slots) -> list:
+    """One copy of ``module`` for each slot, on its device (the first
+    slot's is ``module`` itself where it lives there), for the dp rows of
+    ``parallel.pp`` and ``parallel.pipeline``. Rows never share a module: a
+    module's compute-dtype casts are made at its first forward, on the
+    stream of the row that runs it, and another row's stream would not
+    wait for them; and an install copies into each row's copy on that
+    row's stream."""
+    home = next(module.parameters()).device
+    return [module if i == 0 and s.device == home else copy.deepcopy(module).to(s.device).eval()
+            for i, s in enumerate(slots)]
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,

@@ -1,7 +1,8 @@
 """The serving step: detect -> align -> embed -> match for one frame batch.
 
-Port of ``opencv_facerecognizer_tpu/parallel/pipeline.py`` on one device.
-Every frame contributes exactly ``max_faces`` slots; empty slots ride
+Port of ``opencv_facerecognizer_tpu/parallel/pipeline.py``, on one device
+or over the gallery's (dp, tp) mesh (below). Every frame contributes
+exactly ``max_faces`` slots; empty slots ride
 along as invalid work, so every batch has the same shapes. The outputs
 leave the device as one packed ``[B, K, 6 + 2k]`` array with the
 reference's byte layout. The match is the gallery's choice: the exact
@@ -28,6 +29,36 @@ the CPU (or with ``cuda_graphs=False``) a cached step is the eager
 callable under the same key. A capture or replay that fails raises; no
 path falls back to eager.
 
+**Over a mesh** (``gallery.mesh`` of more than one slot, as the
+reference's frames are dp-sharded, its nets replicated and its match
+tp-sharded): dp row ``r`` takes frames ``[r B / dp, (r + 1) B / dp)`` and
+detects, aligns and embeds them on its first slot, on that slot's stream
+(forked from the caller's stream by an event and joined back), with its
+own copies of the detector and embedder nets (``mesh._replicas``: row 0's
+are the pipeline's own). The embeddings are gathered on the mesh's first
+slot and matched by ``gallery.match_fn`` over the snapshot's shards:
+``match_pod`` (kernel A on each shard's slot) once the slots are cards and
+a shard holds ``KERNEL_MIN_CAPACITY`` rows, else ``match_global``. The
+packed output lands on the first slot, which is ``device``. A batch dp
+does not divide is refused, and so is ``fused_embedder`` (the reference's
+``ValueError``). A mesh of one slot is the single-device step. Graphs: a
+CUDA graph belongs to one device, so each step key of a mesh is captured
+level by level, one graph per card and level (``_LevelStep``: the rows'
+embed, the shards' top-k, the rows' merge, the pack), replayed on each
+card's current stream with device-to-device copies queued between the
+levels; each card's work forks from the serving stream and joins back
+before the call returns. Slots of one card take the same form (one graph a
+level), so a mesh on one card runs the code a mesh over several runs. That
+form was chosen over one multi-device capture, which was not tried:
+PyTorch's capture registers its memory pool on the capturing card only.
+Over slots of one card and over four cards it gives the eager step's bytes
+(``tests/test_torch_gpu.py``). A shard on another card is a copy made when
+the tier is placed: a grow captures its steps again at the first call of
+the new tier. The steps' graphs share one pool a card; a capture made
+when no cached step holds a graph of those pools takes fresh ones, since
+capturing into a pool whose graphs were all freed trips the caching
+allocator.
+
 **The cascade's stage 1** (``cascade=``, a ``models.cascade.FaceGate``):
 ``cascade_scores`` maps a batch of frames to ``[B]`` face-possible
 probabilities on the device, one captured graph per (batch, H, W, frame
@@ -39,8 +70,9 @@ touches the gate object it was given.
 
 **Installs are atomic against the step.** ``install_detector_params`` and
 ``install_cascade`` copy the new weights into the served parameters (and
-their cached casts) in place, on the stream the steps are queued on,
-holding ``_weights_lock``; a step or a stage-1 pass is queued (its graph
+their cached casts) in place, on the stream the steps are queued on (on a
+mesh, into each other dp row's copy on that row's stream, forked from and
+joined to it), holding ``_weights_lock``; a step or a stage-1 pass is queued (its graph
 replayed, or its kernels launched eagerly) holding the same lock. So a
 queued step sits wholly before the first copy or wholly after the last
 in stream order, and reads all-old or all-new weights, never a mix. Each
@@ -54,6 +86,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+from collections import Counter
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,7 +98,9 @@ from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
 from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.parallel.gallery import (
-    GalleryData, ShardedGallery, empty_data)
+    GalleryData, ShardedGallery, _handoff, empty_data, merge_candidates, shard_topk)
+from opencv_facerecognizer_tpu_torch.parallel.mesh import (
+    DP_AXIS, _replicas, on_slot, record_event)
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, disable_tf32, resolve_device)
 
@@ -119,17 +154,16 @@ def _unpack_device(packed: torch.Tensor, top_k: int) -> RecognitionResult:
 
 class _EagerStep:
     """A cached step that runs eagerly (the CPU, or ``cuda_graphs=False``):
-    it reads whatever snapshot the call brings, so it binds to none."""
+    ``forward(frames, data, ivf)`` reads whatever snapshot the call brings,
+    so it binds to none."""
 
     binding = None
 
-    def __init__(self, forward, match):
+    def __init__(self, forward):
         self._forward = forward
-        self._match = match
 
     def __call__(self, frames: torch.Tensor, data: GalleryData, ivf) -> torch.Tensor:
-        return self._forward(frames, data.embeddings, data.valid, data.labels, ivf,
-                             self._match)
+        return self._forward(frames, data, ivf)
 
 
 class _GraphStep:
@@ -159,6 +193,103 @@ class _GraphStep:
         return self.out
 
 
+class _LevelStep:
+    """A step over a mesh, captured level by level: each level is one
+    graph per card (a CUDA graph belongs to one device; a card's slots
+    fork from its capture stream and join back inside it),
+    replayed on that card's current stream; between levels, the hops are
+    device-to-device copies from one level's outputs into the next level's
+    static inputs, which PyTorch orders against both cards' current
+    streams. The call forks every other card's current stream from the
+    first slot's and joins them back, so all of a step's work lies between
+    two points of the serving stream. Static inputs: each dp row's frames,
+    each shard's ``valid`` and each row's labels (filled from the call's
+    snapshot); the shards' rows are read by address (``binding``)."""
+
+    def __init__(self, device, devices, frames, valid, labels, binding):
+        self.device = device
+        #: the mesh's cards other than the first slot's
+        self.others = [d for d in devices if d != device]
+        self.frames = frames
+        self.valid = valid
+        self.labels = labels
+        self.binding = binding
+        self.levels: list = []  # [[(device, graph)]]
+        self.hops: list = []  # [[(dst, src)]] after each level
+        self.deltas: Counter = Counter()
+        self.out = None
+
+    def level(self, pipeline, jobs, pool_of) -> list:
+        """Capture ``jobs`` ([(slot, fn)], each ``fn`` returning a tuple of
+        tensors) as one graph per card, replay them once, and return the
+        jobs' outputs in order (the graphs' static outputs)."""
+        by_dev: Dict = {}
+        for i, (slot, fn) in enumerate(jobs):
+            by_dev.setdefault(slot.device, []).append((i, slot, fn))
+        outs, graphs = [None] * len(jobs), []
+        for dev, group in by_dev.items():
+            def run(group=group, dev=dev):
+                start = [e for e in (record_event(dev),) if e is not None]
+                found, done = [], []
+                for _i, slot, fn in group:
+                    with on_slot(slot, start):
+                        found.append(fn())
+                        done += [e for e in (record_event(slot.device),) if e is not None]
+                for ev in done:
+                    torch.cuda.current_stream(dev).wait_event(ev)
+                return found
+
+            graph, found, deltas = pipeline._capture_graph(run, pool_of(dev), dev)
+            self.deltas.update(deltas)
+            graphs.append((dev, graph))
+            graph.replay()
+            for (i, _slot, _fn), res in zip(group, found):
+                outs[i] = res
+        self.levels.append(graphs)
+        self.hops.append([])
+        return outs
+
+    def hop(self, moves) -> list:
+        """Static inputs of the next level: for each ``(src, device)`` a
+        tensor like ``src`` on ``device``, filled now and after every
+        replay of the level that made ``src``."""
+        dsts = []
+        for src, dev in moves:
+            dst = torch.empty_like(src, device=dev)
+            dst.copy_(src)
+            self.hops[-1].append((dst, src))
+            dsts.append(dst)
+        return dsts
+
+    @torch.no_grad()
+    def __call__(self, frames: torch.Tensor, data: GalleryData, ivf) -> torch.Tensor:
+        cuda = self.device.type == "cuda"
+        if cuda:
+            fork = record_event(self.device)
+            for dev in self.others:
+                torch.cuda.current_stream(dev).wait_event(fork)
+        per = frames.shape[0] // len(self.frames)
+        for r, slot in enumerate(self.frames):
+            slot.copy_(frames[r * per:(r + 1) * per], non_blocking=True)
+        for row, src_row in zip(self.valid, data.shards.valid):
+            for dst, src in zip(row, src_row):
+                dst.copy_(src, non_blocking=True)
+        for dst, src in zip(self.labels, data.shards.labels):
+            dst.copy_(src, non_blocking=True)
+        for graphs, hops in zip(self.levels, self.hops):
+            for _dev, graph in graphs:
+                graph.replay()
+            for dst, src in hops:
+                dst.copy_(src, non_blocking=True)
+        if cuda:
+            cur = torch.cuda.current_stream(self.device)
+            for dev in self.others:
+                cur.wait_event(record_event(dev))
+        for (fn, attr), n in self.deltas.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
+        return self.out
+
+
 class _GraphScores:
     """A captured stage-1 pass: the graph, its static frames slot and its
     ``[B]`` output."""
@@ -178,9 +309,11 @@ class _GraphScores:
 
 class RecognitionPipeline:
     """Holds the nets and the gallery and runs the per-batch step on
-    ``device`` (the card unless the caller asks for the CPU), each step key
-    as one captured CUDA graph on the card (``cuda_graphs``); with a
-    ``cascade`` gate also the stage-1 pass (``cascade_scores``)."""
+    ``device`` (the card unless the caller asks for the CPU; with a mesh
+    gallery, the mesh's first slot's device, the step over the whole mesh),
+    each step key as captured CUDA graphs on the card (``cuda_graphs``);
+    with a ``cascade`` gate also the stage-1 pass (``cascade_scores``), on
+    ``device``."""
 
     def __init__(self, detector: detector_mod.CNNFaceDetector,
                  embed_net: embedder_mod.FaceEmbedNet,
@@ -189,8 +322,12 @@ class RecognitionPipeline:
                  top_k: int = 1, fused_embedder: bool = False,
                  device: DeviceLike = DEFAULT_DEVICE, cuda_graphs: bool = True,
                  cascade: Optional[cascade_mod.FaceGate] = None):
+        mesh = gallery.mesh
+        if fused_embedder and mesh.size > 1:
+            raise ValueError("fused_embedder=True requires a single-device mesh "
+                             f"(got {mesh.size} devices)")
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        if any(s.device.type == "cuda" for s in mesh.devices.flat):
             disable_tf32()  # the f32 heads, f32 stacks and the crop stay full f32
         for name, dev in (("detector", detector.device),
                           ("gallery", gallery.device),
@@ -200,6 +337,16 @@ class RecognitionPipeline:
         self.detector = detector
         self.embed_net = embed_net.eval()
         self.gallery = gallery
+        #: the gallery's mesh; on more than one slot, each dp row's first
+        #: slot (``_rows``) detects, aligns and embeds the row's frames with
+        #: its own copies of the nets (row 0's are ``detector.net`` and
+        #: ``embed_net``), and the cards the mesh spans, the first slot's first
+        self.mesh = mesh
+        self._rows = ([mesh.devices[r, 0] for r in range(mesh.shape[DP_AXIS])]
+                      if mesh.size > 1 else [])
+        self._det_nets = _replicas(detector.net, self._rows) if self._rows else [detector.net]
+        self._emb_nets = _replicas(self.embed_net, self._rows) if self._rows else [self.embed_net]
+        self._devices = list(dict.fromkeys(s.device for s in mesh.devices.flat))
         self.face_size = tuple(face_size)
         self.top_k = int(top_k)
         # The fused embed schedule (ops.sepblock, one kernel per stage
@@ -217,6 +364,8 @@ class RecognitionPipeline:
         # worker's captures race the serving thread's misses
         self._capture_lock = threading.Lock()
         self._pool = torch.cuda.graph_pool_handle() if self.cuda_graphs else None
+        #: the graph pools of the mesh's other cards (one per card)
+        self._pools: Dict[torch.device, tuple] = {}
         #: graphs captured, those that replaced an entry bound to other
         #: tensors, and each key's latest capture time (ms, host clock)
         self.captures = 0
@@ -268,22 +417,27 @@ class RecognitionPipeline:
 
     @staticmethod
     def _binding(data: GalleryData, ivf) -> Tuple:
-        """The tensors a captured graph reads by address."""
-        return (data.embeddings.data_ptr(),
+        """The tensors a captured graph reads by address (with a mesh, each
+        shard's rows too)."""
+        shards = (() if data.shards is None
+                  else tuple(t.data_ptr() for row in data.shards.emb for t in row))
+        return (data.embeddings.data_ptr(), shards,
                 None if ivf is None else tuple(t.data_ptr() for t in tuple(ivf)[:7]))
 
-    def _embed(self, frames: torch.Tensor):
-        """Detect -> align -> embed on float32 device frames."""
+    def _embed(self, frames: torch.Tensor, row: int = 0):
+        """Detect -> align -> embed on float32 device frames, with dp row
+        ``row``'s nets."""
         det = self.detector
         boxes, det_scores, valid = detector_mod.decode_detections(
-            det.net(frames), det.max_faces, det.score_threshold, det.iou_threshold)
+            self._det_nets[row](frames), det.max_faces, det.score_threshold,
+            det.iou_threshold)
         crops = image_ops.batched_crop_resize(frames, boxes, self.face_size)
         faces = embedder_mod.normalize_faces(
             crops.reshape(-1, *self.face_size), self.face_size)
         if self.fused_embedder:
             emb = embedder_mod.fused_forward(self.embed_net, faces)
         else:
-            emb = self.embed_net(faces)
+            emb = self._emb_nets[row](faces)
         return boxes, det_scores, valid, emb
 
     @torch.no_grad()
@@ -304,12 +458,54 @@ class RecognitionPipeline:
             boxes=boxes, det_scores=det_scores, valid=valid,
             labels=labels.reshape(b, k, -1), similarities=sims.reshape(b, k, -1)))
 
+    def _row_batch(self, batch: int) -> int:
+        """Frames per dp row; a batch dp does not divide is refused."""
+        dp = len(self._rows)
+        if batch % dp:
+            raise ValueError(f"frame batch {batch} not divisible by dp={dp}")
+        return batch // dp
+
+    @torch.no_grad()
+    def _mesh_forward(self, frames, g_emb, g_valid, g_labels, shards, match) -> torch.Tensor:
+        """The packed step over the mesh: dp row ``r`` detects, aligns and
+        embeds frames ``[r B / dp, (r + 1) B / dp)`` on its first slot (that
+        slot's device and stream, forked from and joined to the caller's);
+        the embeddings are gathered on the first slot and matched by
+        ``match`` over ``shards`` (``match_pod``: kernel A on each shard's
+        slot; or ``match_global``)."""
+        per = self._row_batch(frames.shape[0])
+        out = self.device
+        caller = torch.cuda.current_stream(out) if out.type == "cuda" else None
+        start = [e for e in (record_event(out),) if e is not None]
+        parts, done = [], []
+        for r, slot in enumerate(self._rows):
+            with on_slot(slot, start):
+                f = frames[r * per:(r + 1) * per].to(slot.device, non_blocking=True)
+                parts.append(tuple(_handoff(x.to(out, non_blocking=True), caller)
+                                   for x in self._embed(f.to(torch.float32), r)))
+                done += [e for e in (record_event(slot.device),) if e is not None]
+        for ev in done:
+            caller.wait_event(ev)
+        boxes, det_scores, valid, emb = (torch.cat(p, dim=0) for p in zip(*parts))
+        labels, sims, _ = match(emb, g_emb, g_valid, g_labels, shards=shards)
+        b, k = valid.shape
+        return pack_result(RecognitionResult(
+            boxes=boxes, det_scores=det_scores, valid=valid,
+            labels=labels.reshape(b, k, -1), similarities=sims.reshape(b, k, -1)))
+
     def _build_step(self, key: Tuple, data: GalleryData, ivf):
         """A new cache entry for ``key`` over the snapshots ``data`` and
-        ``ivf``: a captured graph on the card, else the eager callable."""
+        ``ivf``: a captured graph on the card (level by level over a mesh),
+        else the eager callable."""
         match = self.gallery.match_fn(self.top_k, data.capacity, use_ivf=ivf is not None)
         if not self.cuda_graphs:
-            return _EagerStep(self._forward, match)
+            if self._rows:
+                return _EagerStep(lambda f, d, iv: self._mesh_forward(
+                    f, d.embeddings, d.valid, d.labels, d.shards, match))
+            return _EagerStep(lambda f, d, iv: self._forward(
+                f, d.embeddings, d.valid, d.labels, iv, match))
+        if self._rows:
+            return self._capture_levels(key, data)
         return self._capture(key, data, ivf, match)
 
     def _capture(self, key: Tuple, data: GalleryData, ivf, match) -> _GraphStep:
@@ -327,6 +523,7 @@ class RecognitionPipeline:
             return self._forward(frames, data.embeddings, valid, labels, ivf, match)
 
         with self._capture_lock:
+            held = self._hold_pools()  # noqa: F841 - alive through the capture
             t0 = time.perf_counter()
             graph, out, deltas = self._capture_graph(run)
             self.captures += 1
@@ -334,15 +531,96 @@ class RecognitionPipeline:
         return _GraphStep(graph, frames, valid, labels, out, self._binding(data, ivf),
                           deltas)
 
-    def _capture_graph(self, run, pool=None):
+    def _hold_pools(self) -> list:
+        """Under ``_capture_lock``, before a step capture: the cached steps,
+        which the caller holds through the capture so that their graphs keep
+        the pools in use; with none, fresh pools for every card, as a
+        capture into a pool whose graphs were all freed (``evict_below``
+        of every tier, a cleared cache) trips the caching allocator."""
+        held = list(self._step_cache.values())
+        if not held and self.cuda_graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._pools = {}
+        return held
+
+    def _pool_on(self, device: torch.device):
+        """The graph pool of ``device``: the steps' own on the first slot's
+        card, one more per other card of the mesh."""
+        if device == self.device:
+            return self._pool
+        if device not in self._pools:
+            self._pools[device] = torch.cuda.graph_pool_handle()
+        return self._pools[device]
+
+    @torch.no_grad()
+    def _capture_levels(self, key: Tuple, data: GalleryData) -> _LevelStep:
+        """Capture the mesh step for ``key`` over ``data`` (``_LevelStep``),
+        in four levels with a hop after each of the first
+        three: (1) each dp row's detect, align and embed on its first slot;
+        its embeddings to every slot of the row (the gathered queries' rows
+        of that row); (2) each shard's local top-k (``shard_topk``, kernel A
+        when the key's kernel flag is set); its candidates to the row's
+        first slot; (3) each row's merge (``merge_candidates``); the row's
+        boxes, scores, flags, labels and sims to the first slot; (4) the
+        packed output there. The same functions on the same inputs as
+        ``_mesh_forward``, so the same bits."""
+        mesh, rows, out_dev = self.mesh, self._rows, self.device
+        dp, tp = mesh.devices.shape
+        batch, height, width, dtype_name = key[:4]
+        per = self._row_batch(batch)
+        pod, k, shards, pad = key[5], self.top_k, data.shards, self.gallery.labels_pad
+        chunk = shards.chunk
+        slots = [mesh.devices[r, t] for r in range(dp) for t in range(tp)]
+        frames = [torch.zeros((per, height, width), dtype=getattr(torch, dtype_name),
+                              device=s.device) for s in rows]
+        step = _LevelStep(out_dev, self._devices, frames,
+                          [[v.clone() for v in row] for row in shards.valid],
+                          [lab.clone() for lab in shards.labels], self._binding(data, None))
+        with self._capture_lock:
+            held = self._hold_pools()  # noqa: F841 - alive through the capture
+            t0 = time.perf_counter()
+            found = step.level(self, [(s, lambda r=r: self._embed(frames[r].to(torch.float32), r))
+                                      for r, s in enumerate(rows)], self._pool_on)
+            q = step.hop([(found[i // tp][3], s.device) for i, s in enumerate(slots)])
+            cand = step.level(self, [
+                (s, lambda i=i: shard_topk(q[i], shards.emb[i // tp][i % tp],
+                                           step.valid[i // tp][i % tp], min(k, chunk),
+                                           (i % tp) * chunk, pod))
+                for i, s in enumerate(slots)], self._pool_on)
+            moved = step.hop([(x, rows[i // tp].device) for i in range(len(slots))
+                              for x in cand[i]])
+            merged = step.level(self, [
+                (s, lambda r=r: merge_candidates(
+                    [tuple(moved[2 * (r * tp + t):2 * (r * tp + t) + 2]) for t in range(tp)],
+                    k, step.labels[r], pad, pod))
+                for r, s in enumerate(rows)], self._pool_on)
+            parts = step.hop([(x, out_dev) for r in range(dp)
+                              for x in (*found[r][:3], *merged[r][:2])])
+
+            def pack():
+                boxes, det_scores, valid, labels, sims = (
+                    torch.cat(parts[j::5], dim=0) for j in range(5))
+                b, kf = valid.shape
+                return (pack_result(RecognitionResult(
+                    boxes=boxes, det_scores=det_scores, valid=valid,
+                    labels=labels.reshape(b, kf, -1),
+                    similarities=sims.reshape(b, kf, -1))),)
+
+            step.out = step.level(self, [(mesh.first, pack)], self._pool_on)[0][0]
+            self.captures += 1
+            self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
+        return step
+
+    def _capture_graph(self, run, pool=None, device=None):
         """(graph, output, launch deltas) of ``run`` captured into ``pool``
-        (the steps' by default) on a side stream in ``thread_local`` mode
-        after ``CAPTURE_WARMUP_RUNS`` eager runs there; the caller holds
+        (the steps' by default) on a side stream of ``device`` (the
+        pipeline's by default) in ``thread_local`` mode after
+        ``CAPTURE_WARMUP_RUNS`` eager runs there; the caller holds
         ``_capture_lock``."""
-        dev = self.device
+        dev = self.device if device is None else device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.device(dev), torch.cuda.stream(side):
             for _ in range(CAPTURE_WARMUP_RUNS):
                 run()
         graph = torch.cuda.CUDAGraph()
@@ -350,7 +628,7 @@ class RecognitionPipeline:
         # device synchronize and ``gc.collect()``, which holds the GIL
         # and so stalls a serving thread while a grow worker captures.
         # The capture launches nothing: its counts go to the replays.
-        with _build.capture_tally() as deltas, torch.cuda.stream(side):
+        with _build.capture_tally() as deltas, torch.cuda.device(dev), torch.cuda.stream(side):
             graph.capture_begin(pool=self._pool if pool is None else pool,
                                 capture_error_mode="thread_local")
             try:
@@ -399,6 +677,8 @@ class RecognitionPipeline:
         frames = self._frames_tensor(frames)
         if frames.device.type == "cuda" and frames.device != self.device:
             raise ValueError(f"frames on {frames.device}, pipeline on {self.device}")
+        if self._rows:
+            self._row_batch(frames.shape[0])
         data = self.gallery.data  # one snapshot read
         ivf = self.gallery._ivf_data(data)  # one epoch-checked quantizer read
         step, hit = self._step_for(frames, data, ivf)
@@ -486,6 +766,15 @@ class RecognitionPipeline:
         ``version`` is what the next steps record having run."""
         with self._weights_lock, self._on_serving_stream():
             self.detector.load_params(params)
+            if self._rows:  # each other dp row's copy, on the row's stream
+                start = [e for e in (record_event(self.device),) if e is not None]
+                done = []
+                for slot, net in zip(self._rows[1:], self._det_nets[1:]):
+                    with on_slot(slot, start):
+                        net.load_state_dict(params)
+                        done += [e for e in (record_event(slot.device),) if e is not None]
+                for ev in done:
+                    torch.cuda.current_stream(self.device).wait_event(ev)
             if version is not None:
                 self.model_versions["detector"] = int(version)
 
@@ -545,7 +834,7 @@ class RecognitionPipeline:
             return
         if data is None:
             data = empty_data(capacity, g.dim, g.store_dtype, g.labels_pad, self.device,
-                              g._epoch)
+                              g._epoch, mesh=g.mesh)
         binding = self._binding(data, None) if self.cuda_graphs else None
         for batch, height, width, dtype in served:
             key = (batch, height, width, dtype, capacity, g.kernel_enabled(capacity), None)

@@ -45,7 +45,7 @@ from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.parallel.gallery import (
     GalleryData, ShardedGallery, _handoff, empty_data)
 from opencv_facerecognizer_tpu_torch.parallel.mesh import (
-    DP_AXIS, Mesh, on_slot, record_event)
+    DP_AXIS, Mesh, _replicas, on_slot, record_event)
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import RecognitionResult, pack_result
 from opencv_facerecognizer_tpu_torch.utils.device import disable_tf32
 
@@ -78,17 +78,6 @@ class _Hopped(NamedTuple):
 
     rows: list
     events: list
-
-
-def _replicas(module: torch.nn.Module, slots) -> list:
-    """One copy of ``module`` for each slot, on its device (the first
-    slot's is ``module`` itself where it lives there). Rows never share a
-    module: a module's compute-dtype casts are made at its first forward,
-    on the stream of the row that runs it, and another row's stream would
-    not wait for them."""
-    home = next(module.parameters()).device
-    return [module if i == 0 and s.device == home else copy.deepcopy(module).to(s.device).eval()
-            for i, s in enumerate(slots)]
 
 
 class TwoStagePipeline:

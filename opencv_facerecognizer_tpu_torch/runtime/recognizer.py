@@ -156,6 +156,7 @@ import torch
 from opencv_facerecognizer_tpu_torch.models.cascade import DEFAULT_THRESHOLD
 from opencv_facerecognizer_tpu_torch.models.embedder import normalize_faces
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
+from opencv_facerecognizer_tpu_torch.parallel.mesh import DP_AXIS
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import unpack_result
 from opencv_facerecognizer_tpu_torch.runtime.admission import (
     PRIORITY_INTERACTIVE, AdmissionController, parse_priority)
@@ -301,6 +302,22 @@ class _Inflight(NamedTuple):
     snapshot: Any = None  # that gallery snapshot, alive until the readback
 
 
+def bucket_ladder(bucket_sizes, batch_size: int, pipeline) -> List[int]:
+    """The dispatch ladder (the reference's ``_build_bucket_ladder``):
+    ascending sizes ending at ``batch_size``, keeping only the rungs that
+    the largest dp axis of the pipeline's meshes (``gallery.mesh``,
+    ``mesh_a``) divides, since a dp-split step refuses the others. A
+    pipeline with no mesh (a stub) divides by 1."""
+    divisor = 1
+    for mesh in (getattr(getattr(pipeline, "gallery", None), "mesh", None),
+                 getattr(pipeline, "mesh_a", None)):
+        if mesh is not None:
+            divisor = max(divisor, int(mesh.shape[DP_AXIS]))
+    return sorted({int(b) for b in (bucket_sizes or ())
+                   if 0 < int(b) < batch_size and int(b) % divisor == 0}
+                  | {int(batch_size)})
+
+
 class RecognizerService:
     def __init__(self, pipeline, connector: MiddlewareConnector, batch_size: int = 8,
                  frame_shape: Optional[tuple] = None, flush_timeout: float = 0.05,
@@ -379,9 +396,7 @@ class RecognizerService:
         self._dedup_lock = threading.Lock()
         #: time.monotonic() of the loop's last iteration (loop_staleness_s)
         self._loop_progress_t: Optional[float] = None
-        self._bucket_ladder = sorted(
-            {int(b) for b in (bucket_sizes or ()) if 0 < int(b) < batch_size}
-            | {int(batch_size)})
+        self._bucket_ladder = bucket_ladder(bucket_sizes, batch_size, pipeline)
         #: the staging ring, the upload and the decode pool (runtime.ingest),
         #: built before the batcher, which stages into the ring
         self.ingest = None

@@ -580,3 +580,41 @@ def test_step_recorder_reports_the_losses_windows():
     out = rec.report(250)
     assert out["loss_first"] == 49.5 and out["loss_last"] == 199.5
     assert "ms_per_step" not in out  # no card: no events
+
+
+def test_fused_mesh_check_rehearses_on_the_cpu(monkeypatch):
+    """Phase 15 (d) at a tiny size on CPU slots (kernel A's selection forced,
+    its plain version runs): the mesh step equals the eager mesh step and
+    the single-device step on each dp row, again after every step was
+    evicted, and the service answers every frame, the lone frame at rung 8
+    on the dp-2 mesh."""
+    import torch
+
+    from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
+
+    for name, value in (("BATCH", 8), ("FRAME", (64, 64))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(ShardedGallery, "kernel_enabled", lambda self, capacity=None: True)
+    for timer in ("step_time_ms", "back_to_back_ms"):  # the card's numbers only
+        monkeypatch.setattr(chip_smoke, timer, lambda pipeline, batch, iters=20: 0.0)
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(1)
+    rows = rng.standard_normal((4096, chip_smoke.DIM), dtype=np.float32)
+    labels = np.arange(4096, dtype=np.int32) + 100000
+    frames = rng.integers(0, 256, (32, 64, 64), dtype=np.uint8)
+    stack = chip_smoke.build_stack(dev, 0, chip_smoke.ShardedGallery(
+        4096, chip_smoke.DIM, store_dtype=torch.bfloat16, device=dev), fused=False)
+    _b, _s, valid, emb = stack.embed_frames(frames[:8])
+    planted = emb[valid.reshape(-1)].float().numpy()
+    n = len(planted)
+    rows[-n:] = planted
+    labels[-n:] = np.arange(n)
+    ctx = dict(rows=rows, labels=labels, frames=frames, n_plant=n)
+    out = chip_smoke.fused_mesh_check(dev, 0, ctx, [dev] * 8)
+    for shape, rung in (("1x2", 1), ("2x2", 8)):
+        rec = out["meshes"][shape]
+        assert rec["bit_equal_eager"] and rec["bit_equal_single_by_row"]
+        assert rec["recapture_after_evict_equal"]
+        assert rec["service"]["lone_frame_rung"] == rung
+        assert rec["service"]["frames"] == 33 and rec["service"]["planted_found"] == n
+    assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}

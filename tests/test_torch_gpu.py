@@ -868,3 +868,174 @@ def test_scalar_chain_ms_times_a_chain_on_the_card(cuda):
     ms = scalar_chain_ms(lambda a, x: (a @ x).sum(), (a, x),
                          k2_ladder=(34, 154), pairs=2)
     assert ms is not None and 0.0 < ms < 50.0
+
+
+def _mesh_pipeline(cuda, dp, tp, cuda_graphs=True, gallery=None, seed=7):
+    """The unfused serving stack over a (dp, tp) mesh of slots of the card
+    (each slot its own stream), 2^17 bf16 rows: 2^16 a shard at tp 2, so
+    kernel A serves each shard."""
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    if gallery is None:
+        gallery = ShardedGallery(1 << 17, 256, store_dtype=torch.bfloat16,
+                                 mesh=make_mesh(dp=dp, tp=tp, devices=[cuda] * (dp * tp)))
+        rng = np.random.default_rng(seed)
+        filled = (1 << 17) - 1024
+        gallery.add(_normed(rng, (filled, 256)), np.arange(filled, dtype=np.int32))
+    return _serving_pipeline(cuda, fused=False, cuda_graphs=cuda_graphs, gallery=gallery,
+                             seed=seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)])
+def test_mesh_graph_equals_eager_and_the_single_device_step(cuda, dp, tp):
+    """On slots of one card the mesh step's level graphs give the eager
+    mesh step's bytes and the single-device graphed step's on each dp
+    row's frames; a replay launches kernel A dp x tp times and C dp times."""
+    from opencv_facerecognizer_tpu_torch.ops.nms import nms_mask
+
+    graphed = _mesh_pipeline(cuda, dp, tp)
+    assert graphed.gallery.kernel_enabled()
+    eager = _mesh_pipeline(cuda, dp, tp, cuda_graphs=False, gallery=graphed.gallery)
+    g = graphed.gallery
+    single_gallery = ShardedGallery(g.capacity, 256, store_dtype=torch.bfloat16, device=cuda)
+    single_gallery.load_snapshot(*g.snapshot())
+    single = _serving_pipeline(cuda, fused=False, gallery=single_gallery)
+    for i in range(3):
+        frames = _frames(10 + i)
+        got = graphed.recognize_batch_packed(frames).clone()
+        assert torch.equal(got, eager.recognize_batch_packed(frames))
+        per = len(frames) // dp
+        by_row = torch.cat([single.recognize_batch_packed(frames[r * per:(r + 1) * per]).clone()
+                            for r in range(dp)])
+        assert torch.equal(got, by_row)
+    assert graphed.captures == 1 and (got[..., 5] > 0.5).any()
+    assert not graphed.recognize_batch_packed(frames).requires_grad
+    step = next(iter(graphed._step_cache.values()))
+    assert dict(step.deltas) == {(streaming_match_topk, "launches"): dp * tp,
+                                 (nms_mask, "launches"): dp}
+    before = (streaming_match_topk.launches, nms_mask.launches, fused_sep_block.launches)
+    graphed.recognize_batch_packed(_frames(10))
+    after = (streaming_match_topk.launches, nms_mask.launches, fused_sep_block.launches)
+    assert [a - b for a, b in zip(after, before)] == [dp * tp, dp, 0]
+
+
+@pytest.mark.gpu
+def test_mesh_level_graphs_follow_an_in_place_append(cuda):
+    """A (2, 2) mesh step on slots of one card is captured level by level
+    (``_LevelStep``, a graph per card and level, hops between replays): it
+    gives the eager mesh step's bytes before and after an in-place append,
+    which keeps its binding, so it is not captured again."""
+    from opencv_facerecognizer_tpu_torch.parallel.pipeline import _LevelStep
+
+    pipe = _mesh_pipeline(cuda, 2, 2)
+    eager = _mesh_pipeline(cuda, 2, 2, cuda_graphs=False, gallery=pipe.gallery)
+    frames = _frames(20)
+    got = pipe.recognize_batch_packed(frames).clone()
+    assert torch.equal(got, eager.recognize_batch_packed(frames))
+    step = next(iter(pipe._step_cache.values()))
+    assert isinstance(step, _LevelStep) and len(step.levels) == 4
+    binding = step.binding
+    _b, _s, valid, emb = pipe.embed_frames(frames)
+    faces = emb[valid.reshape(-1)].float().cpu().numpy()
+    pipe.gallery.add(faces, np.arange(len(faces), dtype=np.int32) + 10_000_000)
+    assert pipe._binding(pipe.gallery.data, None) == binding
+    got = pipe.recognize_batch_packed(frames).clone()
+    assert pipe.captures == 1 and pipe.recaptures == 0
+    assert torch.equal(got, eager.recognize_batch_packed(frames))
+    assert (got[..., 6][got[..., 5] > 0.5] >= 10_000_000).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dp,tp", [(1, 1), (2, 2)])
+def test_a_capture_after_every_step_is_dropped_takes_fresh_pools(cuda, dp, tp):
+    """Once every cached step is gone (``evict_below`` past every tier, or
+    a cleared cache) the next capture takes fresh graph pools, where
+    capturing into the freed pool trips the caching allocator; the steps
+    captured again give the first capture's bytes."""
+    import gc
+
+    pipe = (_serving_pipeline(cuda, fused=False) if dp * tp == 1
+            else _mesh_pipeline(cuda, dp, tp))
+    frames = _frames(40)
+    want = pipe.recognize_batch_packed(frames).clone()
+    pool = pipe._pool
+    pipe.evict_below(pipe.gallery.capacity + 1)
+    assert not pipe._step_cache
+    gc.collect()
+    assert torch.equal(pipe.recognize_batch_packed(frames), want)
+    assert pipe.captures == 2 and pipe._pool != pool
+    pool = pipe._pool
+    pipe.recognize_batch_packed(_frames(41, n=4))  # another key: the pool is in use
+    assert pipe.captures == 3 and pipe._pool == pool
+    pipe._step_cache.clear()
+    gc.collect()
+    assert torch.equal(pipe.recognize_batch_packed(frames), want)
+    assert pipe.captures == 4 and pipe._pool != pool
+
+
+@pytest.mark.gpu
+def test_mesh_install_under_replays_never_mixes(cuda):
+    """A (2, 2) mesh step queued back to back while another thread installs
+    new detector weights into every dp row's copy: each output equals the
+    all-old or the all-new eager mesh step, as its recorded version says."""
+    import threading
+
+    pipe = _mesh_pipeline(cuda, 2, 2)
+    frames = _frames(5)
+    old = {k: v.clone() for k, v in pipe.detector.params.items()}
+    new = {k: v * 1.01 for k, v in old.items()}
+    eager = _mesh_pipeline(cuda, 2, 2, cuda_graphs=False, gallery=pipe.gallery)
+    want = {}
+    for version, params in ((1, old), (2, new)):
+        eager.install_detector_params(params)
+        want[version] = eager.recognize_batch_packed(frames).clone()
+    assert not torch.equal(want[1], want[2])
+    pipe.install_detector_params(old, version=1)
+    pipe.recognize_batch_packed(frames)
+    outs = []
+    installer = threading.Thread(target=lambda: pipe.install_detector_params(new, version=2))
+    for i in range(30):
+        if i == 5:
+            installer.start()
+        out = pipe.recognize_batch_packed(frames)
+        outs.append((pipe.last_model_versions["detector"], out.clone()))
+    installer.join(timeout=60)
+    torch.cuda.synchronize()
+    assert {v for v, _o in outs} == {1, 2}
+    for version, out in outs:
+        assert torch.equal(out, want[version]), version
+
+
+@pytest.mark.gpu
+def test_mesh_over_every_card(cuda):
+    """With two cards or more, ``make_mesh()`` over all of them (the CLI's
+    ``--parallel fused``, dp 1, tp n) and a (2, n / 2) mesh: the level
+    graphs equal the eager mesh step and the single-device step per dp row."""
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    rng = np.random.default_rng(3)
+    rows = _normed(rng, ((1 << 17) * n - 1024, 256))
+    single_gallery = ShardedGallery((1 << 17) * n, 256, store_dtype=torch.bfloat16,
+                                    device=cuda)
+    single_gallery.add(rows, np.arange(len(rows), dtype=np.int32))
+    single = _serving_pipeline(cuda, fused=False, gallery=single_gallery)
+    for dp in sorted({1, 2 if n % 2 == 0 else 1}):
+        mesh = make_mesh(dp=dp, devices=[torch.device("cuda", i) for i in range(n)])
+        gal = ShardedGallery((1 << 17) * n, 256, store_dtype=torch.bfloat16, mesh=mesh)
+        gal.add(rows, np.arange(len(rows), dtype=np.int32))
+        graphed = _mesh_pipeline(cuda, dp, n // dp, gallery=gal)
+        eager = _mesh_pipeline(cuda, dp, n // dp, cuda_graphs=False, gallery=gal)
+        for i in range(2):
+            frames = _frames(30 + i)
+            got = graphed.recognize_batch_packed(frames).clone()
+            torch.cuda.synchronize()
+            assert torch.equal(got, eager.recognize_batch_packed(frames)), dp
+            per = len(frames) // dp
+            by_row = torch.cat([single.recognize_batch_packed(
+                frames[r * per:(r + 1) * per]).clone() for r in range(dp)])
+            assert torch.equal(got, by_row), dp
+        assert graphed.captures == 1

@@ -102,7 +102,8 @@ REPLICATION_MODULES = ("opencv_facerecognizer_tpu_torch.runtime.replication",
 MULTI_GPU_MODULES = ("opencv_facerecognizer_tpu_torch.parallel",
                      "opencv_facerecognizer_tpu_torch.parallel.mesh",
                      "opencv_facerecognizer_tpu_torch.parallel.pp",
-                     "opencv_facerecognizer_tpu_torch.parallel.gallery")
+                     "opencv_facerecognizer_tpu_torch.parallel.gallery",
+                     "opencv_facerecognizer_tpu_torch.parallel.pipeline")
 
 
 #: the chaos soak slice's modules

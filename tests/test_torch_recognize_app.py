@@ -514,7 +514,7 @@ def test_parallel_pp_jsonl_matches_jax_cli(artifacts, f32_stacks, monkeypatch, c
     two (2, 2) stage meshes; every frame is answered as the JAX CLI
     answers it, and the gallery lives on the second half."""
     a = artifacts
-    monkeypatch.setattr(port_app, "_pp_devices", lambda device: [torch.device("cpu")] * 8)
+    monkeypatch.setattr(port_app, "_mesh_devices", lambda device: [torch.device("cpu")] * 8)
     built = []
     real_load = port_app._load_stack
 
@@ -1359,3 +1359,75 @@ def test_registry_fence_refuses_an_undeclared_version_like_the_reference(tmp_pat
             except SystemExit:
                 outcomes.append(False)
         assert outcomes == [ok, ok], declared
+
+
+def test_parallel_fused_jsonl_over_8_slots_matches_jax_cli(artifacts, f32_stacks,
+                                                          monkeypatch, capsys):
+    """``_mesh_devices`` patched to 8 CPU slots: the port lays the
+    reference's ``make_mesh()`` (dp 1, tp 8) over them, as the JAX CLI does
+    over its 8 devices, and every frame is answered as the JAX CLI answers
+    it; ``--match-mode auto`` (the default) attaches no quantizer."""
+    a = artifacts
+    monkeypatch.setattr(port_app, "_mesh_devices", lambda device: [torch.device("cpu")] * 8)
+    built = []
+    real_load = port_app._load_stack
+
+    def load(args, metrics):
+        pipeline, names = real_load(args, metrics)
+        built.append(pipeline)
+        return pipeline, names
+
+    monkeypatch.setattr(port_app, "_load_stack", load)
+    n = 7
+    lines = [json.dumps({"topic": FRAME_TOPIC,
+                         "data": {**encode_frame(a["scenes"][i % 5].astype(np.float32)),
+                                  "meta": {"seq": i}}}) for i in range(n)]
+    argv = _common_args(a) + ["--source", "jsonl"]
+    want = _run_jsonl(jax_app.main, argv, "\n".join(lines), monkeypatch, capsys)
+    got = _run_jsonl(port_app.main, argv + ["--device", "cpu"], "\n".join(lines),
+                     monkeypatch, capsys)
+    results = [m["data"] for m in got if m["topic"] == RESULT_TOPIC]
+    assert sorted(r["meta"]["seq"] for r in results) == list(range(n))
+    _assert_same_results(results, [m["data"] for m in want if m["topic"] == RESULT_TOPIC],
+                         key=lambda m: m["seq"])
+    (pipeline,) = built
+    assert type(pipeline).__name__ == "RecognitionPipeline"
+    assert pipeline.gallery.mesh.shape == {"dp": 1, "tp": 8}
+    assert pipeline.gallery.quantizer is None and pipeline.gallery.match_mode == "exact"
+
+
+def test_parallel_fused_refuses_ivf_on_a_mesh_like_the_reference(artifacts, monkeypatch,
+                                                                  tmp_path):
+    a = artifacts
+    with pytest.raises(SystemExit) as want:
+        jax_app.main(_common_args(a) + ["--source", "dir", "--dir", a["frames"],
+                                        "--match-mode", "ivf"])
+    monkeypatch.setattr(port_app, "_mesh_devices", lambda device: [torch.device("cpu")] * 8)
+    missing = str(tmp_path / "missing")
+    with pytest.raises(SystemExit) as got:
+        port_app.main(["--model", missing, "--detector", missing, "--gallery", missing,
+                       "--device", "cpu", "--match-mode", "ivf"])
+    assert str(got.value) == str(want.value)
+    assert "requires a single-device mesh (got 8 devices)" in str(got.value)
+
+
+def test_parallel_fused_on_one_device_keeps_the_single_device_stack(artifacts, monkeypatch):
+    """One device (the CPU, or ``--device`` naming a card) is no mesh: the
+    gallery lives on that device and ``auto`` attaches its quantizer."""
+    a = artifacts
+    built = []
+    real_load = port_app._load_stack
+
+    def load(args, metrics):
+        pipeline, names = real_load(args, metrics)
+        built.append(pipeline)
+        return pipeline, names
+
+    monkeypatch.setattr(port_app, "_load_stack", load)
+    port_app.main(_common_args(a) + ["--source", "dir", "--dir", a["frames"],
+                                     "--device", "cpu"])
+    (pipeline,) = built
+    assert pipeline.gallery.mesh.size == 1 and pipeline._rows == []
+    assert pipeline.gallery.quantizer is not None
+    args = port_app.build_parser().parse_args(["--device", "cuda:1"])
+    assert port_app._fused_mesh(args, torch.device("cuda", 1)) is None
