@@ -368,11 +368,17 @@ Phases (any failure exits nonzero before the result line):
    gallery with the s = 2 embedder, fused: a graphed step equal bit for
    bit to the eager step, then VAR_SERVE_BATCHES batches through a
    ``RecognizerService`` (A and C once, B six times a step); the fused
-   pipeline refuses the light and dense variants. (b) ``TheTrainer`` at
-   10-fold on the six published protocols of ``scripts/measure_accuracy.py``
-   (ACC_PROTOCOLS, 70x70): each mean accuracy within ACC_TOL of its
-   ``BASELINE.md`` row; LBP codes (radius 2 and 3) on the card equal to the
-   CPU's on at least LBP_AGREE of pixels. (c) ``ocvf-train-torch`` in a
+   pipeline refuses the light and dense variants. (b) the six classic
+   rows of ``apps.measure_accuracy.CONFIGS`` (``classic_kfold``:
+   ``TheTrainer`` at 10-fold on the published protocols of
+   ``scripts/measure_accuracy.py``, 70x70) on the card: each row's
+   accuracy within ACC_TOL of its ``BASELINE.md`` figure (ACC_BASELINE);
+   LBP codes (radius 2 and 3) on the card equal to the CPU's on at least
+   LBP_AGREE of pixels. (b') the oracle column of ``apps.oracle_parity``
+   for ORACLE_ROWS: the framework (``TheTrainer``) on the card, the NumPy /
+   SciPy oracle on the host, on the same data and folds: |delta| <=
+   ORACLE_DELTA (the reference's bar) and the oracle within ACC_TOL of
+   ``BASELINE.md``'s ORACLE figure. (c) ``ocvf-train-torch`` in a
    subprocess on Extended Yale-B's size (38 x 64 PGM images from
    ``make_synthetic_faces`` with the Yale-B analog's hard arguments,
    ``build/train_smoke/``) at its defaults (Fisherfaces with Tan-Triggs,
@@ -413,8 +419,11 @@ Phases (any failure exits nonzero before the result line):
    set and ``--model auto --classifier kernel_svm`` on AUTO_SUBJECTS x
    AUTO_PER_SUBJECT images (every family k-folded with the kernel SVM):
    rc 0, stages, peak bytes, k-fold accuracy, each checkpoint predicting
-   alike on the card and the CPU. One ``{"training": ...}`` line with the
-   run's total seconds.
+   alike on the card and the CPU. (f) the embedder gate,
+   ``apps.gate_embedder.main`` on GATE_ARGV (a non-default structure,
+   dense blocks, s = 2, light norm, GATE_STEPS steps of the HARD
+   protocol): the row's fields, tag and config. One ``{"training": ...}``
+   line with the run's total seconds.
 
 The line before the last is the per-kernel JSON (kernels A, B and C, their
 launches those of phase 4's serving run, of the reader alone in phase
@@ -448,6 +457,9 @@ import numpy as np
 import torch
 
 from opencv_facerecognizer_tpu_torch.apps import chaos_soak
+from opencv_facerecognizer_tpu_torch.apps import gate_embedder
+from opencv_facerecognizer_tpu_torch.apps import measure_accuracy
+from opencv_facerecognizer_tpu_torch.apps import oracle_parity
 from opencv_facerecognizer_tpu_torch.apps import recognize as recognize_app
 from opencv_facerecognizer_tpu_torch.models import cascade as cascade_mod
 from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
@@ -5593,31 +5605,25 @@ VAR_FACES = BATCH * MAX_FACES
 VAR_FUSED_COS = 0.999
 #: batches the s = 2 stack serves through a ``RecognizerService``
 VAR_SERVE_BATCHES = 2
-#: (b) the published accuracy protocols (``scripts/measure_accuracy.py``,
-#: ``BASELINE.md``'s MEASURED block): (row, model, subjects, images per
-#: subject, make_synthetic_faces arguments, the row's accuracy)
-ACC_HARD_POSE = dict(rotation=8.0, scale_jitter=0.08, elastic=1.2, occlusion=0.25)
-ACC_HARD_WILD = dict(rotation=12.0, scale_jitter=0.12, elastic=1.8, occlusion=0.3)
-ACC_PROTOCOLS = (
-    ("eigenfaces_orl", "eigenfaces", 40, 10, dict(seed=1, **ACC_HARD_POSE), 0.8950),
-    ("fisherfaces_yaleb", "fisherfaces", 30, 12,
-     dict(seed=2, illumination=0.7, noise=14.0, **ACC_HARD_POSE), 0.8283),
-    ("lbph_lfw", "lbph", 40, 8, dict(seed=3, noise=18.0, **ACC_HARD_WILD), 0.9250),
-    ("lbp_fisherfaces_yaleb", "lbp_fisherfaces", 30, 12,
-     dict(seed=2, illumination=0.7, noise=14.0, **ACC_HARD_POSE), 0.9817),
-    ("lbp_fisherfaces_lfw", "lbp_fisherfaces", 40, 8,
-     dict(seed=3, noise=18.0, **ACC_HARD_WILD), 0.9625),
-    ("lbp_fisherfaces_orl", "lbp_fisherfaces", 40, 10, dict(seed=1, **ACC_HARD_POSE), 0.9975))
+#: (b) each classic row of ``apps.measure_accuracy.CONFIGS`` against its
+#: figure in ``BASELINE.md``'s MEASURED block (its result key: accuracy)
+ACC_BASELINE = {"eigenfaces_orl": 0.8950, "fisherfaces_yaleb": 0.8283, "lbph_lfw": 0.9250,
+                "lbp_fisherfaces_yaleb": 0.9817, "lbp_fisherfaces_lfw": 0.9625,
+                "lbp_fisherfaces_orl": 0.9975}
 ACC_SIZE = (70, 70)
-ACC_KFOLD = 10
 ACC_TOL = 0.01
+#: (b') ``apps.oracle_parity`` rows run on the card, each with its oracle
+#: figure in ``BASELINE.md``'s ORACLE block
+ORACLE_ROWS = {"fisherfaces_hard": 0.8306, "lbph_hard": 0.9250}
+#: the reference's agreement bar between the framework and the oracle
+ORACLE_DELTA = 0.02
 #: LBP codes on the card against the CPU's: a code on a float tie may flip
 LBP_AGREE = 0.999
 #: (c) ``ocvf-train-torch`` at Extended Yale-B's size (``BASELINE.json:8``):
 #: 38 subjects x 64 images, the Yale-B analog's hard arguments
 YALEB_SUBJECTS = 38
 YALEB_PER_SUBJECT = 64
-YALEB_FACES = dict(seed=2, illumination=0.7, noise=14.0, **ACC_HARD_POSE)
+YALEB_FACES = dict(seed=2, illumination=0.7, noise=14.0, **measure_accuracy.HARD_POSE)
 #: the CLI runs: (name, flags beyond the defaults). The kernel SVM trains
 #: in phase 18 (e)'s ``--model auto --classifier kernel_svm`` run, which
 #: k-folds every family with it and saves its winner with it
@@ -5794,24 +5800,42 @@ def lbp_agreement(dev, images: np.ndarray) -> dict:
 
 
 def accuracy_protocols(dev) -> dict:
-    """Phase 17 (b): ``TheTrainer`` at 10-fold on each published protocol;
-    each mean accuracy within ACC_TOL of its ``BASELINE.md`` row."""
+    """Phase 17 (b): the six classic rows of ``apps.measure_accuracy``
+    on ``dev``; each accuracy within ACC_TOL of its ``BASELINE.md`` row."""
     out = {}
-    for row, model, subjects, per, kw, want in ACC_PROTOCOLS:
-        X, y, names = dataset_utils.make_synthetic_faces(
-            num_subjects=subjects, per_subject=per, size=ACC_SIZE, **kw)
+    for row, thunk in measure_accuracy.CONFIGS.values():
+        if row not in ACC_BASELINE:
+            continue  # the CNN row: phase 18 (b), and the north star alone
+        want = ACC_BASELINE[row]
         t0 = time.perf_counter()
-        trainer = trainer_mod.TheTrainer(trainer_mod.TrainerConfig(model=model, kfold=ACC_KFOLD),
-                                         device=dev)
-        trainer.train(X, y, names, validate=True)
-        acc = trainer.mean_accuracy
-        out[row] = {"accuracy": acc, "baseline": want, "seconds": time.perf_counter() - t0}
-        if abs(acc - want) > ACC_TOL:
-            raise AssertionError(f"{row}: 10-fold accuracy {acc:.4f} on {dev}, BASELINE.md "
-                                 f"{want} (tolerance {ACC_TOL})")
-        if row == "fisherfaces_yaleb":
-            out["lbp_agreement"] = lbp_agreement(dev, X)
+        got = thunk(dev)
+        out[row] = {**got, "baseline": want, "wall_s": time.perf_counter() - t0}
+        if abs(got["accuracy"] - want) > ACC_TOL:
+            raise AssertionError(f"{row}: 10-fold accuracy {got['accuracy']:.4f} on {dev}, "
+                                 f"BASELINE.md {want} (tolerance {ACC_TOL})")
         log(f"protocol {row}: {out[row]}")
+    X, _y, _names = dataset_utils.make_synthetic_faces(
+        num_subjects=30, per_subject=12, size=ACC_SIZE, **YALEB_FACES)
+    out["lbp_agreement"] = lbp_agreement(dev, X)
+    return out
+
+
+def oracle_rows(dev) -> dict:
+    """Phase 17 (b'): ``apps.oracle_parity.parity_row`` for ORACLE_ROWS,
+    the framework on ``dev`` and the oracle on the host; |delta| within
+    ORACLE_DELTA and the oracle within ACC_TOL of ``BASELINE.md``."""
+    out = {}
+    for key, want in ORACLE_ROWS.items():
+        t0 = time.perf_counter()
+        row = oracle_parity.parity_row(key, dev, size=ACC_SIZE)
+        out[key] = {**row, "oracle_baseline": want, "wall_s": time.perf_counter() - t0}
+        log(f"oracle {key}: {out[key]}")
+        if abs(row["delta"]) > ORACLE_DELTA:
+            raise AssertionError(f"oracle {key}: framework {row['framework']} on {dev} against "
+                                 f"the oracle's {row['oracle']} (bar {ORACLE_DELTA})")
+        if abs(row["oracle"] - want) > ACC_TOL:
+            raise AssertionError(f"oracle {key}: {row['oracle']} against BASELINE.md's {want} "
+                                 f"(tolerance {ACC_TOL})")
     return out
 
 
@@ -5907,6 +5931,9 @@ def train_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     t0 = time.perf_counter()
     out["protocols"] = accuracy_protocols(dev)
     out["protocols_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["oracle"] = oracle_rows(dev)
+    out["oracle_s"] = time.perf_counter() - t0
     out["train_cli"] = train_cli_phase(dev, root)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -5966,6 +5993,17 @@ DET_SERVING_RECALL_TOL = 0.05
 AUTO_SUBJECTS, AUTO_PER_SUBJECT = 12, 16
 TRAINING_CLI_RUNS = (("cnn", "yaleb", ("--model", "cnn")),
                      ("auto", "auto", ("--model", "auto", "--classifier", "kernel_svm")))
+
+#: (f) the embedder gate on a non-default structure at a short run of the
+#: HARD protocol (the gate's default is 9000 steps of batch 128)
+GATE_STEPS = 300
+GATE_ARGV = ("--block", "dense", "--space-to-depth", "2", "--norm", "light")
+GATE_TAG = "dense_s2d2_light"
+#: the row's fields (``scripts/gate_embedder.py``'s)
+GATE_FIELDS = ("tag", "accuracy", "std", "mean_minus_2std", "fold_min", "threshold",
+               "train_s", "config", "date")
+#: above chance: the structure trains (a gate's verdict needs its full run)
+GATE_MIN_ACC = 0.6
 
 
 def _grads_vs_cpu(dev, build, loss_of, what: str) -> dict:
@@ -6277,6 +6315,26 @@ def train_cli_cnn(dev, root: str) -> dict:
     return out
 
 
+def gate_check(dev) -> dict:
+    """Phase 18 (f): ``apps.gate_embedder.main`` on GATE_ARGV at GATE_STEPS
+    steps on ``dev``; the row's fields, tag and config."""
+    argv = [*GATE_ARGV, "--steps", str(GATE_STEPS), "--device", str(dev)]
+    t0 = time.perf_counter()
+    row = gate_embedder.main(argv)
+    wall_s = time.perf_counter() - t0
+    cfg = row["config"]
+    if (tuple(row) != GATE_FIELDS or row["tag"] != GATE_TAG or cfg["steps"] != GATE_STEPS
+            or (cfg["block"], cfg["space_to_depth"], cfg["norm"]) != ("dense", 2, "light")):
+        raise AssertionError(f"(f) gate_embedder's row: {row}")
+    if not (GATE_MIN_ACC <= row["accuracy"] <= 1.0
+            and row["mean_minus_2std"] <= row["accuracy"]
+            and row["fold_min"] <= row["accuracy"]):
+        raise AssertionError(f"(f) gate_embedder's figures: {row} (accuracy bar {GATE_MIN_ACC})")
+    out = {**row, "wall_s": wall_s}
+    log(f"(f) gate_embedder {' '.join(argv)}: {out}")
+    return out
+
+
 def training_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     """Phase 18 (module docstring); returns the ``{"training": ...}``
     numbers, (c)'s and (d)'s kernel launches among them."""
@@ -6296,6 +6354,7 @@ def training_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     t0 = time.perf_counter()
     out["train_cli"] = train_cli_cnn(dev, root)
     out["train_cli_s"] = time.perf_counter() - t0
+    out["gate"] = gate_check(dev)
     out["launches"] = {k: out["served"]["launches"][k] + out["recipes"]["launches"][k]
                        for k in out["served"]["launches"]}
     out["phase_s"] = time.perf_counter() - t_phase

@@ -242,7 +242,7 @@ class _ReadbackBlocker:
     ``block`` returns "ready", "raised" (the wait raised) or "timeout".
     After a timeout the thread may be stuck in a CUDA call: the caller
     closes this instance and builds a new one. ``close`` ends the thread
-    once its current wait (if any) returns."""
+    once its current wait (if any) returns; ``join`` waits for that."""
 
     def __init__(self):
         self._cv = threading.Condition()
@@ -250,12 +250,20 @@ class _ReadbackBlocker:
         self._closed = False
         self._done = threading.Event()
         self._ok = False
-        threading.Thread(target=self._run, daemon=True, name="ocvf-readback-blocker").start()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ocvf-readback-blocker")
+        self._thread.start()
 
     def close(self) -> None:
         with self._cv:
             self._closed = True
             self._cv.notify()
+
+    def join(self, timeout: float) -> bool:
+        """Wait up to ``timeout`` s for the thread to end (after ``close``);
+        False if it is still inside a wait."""
+        self._thread.join(timeout=max(0.0, timeout))
+        return not self._thread.is_alive()
 
     def _run(self) -> None:
         while True:
@@ -425,6 +433,9 @@ class RecognizerService:
         self._inflight_cv = threading.Condition()
         self._completed_batches = 0
         self._blocker: Optional[_ReadbackBlocker] = None
+        #: blockers closed while a wait may still hold them (a timed-out
+        #: readback, a restarted worker); ``stop`` joins them
+        self._retired_blockers: List[_ReadbackBlocker] = []
         self._running = False
         self._thread: Optional[threading.Thread] = None
         self._worker: Optional[threading.Thread] = None
@@ -899,8 +910,9 @@ class RecognizerService:
                 t.join(timeout=30.0)
         self._thread = self._worker = None
         if self._blocker is not None:
-            self._blocker.close()
+            self._retire_blocker(self._blocker)
             self._blocker = None
+        self._join_blockers()
         if not self._use_worker and (thread is None or not thread.is_alive()):
             self._drain(force=True)
         self.connector.stop()
@@ -950,7 +962,7 @@ class RecognizerService:
         self._crashed = False
         if worker_dead:
             if self._blocker is not None:
-                self._blocker.close()
+                self._retire_blocker(self._blocker)
             self._blocker = _ReadbackBlocker()
             self._worker = threading.Thread(target=self._readback_thread, daemon=True,
                                             name="ocvf-readback")
@@ -1564,8 +1576,9 @@ class RecognizerService:
         if outcome == "ready":
             return True
         if outcome == "timeout":
-            # the old one may be stuck in the wait: it exits when that returns
-            blocker.close()
+            # the old one may be stuck in the wait: it exits when that
+            # returns, and ``stop`` joins it
+            self._retire_blocker(blocker)
             self._blocker = _ReadbackBlocker()
             # a starved blocker may not have reported a readback that landed
             # in time: only one still not ready is dead-lettered
@@ -1577,6 +1590,26 @@ class RecognizerService:
                 return True
             time.sleep(self._readback_poll_s)
         return self._is_ready(readback)
+
+    def _retire_blocker(self, blocker: _ReadbackBlocker) -> None:
+        blocker.close()
+        with self._inflight_cv:
+            self._retired_blockers.append(blocker)
+
+    def _join_blockers(self) -> None:
+        """Join every closed blocker, all within one readback deadline
+        (ROADMAP C.28): a wait that returns in that time leaves no thread
+        behind ``stop``. One still inside a wait past it (a CUDA call
+        cannot be cancelled) stays listed, and a later ``stop`` tries it
+        again."""
+        with self._inflight_cv:
+            blockers, self._retired_blockers = self._retired_blockers, []
+        bound = time.monotonic() + self.resilience.readback_deadline_s
+        stuck = [b for b in blockers if not b.join(bound - time.monotonic())]
+        if stuck:
+            log.warning("%d readback blocker(s) still inside a wait after stop", len(stuck))
+            with self._inflight_cv:
+                self._retired_blockers.extend(stuck)
 
     def _drain(self, force: bool = False) -> None:
         """Inline fallback (``readback_worker=False``): publish finished head

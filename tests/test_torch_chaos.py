@@ -450,6 +450,70 @@ def test_stuck_readbacks_leak_no_thread(stacks):
     assert run.service.metrics.counter("frames_dead_lettered") == 16
 
 
+class HeldReadback:
+    """A readback whose ``wait`` blocks until ``release`` is set and then
+    takes ``linger_s`` more; never ready before that."""
+
+    pending = True
+
+    def __init__(self, wrapped, release: threading.Event, linger_s: float):
+        self._wrapped = wrapped
+        self._release = release
+        self._linger_s = linger_s
+        self._landed = False
+
+    def ready(self) -> bool:
+        return self._landed
+
+    def wait(self) -> None:
+        self._release.wait()
+        time.sleep(self._linger_s)
+        self._landed = True
+        self._wrapped.wait()
+
+    def result(self):
+        self.wait()
+        return self._wrapped.result()
+
+
+def test_stop_joins_a_blocker_still_inside_its_wait(stacks):
+    """ROADMAP C.28: a batch whose readback outlives its deadline is
+    dead-lettered and its blocker retired while still inside the wait.
+    That wait returns 0.3 s after ``stop`` begins, within one readback
+    deadline (1 s): ``stop`` joins the retired blocker, so no blocker
+    thread is left once it returns (before the repair ``stop`` closed
+    blockers without joining them, and returned with this one waiting)."""
+    pipe = stacks["torch"]
+    pkg = Pkg("torch")
+    injector = pkg.FaultInjector(seed=14)
+    release = threading.Event()
+    held = []
+    passthrough = injector.on_readback
+
+    def on_readback(readback):
+        if held:
+            return passthrough(readback)
+        held.append(HeldReadback(readback, release, linger_s=0.3))
+        return held[0]
+
+    injector.on_readback = on_readback
+    run = Run(pkg, pipe, injector, pkg.ResiliencePolicy(readback_deadline_s=1.0))
+    blockers = lambda: [t for t in threading.enumerate()  # noqa: E731
+                        if isinstance(getattr(getattr(t, "_target", None), "__self__", None),
+                                      port_recognizer._ReadbackBlocker)]
+    run.service.start()
+    try:
+        run.inject({"k": "held"})
+        run.inject({"k": "held"})
+        assert _wait(lambda: run.service.metrics.counter("batches_dead_lettered") >= 1)
+        assert len(blockers()) == 2  # the retired one inside its wait, and its successor
+    finally:
+        release.set()
+        run.service.stop()
+    assert not blockers(), blockers()
+    assert run.service.metrics.counter("frames_dead_lettered") == 2
+
+
 def test_blocker_timeout_dead_letters_only_a_readback_still_pending(stacks):
     """At its deadline a readback whose blocker has not reported (a
     starved thread) is dead-lettered only if it is still not ready."""

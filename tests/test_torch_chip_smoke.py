@@ -477,15 +477,25 @@ def test_train_phase_rehearses_on_the_cpu(monkeypatch):
     here; ``torch.cuda.synchronize`` a no-op): the variants against their
     CPU versions, kernel B's plain version at the new shapes, the s = 2
     stack served and the light and dense variants refused, two protocols
-    at 2-fold and the CLI's TRAIN_RUNS on a 4 x 6 dataset."""
+    of ``apps.measure_accuracy.CONFIGS`` at 6 x 4 faces and 2-fold, the
+    oracle rows at 6 x 4 faces and 2-fold, and the CLI's TRAIN_RUNS on a
+    4 x 6 dataset."""
     import torch
 
+    from opencv_facerecognizer_tpu_torch.apps import measure_accuracy, oracle_parity
+
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    protocols = tuple((row, model, 6, 4, kw, acc) for row, model, _n, _p, kw, acc
-                      in chip_smoke.ACC_PROTOCOLS[:2])
+    classic = measure_accuracy.classic_kfold
+    monkeypatch.setattr(measure_accuracy, "classic_kfold",
+                        lambda model, _n, _p, _k, device="cuda", **kw: classic(
+                            model, 6, 4, 2, device=device, size=(40, 40), **kw))
+    monkeypatch.setattr(oracle_parity, "CONFIGS", {
+        key: (kind, dict(kw, num_subjects=6, per_subject=4), 2)
+        for key, (kind, kw, _k) in oracle_parity.CONFIGS.items()})
+    baseline = dict(list(chip_smoke.ACC_BASELINE.items())[:2])
     for name, value in (("BATCH", 4), ("FRAME", (64, 64)), ("VAR_FACES", 8),
-                        ("SEP_BATCHES", (3, 2)), ("ACC_PROTOCOLS", protocols),
-                        ("ACC_TOL", 1.0), ("ACC_KFOLD", 2), ("ACC_SIZE", (40, 40)),
+                        ("SEP_BATCHES", (3, 2)), ("ACC_BASELINE", baseline),
+                        ("ACC_TOL", 1.0), ("ORACLE_DELTA", 1.0), ("ACC_SIZE", (40, 40)),
                         ("YALEB_SUBJECTS", 4), ("YALEB_PER_SUBJECT", 6),
                         ("TRAIN_CHECK_QUERIES", 8)):
         monkeypatch.setattr(chip_smoke, name, value)
@@ -504,6 +514,16 @@ def test_train_phase_rehearses_on_the_cpu(monkeypatch):
     assert out["serving_s2"]["results"] == 8 and set(out["serving_s2"]["refused"]) == {
         "light", "dense"}
     assert out["protocols"]["lbp_agreement"] == {"r2": 1.0, "r3": 1.0}
+    assert set(out["protocols"]) == {"eigenfaces_orl", "fisherfaces_yaleb", "lbp_agreement"}
+    for row in ("eigenfaces_orl", "fisherfaces_yaleb"):
+        got = out["protocols"][row]
+        assert got["folds"] == 2 and got["dataset"].startswith("synthetic 6x4 40x40 ")
+        assert got["baseline"] == chip_smoke.ACC_BASELINE[row]
+    assert set(out["oracle"]) == set(chip_smoke.ORACLE_ROWS)
+    for key, row in out["oracle"].items():
+        assert row["delta"] == round(row["framework"] - row["oracle"], 4)
+        assert row["dataset"].startswith("synthetic 40x40 ") and row["dataset"].endswith(
+            "2-fold")
     for name, _flags in chip_smoke.TRAIN_RUNS:
         assert out["train_cli"][name]["checkpoint"]["labels_equal"]
     assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}
@@ -514,8 +534,9 @@ def test_training_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
     here): the card-against-CPU steps (the CPU against itself), a short
     ArcFace run through ``cnn_verification`` with its recorder, the
     trained net served from a small gallery, the three detector and gate
-    recipes at a few steps, and ``ocvf-train-torch --model cnn`` and
-    ``--model auto`` in subprocesses, each checkpoint on two devices."""
+    recipes at a few steps, ``ocvf-train-torch --model cnn`` and
+    ``--model auto`` in subprocesses, each checkpoint on two devices, and
+    the embedder gate's row at 2 steps of a narrow dense s = 2 light net."""
     import torch
 
     from opencv_facerecognizer_tpu_torch.apps import measure_accuracy
@@ -541,7 +562,11 @@ def test_training_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
             ("ACC_SIZE", (32, 32)), ("YALEB_SUBJECTS", 3), ("YALEB_PER_SUBJECT", 4),
             ("AUTO_SUBJECTS", 3), ("AUTO_PER_SUBJECT", 4), ("TRAIN_CHECK_QUERIES", 4),
             ("TRAINING_CLI_RUNS", tuple((n, d, (*f, "--train-steps", "2", "--embed-dim", "16"))
-                                        for n, d, f in chip_smoke.TRAINING_CLI_RUNS))):
+                                        for n, d, f in chip_smoke.TRAINING_CLI_RUNS)),
+            ("GATE_STEPS", 2), ("GATE_MIN_ACC", 0.0),
+            ("GATE_ARGV", (*chip_smoke.GATE_ARGV, "--stage-features", "8,16", "--stage-blocks",
+                           "1,1", "--embed-dim", "16", "--batch-size", "8",
+                           "--input-size", "32"))):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "variant_net", lambda dev, seed, kw, dtype=torch.bfloat16:
                         chip_smoke.embedder_mod.FaceEmbedNet(
@@ -568,6 +593,9 @@ def test_training_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
     for run in out["train_cli"].values():
         assert run["rc"] == 0 and run["checkpoint"]["labels_equal"]
         assert run["counts"]["fit"] >= 1
+    gate = out["gate"]
+    assert tuple(gate)[:-1] == chip_smoke.GATE_FIELDS and gate["tag"] == "dense_s2d2_light"
+    assert gate["config"]["steps"] == 2 and gate["config"]["stage_features"] == "8,16"
     assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}
 
 

@@ -691,14 +691,14 @@ def test_traced_service_replays_equal_the_untraced_step(cuda):
     assert account_spans(tracer.snapshot())["completed"] == 24
 
 
-def _ingest_service(pipe, batch=8, mode="uint8", worker=True):
+def _ingest_service(pipe, batch=8, mode="uint8", worker=True, flush_timeout=0.01):
     from opencv_facerecognizer_tpu_torch.runtime.connector import FakeConnector
     from opencv_facerecognizer_tpu_torch.runtime.ingest import IngestConfig
     from opencv_facerecognizer_tpu_torch.runtime.recognizer import RecognizerService
 
     conn = FakeConnector()
     service = RecognizerService(pipe, conn, batch_size=batch, frame_shape=(256, 256),
-                                flush_timeout=0.01, bucket_sizes=(batch,),
+                                flush_timeout=flush_timeout, bucket_sizes=(batch,),
                                 ingest=IngestConfig(mode), readback_worker=worker)
     got = {}
     real_publish = service._publish
@@ -717,21 +717,28 @@ def test_pinned_ring_service_equals_the_pageable_step(cuda):
     staging ring and the side-stream upload give the plain graphed step's
     bytes on the same frames (from pageable memory), batch for batch: a
     buffer or graph slot overwritten too early would show. The steady
-    run allocates nothing and captures nothing after warmup."""
+    run allocates nothing and captures nothing after warmup.
+
+    Each batch is encoded before any frame of it is offered, and the
+    flush waits 1 s (ROADMAP C.27): with a 10 ms flush a slow offer split
+    a batch, its padded part uploaded as the bucket's bytes (the ring
+    counts what crosses the link, padding too: 72 frames' bytes for 64)."""
     from opencv_facerecognizer_tpu_torch.runtime.connector import encode_frame
     from opencv_facerecognizer_tpu_torch.runtime.recognizer import FRAME_TOPIC
     from opencv_facerecognizer_tpu_torch.utils import metrics as mn
 
     pipe = _serving_pipeline(cuda)
     plain = _serving_pipeline(cuda, gallery=pipe.gallery)
-    service, conn, got = _ingest_service(pipe)
+    service, conn, got = _ingest_service(pipe, flush_timeout=1.0)
     assert service.ingest.staging.pinned
     service.start(warmup=True)
     captures = pipe.captures
     try:
         for i in range(8):
-            for j, frame in enumerate(_frames(100 + i)):
-                conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i, "j": j}})
+            batch = [{**encode_frame(frame), "meta": {"i": i, "j": j}}
+                     for j, frame in enumerate(_frames(100 + i))]
+            for message in batch:
+                conn.inject(FRAME_TOPIC, message)
         assert service.drain(timeout=120.0)
     finally:
         service.stop()
@@ -1033,9 +1040,62 @@ def test_mesh_over_every_card(cuda):
             frames = _frames(30 + i)
             got = graphed.recognize_batch_packed(frames).clone()
             torch.cuda.synchronize()
+            assert not graphed.recognize_batch_packed(frames).requires_grad  # ROADMAP C.26
             assert torch.equal(got, eager.recognize_batch_packed(frames)), dp
             per = len(frames) // dp
             by_row = torch.cat([single.recognize_batch_packed(
                 frames[r * per:(r + 1) * per]).clone() for r in range(dp)])
             assert torch.equal(got, by_row), dp
         assert graphed.captures == 1
+
+
+@pytest.mark.gpu
+def test_service_over_every_card_reads_every_result_back(cuda):
+    """With two cards or more (ROADMAP C.26): a ``RecognizerService`` over
+    the fused step on ``make_mesh()`` over every card (dp 1, tp n: the
+    CLI's ``--parallel fused``), its rungs captured level by level at
+    warmup, answers every frame through a host readback, as phase 15 (d)
+    does on slots of one card: no batch is dead-lettered, and the first
+    batch's faces, planted in the gallery, are named with their rows."""
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+    from opencv_facerecognizer_tpu_torch.parallel.pipeline import _LevelStep
+    from opencv_facerecognizer_tpu_torch.runtime.connector import FakeConnector, encode_frame
+    from opencv_facerecognizer_tpu_torch.runtime.recognizer import (
+        FRAME_TOPIC, RESULT_TOPIC, RecognizerService)
+    from opencv_facerecognizer_tpu_torch.utils import metrics as mn
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    rng = np.random.default_rng(4)
+    mesh = make_mesh(dp=1, devices=[torch.device("cuda", i) for i in range(n)])
+    gallery = ShardedGallery((1 << 17) * n, 256, store_dtype=torch.bfloat16, mesh=mesh)
+    filled = (1 << 17) * n - 1024
+    gallery.add(_normed(rng, (filled, 256)), np.arange(filled, dtype=np.int32))
+    pipe = _mesh_pipeline(cuda, 1, n, gallery=gallery)
+    frames = np.concatenate([_frames(50 + i) for i in range(4)])
+    _b, _s, valid, emb = pipe.embed_frames(frames[:8])
+    planted = emb[valid.reshape(-1)].float().cpu().numpy()
+    assert len(planted) > 0
+    gallery.add(planted, np.arange(len(planted), dtype=np.int32) + 10_000_000)
+    conn = FakeConnector()
+    service = RecognizerService(pipe, conn, batch_size=8, frame_shape=(256, 256),
+                                transfer_dtype=np.uint8, flush_timeout=0.05,
+                                bucket_sizes=(1, 8))
+    service.start(warmup=True)
+    try:
+        for i, frame in enumerate(frames):
+            conn.inject(FRAME_TOPIC, {**encode_frame(frame), "meta": {"i": i}})
+        assert service.drain(timeout=120.0)
+    finally:
+        service.stop()
+    assert isinstance(next(iter(pipe._step_cache.values())), _LevelStep)
+    results = conn.messages(RESULT_TOPIC)
+    assert sorted(r["meta"]["i"] for r in results) == list(range(len(frames)))
+    c = service.metrics.counters()
+    assert sum(c.get(k, 0) for k in mn.LEDGER_COMPLETION_COUNTERS) == len(frames)
+    assert sum(c.get(k, 0) for k in mn.LEDGER_DROP_COUNTERS) == 0
+    assert c.get(mn.READBACK_ERRORS, 0) == 0
+    first = [f for r in results if r["meta"]["i"] < 8 for f in r["faces"]]
+    assert first and all(f["label"] >= 10_000_000 for f in first), first
+    assert min(f["similarity"] for f in first) >= 0.99

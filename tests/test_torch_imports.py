@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
                 "opencv_facerecognizer_tpu_torch.models.cascade",
                 "opencv_facerecognizer_tpu_torch.entry", *DURABILITY_MODULES,
                 *OVERLOAD_MODULES, *INGEST_ROLLOUT_MODULES, *REPLICATION_MODULES,
-                *MULTI_GPU_MODULES, *CHAOS_MODULES, *CLASSIC_MODULES, *TRAINING_MODULES):
+                *MULTI_GPU_MODULES, *CHAOS_MODULES, *CLASSIC_MODULES, *TRAINING_MODULES,
+                *ACCURACY_TOOL_MODULES):
         assert mod in mods
     code = (
         "import importlib, sys\n"
@@ -450,3 +451,38 @@ def test_training_entry_points_default_to_the_card_and_raise_without_one(monkeyp
     head = embedder.train_embedder(net, embedder.draw_head(2, 8, 0),
                                    np.zeros((4, 16, 16), np.float32), [0, 1, 0, 1], steps=1)
     assert head.device.type == "cpu"
+
+
+#: the accuracy tools: the seven rows, the oracle column, the embedder gate
+ACCURACY_TOOL_MODULES = ("opencv_facerecognizer_tpu_torch.apps.measure_accuracy",
+                         "opencv_facerecognizer_tpu_torch.apps.oracle_parity",
+                         "opencv_facerecognizer_tpu_torch.apps.gate_embedder")
+
+
+@pytest.mark.parametrize("mod", ACCURACY_TOOL_MODULES)
+def test_accuracy_tool_imports_only_the_port(mod):
+    """No JAX, flax or optax, nothing of the JAX package, and nothing of
+    the reference's ``scripts/`` (the oracle is the port's own copy)."""
+    path = os.path.join(REPO, *mod.split(".")) + ".py"
+    source = open(path).read()
+    names = set(_imported_top_names(path))
+    assert not names & (FORBIDDEN | {"scripts"}), names & (FORBIDDEN | {"scripts"})
+    assert "opencv_facerecognizer_tpu." not in source
+    assert "spec_from_file_location" not in source and "sys.path" not in source
+
+
+def test_accuracy_tools_default_to_the_card_and_raise_without_one(monkeypatch):
+    from opencv_facerecognizer_tpu_torch.apps import gate_embedder, measure_accuracy, oracle_parity
+
+    for fn in (measure_accuracy.classic_kfold, measure_accuracy.cnn_verification,
+               oracle_parity.framework_kfold, oracle_parity.parity_row,
+               gate_embedder.build_embedder):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert gate_embedder.build_parser().get_default("device") == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((measure_accuracy.main, []), (oracle_parity.main, []),
+                       (gate_embedder.main, [])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        measure_accuracy.classic_kfold("eigenfaces", 2, 2, 2)
