@@ -323,7 +323,26 @@ Phases (any failure exits nonzero before the result line):
    ``--bucket-sizes`` MG_FUSED_LADDER (each rung captured at warmup, its
    capture ms recorded) serves 4 batches, every frame answered once (the
    first batch's planted faces recorded), and a lone frame goes out at the
-   first rung dp divides (8 on dp 2: C.24). (e) the CLI's ``--parallel pp``
+   first rung dp divides (8 on dp 2: C.24). (e) the serving step across
+   processes (ROADMAP A.11.2): two worker processes on the card, started
+   with ``spawn``, join a ``gloo`` group of their own (NCCL refuses two
+   ranks on one GPU), which ``initialize_multihost`` keeps, and bring one
+   slot each to ``make_mesh``; over phase 4's rows in bf16 and the unfused
+   serving stack, graphed level by level, each serves the first batch at
+   (dp, tp) = MP_LAYOUTS ((1, 2): the candidates' all-gather crosses the
+   processes; (2, 1): the dp result gather) and through the two-stage
+   pipeline on MP_PP_LAYOUT (2, 1) (stage A on rank 0, the hop point to
+   point, stage B and the gallery on rank 1). Both ranks' packed result
+   must equal, bit for bit, the same layout's single-process mesh on two
+   slots of the card (phase (d)'s form, computed by the parent); launches
+   a batch by rank exactly A 1, C 1 at each mesh layout (A on each
+   process's own shard) and A 0 / 1, C 1 / 0 in pp; kernel A against its
+   plain version on each process's shard at the step's query shape; each
+   rank's host-clock ms a batch back to back (MP_TIME_STEPS, after the
+   parent's references are done) beside the single-process mesh's, and
+   each collective's ms, bytes and bytes staged through host memory,
+   timed to its end. A worker that fails or outlives MP_DEADLINE_S fails
+   the phase, and both are killed. (f) the CLI's ``--parallel pp``
    refusals on this host (one card: the device count, and the three flags
    that are single-mesh only), each before any checkpoint loads. One
    ``{"multi_gpu": ...}`` line with the run's total seconds to its end.
@@ -427,8 +446,8 @@ Phases (any failure exits nonzero before the result line):
 
 The line before the last is the per-kernel JSON (kernels A, B and C, their
 launches those of phase 4's serving run, of the reader alone in phase
-14 (a), of the two-stage pipeline in phase 15 (b) and (c) and the fused
-mesh step's services in (d), of the
+14 (a), of the two-stage pipeline in phase 15 (b) and (c), the fused
+mesh step's services in (d) and both processes' counted step in (e), of the
 chaos soak in phase 16, of the s = 2 embedder's serving in phase 17
 (a), and of the trained nets in phase 18 (c) and (d)); the last line is
 ``{"ok": true, "device": {...}}``. Before the per-kernel JSON,
@@ -1034,6 +1053,15 @@ def build_stack(device, seed: int, gallery, dtype=torch.bfloat16, fused: bool = 
     ``seed`` (the same weights on every device and dtype), the fused
     embedder unless ``fused`` is False, each step a CUDA graph unless
     ``cuda_graphs`` is False."""
+    det, net = serving_nets(device, seed, dtype)
+    return RecognitionPipeline(det, net, gallery,
+                               face_size=embedder_mod.SERVING_FACE_SIZE,
+                               fused_embedder=fused, device=device, cuda_graphs=cuda_graphs)
+
+
+def serving_nets(device, seed: int, dtype=torch.bfloat16):
+    """The serving detector (a bias that fires on noise) and embedder on
+    ``device``, compute in ``dtype``, weights from ``seed``."""
     det = detector_mod.CNNFaceDetector(device=device, dtype=dtype,
                                        generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
@@ -1043,9 +1071,7 @@ def build_stack(device, seed: int, gallery, dtype=torch.bfloat16, fused: bool = 
                                     input_size=embedder_mod.SERVING_FACE_SIZE,
                                     dtype=dtype,
                                     generator=torch.Generator().manual_seed(seed + 1))
-    return RecognitionPipeline(det, net.to(device), gallery,
-                               face_size=embedder_mod.SERVING_FACE_SIZE,
-                               fused_embedder=fused, device=device, cuda_graphs=cuda_graphs)
+    return det, net.to(device)
 
 
 def drop_stack(pipeline) -> None:
@@ -5162,6 +5188,215 @@ def fused_mesh_check(dev, seed: int, ctx: dict, devices: list) -> dict:
     return out
 
 
+#: phase 15 (e): the serving step across two processes on the card (gloo,
+#: one slot each): the mesh layouts, pp's, the steps timed back to back,
+#: and the workers' deadline
+MP_LAYOUTS = ((1, 2), (2, 1))
+MP_PP_LAYOUT = (2, 1)
+MP_TIME_STEPS = 20
+MP_DEADLINE_S = 300.0
+
+
+def _mp_pipeline(dev, seed: int, rows, labels, layout, pp: bool, devices):
+    """The stack of phase 15 (e) over ``make_mesh(*layout, devices)``: the
+    unfused serving stack in bf16 over the rows (graphed level by level),
+    or with ``pp`` the two-stage pipeline over ``split_mesh`` of it, the
+    gallery on its second half."""
+    from opencv_facerecognizer_tpu_torch.parallel import ShardedGallery as Gallery
+    from opencv_facerecognizer_tpu_torch.parallel import TwoStagePipeline, split_mesh
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*layout, devices=devices)
+    mesh_a, mesh_b = split_mesh(mesh) if pp else (None, mesh)
+    gal = Gallery(len(rows), DIM, store_dtype=torch.bfloat16, mesh=mesh_b)
+    gal.add(rows, labels)
+    if not pp:
+        return build_stack(dev, seed, gal, fused=False)
+    det, net = serving_nets(dev, seed)
+    return TwoStagePipeline(det, net, None, gal, mesh_a, face_size=embedder_mod.SERVING_FACE_SIZE)
+
+
+def _mp_drive(dev, pipe, batch, root: str, seed: int) -> dict:
+    """One worker's run of one stack of phase 15 (e): the first batch
+    (captured and served), one more counted for the kernels' launches,
+    kernel A against its plain version on this process's shard at the
+    step's query shape, then (once the parent's references are done)
+    ``MP_TIME_STEPS`` steps back to back and ``MP_TIME_STEPS`` more with
+    each collective timed to its end on the card."""
+    gal = pipe.gallery
+    comm = gal.mesh.comm
+    got = pipe.recognize_batch_packed(batch).clone()
+    zero_counters()
+    pipe.recognize_batch_packed(batch).cpu()
+    launches = read_launches()
+    shard = [(e, v) for row_e, row_v in zip(gal.data.shards.emb, gal.data.shards.valid)
+             for e, v in zip(row_e, row_v) if e is not None]
+    err = None
+    if shard and dev.type == "cuda":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn(len(batch) // gal.mesh.shape["dp"] * MAX_FACES, DIM, generator=g,
+                        device=dev)
+        err = _match_case(q / q.norm(dim=1, keepdim=True), *shard[0], 1,
+                          f"rank {comm.rank}'s shard of {gal.mesh.shape}")
+    rec = dict(packed=got.cpu(), launches=launches, shard_rows=[int(e.shape[0]) for e, _ in shard],
+               match_err=err, ms=None, collectives={})
+    if dev.type != "cuda":
+        return rec
+    end = time.monotonic() + MP_DEADLINE_S
+    while not os.path.exists(os.path.join(root, "go")):
+        if time.monotonic() > end:
+            raise TimeoutError("multi_gpu (e): the parent's references never finished")
+        time.sleep(0.05)
+    rec["ms"] = back_to_back_ms(pipe, batch, iters=MP_TIME_STEPS)
+    for v in comm.stats.values():
+        v.clear()
+    comm.sync_timing = True
+    back_to_back_ms(pipe, batch, iters=MP_TIME_STEPS)
+    comm.sync_timing = False
+    st = comm.stats
+    rec["collectives"] = {name: dict(calls_per_step=n / (MP_TIME_STEPS + 3),
+                                     ms=st["seconds"][name] * 1e3 / n,
+                                     bytes=st["bytes"][name] // n,
+                                     staged_bytes=st["staged_bytes"][name] // n)
+                          for name, n in st["calls"].items()}
+    return rec
+
+
+def cross_process_worker(rank: int, port: int, root: str, seed: int, device: str) -> None:
+    """Phase 15 (e)'s process ``rank`` of two: a ``gloo`` group made here
+    (two processes on one card: NCCL refuses two ranks on one GPU), which
+    ``initialize_multihost`` then keeps; one slot of ``device`` a process;
+    each stack of the phase driven by ``_mp_drive``; the records saved to
+    ``root/rank<rank>.pt``, or the traceback to ``root/rank<rank>.err``
+    and exit code 1."""
+    import datetime
+    import traceback
+
+    from opencv_facerecognizer_tpu_torch.parallel.mesh import initialize_multihost
+
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        addr = f"127.0.0.1:{port}"
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"tcp://{addr}", world_size=2, rank=rank,
+            timeout=datetime.timedelta(seconds=MP_DEADLINE_S))
+        if not initialize_multihost(addr, 2, rank):
+            raise AssertionError("initialize_multihost did not keep the group")
+        rows = np.load(os.path.join(root, "rows.npy"), mmap_mode="r")
+        labels = np.load(os.path.join(root, "labels.npy"))
+        batch = np.load(os.path.join(root, "batch.npy"))
+        out = {}
+        for layout, pp in [(lay, False) for lay in MP_LAYOUTS] + [(MP_PP_LAYOUT, True)]:
+            pipe = _mp_pipeline(dev, seed, rows, labels, layout, pp, [dev])
+            out[("pp" if pp else "mesh", layout)] = _mp_drive(dev, pipe, batch, root, seed)
+            if not pp:
+                drop_stack(pipe)
+            del pipe
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        with open(os.path.join(root, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+
+
+def cross_process_check(dev, seed: int, ctx: dict) -> dict:
+    """Phase 15 (e) (module docstring): two worker processes on the card
+    (``cross_process_worker``, started with ``spawn``) serve the first
+    batch over each layout of MP_LAYOUTS and pp on MP_PP_LAYOUT; each
+    rank's packed result must equal the same layout's single-process mesh
+    on two slots of the card (phase 15 (d)'s form) bit for bit. A worker
+    that fails or outlives MP_DEADLINE_S fails the phase; both are killed
+    on the way out. Returns the numbers and the workers' kernel
+    launches."""
+    import multiprocessing
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "xproc_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    batch = ctx["frames"][:BATCH]
+    np.save(os.path.join(root, "rows.npy"), ctx["rows"])
+    np.save(os.path.join(root, "labels.npy"), ctx["labels"])
+    np.save(os.path.join(root, "batch.npy"), batch)
+    spawn = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [spawn.Process(target=cross_process_worker, args=(r, port, root, seed, str(dev)),
+                           daemon=True) for r in (0, 1)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    out = {"layouts": {}, "launches": dict.fromkeys(("streaming_match", "sepblock", "nms"), 0)}
+    try:
+        refs = {}
+        for layout, pp in [(lay, False) for lay in MP_LAYOUTS] + [(MP_PP_LAYOUT, True)]:
+            pipe = _mp_pipeline(dev, seed, ctx["rows"], ctx["labels"], layout, pp, [dev] * 2)
+            refs[("pp" if pp else "mesh", layout)] = (
+                pipe.recognize_batch_packed(batch).cpu(),
+                back_to_back_ms(pipe, batch, iters=MP_TIME_STEPS) if dev.type == "cuda"
+                else None)
+            if not pp:
+                drop_stack(pipe)
+            del pipe
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        open(os.path.join(root, "go"), "w").close()  # the workers may time their steps now
+        end = time.monotonic() + MP_DEADLINE_S
+        while not all(p.exitcode == 0 for p in procs):
+            failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if failed or time.monotonic() > end:
+                errs = [os.path.join(root, f"rank{r}.err") for r in (0, 1)]
+                raise AssertionError(
+                    f"multi_gpu (e): workers exited {[p.exitcode for p in procs]} or passed "
+                    f"the {MP_DEADLINE_S} s deadline: "
+                    + " | ".join(open(e).read() for e in errs if os.path.exists(e)))
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    out["workers_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    for key, (want, ref_ms) in refs.items():
+        kind, (dp, tp) = key
+        per_rank = [r[key] for r in ranks]
+        for rank, rec in enumerate(per_rank):
+            if not torch.equal(rec["packed"], want):
+                raise AssertionError(
+                    f"multi_gpu (e) {kind} ({dp}, {tp}) rank {rank}: the packed result differs "
+                    f"from the single-process mesh's: max |diff| "
+                    f"{(rec['packed'] - want).abs().max().item()}")
+        if not (want[..., 5] > 0.5).any():
+            raise AssertionError(f"multi_gpu (e) {kind} ({dp}, {tp}): no face in the batch")
+        a = [rec["launches"]["streaming_match"] for rec in per_rank]
+        c = [rec["launches"]["nms"] for rec in per_rank]
+        want_a, want_c = ([0, 1], [1, 0]) if kind == "pp" else ([1, 1], [1, 1])
+        if dev.type == "cuda" and (a != want_a or c != want_c
+                                   or any(rec["launches"]["sepblock"] for rec in per_rank)):
+            raise AssertionError(f"multi_gpu (e) {kind} ({dp}, {tp}): launches a batch by rank "
+                                 f"{[rec['launches'] for rec in per_rank]}")
+        for rec in per_rank:
+            for name, n in rec["launches"].items():
+                out["launches"][name] += n
+        out["layouts"][f"{kind} {dp}x{tp}"] = dict(
+            bit_equal_single_process=True, single_process_ms=ref_ms,
+            ms_by_rank=[rec["ms"] for rec in per_rank],
+            launches_by_rank=[rec["launches"] for rec in per_rank],
+            shard_rows_by_rank=[rec["shard_rows"] for rec in per_rank],
+            kernel_a_err_by_rank=[rec["match_err"] for rec in per_rank],
+            collectives_by_rank=[rec["collectives"] for rec in per_rank])
+        log(f"multi_gpu (e) {kind} ({dp}, {tp}) across two processes on the card (gloo, one "
+            f"slot each): both ranks' packed result equal bit for bit to the single-process "
+            f"mesh on two slots; launches by rank {[rec['launches'] for rec in per_rank]}; "
+            f"host-clock ms a batch back to back by rank {[rec['ms'] for rec in per_rank]} "
+            f"against {ref_ms} single-process; collectives by rank "
+            f"{[rec['collectives'] for rec in per_rank]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     """Phase 15 (module docstring) over MG_SLOTS slots of ``dev``; returns
     the ``{"multi_gpu": ...}`` numbers, the pp path's kernel launches
@@ -5287,7 +5522,12 @@ def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     out["fused_mesh"] = fused_mesh_check(dev, seed, ctx, devices)
     out["fused_mesh_s"] = time.perf_counter() - t
 
-    # (e) the CLI on one card
+    # (e) the serving step across two processes
+    t = time.perf_counter()
+    out["cross_process"] = cross_process_check(dev, seed, ctx)
+    out["cross_process_s"] = time.perf_counter() - t
+
+    # (f) the CLI on one card
     missing = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "no_such_ckpt")
     base = ["--model", missing, "--detector", missing, "--gallery", missing,
             "--source", "dir", "--dir", missing, "--parallel", "pp",
@@ -5305,16 +5545,16 @@ def multi_gpu_phase(dev, seed: int, card: str, ctx: dict) -> dict:
             recognize_app.main(base + extra)
         except SystemExit as exc:
             if text not in str(exc):
-                raise AssertionError(f"multi_gpu (e) {case}: refused with {exc}")
+                raise AssertionError(f"multi_gpu (f) {case}: refused with {exc}")
             refusals[case] = str(exc)
         else:
-            raise AssertionError(f"multi_gpu (e) {case}: --parallel pp was not refused")
+            raise AssertionError(f"multi_gpu (f) {case}: --parallel pp was not refused")
     out["cli_refusals"] = refusals
-    log(f"multi_gpu (e) the CLI on {n_dev} card(s): --parallel pp refused as the reference "
+    log(f"multi_gpu (f) the CLI on {n_dev} card(s): --parallel pp refused as the reference "
         f"refuses: {json.dumps(refusals)}")
     out["pp_launches"] = {k: stream_launches[k] + service_launches[k] for k in stream_launches}
     out["mesh_launches"] = {k: out["pp_launches"][k] + out["fused_mesh"]["launches"][k]
-                            for k in stream_launches}
+                            + out["cross_process"]["launches"][k] for k in stream_launches}
     drop_stack(ref)
     for hooks, fn in ((pp.gallery.prewarm_hooks, pp.prewarm_capacity),
                       (pp.gallery.evict_hooks, pp.evict_below)):

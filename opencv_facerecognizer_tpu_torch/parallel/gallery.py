@@ -59,6 +59,21 @@ function. The reference picks its GSPMD matcher on a mesh because its
 compiler cannot partition a custom call; on the card kernel A is ~12x
 matmul + top-k (ROADMAP C.18). IVF stays single-device, as the
 reference's.
+
+**On a mesh across processes** (``Mesh.cross_process``; the contract is
+``parallel.mesh``'s: every process adds the same rows): each process
+places only its own slots' shards, each uploaded from the host mirrors
+straight to its slot (tp splits the capacity, so no card holds the whole
+array): ``embeddings`` is the whole array's shape and dtype on the
+``meta`` device, with no storage. ``labels`` and ``valid`` stay whole on
+this process's home slot (``Mesh.home``, also ``device``), the labels on
+this process's first slot of each dp row it holds; another process's
+slot has ``None`` in ``shards``. The host mirrors are whole on every
+process, so ``snapshot`` needs no collective. A dp row whose shards span
+processes gathers its candidates over the row's group
+(``_gather_candidates``) and merges them on every process holding it;
+rows of other processes come back by the dp result gather
+(``Mesh.gather_rows``). ``async_grow`` is refused there (ROADMAP C.30).
 """
 
 from __future__ import annotations
@@ -120,7 +135,8 @@ def _place(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def shard_arrays(mesh: Mesh, g: torch.Tensor, valid: torch.Tensor, labels: torch.Tensor,
                  emb: Optional[tuple] = None) -> MeshShards:
-    """Place whole gallery arrays on ``mesh`` (``MeshShards``); ``emb``
+    """Place whole gallery arrays on this process's slots of ``mesh``
+    (``MeshShards``; ``None`` for another process's slot or row); ``emb``
     reuses placed rows (only the flags and labels changed)."""
     dp, tp = mesh.devices.shape
     if g.shape[0] % tp:
@@ -128,13 +144,15 @@ def shard_arrays(mesh: Mesh, g: torch.Tensor, valid: torch.Tensor, labels: torch
     chunk = g.shape[0] // tp
 
     def rows(x, r, t):
-        return _place(x[t * chunk:(t + 1) * chunk], mesh.devices[r, t].device)
+        slot = mesh.devices[r, t]
+        return _place(x[t * chunk:(t + 1) * chunk], slot.device) if mesh.is_local(slot) else None
 
     if emb is None:
         emb = tuple(tuple(rows(g, r, t) for t in range(tp)) for r in range(dp))
+    homes = [mesh.row_home(r) for r in range(dp)]
     return MeshShards(chunk, emb,
                       tuple(tuple(rows(valid, r, t) for t in range(tp)) for r in range(dp)),
-                      tuple(_place(labels, mesh.devices[r, 0].device) for r in range(dp)))
+                      tuple(None if h is None else _place(labels, h.device) for h in homes))
 
 
 def _handoff(t: torch.Tensor, stream) -> torch.Tensor:
@@ -170,27 +188,56 @@ def merge_candidates(cand, k: int, labels: torch.Tensor, labels_pad: int, pod: b
     return top_l, top_v, top_i
 
 
+def _gather_candidates(mesh: Mesh, r: int, cand: list, lk: int) -> list:
+    """Dp row ``r`` spans processes: this process's shards' candidates
+    ``[(sims [Q, lk], indices [Q, lk])]`` (in shard order) -> every
+    shard's, in shard order, by one all-gather over the row's group (the
+    reference's ``jax.lax.all_gather`` over tp: rank order is shard
+    order). Sims ride as their int32 bits, so the copy is exact."""
+    members = mesh.row_ranks(r)
+    counts = [sum(s.rank == m for s in mesh.devices[r]) for m in members]
+    width = max(counts) * lk
+    mine = torch.cat([torch.cat([v.view(torch.int32) for v, _ in cand], dim=1),
+                      torch.cat([i for _, i in cand], dim=1)], dim=1)
+    pad = 2 * width - mine.shape[1]
+    if pad:  # fewer shards here than on another member: the widths must agree
+        half = mine.shape[1] // 2
+        mine = torch.nn.functional.pad(mine.view(-1, 2, half), (0, pad // 2)).view(-1, 2 * width)
+    every = mesh.comm.all_gather(mine, mesh.comm.row_groups[members], "candidates")
+    return [(every[g, :, :c * lk].view(torch.float32), every[g, :, width:width + c * lk])
+            for g, c in enumerate(counts)]
+
+
 def _match_sharded(q: torch.Tensor, shards: MeshShards, *, k: int, mesh: Mesh,
-                   pod: bool, labels_pad: int):
+                   pod: bool, labels_pad: int, gather: bool = True):
     """Two-phase top-k over ``shards``: dp row ``r`` takes query rows
-    ``r * Q / dp ..``; on each slot ``(r, t)`` (its device and stream) a
-    local top-k of shard ``t`` (``shard_topk``); the ``tp * k`` candidates
-    are merged on row ``r``'s first slot (``merge_candidates``). Results
-    land on the mesh's first slot."""
+    ``r * Q / dp ..``; on each slot ``(r, t)`` of this process (its device
+    and stream) a local top-k of shard ``t`` (``shard_topk``); the
+    ``tp * k`` candidates (gathered over the row's group where the row
+    spans processes) are merged on this process's first slot of row ``r``
+    (``merge_candidates``). Results land on this process's home slot
+    (``Mesh.home``); across processes the rows of other processes come
+    back by the dp result gather, unless ``gather`` is False (they are
+    zeros then: a caller that gathers a larger result itself)."""
     dp, tp = mesh.devices.shape
     qn = q.shape[0]
     if qn % dp:
         raise ValueError(f"query count {qn} not divisible by dp={dp}")
     per, chunk, lk = qn // dp, shards.chunk, min(k, shards.chunk)
-    out_dev = mesh.first.device
+    out_dev = mesh.home.device
     caller = torch.cuda.current_stream(out_dev) if out_dev.type == "cuda" else None
     start = [e for e in (record_event(q.device),) if e is not None]
     rows, row_done = [], []
     for r in range(dp):
-        home = mesh.devices[r, 0]
+        home = mesh.row_home(r)
+        if home is None:
+            rows.append(None)
+            continue
         cand, done = [], []
         for t in range(tp):
             slot = mesh.devices[r, t]
+            if not mesh.is_local(slot):
+                continue
             with on_slot(slot, start):
                 q_rt = q[r * per:(r + 1) * per].to(slot.device, non_blocking=True)
                 found = shard_topk(q_rt, shards.emb[r][t], shards.valid[r][t], lk,
@@ -199,6 +246,8 @@ def _match_sharded(q: torch.Tensor, shards: MeshShards, *, k: int, mesh: Mesh,
                                            home.stream) for x in found))
                 done += [e for e in (record_event(slot.device),) if e is not None]
         with on_slot(home, done):
+            if len(mesh.row_ranks(r)) > 1:
+                cand = _gather_candidates(mesh, r, cand, lk)
             merged = merge_candidates(cand, k, shards.labels[r], labels_pad, pod)
             rows.append(tuple(_handoff(x.to(out_dev, non_blocking=True), caller)
                               for x in merged))
@@ -206,14 +255,24 @@ def _match_sharded(q: torch.Tensor, shards: MeshShards, *, k: int, mesh: Mesh,
     if caller is not None:
         for ev in row_done:
             caller.wait_event(ev)
-    if dp == 1:
-        return rows[0]
-    return tuple(torch.cat(parts, dim=0) for parts in zip(*rows))
+    if not mesh.cross_process:
+        return rows[0] if dp == 1 else tuple(torch.cat(parts, dim=0) for parts in zip(*rows))
+    kk = min(k, tp * lk)
+    blank = (torch.zeros((per, kk), dtype=torch.int32, device=out_dev),
+             torch.zeros((per, kk), dtype=torch.float32, device=out_dev),
+             torch.zeros((per, kk), dtype=torch.int32, device=out_dev))
+    whole = [torch.cat([blank[j] if row is None else row[j].to(blank[j].dtype) for row in rows])
+             for j in range(3)]
+    if not gather:
+        return tuple(whole)
+    every = mesh.gather_rows(torch.cat([whole[0], whole[1].view(torch.int32), whole[2]], dim=1))
+    return (every[:, :kk].clone(), every[:, kk:2 * kk].view(torch.float32).clone(),
+            every[:, 2 * kk:].clone())
 
 
 def match_global(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor,
                  labels: torch.Tensor, *, k: int, mesh: Optional[Mesh] = None,
-                 shards: Optional[MeshShards] = None):
+                 shards: Optional[MeshShards] = None, gather: bool = True):
     """The plain matcher (the reference's ``match_global``): bf16
     operands, f32 accumulation, invalid rows at -1e30, a stable top-k
     (ties to the lowest row). Without a mesh (or on one slot) the direct
@@ -221,33 +280,38 @@ def match_global(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor,
     ``_match_sharded`` over ``shards`` (placed from the whole arrays when
     None). Invalid rows surface as in the reference (their rows, -1e30,
     their labels), never as sentinels. Returns (labels [Q, k], sims
-    [Q, k], row indices [Q, k] int32)."""
-    if mesh is None or mesh.size == 1:
+    [Q, k], row indices [Q, k] int32); ``gather`` as ``_match_sharded``'s."""
+    if mesh is None or not mesh.sharded:
         top_vals, top_idx = _plain_topk(q, g, valid, k)
         return labels[top_idx], top_vals, top_idx.to(torch.int32)
     if shards is None:
         shards = shard_arrays(mesh, g, valid, labels)
-    return _match_sharded(q, shards, k=k, mesh=mesh, pod=False, labels_pad=0)
+    return _match_sharded(q, shards, k=k, mesh=mesh, pod=False, labels_pad=0, gather=gather)
 
 
 def match_pod(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor,
               labels: torch.Tensor, *, k: int, mesh: Mesh, labels_pad: int = -1,
-              shards: Optional[MeshShards] = None):
+              shards: Optional[MeshShards] = None, gather: bool = True):
     """The pod matcher (the reference's ``match_pod_pallas``): kernel A
     (``ops.streaming_match``; its plain version on CPU slots) on each
     shard's own slot, then the merge of ``_match_sharded``. A shard with
     fewer valid rows than k gives ``-1`` indices, never offset into a
     neighbour's rows, and their labels are ``labels_pad``. Returns
-    (labels [Q, k], sims [Q, k], row indices [Q, k] int32)."""
+    (labels [Q, k], sims [Q, k], row indices [Q, k] int32); ``gather`` as
+    ``_match_sharded``'s."""
     if shards is None:
         shards = shard_arrays(mesh, g, valid, labels)
-    return _match_sharded(q, shards, k=k, mesh=mesh, pod=True, labels_pad=labels_pad)
+    return _match_sharded(q, shards, k=k, mesh=mesh, pod=True, labels_pad=labels_pad,
+                          gather=gather)
 
 
 class GalleryData(NamedTuple):
     """One immutable snapshot of the device-visible gallery."""
 
-    embeddings: torch.Tensor  # [capacity, dim] in store_dtype
+    #: [capacity, dim] in store_dtype; on a mesh across processes a
+    #: ``meta`` tensor (shape and dtype, no storage: the rows live in
+    #: ``shards``, each process holding its own)
+    embeddings: torch.Tensor
     labels: torch.Tensor  # [capacity] int32
     valid: torch.Tensor  # [capacity] bool
     size: int
@@ -272,14 +336,14 @@ def empty_data(capacity: int, dim: int, store_dtype: torch.dtype, labels_pad: in
                mesh: Optional[Mesh] = None) -> GalleryData:
     """A snapshot of ``capacity`` rows with none valid: zero rows (or
     ``embeddings``), pad labels, placed on ``mesh`` when it has more than
-    one slot. What a step is warmed or captured over before a tier holds
-    its rows."""
+    one slot (or spans processes). What a step is warmed or captured over
+    before a tier holds its rows."""
     if embeddings is None:
         embeddings = torch.zeros((capacity, dim), dtype=store_dtype, device=device)
     labels = torch.full((capacity,), labels_pad, dtype=torch.int32, device=device)
     valid = torch.zeros((capacity,), dtype=torch.bool, device=device)
     shards = (shard_arrays(mesh, embeddings, valid, labels)
-              if mesh is not None and mesh.size > 1 else None)
+              if mesh is not None and mesh.sharded else None)
     return GalleryData(embeddings=embeddings, labels=labels, valid=valid, size=0,
                        epoch=epoch, shards=shards)
 
@@ -330,8 +394,15 @@ class ShardedGallery:
                  async_grow: bool = False, mesh: Optional[Mesh] = None):
         #: the slots the rows live on; ``device=`` means a 1x1 mesh on it
         self.mesh = mesh if mesh is not None else single_slot_mesh(resolve_device(device))
-        #: the mesh's first slot's device: whole arrays and results land there
-        self.device = self.mesh.first.device
+        #: this process's home slot's device (``Mesh.home``; on one process
+        #: the mesh's first slot's): the whole ``labels`` and ``valid`` and
+        #: the match's results land there
+        self.device = self.mesh.home.device
+        if async_grow and self.mesh.cross_process:
+            raise ValueError(
+                "async_grow=True is refused on a mesh across processes (ROADMAP C.30): a "
+                "grow would publish at a different moment on each process, so their step "
+                "keys and collectives would part; grow synchronously")
         #: the embedder version whose space the rows live in: the service
         #: stamps results and identity-cache entries with it
         self.embedder_version = int(embedder_version)
@@ -398,31 +469,60 @@ class ShardedGallery:
 
     def _shards(self, emb: torch.Tensor, valid: torch.Tensor, labels: torch.Tensor,
                 placed: Optional[tuple] = None) -> Optional[MeshShards]:
-        """The snapshot's placement on a mesh of more than one slot."""
-        if self.mesh.size == 1:
+        """The snapshot's placement on a mesh of more than one slot (or
+        across processes)."""
+        if not self.mesh.sharded:
             return None
         return shard_arrays(self.mesh, emb, valid, labels, placed)
 
-    def _upload_rows(self, rows: np.ndarray) -> torch.Tensor:
+    def _upload_rows(self, rows: np.ndarray, device=None) -> torch.Tensor:
         """Host rows cast to ``store_dtype`` on the host (the transfer
-        carries the narrow bytes), as a new tensor on the device."""
-        return torch.from_numpy(rows).to(self.store_dtype).to(self.device, copy=True)
+        carries the narrow bytes), as a new tensor on ``device`` (default
+        the gallery's)."""
+        return torch.from_numpy(rows).to(self.store_dtype).to(
+            self.device if device is None else device, copy=True)
+
+    def _place_rows(self, host: np.ndarray) -> tuple:
+        """A mesh across processes: ``MeshShards.emb`` of ``host`` rows,
+        this process's shards uploaded straight to their slots (one tensor
+        for each shard and device), ``None`` for another process's."""
+        mesh, made = self.mesh, {}
+        chunk = host.shape[0] // mesh.shape[TP_AXIS]
+
+        def shard(t, slot):
+            if not mesh.is_local(slot):
+                return None
+            if (t, slot.device) not in made:
+                made[t, slot.device] = self._upload_rows(host[t * chunk:(t + 1) * chunk],
+                                                         slot.device)
+            return made[t, slot.device]
+
+        return tuple(tuple(shard(t, s) for t, s in enumerate(row)) for row in mesh.devices)
 
     def _sync_mesh(self) -> None:
-        """Wait for the current stream of every card of the mesh."""
-        for dev in {s.device for s in self.mesh.devices.flat}:
+        """Wait for the current stream of every card of this process's
+        slots."""
+        for dev in {s.device for s in self.mesh.local_slots}:
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
 
     def _install(self, size: int) -> None:
         """Upload the host mirrors and publish one snapshot over a new
-        embeddings tensor (copies: a snapshot never aliases the mirrors)."""
-        emb = self._upload_rows(self._host_emb)
+        embeddings tensor (copies: a snapshot never aliases the mirrors);
+        across processes, over new shard tensors of this process's
+        slots."""
+        placed = None
+        if self.mesh.cross_process:
+            emb = torch.empty((self.capacity, self.dim), dtype=self.store_dtype, device="meta")
+            placed = self._place_rows(self._host_emb)
+        else:
+            emb = self._upload_rows(self._host_emb)
         labels = torch.from_numpy(self._host_lab).to(self.device, copy=True)
         valid = torch.from_numpy(self._host_val).to(self.device, copy=True)
         self._data = GalleryData(
             embeddings=emb, labels=labels, valid=valid, size=size, epoch=self._epoch,
-            embedder_version=self.embedder_version, shards=self._shards(emb, valid, labels))
+            embedder_version=self.embedder_version,
+            shards=self._shards(emb, valid, labels, placed))
         self._drop_next_tiers(self.capacity)
 
     def _append_locked(self, size: int, emb: np.ndarray, lab: np.ndarray) -> None:
@@ -430,10 +530,13 @@ class ShardedGallery:
         tier: the rows written in place into the live embeddings tensor
         (and into each shard copy on another device that holds them), new
         ``valid``/``labels`` tensors (clone + set, so a held snapshot keeps
-        its own), one snapshot write. Caller holds the write lock."""
+        its own), one snapshot write; across processes, into this
+        process's shard tensors only. Caller holds the write lock."""
         data = self._data
         n = len(emb)
-        data.embeddings[size:size + n].copy_(torch.from_numpy(emb).to(self.store_dtype))
+        rows = torch.from_numpy(emb).to(self.store_dtype)
+        if not self.mesh.cross_process:
+            data.embeddings[size:size + n].copy_(rows)
         valid = data.valid.clone()
         valid[size:size + n] = True
         labels = data.labels.clone()
@@ -441,10 +544,16 @@ class ShardedGallery:
         shards = None
         if data.shards is not None:
             chunk = data.shards.chunk
+            written = set()
             for row in data.shards.emb:
                 for t, shard in enumerate(row):
                     lo, hi = max(size, t * chunk), min(size + n, (t + 1) * chunk)
-                    if shard.device != self.device and lo < hi:
+                    if shard is None or lo >= hi or id(shard) in written:
+                        continue
+                    if self.mesh.cross_process:
+                        written.add(id(shard))
+                        shard[lo - t * chunk:hi - t * chunk].copy_(rows[lo - size:hi - size])
+                    elif shard.device != self.device:
                         shard[lo - t * chunk:hi - t * chunk].copy_(data.embeddings[lo:hi])
             shards = self._shards(data.embeddings, valid, labels, data.shards.emb)
         # the writes are complete before any reader, on any stream, can
@@ -968,7 +1077,7 @@ class ShardedGallery:
         and threshold only: the build trigger asks before any build.)"""
         if self.quantizer is None or self.match_mode == "exact":
             return False
-        if self.mesh.size != 1:
+        if self.mesh.sharded:
             return False  # the two-stage path is single-device, as the reference's
         if self.match_mode == "ivf":
             return True
@@ -1034,17 +1143,18 @@ class ShardedGallery:
                 return take_labels_with_sentinel(labels, idx, labels_pad), vals, idx
 
             return ivf_fn
-        if self.mesh.size > 1:
+        if self.mesh.sharded:
             mesh, labels_pad = self.mesh, self.labels_pad
             if self.kernel_enabled(capacity):
-                def pod(q, g, valid, labels, shards=None):
+                def pod(q, g, valid, labels, shards=None, gather=True):
                     return match_pod(q, g, valid, labels, k=k, mesh=mesh,
-                                     labels_pad=labels_pad, shards=shards)
+                                     labels_pad=labels_pad, shards=shards, gather=gather)
 
                 return pod
 
-            def sharded(q, g, valid, labels, shards=None):
-                return match_global(q, g, valid, labels, k=k, mesh=mesh, shards=shards)
+            def sharded(q, g, valid, labels, shards=None, gather=True):
+                return match_global(q, g, valid, labels, k=k, mesh=mesh, shards=shards,
+                                    gather=gather)
 
             return sharded
         if self.kernel_enabled(capacity):
@@ -1064,8 +1174,10 @@ class ShardedGallery:
     @torch.no_grad()
     def match(self, queries, k: int = 1):
         """[Q, D] L2-normalized queries -> (labels [Q, k], cosine sims
-        [Q, k], row indices [Q, k]) on the gallery's device (the mesh's
-        first slot); Q must divide by the dp axis size."""
+        [Q, k], row indices [Q, k]) on the gallery's device (this
+        process's home slot; across processes every process calls it with
+        the same queries and gets the whole result); Q must divide by the
+        dp axis size."""
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         if q.ndim != 2 or q.shape[1] != self.dim:
             raise ValueError(f"queries must be [Q, {self.dim}], got {tuple(q.shape)}")

@@ -48,7 +48,11 @@ embed, the shards' top-k, the rows' merge, the pack), replayed on each
 card's current stream with device-to-device copies queued between the
 levels; each card's work forks from the serving stream and joins back
 before the call returns. Slots of one card take the same form (one graph a
-level), so a mesh on one card runs the code a mesh over several runs. That
+level), so a mesh on one card runs the code a mesh over several runs.
+Across processes (``parallel.mesh``'s contract) each process runs the
+levels of its own rows and slots; the candidates of a row spanning
+processes and the packed rows of other processes cross between levels by
+eager collectives (``_capture_levels``), captured in no graph. That
 form was chosen over one multi-device capture, which was not tried:
 PyTorch's capture registers its memory pool on the capturing card only.
 Over slots of one card and over four cards it gives the eager step's bytes
@@ -98,7 +102,8 @@ from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
 from opencv_facerecognizer_tpu_torch.ops import _build
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.parallel.gallery import (
-    GalleryData, ShardedGallery, _handoff, empty_data, merge_candidates, shard_topk)
+    GalleryData, ShardedGallery, _gather_candidates, _handoff, empty_data, merge_candidates,
+    shard_topk)
 from opencv_facerecognizer_tpu_torch.parallel.mesh import (
     DP_AXIS, _replicas, on_slot, record_event)
 from opencv_facerecognizer_tpu_torch.utils.device import (
@@ -208,14 +213,18 @@ class _LevelStep:
 
     def __init__(self, device, devices, frames, valid, labels, binding):
         self.device = device
-        #: the mesh's cards other than the first slot's
+        #: this process's cards of the mesh other than the home slot's
         self.others = [d for d in devices if d != device]
+        #: static inputs; ``None`` where a row or slot is another process's
         self.frames = frames
         self.valid = valid
         self.labels = labels
         self.binding = binding
         self.levels: list = []  # [[(device, graph)]]
         self.hops: list = []  # [[(dst, src)]] after each level
+        #: eager callables after each level's hops: across processes, the
+        #: collectives, which write into the next level's static inputs
+        self.afters: list = []
         self.deltas: Counter = Counter()
         self.out = None
 
@@ -247,6 +256,7 @@ class _LevelStep:
                 outs[i] = res
         self.levels.append(graphs)
         self.hops.append([])
+        self.afters.append([])
         return outs
 
     def hop(self, moves) -> list:
@@ -261,6 +271,12 @@ class _LevelStep:
             dsts.append(dst)
         return dsts
 
+    def after(self, fn) -> None:
+        """Run ``fn`` now and after every replay of the last level (once
+        its hops are queued)."""
+        fn()
+        self.afters[-1].append(fn)
+
     @torch.no_grad()
     def __call__(self, frames: torch.Tensor, data: GalleryData, ivf) -> torch.Tensor:
         cuda = self.device.type == "cuda"
@@ -270,17 +286,22 @@ class _LevelStep:
                 torch.cuda.current_stream(dev).wait_event(fork)
         per = frames.shape[0] // len(self.frames)
         for r, slot in enumerate(self.frames):
-            slot.copy_(frames[r * per:(r + 1) * per], non_blocking=True)
+            if slot is not None:
+                slot.copy_(frames[r * per:(r + 1) * per], non_blocking=True)
         for row, src_row in zip(self.valid, data.shards.valid):
             for dst, src in zip(row, src_row):
-                dst.copy_(src, non_blocking=True)
+                if dst is not None:
+                    dst.copy_(src, non_blocking=True)
         for dst, src in zip(self.labels, data.shards.labels):
-            dst.copy_(src, non_blocking=True)
-        for graphs, hops in zip(self.levels, self.hops):
+            if dst is not None:
+                dst.copy_(src, non_blocking=True)
+        for graphs, hops, afters in zip(self.levels, self.hops, self.afters):
             for _dev, graph in graphs:
                 graph.replay()
             for dst, src in hops:
                 dst.copy_(src, non_blocking=True)
+            for fn in afters:
+                fn()
         if cuda:
             cur = torch.cuda.current_stream(self.device)
             for dev in self.others:
@@ -310,7 +331,8 @@ class _GraphScores:
 class RecognitionPipeline:
     """Holds the nets and the gallery and runs the per-batch step on
     ``device`` (the card unless the caller asks for the CPU; with a mesh
-    gallery, the mesh's first slot's device, the step over the whole mesh),
+    gallery, its home slot's device (``Mesh.home``: the mesh's first slot
+    on one process), the step over the whole mesh),
     each step key as captured CUDA graphs on the card (``cuda_graphs``);
     with a ``cascade`` gate also the stage-1 pass (``cascade_scores``), on
     ``device``."""
@@ -342,11 +364,15 @@ class RecognitionPipeline:
         #: its own copies of the nets (row 0's are ``detector.net`` and
         #: ``embed_net``), and the cards the mesh spans, the first slot's first
         self.mesh = mesh
-        self._rows = ([mesh.devices[r, 0] for r in range(mesh.shape[DP_AXIS])]
+        self._rows = ([mesh.row_home(r) for r in range(mesh.shape[DP_AXIS])]
                       if mesh.size > 1 else [])
         self._det_nets = _replicas(detector.net, self._rows) if self._rows else [detector.net]
         self._emb_nets = _replicas(self.embed_net, self._rows) if self._rows else [self.embed_net]
-        self._devices = list(dict.fromkeys(s.device for s in mesh.devices.flat))
+        #: across processes a row of another process is ``None`` in
+        #: ``_rows`` and the nets' lists; ``embed_frames`` runs this
+        #: process's first row's nets
+        self._own_row = next((r for r, s in enumerate(self._rows) if s is not None), 0)
+        self._devices = list(dict.fromkeys(s.device for s in mesh.local_slots))
         self.face_size = tuple(face_size)
         self.top_k = int(top_k)
         # The fused embed schedule (ops.sepblock, one kernel per stage
@@ -420,7 +446,8 @@ class RecognitionPipeline:
         """The tensors a captured graph reads by address (with a mesh, each
         shard's rows too)."""
         shards = (() if data.shards is None
-                  else tuple(t.data_ptr() for row in data.shards.emb for t in row))
+                  else tuple(None if t is None else t.data_ptr()
+                             for row in data.shards.emb for t in row))
         return (data.embeddings.data_ptr(), shards,
                 None if ivf is None else tuple(t.data_ptr() for t in tuple(ivf)[:7]))
 
@@ -445,7 +472,7 @@ class RecognitionPipeline:
         """Detect -> align -> embed: [B, H, W] frames -> (boxes [B, K, 4],
         det_scores [B, K], valid [B, K], embeddings [B*K, E] unit-norm)."""
         frames = self._frames_tensor(frames).to(self.device).to(torch.float32)
-        return self._embed(frames)
+        return self._embed(frames, self._own_row)
 
     @torch.no_grad()
     def _forward(self, frames, g_emb, g_valid, g_labels, ivf, match) -> torch.Tensor:
@@ -468,17 +495,24 @@ class RecognitionPipeline:
     @torch.no_grad()
     def _mesh_forward(self, frames, g_emb, g_valid, g_labels, shards, match) -> torch.Tensor:
         """The packed step over the mesh: dp row ``r`` detects, aligns and
-        embeds frames ``[r B / dp, (r + 1) B / dp)`` on its first slot (that
-        slot's device and stream, forked from and joined to the caller's);
-        the embeddings are gathered on the first slot and matched by
-        ``match`` over ``shards`` (``match_pod``: kernel A on each shard's
-        slot; or ``match_global``)."""
+        embeds frames ``[r B / dp, (r + 1) B / dp)`` on its first slot of
+        this process (that slot's device and stream, forked from and
+        joined to the caller's); the embeddings are gathered on this
+        process's home slot and matched by ``match`` over ``shards``
+        (``match_pod``: kernel A on each shard's slot; or
+        ``match_global``). Across processes each process embeds and
+        matches only the rows it holds (zeros stand in for the others'),
+        and the packed rows come back from their processes by the dp
+        result gather (``Mesh.gather_rows``)."""
         per = self._row_batch(frames.shape[0])
         out = self.device
         caller = torch.cuda.current_stream(out) if out.type == "cuda" else None
         start = [e for e in (record_event(out),) if e is not None]
         parts, done = [], []
         for r, slot in enumerate(self._rows):
+            if slot is None:
+                parts.append(None)
+                continue
             with on_slot(slot, start):
                 f = frames[r * per:(r + 1) * per].to(slot.device, non_blocking=True)
                 parts.append(tuple(_handoff(x.to(out, non_blocking=True), caller)
@@ -486,12 +520,16 @@ class RecognitionPipeline:
                 done += [e for e in (record_event(slot.device),) if e is not None]
         for ev in done:
             caller.wait_event(ev)
+        held = next(p for p in parts if p is not None)
+        parts = [tuple(map(torch.zeros_like, held)) if p is None else p for p in parts]
         boxes, det_scores, valid, emb = (torch.cat(p, dim=0) for p in zip(*parts))
-        labels, sims, _ = match(emb, g_emb, g_valid, g_labels, shards=shards)
+        cross = self.mesh.cross_process
+        labels, sims, _ = (match(emb, g_emb, g_valid, g_labels, shards=shards, gather=False)
+                           if cross else match(emb, g_emb, g_valid, g_labels, shards=shards))
         b, k = valid.shape
-        return pack_result(RecognitionResult(
+        return self.mesh.gather_rows(pack_result(RecognitionResult(
             boxes=boxes, det_scores=det_scores, valid=valid,
-            labels=labels.reshape(b, k, -1), similarities=sims.reshape(b, k, -1)))
+            labels=labels.reshape(b, k, -1), similarities=sims.reshape(b, k, -1))))
 
     def _build_step(self, key: Tuple, data: GalleryData, ivf):
         """A new cache entry for ``key`` over the snapshots ``data`` and
@@ -563,7 +601,13 @@ class RecognitionPipeline:
         first slot; (3) each row's merge (``merge_candidates``); the row's
         boxes, scores, flags, labels and sims to the first slot; (4) the
         packed output there. The same functions on the same inputs as
-        ``_mesh_forward``, so the same bits."""
+        ``_mesh_forward``, so the same bits. Across processes the levels
+        hold this process's rows and slots only (its first slot of each row
+        it holds, its home slot for the pack), and two collectives run
+        eagerly between levels, each on its row's or home slot's stream:
+        the candidates' all-gather of each row spanning processes after
+        level 2, into level 3's static inputs, and the dp result gather
+        after level 4, into the step's output."""
         mesh, rows, out_dev = self.mesh, self._rows, self.device
         dp, tp = mesh.devices.shape
         batch, height, width, dtype_name = key[:4]
@@ -571,45 +615,91 @@ class RecognitionPipeline:
         pod, k, shards, pad = key[5], self.top_k, data.shards, self.gallery.labels_pad
         chunk = shards.chunk
         slots = [mesh.devices[r, t] for r in range(dp) for t in range(tp)]
-        frames = [torch.zeros((per, height, width), dtype=getattr(torch, dtype_name),
+        local = [i for i, s in enumerate(slots) if mesh.is_local(s)]
+        held = [r for r in range(dp) if rows[r] is not None]
+        frames = [None if s is None else
+                  torch.zeros((per, height, width), dtype=getattr(torch, dtype_name),
                               device=s.device) for s in rows]
         step = _LevelStep(out_dev, self._devices, frames,
-                          [[v.clone() for v in row] for row in shards.valid],
-                          [lab.clone() for lab in shards.labels], self._binding(data, None))
+                          [[None if v is None else v.clone() for v in row]
+                           for row in shards.valid],
+                          [None if lab is None else lab.clone() for lab in shards.labels],
+                          self._binding(data, None))
         with self._capture_lock:
-            held = self._hold_pools()  # noqa: F841 - alive through the capture
+            held_pools = self._hold_pools()  # noqa: F841 - alive through the capture
             t0 = time.perf_counter()
-            found = step.level(self, [(s, lambda r=r: self._embed(frames[r].to(torch.float32), r))
-                                      for r, s in enumerate(rows)], self._pool_on)
-            q = step.hop([(found[i // tp][3], s.device) for i, s in enumerate(slots)])
+            found = dict(zip(held, step.level(
+                self, [(rows[r], lambda r=r: self._embed(frames[r].to(torch.float32), r))
+                       for r in held], self._pool_on)))
+            q = dict(zip(local, step.hop([(found[i // tp][3], slots[i].device)
+                                          for i in local])))
             cand = step.level(self, [
-                (s, lambda i=i: shard_topk(q[i], shards.emb[i // tp][i % tp],
-                                           step.valid[i // tp][i % tp], min(k, chunk),
-                                           (i % tp) * chunk, pod))
-                for i, s in enumerate(slots)], self._pool_on)
-            moved = step.hop([(x, rows[i // tp].device) for i in range(len(slots))
-                              for x in cand[i]])
-            merged = step.level(self, [
-                (s, lambda r=r: merge_candidates(
-                    [tuple(moved[2 * (r * tp + t):2 * (r * tp + t) + 2]) for t in range(tp)],
-                    k, step.labels[r], pad, pod))
-                for r, s in enumerate(rows)], self._pool_on)
-            parts = step.hop([(x, out_dev) for r in range(dp)
+                (slots[i], lambda i=i: shard_topk(q[i], shards.emb[i // tp][i % tp],
+                                                  step.valid[i // tp][i % tp], min(k, chunk),
+                                                  (i % tp) * chunk, pod))
+                for i in local], self._pool_on)
+            moved = step.hop([(x, rows[i // tp].device) for i, c in zip(local, cand) for x in c])
+            row_cand = {r: [tuple(moved[2 * j:2 * j + 2]) for j, i in enumerate(local)
+                            if i // tp == r] for r in held}
+            for r in held:
+                if len(mesh.row_ranks(r)) > 1:
+                    row_cand[r] = [self._gathered_candidates(step, r, row_cand[r], min(k, chunk))]
+            merged = dict(zip(held, step.level(self, [
+                (rows[r], lambda r=r: merge_candidates(row_cand[r], k, step.labels[r], pad, pod))
+                for r in held], self._pool_on)))
+            parts = step.hop([(x, out_dev) for r in held
                               for x in (*found[r][:3], *merged[r][:2])])
+            parts = {r: parts[5 * j:5 * j + 5] for j, r in enumerate(held)}
 
             def pack():
+                blank = parts[held[0]]
                 boxes, det_scores, valid, labels, sims = (
-                    torch.cat(parts[j::5], dim=0) for j in range(5))
+                    torch.cat([parts[r][j] if r in parts else torch.zeros_like(blank[j])
+                               for r in range(dp)], dim=0) for j in range(5))
                 b, kf = valid.shape
                 return (pack_result(RecognitionResult(
                     boxes=boxes, det_scores=det_scores, valid=valid,
                     labels=labels.reshape(b, kf, -1),
                     similarities=sims.reshape(b, kf, -1))),)
 
-            step.out = step.level(self, [(mesh.first, pack)], self._pool_on)[0][0]
+            step.out = step.level(self, [(mesh.home, pack)], self._pool_on)[0][0]
+            if mesh.cross_process:
+                packed, step.out = step.out, torch.empty_like(step.out)
+                step.after(lambda: self._eager_on(
+                    mesh.home, lambda: step.out.copy_(mesh.gather_rows(packed))))
             self.captures += 1
             self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         return step
+
+    @staticmethod
+    def _eager_on(slot, fn) -> None:
+        """Run ``fn`` eagerly on ``slot``'s stream, forked from and joined
+        to its card's current stream (where the levels replay)."""
+        with on_slot(slot, [e for e in (record_event(slot.device),) if e is not None]):
+            fn()
+            done = record_event(slot.device)
+        if done is not None:
+            torch.cuda.current_stream(slot.device).wait_event(done)
+
+    def _gathered_candidates(self, step: _LevelStep, r: int, mine: list, lk: int) -> tuple:
+        """Level 3's static inputs for dp row ``r``, which spans processes:
+        (sims, indices) ``[Q, tp * lk]`` of every shard of the row, filled
+        by ``_gather_candidates`` over the row's group from this process's
+        candidates ``mine`` (level 2's, moved to the row's slot) now and
+        after every replay of level 2."""
+        home = self._rows[r]
+        tp = self.mesh.shape["tp"]
+        sims = torch.empty((mine[0][0].shape[0], tp * lk), dtype=torch.float32,
+                           device=home.device)
+        idx = torch.empty_like(sims, dtype=torch.int32)
+
+        def collect():
+            got = _gather_candidates(self.mesh, r, mine, lk)
+            sims.copy_(torch.cat([v for v, _ in got], dim=1))
+            idx.copy_(torch.cat([i for _, i in got], dim=1))
+
+        step.after(lambda: self._eager_on(home, collect))
+        return sims, idx
 
     def _capture_graph(self, run, pool=None, device=None):
         """(graph, output, launch deltas) of ``run`` captured into ``pool``
@@ -769,7 +859,9 @@ class RecognitionPipeline:
             if self._rows:  # each other dp row's copy, on the row's stream
                 start = [e for e in (record_event(self.device),) if e is not None]
                 done = []
-                for slot, net in zip(self._rows[1:], self._det_nets[1:]):
+                for slot, net in zip(self._rows, self._det_nets):
+                    if slot is None or net is self.detector.net:
+                        continue  # another process's row, or the one loaded above
                     with on_slot(slot, start):
                         net.load_state_dict(params)
                         done += [e for e in (record_event(slot.device),) if e is not None]

@@ -1099,3 +1099,74 @@ def test_service_over_every_card_reads_every_result_back(cuda):
     first = [f for r in results if r["meta"]["i"] < 8 for f in r["faces"]]
     assert first and all(f["label"] >= 10_000_000 for f in first), first
     assert min(f["similarity"] for f in first) >= 0.99
+
+
+@pytest.mark.gpu
+def test_mesh_across_two_processes_over_four_cards(cuda, tmp_path):
+    """With four cards: two processes of two cards each join an ``nccl``
+    group through ``initialize_multihost`` (``tests/torch_multiprocess_worker.py``
+    ``run_cards``) and serve one batch at (1, 4) (the candidates'
+    all-gather crosses the processes), (2, 2) (the dp result gather) and
+    pp on (2, 2) (the hop point to point): both ranks' packed result
+    equals, bit for bit, the single-process mesh over the same four cards
+    (``test_mesh_over_every_card``'s layouts), and kernel A launches once
+    on every card holding a shard. Prints each rank's ms a step back to
+    back and each collective's ms (timed to its end on the card), beside
+    the single-process mesh's ms a step, timed once the workers are done."""
+    import json
+
+    import torch_multiprocess_worker as worker
+    from opencv_facerecognizer_tpu_torch.ops import _build
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _build.build_all()
+    workers = worker.Workers(tmp_path, worker.run_cards)
+    try:
+        devices = [torch.device("cuda", i) for i in range(4)]
+        _rows, _labels, frames = worker.card_inputs()
+        want, pipes = {}, {}
+        for layout, pp in [(lay, False) for lay in worker.CARD_LAYOUTS] + [((2, 2), True)]:
+            key = ("pp" if pp else "mesh", layout)
+            pipes[key] = worker.card_stack(layout, pp, devices)
+            want[key] = pipes[key].recognize_batch_packed(frames).cpu()
+        outs = workers.wait(deadline_s=600)
+    finally:
+        workers.kill()
+    single_ms = {key: worker.step_ms(pipe, frames) for key, pipe in pipes.items()}
+    del pipes
+    for key, packed in want.items():
+        kind, _layout = key
+        assert (packed[..., 5] > 0.5).any(), key
+        for rank, out in enumerate(outs):
+            assert torch.equal(out[key]["packed"], packed), (key, rank)
+        a = [out[key]["launches"]["streaming_match"] for out in outs]
+        assert a == ([0, 2] if kind == "pp" else [2, 2]), (key, a)
+        print(json.dumps({"mesh_across_processes": {
+            "card": torch.cuda.get_device_name(0), "layout": f"{kind} {key[1]}",
+            "single_process_ms": single_ms[key],
+            "by_rank": [{k: out[key][k] for k in ("launches", "ms", "collectives")}
+                        for out in outs]}}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["all_gather", "send"])
+def test_gloo_takes_card_tensors_where_the_mesh_hands_them_over(cuda, tmp_path, op):
+    """What ``parallel.mesh._Comm`` assumes of ``gloo``, two processes on one
+    card: its ``all_gather_into_tensor`` takes card tensors (both ranks get
+    both rows), so the mesh hands them over; its ``send`` of a card tensor
+    kills the sender, so the mesh stages point to point through host
+    memory."""
+    import torch_multiprocess_worker as worker
+
+    workers = worker.Workers(tmp_path, worker.probe_gloo, op)
+    try:
+        if op == "all_gather":
+            want = torch.cat([torch.full((4, 3), 1.0), torch.full((4, 3), 2.0)])
+            for out in workers.wait(deadline_s=120):
+                assert torch.equal(out["got"], want)
+        else:
+            with pytest.raises(RuntimeError, match="exit codes"):
+                workers.wait(deadline_s=120)
+    finally:
+        workers.kill()

@@ -63,6 +63,13 @@ ALLOWED = {
         "the release path: a parked buffer's upload event, queried, never waited on",
     ("runtime/ingest.py", "StagingRing.release"):
         "the release path: the released buffer's upload event, queried, never waited on",
+    ("parallel/mesh.py", "_Comm.exchange"):
+        "the pp hop between processes over gloo, which sends only host tensors (its send "
+        "of a card tensor aborts the process): the transport's staging, on the eager pp "
+        "step (it captures no graph), never over nccl",
+    ("parallel/mesh.py", "_Comm._sync"):
+        "measurement only: with ``sync_timing`` set (off by default) a collective's "
+        "seconds are timed to its end on the card",
 }
 
 
