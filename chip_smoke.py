@@ -341,8 +341,16 @@ Phases (any failure exits nonzero before the result line):
    rank's host-clock ms a batch back to back (MP_TIME_STEPS, after the
    parent's references are done) beside the single-process mesh's, and
    each collective's ms, bytes and bytes staged through host memory,
-   timed to its end. A worker that fails or outlives MP_DEADLINE_S fails
-   the phase, and both are killed. (f) the CLI's ``--parallel pp``
+   timed to its end. Then (ROADMAP A.18) both run ``parallel.train``'s
+   sharded ArcFace step at the HARD recipe's widths in bf16 (phase 19's
+   ``sharded_step``) at MP_TRAIN_LAYOUTS ((1, 2): the softmax's statistics
+   and the embeddings' gradient cross the processes; (2, 1): the gradient
+   sums over dp) for MP_TRAIN_STEPS steps: both ranks' losses, replicas,
+   head shards and gathered head equal, bit for bit, the single-process
+   mesh on two slots (each reduction has two members); each collective's
+   calls, ms (timed to its end), bytes and staged bytes by rank. A worker
+   that fails or outlives MP_DEADLINE_S fails the phase, and both are
+   killed. (f) the CLI's ``--parallel pp``
    refusals on this host (one card: the device count, and the three flags
    that are single-mesh only), each before any checkpoint loads. One
    ``{"multi_gpu": ...}`` line with the run's total seconds to its end.
@@ -442,14 +450,34 @@ Phases (any failure exits nonzero before the result line):
    ``apps.gate_embedder.main`` on GATE_ARGV (a non-default structure,
    dense blocks, s = 2, light norm, GATE_STEPS steps of the HARD
    protocol): the row's fields, tag and config. One ``{"training": ...}``
-   line with the run's total seconds.
+   line with the seconds up to its end.
+19. (run after 18) training over a mesh (ROADMAP A.18, ``parallel.train``).
+   (a) the HARD recipe's ArcFace step (``sharded_step``: embed 256, stages
+   64 / 128 / 256, 64x64, batch 192, 300 classes, augmented) in f32 over
+   ``make_mesh`` (dp, tp) = SH_LAYOUTS of slots of the card against the
+   one-slot step (``make_train_step``) on the same batches and draws: the
+   first step's loss within SH_LOSS_RTOL and every gradient tensor within
+   SH_GRAD_RTOL (relative to its largest |g|), SH_STEPS steps' losses
+   within SH_LOSSES_RTOL, every replica and every dp copy of a head shard
+   equal bit for bit after each step; then in bf16 ms a step (CUDA events
+   over steps SH_TIME_FROM to SH_STEPS) of each layout and of the one-slot
+   step under cuDNN's default choice and under its deterministic
+   algorithms (which every layout runs), two rounds in turns, and one
+   ``torch.profiler`` trace of each: the card's busy ms and share, its
+   work, its operations and the host's launch calls a step. (b) ``entry.dryrun_multichip(4)`` on four
+   slots of the card: the reference's four ``[dryrun]`` lines (the
+   sharded step, the fused batch over (2, 2), pp over (1, 2) halves) and
+   kernel C's launches (none of A or B: a 32-row gallery, the unfused
+   embedder). (c) is phase 15 (e)'s sharded step across two processes.
+   One ``{"sharded_training": ...}`` line with the run's total seconds.
 
 The line before the last is the per-kernel JSON (kernels A, B and C, their
 launches those of phase 4's serving run, of the reader alone in phase
 14 (a), of the two-stage pipeline in phase 15 (b) and (c), the fused
 mesh step's services in (d) and both processes' counted step in (e), of the
 chaos soak in phase 16, of the s = 2 embedder's serving in phase 17
-(a), and of the trained nets in phase 18 (c) and (d)); the last line is
+(a), of the trained nets in phase 18 (c) and (d), and of the dryrun's
+recognition batches in phase 19 (b)); the last line is
 ``{"ok": true, "device": {...}}``. Before the per-kernel JSON,
 ``{"phase_s": ...}`` holds each phase's seconds.
 """
@@ -497,10 +525,13 @@ from opencv_facerecognizer_tpu_torch.ops.sepblock import (
 from opencv_facerecognizer_tpu_torch.ops.sepblock import launch_info as sepblock_launch_info
 from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
     NEG_INF, match_smem_bytes, streaming_match_topk, streaming_match_topk_plain)
+from opencv_facerecognizer_tpu_torch.entry import dryrun_multichip
 from opencv_facerecognizer_tpu_torch.parallel.gallery import ShardedGallery
+from opencv_facerecognizer_tpu_torch.parallel.mesh import make_mesh
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import (
     RecognitionPipeline, RecognitionResult, pack_result, unpack_result)
 from opencv_facerecognizer_tpu_torch.parallel.quantizer import CoarseQuantizer
+from opencv_facerecognizer_tpu_torch.parallel.train import ShardedArcFaceStep
 from opencv_facerecognizer_tpu_torch.runtime import expo as expo_mod
 from opencv_facerecognizer_tpu_torch.runtime.connector import (
     FakeConnector, encode_frame)
@@ -5262,6 +5293,34 @@ def _mp_drive(dev, pipe, batch, root: str, seed: int) -> dict:
     return rec
 
 
+def _mp_train(dev, seed: int, layout, devices) -> dict:
+    """Phase 15 (e)'s sharded ArcFace step: MP_TRAIN_STEPS steps of
+    ``sharded_step`` in bf16 over ``make_mesh(*layout, devices)``, each
+    collective timed to its end on the card. Returns the losses, this
+    process's replicas and head shards by slot, the collectives' calls a
+    step, ms, bytes and bytes staged through host memory (across
+    processes), and the gathered head."""
+    step = sharded_step(seed, layout, devices, torch.bfloat16)
+    comm = step.mesh.comm
+    if comm is not None:
+        comm.sync_timing = dev.type == "cuda"
+    losses = [step.step(x, y, d) for x, y, d in sharded_batches(dev, seed, MP_TRAIN_STEPS)]
+    local = step.mesh.local_slots
+    rec = dict(losses=torch.stack(losses).cpu(),
+               nets={s.id: [p.detach().cpu() for p in step.nets[s.id].parameters()] for s in local},
+               shards={s.id: step.shards[s.id].detach().cpu() for s in local}, collectives={})
+    if comm is not None:
+        comm.sync_timing = False
+        st = comm.stats
+        rec["collectives"] = {name: dict(calls_per_step=n / MP_TRAIN_STEPS,
+                                         ms=st["seconds"][name] * 1e3 / n,
+                                         bytes=st["bytes"][name] // n,
+                                         staged_bytes=st["staged_bytes"][name] // n)
+                              for name, n in st["calls"].items()}
+    rec["head"] = step.gather_head().cpu()
+    return rec
+
+
 def cross_process_worker(rank: int, port: int, root: str, seed: int, device: str) -> None:
     """Phase 15 (e)'s process ``rank`` of two: a ``gloo`` group made here
     (two processes on one card: NCCL refuses two ranks on one GPU), which
@@ -5294,6 +5353,7 @@ def cross_process_worker(rank: int, port: int, root: str, seed: int, device: str
             if not pp:
                 drop_stack(pipe)
             del pipe
+        out["train"] = {lay: _mp_train(dev, seed, lay, [dev]) for lay in MP_TRAIN_LAYOUTS}
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
         torch.distributed.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
@@ -5339,6 +5399,7 @@ def cross_process_check(dev, seed: int, ctx: dict) -> dict:
             if not pp:
                 drop_stack(pipe)
             del pipe
+        train_refs = {lay: _mp_train(dev, seed, lay, [dev] * 2) for lay in MP_TRAIN_LAYOUTS}
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         open(os.path.join(root, "go"), "w").close()  # the workers may time their steps now
@@ -5392,6 +5453,29 @@ def cross_process_check(dev, seed: int, ctx: dict) -> dict:
             f"mesh on two slots; launches by rank {[rec['launches'] for rec in per_rank]}; "
             f"host-clock ms a batch back to back by rank {[rec['ms'] for rec in per_rank]} "
             f"against {ref_ms} single-process; collectives by rank "
+            f"{[rec['collectives'] for rec in per_rank]}")
+    out["train"] = {}
+    for (dp, tp), want in train_refs.items():
+        per_rank = [r["train"][(dp, tp)] for r in ranks]
+        for rank, rec in enumerate(per_rank):
+            same = (torch.equal(rec["losses"], want["losses"])
+                    and torch.equal(rec["head"], want["head"])
+                    and all(torch.equal(a, b) for i, ps in rec["nets"].items()
+                            for a, b in zip(ps, want["nets"][i]))
+                    and all(torch.equal(t, want["shards"][i]) for i, t in rec["shards"].items()))
+            if not same:
+                raise AssertionError(
+                    f"multi_gpu (e) sharded ArcFace step ({dp}, {tp}) rank {rank}: differs from "
+                    f"the single-process mesh's: losses {rec['losses'].tolist()} against "
+                    f"{want['losses'].tolist()}")
+        out["train"][f"{dp}x{tp}"] = dict(
+            bit_equal_single_process=True, steps=MP_TRAIN_STEPS,
+            losses=want["losses"].tolist(),
+            collectives_by_rank=[rec["collectives"] for rec in per_rank])
+        log(f"multi_gpu (e) sharded ArcFace step ({dp}, {tp}) across two processes (gloo, one "
+            f"slot each), {MP_TRAIN_STEPS} bf16 steps of the HARD recipe: both ranks' losses, "
+            f"replicas, shards and head equal bit for bit to the single-process mesh on two "
+            f"slots; losses {want['losses'].tolist()}; collectives by rank "
             f"{[rec['collectives'] for rec in per_rank]}")
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -6601,6 +6685,264 @@ def training_phase(dev, seed: int, card: str, ctx: dict) -> dict:
     return out
 
 
+# ---------- phase 19: training over a mesh (ROADMAP A.18) ----------
+
+#: phase 19 and 15 (e): the HARD recipe's embedder
+#: (``apps.measure_accuracy.hard_embedder``: embed 256, stem 32, stages
+#: 64 / 128 / 256 of two blocks, 64x64 faces, batch 192, lr 2e-3,
+#: augmented), its head over the protocol's 300 training identities;
+#: standard normal faces and random labels from ``--seed`` (no accuracy is
+#: read here)
+SH_NET = dict(embed_dim=256, stem_features=32, stage_features=(64, 128, 256),
+              stage_blocks=(2, 2, 2))
+SH_FACE = (64, 64)
+SH_BATCH = 192
+SH_CLASSES = 300
+SH_LR = 2e-3
+#: (a): the meshes of slots of the card held to the one-slot step over
+#: SH_STEPS f32 steps, then timed in bf16 by CUDA events over steps
+#: SH_TIME_FROM to SH_STEPS
+SH_LAYOUTS = ((1, 2), (2, 1), (2, 2))
+SH_STEPS = 10
+SH_TIME_FROM = 3
+#: (a)'s bars in f32 on one card (sums in another order): the first
+#: step's loss and each gradient tensor (relative to its largest |g|), as
+#: tests/test_torch_gpu.py holds them, and every step's loss (Adam carries
+#: the first step's roundoff forward); read on the H100 at 0-8.3e-8,
+#: 2.35e-6-3.16e-6 and 4.8e-6-2.1e-5
+SH_LOSS_RTOL = 1e-5
+SH_GRAD_RTOL = 1e-4
+SH_LOSSES_RTOL = 1e-4
+#: (a)'s traces: steps a configuration under torch.profiler
+SH_TRACE_STEPS = 2
+#: phase 15 (e): the sharded step's layouts across the two processes
+MP_TRAIN_LAYOUTS = ((1, 2), (2, 1))
+MP_TRAIN_STEPS = 3
+
+
+def sharded_step(seed: int, layout, devices, dtype) -> ShardedArcFaceStep:
+    """The HARD recipe's ArcFace step over ``make_mesh(*layout, devices)``
+    in ``dtype``, weights and head from ``seed``."""
+    mesh = make_mesh(*layout, devices=devices)
+    net = embedder_mod.FaceEmbedNet(**SH_NET, dtype=dtype, input_size=SH_FACE,
+                                    generator=torch.Generator().manual_seed(seed))
+    head = embedder_mod.draw_head(SH_CLASSES, SH_NET["embed_dim"], seed + 1)
+    return ShardedArcFaceStep(mesh, net.to(mesh.home.device), head, learning_rate=SH_LR,
+                              augment=True)
+
+
+def sharded_batches(dev, seed: int, n: int) -> list:
+    """``n`` batches (faces, labels, augmentation draws for the whole
+    batch) on ``dev``, drawn from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    return [(torch.randn(SH_BATCH, *SH_FACE, generator=gen, device=dev),
+             torch.randint(0, SH_CLASSES, (SH_BATCH,), generator=gen, device=dev),
+             embedder_mod.augment_draws(gen, SH_BATCH, *SH_FACE)) for _ in range(n)]
+
+
+def _step_grads(step) -> dict:
+    """The first local replica's gradients by name and the head's
+    (its row 0 shards, in order), on the host."""
+    tp = step.mesh.shape["tp"]
+    first = step.mesh.local_slots[0].id
+    out = {n: p.grad.detach().float().cpu() for n, p in step.nets[first].named_parameters()}
+    out["head"] = torch.cat([step.shards[c].grad for c in range(tp)]).float().cpu()
+    return out
+
+
+def _copies_equal(step) -> bool:
+    """Every replica equal to the first, every head shard to its row 0
+    copy, bit for bit."""
+    tp = step.mesh.shape["tp"]
+    local = step.mesh.local_slots
+    first = list(step.nets[local[0].id].parameters())
+    return (all(torch.equal(p, q) for s in local
+                for p, q in zip(step.nets[s.id].parameters(), first))
+            and all(torch.equal(step.shards[s.id], step.shards[s.id % tp]) for s in local))
+
+
+def sharded_vs_one_slot(dev, seed: int) -> dict:
+    """Phase 19 (a), equality: SH_STEPS f32 steps of the one-slot step and
+    of each layout of SH_LAYOUTS over slots of ``dev`` on the same batches
+    and draws: the first step's loss and every gradient, every step's
+    loss, and the copies bit-equal after every step."""
+    batches = sharded_batches(dev, seed, SH_STEPS)
+    one = sharded_step(seed, (1, 1), [dev], torch.float32)
+    ref_losses, ref_grads = [], None
+    for x, y, d in batches:
+        ref_losses.append(float(one.step(x, y, d)))
+        ref_grads = ref_grads or _step_grads(one)
+    del one
+    out = {"one_slot_losses": ref_losses}
+    for layout in SH_LAYOUTS:
+        step = sharded_step(seed, layout, [dev] * (layout[0] * layout[1]), torch.float32)
+        losses, grads, equal = [], None, True
+        for x, y, d in batches:
+            losses.append(float(step.step(x, y, d)))
+            grads = grads or _step_grads(step)
+            equal = equal and _copies_equal(step)
+        worst = max((float((grads[n] - g).abs().max() / max(float(g.abs().max()), 1e-30)), n)
+                    for n, g in ref_grads.items())
+        rec = dict(loss=losses[0], loss_rel_err=abs(losses[0] - ref_losses[0]) / abs(ref_losses[0]),
+                   max_grad_rel_err=worst[0], worst_tensor=worst[1],
+                   losses_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+                   copies_bit_equal_every_step=equal, losses=losses)
+        out[f"{layout[0]}x{layout[1]}"] = rec
+        log(f"sharded_training (a) {layout} on slots of the card, f32, against the one-slot "
+            f"step: {rec}")
+        if not (equal and rec["loss_rel_err"] <= SH_LOSS_RTOL and worst[0] <= SH_GRAD_RTOL
+                and rec["losses_max_rel_err"] <= SH_LOSSES_RTOL):
+            raise AssertionError(f"sharded_training (a) {layout}: {rec} (bars: loss "
+                                 f"{SH_LOSS_RTOL}, gradients {SH_GRAD_RTOL}, losses "
+                                 f"{SH_LOSSES_RTOL}, copies bit for bit)")
+        del step
+    return out
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    """cuDNN's deterministic algorithms (``on``) or its default choice
+    within the block; the sharded step sets them itself on a mesh of more
+    than one slot."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _sharded_ms(step, batches, deterministic: bool) -> float:
+    """Ms a step by CUDA events over steps SH_TIME_FROM to the last."""
+    first, last = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with _cudnn_deterministic(deterministic):
+        for i, (x, y, d) in enumerate(batches, 1):
+            if i == SH_TIME_FROM:
+                first.record()
+            step.step(x, y, d)
+        last.record()
+        torch.cuda.synchronize()
+    return first.elapsed_time(last) / (len(batches) - SH_TIME_FROM + 1)
+
+
+def _sharded_trace(step, batches, deterministic: bool) -> dict:
+    """SH_TRACE_STEPS warm steps under ``torch.profiler``, per step: the
+    host's ms (to the card's end), the card's busy ms (the union of its
+    kernels' and copies' intervals over every stream), the sum of their
+    durations (the card's work, overlap counted twice), the device
+    operations and the host's kernel launch calls; the busy share. None
+    where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with _cudnn_deterministic(deterministic):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for x, y, d in batches[:SH_TRACE_STEPS]:
+                step.step(x, y, d)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    launches = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                  "cuLaunchKernelEx"))
+    n = SH_TRACE_STEPS
+    return dict(host_ms=wall_ms / n, busy_ms=busy / 1e3 / n,
+                work_ms=sum(b - a for a, b in spans) / 1e3 / n,
+                busy_share=busy / 1e3 / wall_ms, device_ops=len(spans) / n,
+                launch_calls=launches / n)
+
+
+def sharded_step_times(dev, seed: int) -> dict:
+    """Phase 19 (a), time: ms a step in bf16 of the one-slot step under
+    cuDNN's default choice (``1x1``) and under its deterministic
+    algorithms (``1x1_det``, as every layout runs), and of each layout,
+    twice each in turns (one-slot first, then the reverse order); then one
+    ``torch.profiler`` trace of each (``_sharded_trace``), which splits a
+    layout's gap to the one-slot step into the deterministic algorithms'
+    share, the card's extra work (each tp slot embeds its row's batch) and
+    the card's idle time. None off the card."""
+    if dev.type != "cuda":
+        return None
+    batches = sharded_batches(dev, seed, SH_STEPS)
+    one = sharded_step(seed, (1, 1), [dev], torch.bfloat16)
+    steps = {"1x1": (one, False), "1x1_det": (one, True)}
+    for dp, tp in SH_LAYOUTS:
+        steps[f"{dp}x{tp}"] = (sharded_step(seed, (dp, tp), [dev] * (dp * tp), torch.bfloat16),
+                               True)
+    ms = {k: [] for k in steps}
+    for k in [*steps, *reversed(steps)]:
+        ms[k].append(_sharded_ms(steps[k][0], batches, steps[k][1]))
+    log(f"sharded_training (a) bf16 ms a step (CUDA events over steps {SH_TIME_FROM}-"
+        f"{SH_STEPS}, two rounds in turns): {ms}")
+    try:
+        traces = {k: _sharded_trace(step, batches, det) for k, (step, det) in steps.items()}
+    except Exception as e:  # the profiler is an observer: a failed trace is reported as such
+        traces = {"error": repr(e)}
+    log(f"sharded_training (a) bf16 traces, a step ({SH_TRACE_STEPS} steps under "
+        f"torch.profiler): {traces}")
+    return {"ms": ms, "traces": traces}
+
+
+def dryrun_check(dev) -> dict:
+    """Phase 19 (b): ``dryrun_multichip(4)`` on four slots of ``dev``: its
+    four lines as the reference prints them; its kernel launches (C in the
+    recognition batches; A and B none: a 32-row gallery, the unfused
+    embedder)."""
+    zero_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4, devices=[dev] * 4)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"sharded_training (b) {line}")
+    ok = (len(lines) == 4 and lines[0] == "[dryrun] mesh: dp=2 tp=2 on 4 devices"
+          and lines[1].startswith("[dryrun] sharded ArcFace train step OK, loss=")
+          and np.isfinite(float(lines[1].split("loss=")[1]))
+          and lines[2] == "[dryrun] fused recognition batch OK: boxes (8, 4, 4), labels (8, 4, 1)"
+          and lines[3] == ("[dryrun] pipeline-parallel batch OK: stage meshes {'dp': 1, 'tp': 2} "
+                           "| {'dp': 1, 'tp': 2}, labels (8, 4, 1)"))
+    if not ok:
+        raise AssertionError(f"sharded_training (b) dryrun_multichip's lines: {lines}")
+    if dev.type == "cuda" and (launches["nms"] < 1 or launches["streaming_match"]
+                               or launches["sepblock"]):
+        raise AssertionError(f"sharded_training (b) dryrun_multichip's launches: {launches}")
+    return {"lines": lines, "launches": launches, "seconds": seconds}
+
+
+def sharded_training_phase(dev, seed: int, card: str) -> dict:
+    """Phase 19 (module docstring); returns the ``{"sharded_training": ...}``
+    numbers, (b)'s kernel launches among them."""
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    t = time.perf_counter()
+    out["vs_one_slot"] = sharded_vs_one_slot(dev, seed)
+    out["vs_one_slot_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["bf16_ms_per_step"] = sharded_step_times(dev, seed)
+    out["times_s"] = time.perf_counter() - t
+    out["dryrun"] = dryrun_check(dev)
+    out["launches"] = out["dryrun"]["launches"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6664,13 +7006,18 @@ def main() -> int:
     train_end_s = time.perf_counter() - t_run
     training = training_phase(dev, args.seed, card, ctx)
     done("18 training")
+    training_end_s = time.perf_counter() - t_run
+    sharded = sharded_training_phase(dev, args.seed, card)
+    sharded["across_processes"] = multi_gpu["cross_process"]["train"]
+    done("19 sharded_training")
     for e in entries:
         # the main path's launches: the serving run's, the replicas', the
-        # two-stage pipeline's and the fused mesh step's services', the chaos soak's, the s = 2 embedder's and
-        # the trained nets' (phase 18 (c), (d))
+        # two-stage pipeline's and the fused mesh step's services', the chaos soak's, the s = 2 embedder's,
+        # the trained nets' (phase 18 (c), (d)) and the dryrun's (phase 19 (b))
         e["launches"] = (launches[e["name"]] + replication["inproc"]["launches"][e["name"]]
                          + multi_gpu["mesh_launches"][e["name"]] + chaos["launches"][e["name"]]
-                         + train["launches"][e["name"]] + training["launches"][e["name"]])
+                         + train["launches"][e["name"]] + training["launches"][e["name"]]
+                         + sharded["launches"][e["name"]])
     print(json.dumps({"step": {"card": card, **ctx["step"]}}))
     print(json.dumps({"async_grow": grow}))
     print(json.dumps({"ivf": ivf}))
@@ -6688,10 +7035,12 @@ def main() -> int:
     print(json.dumps({"chaos": chaos}))
     train["total_s"] = train_end_s
     print(json.dumps({"train": train}))
-    training["total_s"] = time.perf_counter() - t_run
-    log(f"chip_smoke: total {training['total_s']:.1f} s")
+    training["total_s"] = training_end_s
     print(json.dumps({"training": training}))
-    print(json.dumps({"phase_s": {"card": card, **phase_s, "total": training["total_s"]}}))
+    sharded["total_s"] = time.perf_counter() - t_run
+    log(f"chip_smoke: total {sharded['total_s']:.1f} s")
+    print(json.dumps({"sharded_training": sharded}))
+    print(json.dumps({"phase_s": {"card": card, **phase_s, "total": sharded["total_s"]}}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -1,5 +1,5 @@
-"""The port's compile-check entry point: port of ``__graft_entry__.py``'s
-``entry()``.
+"""The port's entry points: port of ``__graft_entry__.py``'s ``entry()``
+and ``dryrun_multichip()``.
 
 ``entry()`` returns ``(fn, example_args)``: the fused recognition forward
 (detect -> align -> embed -> match, top-1) on one card, at the
@@ -11,11 +11,21 @@ as the reference's jittable ``fn`` takes them as arguments, and returns
 serving detector and embedder with the port's seeded init; the gallery,
 labels and frames come from the same numpy generator calls as the
 reference's, so they are equal in both packages.
+
+``dryrun_multichip(n_devices)`` runs the reference's three parts on a
+(dp, tp) mesh of ``n_devices`` slots (tp 2 when n is even) at its tiny
+shapes and prints its ``[dryrun]`` lines: one sharded ArcFace training
+step (``parallel.train``: the batch over dp, the head's classes over tp),
+one fused recognition batch over the mesh (frames over dp, a 32-row
+gallery over tp) and, when dp is even, one two-stage batch over
+``split_mesh``'s halves. The reference's fall-back to virtual CPU devices
+when its backend is unusable is not ported (ROADMAP C.31): without a card
+it raises, and the CPU runs only when the caller names it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,9 +34,10 @@ from torch.func import functional_call
 from opencv_facerecognizer_tpu_torch.models.detector import (
     CNNFaceDetector, decode_detections)
 from opencv_facerecognizer_tpu_torch.models.embedder import (
-    SERVING_EMBEDDER_KWARGS, SERVING_FACE_SIZE, FaceEmbedNet, normalize_faces)
+    SERVING_EMBEDDER_KWARGS, SERVING_FACE_SIZE, FaceEmbedNet, init_embedder, normalize_faces)
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.ops.nms import stable_topk
+from opencv_facerecognizer_tpu_torch.parallel.mesh import DP_AXIS, TP_AXIS, _local_devices
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, resolve_device)
 
@@ -75,3 +86,66 @@ def entry(device: DeviceLike = DEFAULT_DEVICE,
         torch.from_numpy(frames).to(dev),
     )
     return fn, example_args
+
+
+def dryrun_multichip(n_devices: int, device: DeviceLike = DEFAULT_DEVICE,
+                     devices: Optional[Sequence[DeviceLike]] = None) -> None:
+    """One sharded ArcFace step, one fused recognition batch and (dp even)
+    one two-stage batch on a (dp, tp) mesh of ``n_devices`` slots: the
+    first ``n_devices`` of ``devices``, a slot list (``["cpu"] * 4``, or
+    four slots of one card), by default every card, or with
+    ``device="cpu"`` ``n_devices`` CPU slots. Raises with fewer devices."""
+    from opencv_facerecognizer_tpu_torch.parallel import (
+        ShardedArcFaceStep, ShardedGallery, TwoStagePipeline, make_mesh, split_mesh)
+    from opencv_facerecognizer_tpu_torch.parallel.pipeline import RecognitionPipeline
+
+    if devices is None:
+        dev = resolve_device(device)
+        devices = [dev] * n_devices if dev.type == "cpu" else _local_devices()
+    devices = list(devices)
+    if len(devices) < n_devices:
+        raise RuntimeError(f"need {n_devices} devices, have {len(devices)}")
+    tp = 2 if n_devices % 2 == 0 else 1
+    mesh = make_mesh(dp=n_devices // tp, tp=tp, devices=devices[:n_devices])
+    dp = mesh.shape[DP_AXIS]
+    home = mesh.home.device
+    print(f"[dryrun] mesh: dp={dp} tp={mesh.shape[TP_AXIS]} on {n_devices} devices")
+
+    # 1) the ArcFace step: the batch over dp, the head's classes over tp
+    face = (32, 32)
+    num_classes = 8
+    batch = dp * max(2, -(-8 // dp))  # a multiple of dp, at least 8
+    net = FaceEmbedNet(embed_dim=32, stem_features=8, stage_features=(8, 16),
+                       stage_blocks=(1, 1), input_size=face).to(home)
+    head = init_embedder(net, num_classes, face, seed=0)
+    step = ShardedArcFaceStep(mesh, net, head, learning_rate=1e-3)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0, 255, size=(batch, *face)).astype(np.float32)).to(home)
+    y = torch.from_numpy(rng.integers(0, num_classes, size=batch).astype(np.int32)).to(home)
+    loss = step.step(normalize_faces(x, face), y)
+    print(f"[dryrun] sharded ArcFace train step OK, loss={float(loss):.4f}")
+
+    # 2) a fused recognition batch: frames over dp, the gallery over tp
+    det = CNNFaceDetector(features=(8, 16, 32), head_features=32, max_faces=4,
+                          score_threshold=0.3, device=home,
+                          generator=torch.Generator().manual_seed(1))
+    gallery = ShardedGallery(32, 32, mesh=mesh)
+    emb0 = rng.normal(size=(16, 32)).astype(np.float32)
+    gallery.add(emb0, np.arange(16, dtype=np.int32))
+    pipe = RecognitionPipeline(det, net, gallery, face_size=face, device=home)
+    frames = rng.uniform(0, 255, size=(batch, 64, 64)).astype(np.float32)
+    result = pipe.recognize_batch(frames)
+    print(f"[dryrun] fused recognition batch OK: boxes {tuple(result.boxes.shape)}, "
+          f"labels {tuple(result.labels.shape)}")
+
+    # 3) pipeline parallel: the two stages on disjoint halves of the mesh
+    if dp >= 2 and dp % 2 == 0:
+        mesh_a, mesh_b = split_mesh(mesh)
+        gal_b = ShardedGallery(32, 32, mesh=mesh_b)
+        gal_b.add(emb0, np.arange(16, dtype=np.int32))
+        pp = TwoStagePipeline(det, net, None, gal_b, mesh_a, face_size=face)
+        pp_out = pp.recognize_batch(frames)
+        print(f"[dryrun] pipeline-parallel batch OK: stage meshes {mesh_a.shape} | "
+              f"{mesh_b.shape}, labels {tuple(pp_out.labels.shape)}")
+    else:
+        print(f"[dryrun] pipeline-parallel skipped (dp={dp} not an even split)")

@@ -243,20 +243,30 @@ def fused_forward(net: FaceEmbedNet, x: torch.Tensor) -> torch.Tensor:
 # ---------- training: ArcFace (the reference's embedder.py:276-431) ----------
 
 
-def arcface_loss(embeddings: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
-                 margin: float = 0.5, scale: float = 32.0) -> torch.Tensor:
-    """Additive angular margin softmax loss: the class directions
-    ``weights`` [C, E] L2-normalized, the cosine clipped to
-    +-(1 - 1e-6), the true class's angle widened by ``margin``, the
-    logits scaled by ``scale``, then the mean softmax cross entropy."""
+def arcface_logits(embeddings: torch.Tensor, onehot: torch.Tensor, weights: torch.Tensor,
+                   margin: float = 0.5, scale: float = 32.0) -> torch.Tensor:
+    """The additive angular margin logits [N, C] of ``arcface_loss``: the
+    class directions ``weights`` [C, E] L2-normalized, the cosine clipped
+    to +-(1 - 1e-6), the angle widened by ``margin`` where ``onehot``
+    [N, C] is 1, everything scaled by ``scale``. Each class's column
+    needs only its own row of ``weights``, so a shard of the classes
+    (``parallel.train``) gets its columns of the whole."""
     w = weights / torch.clamp(torch.linalg.vector_norm(weights, dim=-1, keepdim=True),
                               min=1e-12)
     cos = torch.clamp(embeddings @ w.T, -1.0 + 1e-6, 1.0 - 1e-6)  # [N, C]
     theta = torch.arccos(cos)
-    onehot = F.one_hot(labels.long(), w.shape[0]).to(cos.dtype)
     cos_margin = torch.cos(theta + margin)
-    logits = scale * (onehot * cos_margin + (1.0 - onehot) * cos)
-    return F.cross_entropy(logits, labels.long())
+    return scale * (onehot * cos_margin + (1.0 - onehot) * cos)
+
+
+def arcface_loss(embeddings: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+                 margin: float = 0.5, scale: float = 32.0) -> torch.Tensor:
+    """Additive angular margin softmax loss: ``arcface_logits`` with the
+    labels' classes widened, then the mean softmax cross entropy."""
+    onehot = F.one_hot(labels.long(), weights.shape[0]).to(
+        torch.promote_types(embeddings.dtype, weights.dtype))
+    return F.cross_entropy(arcface_logits(embeddings, onehot, weights, margin, scale),
+                           labels.long())
 
 
 def augment_draws(generator: torch.Generator, n: int, h: int, w: int, *,

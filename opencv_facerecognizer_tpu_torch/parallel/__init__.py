@@ -1,7 +1,8 @@
-"""The gallery and the serving step, on one device or over a device mesh
-(``mesh``: ``dp`` splits frame and query batches, ``tp`` the gallery's
-rows). ``TwoStagePipeline`` and ``split_mesh`` load lazily (they pull in
-the model stack); ``CoarseQuantizer`` too."""
+"""The gallery, the serving step and the ArcFace training step, on one
+device or over a device mesh (``mesh``: ``dp`` splits frame, query and
+training batches, ``tp`` the gallery's rows and the ArcFace head's
+classes). ``TwoStagePipeline``, ``split_mesh`` and ``ShardedArcFaceStep``
+load lazily (they pull in the model stack); ``CoarseQuantizer`` too."""
 
 from opencv_facerecognizer_tpu_torch.parallel.gallery import (
     EmbeddingDimMismatchError,
@@ -9,8 +10,9 @@ from opencv_facerecognizer_tpu_torch.parallel.gallery import (
 )
 from opencv_facerecognizer_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
 
-__all__ = ["CoarseQuantizer", "EmbeddingDimMismatchError", "ShardedGallery",
-           "TwoStagePipeline", "initialize_multihost", "make_mesh", "split_mesh"]
+__all__ = ["CoarseQuantizer", "EmbeddingDimMismatchError", "ShardedArcFaceStep",
+           "ShardedGallery", "TwoStagePipeline", "initialize_multihost", "make_mesh",
+           "split_mesh"]
 
 
 def __getattr__(name):
@@ -18,6 +20,10 @@ def __getattr__(name):
         from opencv_facerecognizer_tpu_torch.parallel import pp
 
         return getattr(pp, name)
+    if name == "ShardedArcFaceStep":
+        from opencv_facerecognizer_tpu_torch.parallel.train import ShardedArcFaceStep
+
+        return ShardedArcFaceStep
     if name == "CoarseQuantizer":
         from opencv_facerecognizer_tpu_torch.parallel.quantizer import CoarseQuantizer
 

@@ -92,7 +92,7 @@ from opencv_facerecognizer_tpu_torch.ops.nms import stable_topk
 from opencv_facerecognizer_tpu_torch.ops.streaming_match import (
     NEG_INF, streaming_match_topk)
 from opencv_facerecognizer_tpu_torch.parallel.mesh import (
-    DP_AXIS, TP_AXIS, Mesh, on_slot, record_event, single_slot_mesh)
+    DP_AXIS, TP_AXIS, Mesh, _handoff, on_slot, record_event, single_slot_mesh)
 from opencv_facerecognizer_tpu_torch.utils.device import (
     DEFAULT_DEVICE, DeviceLike, resolve_device)
 
@@ -153,14 +153,6 @@ def shard_arrays(mesh: Mesh, g: torch.Tensor, valid: torch.Tensor, labels: torch
     return MeshShards(chunk, emb,
                       tuple(tuple(rows(valid, r, t) for t in range(tp)) for r in range(dp)),
                       tuple(None if h is None else _place(labels, h.device) for h in homes))
-
-
-def _handoff(t: torch.Tensor, stream) -> torch.Tensor:
-    """``t``, made on one stream, is read on ``stream`` next: its memory
-    is not reused before that stream's reads are done."""
-    if stream is not None and t.is_cuda:
-        t.record_stream(stream)
-    return t
 
 
 def shard_topk(q: torch.Tensor, g: torch.Tensor, valid: torch.Tensor, k: int, offset: int,

@@ -33,12 +33,25 @@ reference's multi-controller model:
 The collectives between processes run on the groups the mesh makes when
 it is made (``_Comm``): one for each dp row whose tp shards span more than
 one process (the candidates' all-gather, the reference's
-``jax.lax.all_gather`` over ``tp``) and one over every process (the dp
-result gather). ``gloo`` takes the all-gathers' card tensors (it copies
-them through host memory itself) but sends only host tensors (its send of
-a card tensor aborts the process), so over gloo the pp hop's point-to-point
-transfer is staged through host memory explicitly; ``nccl`` never
-stages.
+``jax.lax.all_gather`` over ``tp``; the training step's softmax and
+embedding-gradient sums over ``tp``), one for each dp column (a tp index
+down the dp rows) spanning more than one process (the training step's
+gradient sums over ``dp``) and one over every process (the dp result
+gather). ``gloo`` takes the all-gathers' and all-reduces' card tensors (it
+copies them through host memory itself) but sends only host tensors (its
+send of a card tensor aborts the process), so over gloo the pp hop's
+point-to-point transfer is staged through host memory explicitly; ``nccl``
+never stages.
+
+**Reductions over slots** (``Mesh.reduce``, what GSPMD's all-reduces do
+for the reference's sharded training step): in one process the members of
+a row or column combine as explicit copies and adds (or maxima) on the
+first member's stream, in a fixed order (a balanced tree in slot order),
+and every member gets a copy of the one result, so every copy is the same
+bit for bit. Across processes each process combines its own members the
+same way and ``_Comm.all_reduce`` combines the processes' partial results;
+where each process holds a contiguous half of the members (two processes,
+as in the tests) that is the same tree, so it gives the one-process bits.
 """
 
 from __future__ import annotations
@@ -58,6 +71,9 @@ from opencv_facerecognizer_tpu_torch.utils.device import DeviceLike, resolve_dev
 DP_AXIS = "dp"
 TP_AXIS = "tp"
 
+#: ``Mesh.reduce``'s ops: how two members combine in one process
+_COMBINE = {"sum": torch.add, "max": torch.maximum}
+
 class Slot(NamedTuple):
     """One place of a mesh: ``id`` its position in the mesh's device list,
     ``device``, ``stream`` (None off CUDA and on another process's slot)
@@ -73,18 +89,20 @@ class Slot(NamedTuple):
 class _Comm:
     """The process group of a mesh across processes: this process's
     ``rank``, ``home`` (its first slot of the mesh made by ``make_mesh``),
-    ``group`` over every process (the result gather) and ``row_groups``
-    (ranks -> group) for each dp row spanning more than one process.
+    ``group`` over every process (the result gather), ``row_groups``
+    (ranks -> group) for each dp row spanning more than one process and
+    ``col_groups`` likewise for each dp column.
     ``stats`` counts each named collective's calls, bytes, bytes staged
     through host memory and host-clock seconds; ``sync_timing`` waits for
     the cards before and after each one, so its seconds are its own (the
     wait for the other members included), its transfer on NCCL too."""
 
-    def __init__(self, rank: int, home: Slot, group, row_groups: dict):
+    def __init__(self, rank: int, home: Slot, group, row_groups: dict, col_groups: dict):
         self.rank = rank
         self.home = home
         self.group = group
         self.row_groups = row_groups
+        self.col_groups = col_groups
         self.stats = {"calls": Counter(), "bytes": Counter(), "staged_bytes": Counter(),
                       "seconds": Counter()}
         self.sync_timing = False
@@ -115,6 +133,17 @@ class _Comm:
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
         gather(out.view(-1, *t.shape[1:]), t, group=group)
         self._note(name, [t], False, t0)
+        return out
+
+    def all_reduce(self, t: torch.Tensor, group, op: str, name: str) -> torch.Tensor:
+        """The ``op`` ("sum" or "max") of every member's ``t`` over
+        ``group``, elementwise, on ``t``'s device (``t`` is left as it
+        was)."""
+        dist = torch.distributed
+        t0 = self._sync([t])
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=getattr(dist.ReduceOp, op.upper()), group=group)
+        self._note(name, [out], False, t0)
         return out
 
     def exchange(self, sends: list, recvs: list, name: str) -> list:
@@ -200,6 +229,47 @@ class Mesh:
     def row_ranks(self, r: int) -> tuple:
         """The processes holding dp row ``r``, in rank (= shard) order."""
         return tuple(sorted({s.rank for s in self.devices[r]}))
+
+    def col_ranks(self, c: int) -> tuple:
+        """The processes holding dp column ``c`` (tp index ``c`` of every
+        dp row), in rank (= row) order."""
+        return tuple(sorted({s.rank for s in self.devices[:, c]}))
+
+    def reduce(self, parts: dict, axis: str, op: str, name: str) -> dict:
+        """``parts`` {slot id: tensor}, one for each of this process's
+        slots (each on its slot's device, made on its stream), reduced
+        elementwise by ``op`` ("sum" or "max") over ``axis``: with
+        ``TP_AXIS`` over each dp row's tp slots, with ``DP_AXIS`` over
+        each dp column's dp slots. Returns {slot id: its row's or
+        column's reduction}, on the slot's device and stream, the same
+        bits in every member (module docstring); a one-slot row or column
+        gives its part back. ``name`` tags the collective across
+        processes in ``comm.stats``."""
+        lines = self.devices if axis == TP_AXIS else self.devices.T
+        out = {}
+        for i, members in enumerate(lines):
+            local = [s for s in members if self.is_local(s)]
+            if len(members) == 1 or not local:
+                out.update((s.id, parts[s.id]) for s in local)
+                continue
+            first = local[0]
+            ready = []
+            for s in local[1:]:
+                with on_slot(s):
+                    ready += [e for e in (record_event(s.device),) if e is not None]
+            with on_slot(first, ready):
+                acc = _tree(op, [_handoff(parts[s.id], first.stream).to(first.device)
+                                 for s in local])
+                ranks = self.row_ranks(i) if axis == TP_AXIS else self.col_ranks(i)
+                if len(ranks) > 1:
+                    groups = self.comm.row_groups if axis == TP_AXIS else self.comm.col_groups
+                    acc = self.comm.all_reduce(acc, groups[ranks], op, name)
+                done = [e for e in (record_event(first.device),) if e is not None]
+            out[first.id] = acc
+            for s in local[1:]:
+                with on_slot(s, done):
+                    out[s.id] = _handoff(acc, s.stream).to(s.device, copy=True)
+        return out
 
     @property
     def home(self) -> Slot:
@@ -295,13 +365,18 @@ def make_mesh(dp: Optional[int] = None, tp: Optional[int] = None,
         # torch.distributed rule), even those it is no member of
         dist = torch.distributed
         group = dist.new_group(sorted(set(ranks)))
-        row_groups = {}
+        row_groups, col_groups = {}, {}
         for r in range(dp):
             members = mesh.row_ranks(r)
             if len(members) > 1 and members not in row_groups:
                 row_groups[members] = dist.new_group(list(members))
+        for c in range(tp):
+            members = mesh.col_ranks(c)
+            if len(members) > 1 and members not in col_groups:
+                col_groups[members] = (row_groups[members] if members in row_groups
+                                       else dist.new_group(list(members)))
         home = next(s for s in slots if s.rank == rank)
-        mesh.comm = _Comm(rank, home, group, row_groups)
+        mesh.comm = _Comm(rank, home, group, row_groups, col_groups)
     return mesh
 
 
@@ -336,6 +411,23 @@ def on_slot(slot: Slot, after: Iterable = ()):
         for ev in after:
             slot.stream.wait_event(ev)
         yield
+
+
+def _handoff(t: torch.Tensor, stream) -> torch.Tensor:
+    """``t``, made on one stream, is read on ``stream`` next: its memory
+    is not reused before that stream's reads are done."""
+    if stream is not None and t.is_cuda:
+        t.record_stream(stream)
+    return t
+
+
+def _tree(op: str, parts: list) -> torch.Tensor:
+    """``parts`` combined by ``op`` as a balanced tree in their order
+    (the first half's result with the second half's)."""
+    if len(parts) == 1:
+        return parts[0]
+    half = (len(parts) + 1) // 2
+    return _COMBINE[op](_tree(op, parts[:half]), _tree(op, parts[half:]))
 
 
 def record_event(device: torch.device):

@@ -55,9 +55,9 @@ from opencv_facerecognizer_tpu_torch.models import detector as detector_mod
 from opencv_facerecognizer_tpu_torch.models import embedder as embedder_mod
 from opencv_facerecognizer_tpu_torch.ops import image as image_ops
 from opencv_facerecognizer_tpu_torch.parallel.gallery import (
-    GalleryData, ShardedGallery, _handoff, empty_data)
+    GalleryData, ShardedGallery, empty_data)
 from opencv_facerecognizer_tpu_torch.parallel.mesh import (
-    DP_AXIS, Mesh, _replicas, on_slot, record_event)
+    DP_AXIS, Mesh, _handoff, _replicas, on_slot, record_event)
 from opencv_facerecognizer_tpu_torch.parallel.pipeline import (
     RecognitionResult, _unpack_device, pack_result)
 from opencv_facerecognizer_tpu_torch.utils.device import disable_tf32

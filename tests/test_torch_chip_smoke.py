@@ -646,3 +646,24 @@ def test_fused_mesh_check_rehearses_on_the_cpu(monkeypatch):
         assert rec["service"]["lone_frame_rung"] == rung
         assert rec["service"]["frames"] == 33 and rec["service"]["planted_found"] == n
     assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}
+
+
+def test_sharded_training_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 19 at the dryrun's widths on CPU slots: every layout's f32
+    steps within the phase's bars of the one-slot step with the copies
+    bit-equal, no timing off the card, and the dryrun's four lines."""
+    import torch
+
+    for name, value in (("SH_NET", dict(embed_dim=32, stem_features=8, stage_features=(8, 16),
+                                        stage_blocks=(1, 1))),
+                        ("SH_FACE", (32, 32)), ("SH_BATCH", 8), ("SH_CLASSES", 8),
+                        ("SH_STEPS", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.sharded_training_phase(torch.device("cpu"), 0, "cpu")
+    for layout in ("1x2", "2x1", "2x2"):
+        rec = out["vs_one_slot"][layout]
+        assert rec["copies_bit_equal_every_step"] and len(rec["losses"]) == 4
+        assert rec["max_grad_rel_err"] <= chip_smoke.SH_GRAD_RTOL
+    assert out["bf16_ms_per_step"] is None
+    assert out["dryrun"]["lines"][0] == "[dryrun] mesh: dp=2 tp=2 on 4 devices"
+    assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}

@@ -1150,19 +1150,21 @@ def test_mesh_across_two_processes_over_four_cards(cuda, tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["all_gather", "send"])
+@pytest.mark.parametrize("op", ["all_gather", "all_reduce", "send"])
 def test_gloo_takes_card_tensors_where_the_mesh_hands_them_over(cuda, tmp_path, op):
     """What ``parallel.mesh._Comm`` assumes of ``gloo``, two processes on one
-    card: its ``all_gather_into_tensor`` takes card tensors (both ranks get
-    both rows), so the mesh hands them over; its ``send`` of a card tensor
-    kills the sender, so the mesh stages point to point through host
-    memory."""
+    card: its ``all_gather_into_tensor`` and its ``all_reduce`` (sum and
+    max) take card tensors (both ranks get both rows, and the sum and the
+    max), so the mesh hands them over; its ``send`` of a card tensor kills
+    the sender, so the mesh stages point to point through host memory."""
     import torch_multiprocess_worker as worker
 
     workers = worker.Workers(tmp_path, worker.probe_gloo, op)
     try:
-        if op == "all_gather":
-            want = torch.cat([torch.full((4, 3), 1.0), torch.full((4, 3), 2.0)])
+        if op != "send":
+            want = (torch.cat([torch.full((4, 3), 1.0), torch.full((4, 3), 2.0)])
+                    if op == "all_gather"
+                    else torch.stack([torch.full((4, 3), 3.0), torch.full((4, 3), 2.0)]))
             for out in workers.wait(deadline_s=120):
                 assert torch.equal(out["got"], want)
         else:
@@ -1170,3 +1172,134 @@ def test_gloo_takes_card_tensors_where_the_mesh_hands_them_over(cuda, tmp_path, 
                 workers.wait(deadline_s=120)
     finally:
         workers.kill()
+
+
+# ---------- the sharded ArcFace step (parallel/train.py) ----------
+
+#: the sharded step's loss and gradients against the one-slot step's, in
+#: f32 (sums in another order; tests/test_torch_sharded_train.py's bars)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+
+
+def _assert_train_close(got: dict, want: dict, tp: int) -> None:
+    """``train_run`` records of one process holding every slot: losses,
+    the first slot's net gradients and the head's gradient (its row 0
+    shards' in class order, each summed over its dp column) close to
+    ``want``'s (a one-slot run), the gathered head its row 0 shards, every
+    replica and every dp copy of a head shard equal to the first's bit for
+    bit."""
+    np.testing.assert_allclose(torch.stack(got["losses"]).cpu().numpy(),
+                               torch.stack(want["losses"]).cpu().numpy(), rtol=TRAIN_LOSS_RTOL)
+    first = got["slots"][min(got["slots"])]
+    head_grad = torch.cat([got["slots"][c]["shard_grad"].cpu() for c in range(tp)])
+    for g, w in zip([*first["grads"], head_grad],
+                    [*want["slots"][0]["grads"], want["slots"][0]["shard_grad"]]):
+        g, w = g.cpu(), w.cpu()
+        assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) <= TRAIN_GRAD_RTOL
+    assert torch.equal(got["head"].cpu(),
+                       torch.cat([got["slots"][c]["shard"].cpu() for c in range(tp)]))
+    for i, mine in got["slots"].items():
+        for p, q in zip(mine["params"], first["params"]):
+            assert torch.equal(p.cpu(), q.cpu()), i
+        twin = got["slots"].get(i % tp)
+        if twin is not None:
+            assert torch.equal(mine["shard"].cpu(), twin["shard"].cpu()), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [(2, 2), (1, 4), (2, 1)])
+def test_sharded_step_on_slots_of_one_card(cuda, layout):
+    """``ShardedArcFaceStep`` on slots of one card against the one-slot
+    step (``make_train_step``), f32: each step's loss and the gradients
+    within the CPU tests' bars, the replicas and shard copies bit-equal
+    (a tp row's slots run the same work under cuDNN's deterministic
+    algorithms)."""
+    import torch_multiprocess_worker as worker
+
+    want = worker.train_run((1, 1), [cuda])
+    got = worker.train_run(layout, [cuda] * (layout[0] * layout[1]))
+    _assert_train_close(got, want, layout[1])
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_over_every_card(cuda, capsys):
+    """With four cards or more, ``dryrun_multichip(4)`` over the first
+    four: the reference's lines, the pp batch on (1, 2) halves."""
+    from opencv_facerecognizer_tpu_torch.entry import dryrun_multichip
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    dryrun_multichip(4)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "[dryrun] mesh: dp=2 tp=2 on 4 devices"
+    assert np.isfinite(float(lines[1].split("loss=")[1]))
+    assert lines[2] == "[dryrun] fused recognition batch OK: boxes (8, 4, 4), labels (8, 4, 1)"
+    assert lines[3].startswith("[dryrun] pipeline-parallel batch OK: stage meshes "
+                               "{'dp': 1, 'tp': 2} | {'dp': 1, 'tp': 2}")
+
+
+@pytest.mark.gpu
+def test_sharded_step_over_four_cards(cuda):
+    """With four cards: the sharded step at (2, 2) and (1, 4) over them
+    against the one-slot step on one card (f32), and the HARD recipe's
+    bf16 step's ms over them beside one card's, under cuDNN's default
+    choice and under the deterministic algorithms the mesh runs (printed)."""
+    import json
+
+    import torch_multiprocess_worker as worker
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    want = worker.train_run((1, 1), [cuda])
+    one_ms, _ = worker.hard_step_ms((1, 1), [cards[0]])
+    one_det_ms, _ = worker.hard_step_ms((1, 1), [cards[0]], deterministic=True)
+    for layout in worker.TRAIN_LAYOUTS:
+        _assert_train_close(worker.train_run(layout, cards), want, layout[1])
+        ms, _ = worker.hard_step_ms(layout, cards)
+        print(json.dumps({"sharded_step_over_cards": {
+            "card": torch.cuda.get_device_name(0), "layout": list(layout), "ms": ms,
+            "one_card_ms": one_ms, "one_card_deterministic_ms": one_det_ms}}))
+
+
+@pytest.mark.gpu
+def test_sharded_step_across_two_processes_over_four_cards(cuda, tmp_path):
+    """With four cards: two processes of two cards each on ``nccl``
+    (``worker.train_cards``) run the sharded step at (2, 2) (the dp sums
+    cross the processes) and (1, 4) (the softmax's statistics and the
+    embeddings' gradient cross them): each rank's losses, replicas, shards
+    and head equal the single-process mesh over the same four cards bit
+    for bit (each process sums its two slots, the all-reduce adds the two
+    halves: the single process's tree). Prints each rank's HARD-recipe ms
+    a step and collectives beside the single-process mesh's ms."""
+    import json
+
+    import torch_multiprocess_worker as worker
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    workers = worker.Workers(tmp_path, worker.train_cards)
+    try:
+        outs = workers.wait(deadline_s=600)
+    finally:
+        workers.kill()
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for layout in worker.TRAIN_LAYOUTS:
+        want = worker.train_run(layout, cards)
+        single_ms, _ = worker.hard_step_ms(layout, cards)
+        for rank, out in enumerate(outs):
+            got = out[layout]["run"]
+            for a, b in zip(got["losses"], want["losses"]):
+                assert torch.equal(a.cpu(), b.cpu()), (layout, rank)
+            for i, mine in got["slots"].items():
+                theirs = want["slots"][i]
+                for a, b in zip(mine["params"] + [mine["shard"]],
+                                theirs["params"] + [theirs["shard"]]):
+                    assert torch.equal(a.cpu(), b.cpu()), (layout, rank, i)
+            assert torch.equal(got["head"].cpu(), want["head"].cpu()), (layout, rank)
+        print(json.dumps({"sharded_step_across_processes": {
+            "card": torch.cuda.get_device_name(0), "layout": list(layout),
+            "single_process_ms": single_ms,
+            "by_rank": [{"ms": out[layout]["ms"], "collectives": out[layout]["collectives"]}
+                        for out in outs]}}))

@@ -104,7 +104,9 @@ MULTI_GPU_MODULES = ("opencv_facerecognizer_tpu_torch.parallel",
                      "opencv_facerecognizer_tpu_torch.parallel.mesh",
                      "opencv_facerecognizer_tpu_torch.parallel.pp",
                      "opencv_facerecognizer_tpu_torch.parallel.gallery",
-                     "opencv_facerecognizer_tpu_torch.parallel.pipeline")
+                     "opencv_facerecognizer_tpu_torch.parallel.pipeline",
+                     "opencv_facerecognizer_tpu_torch.parallel.train",
+                     "opencv_facerecognizer_tpu_torch.entry")
 
 
 #: the chaos soak slice's modules
@@ -169,11 +171,13 @@ def test_entry_points_default_to_the_card():
     from opencv_facerecognizer_tpu_torch.models.classifier import NearestNeighbor
     from opencv_facerecognizer_tpu_torch.models.embedder import CNNEmbedding
     from opencv_facerecognizer_tpu_torch.utils.serialization import load_model
+    from opencv_facerecognizer_tpu_torch.entry import dryrun_multichip
     from opencv_facerecognizer_tpu_torch.entry import entry as port_entry
 
     for entry in (CNNFaceDetector, ShardedGallery, RecognitionPipeline,
                   device_mod.resolve_device, ivf_data_from_numpy, CNNEmbedding,
-                  NearestNeighbor, load_model, CNNFaceDetector.load, port_entry):
+                  NearestNeighbor, load_model, CNNFaceDetector.load, port_entry,
+                  dryrun_multichip):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     assert device_mod.DEFAULT_DEVICE == "cuda"
     assert build_parser().get_default("device") == "cuda"
@@ -281,8 +285,9 @@ def test_reader_cli_without_a_card_raises_and_writes_nothing(tmp_path, monkeypat
 
 @pytest.mark.parametrize("mod", MULTI_GPU_MODULES)
 def test_multi_gpu_module_imports_only_the_port(mod):
-    """The mesh, the sharded gallery and the two-stage pipeline keep their
-    own copies: no JAX, no flax, nothing of the JAX package."""
+    """The mesh, the sharded gallery, the two-stage pipeline, the sharded
+    training step and the dryrun keep their own copies: no JAX, no flax,
+    nothing of the JAX package."""
     parts = mod.split(".")
     path = os.path.join(REPO, *parts) + ".py"
     if not os.path.exists(path):
@@ -294,16 +299,17 @@ def test_multi_gpu_module_imports_only_the_port(mod):
 
 def test_make_mesh_and_the_pp_pipeline_default_to_the_card(monkeypatch):
     """``make_mesh`` lays its mesh over the cards unless given devices,
-    and raises without one; ``split_mesh`` and ``TwoStagePipeline`` load
-    lazily from ``parallel``."""
+    and raises without one; ``split_mesh``, ``TwoStagePipeline`` and
+    ``ShardedArcFaceStep`` load lazily from ``parallel``."""
     import opencv_facerecognizer_tpu_torch.parallel as parallel
-    from opencv_facerecognizer_tpu_torch.parallel import pp
+    from opencv_facerecognizer_tpu_torch.parallel import pp, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         parallel.make_mesh()
     assert parallel.split_mesh is pp.split_mesh
     assert parallel.TwoStagePipeline is pp.TwoStagePipeline
+    assert parallel.ShardedArcFaceStep is train.ShardedArcFaceStep
     with pytest.raises(AttributeError):
         parallel.NoSuchThing  # noqa: B018
 

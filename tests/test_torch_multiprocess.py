@@ -14,7 +14,9 @@ single-process mesh of the same layout on ``["cpu"] * 4``; and it agrees
 with the JAX package's function on four of its 8 virtual CPU devices
 within ``test_torch_mesh_pipeline.py``'s tolerances (boxes within 1e-3 px,
 sims within 2e-3, labels, indices and flags equal). The reference's pod
-matcher runs its Pallas kernel in interpret mode."""
+matcher runs its Pallas kernel in interpret mode. The sharded ArcFace
+step (g) is held to the single-process mesh only here;
+``test_torch_sharded_train.py`` holds that to the JAX package."""
 
 import functools
 import pickle
@@ -287,6 +289,35 @@ def test_async_grow_is_refused_across_processes(runs):
     each process, so a mesh across processes refuses it."""
     got = _both(runs, "async_grow")
     assert got[0] == got[1] and "ROADMAP C.30" in got[0] and "async_grow=True" in got[0]
+
+
+# ---------- (g) the sharded ArcFace step ----------
+
+@pytest.mark.parametrize("dp,tp", worker.TRAIN_LAYOUTS)
+def test_sharded_arcface_step_across_processes(runs, dp, tp):
+    """``parallel.train.ShardedArcFaceStep`` over two processes of two
+    slots: at (2, 2) each dp row is one process's and the gradient sums
+    over dp cross the processes (the column groups), at (1, 4) the
+    softmax's statistics and the embeddings' gradient cross them (the row
+    group). Each rank's losses, replicas, gradients, shards and gathered
+    head equal the single-process mesh's bit for bit: each process sums
+    its own two slots and the all-reduce adds the two halves, the tree
+    the single process sums in."""
+    want = worker.train_run((dp, tp), CPU4)
+    crossing = ({"net_grad", "head_grad"} if dp == 2
+                else {"ce_max", "ce_sum", "emb_grad"})
+    for rank, got in enumerate(_both(runs, f"train/{dp}x{tp}")):
+        _equal(got["losses"], want["losses"])
+        assert sorted(got["slots"]) == [2 * rank, 2 * rank + 1]
+        for i, mine in got["slots"].items():
+            theirs = want["slots"][i]
+            _equal(mine["params"] + mine["grads"], theirs["params"] + theirs["grads"])
+            _equal([mine["shard"], mine["shard_grad"]], [theirs["shard"], theirs["shard_grad"]])
+        _equal(got["head"], want["head"])
+        calls = got["stats"]["calls"]
+        assert set(calls) == crossing | {"head"}, calls
+        per_step = 2 if dp == 2 else 1  # one a dp column, or one a row
+        assert all(calls[name] == per_step * worker.TRAIN_STEPS for name in crossing), calls
 
 
 # ---------- no process waits forever ----------

@@ -6,10 +6,12 @@ harness that runs them (``Workers``).
 own ``initialize_multihost("127.0.0.1:<port>", 2, rank)`` (``gloo``: no
 card), brings two CPU slots to every mesh (four slots in all) and runs
 ``case``: ``"all"`` runs every case below and saves its tensors to
-``root/rank<rank>.pt``; ``"die"`` raises on rank 1 after joining, so rank
+``root/rank<rank>.pt`` (the sharded ArcFace step's case ``train_run``
+among them); ``"die"`` raises on rank 1 after joining, so rank
 0 blocks in a collective until the parent ends it. ``run_cards(rank,
-port, root)`` is one process of ``tests/test_torch_gpu.py``'s four-card
-case (``nccl``, two cards a process). A failure leaves its traceback in
+port, root)`` and ``train_cards(rank, port, root)`` are one process of
+``tests/test_torch_gpu.py``'s four-card cases (``nccl``, two cards a
+process). A failure leaves its traceback in
 ``root/rank<rank>.err`` and a non-zero exit code.
 
 It imports torch and the port only (no JAX): the parents compute the
@@ -209,6 +211,125 @@ def _pipeline_cases(out: dict, cfg: dict) -> None:
     out["stats"] = {k: dict(v) for k, v in gal.mesh.comm.stats.items()}
 
 
+#: the sharded ArcFace step's case: the dryrun's net and classes
+#: (``__graft_entry__.py:182-189``), its layouts and steps
+TRAIN_NET = dict(embed_dim=32, stem_features=8, stage_features=(8, 16), stage_blocks=(1, 1))
+TRAIN_FACE = (32, 32)
+TRAIN_CLASSES = 8
+TRAIN_LAYOUTS = ((2, 2), (1, 4))
+TRAIN_STEPS = 2
+
+
+def train_run(layout, devices) -> dict:
+    """``ShardedArcFaceStep`` over ``make_mesh(*layout, devices)`` for
+    TRAIN_STEPS steps from seeded weights and batches: each step's loss;
+    each of this process's slots' replica parameters and gradients, head
+    shard and its gradient; the gathered head; the mesh's collective
+    stats (None on one process)."""
+    from opencv_facerecognizer_tpu_torch.models.embedder import FaceEmbedNet, draw_head
+    from opencv_facerecognizer_tpu_torch.parallel import ShardedArcFaceStep, make_mesh
+
+    net = FaceEmbedNet(**TRAIN_NET, dtype=torch.float32, input_size=TRAIN_FACE,
+                       generator=torch.Generator().manual_seed(18))
+    step = ShardedArcFaceStep(make_mesh(*layout, devices=devices), net,
+                              draw_head(TRAIN_CLASSES, TRAIN_NET["embed_dim"], 19))
+    rng = np.random.default_rng(18)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        x = torch.from_numpy(rng.standard_normal((8, *TRAIN_FACE)).astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, TRAIN_CLASSES, 8))
+        losses.append(step.step(x, y).clone())
+    slots = {s.id: dict(params=[p.detach().clone() for p in step.nets[s.id].parameters()],
+                        grads=[p.grad.clone() for p in step.nets[s.id].parameters()],
+                        shard=step.shards[s.id].detach().clone(),
+                        shard_grad=step.shards[s.id].grad.clone())
+             for s in step.mesh.local_slots}
+    comm = step.mesh.comm
+    return dict(losses=losses, slots=slots, head=step.gather_head(),
+                stats=None if comm is None else {k: dict(v) for k, v in comm.stats.items()})
+
+
+#: the four-card training case's timed step: the HARD recipe's widths
+#: (``apps.measure_accuracy.hard_embedder``), batch 192 of 64x64 faces in
+#: bf16 over 300 classes, augmented; ms a step by CUDA events over steps
+#: HARD_TIME_FROM to HARD_STEPS
+HARD_NET = dict(embed_dim=256, stem_features=32, stage_features=(64, 128, 256),
+                stage_blocks=(2, 2, 2))
+HARD_FACE = (64, 64)
+HARD_BATCH = 192
+HARD_CLASSES = 300
+HARD_STEPS = 10
+HARD_TIME_FROM = 3
+
+
+def hard_step_ms(layout, devices, deterministic: bool = False) -> tuple:
+    """(ms a step, the mesh's collectives {name: ms, bytes a call} over
+    three more steps timed to their ends, or None on one process) of the
+    HARD recipe's step in bf16 over ``make_mesh(*layout, devices)``;
+    ``deterministic`` times it under cuDNN's deterministic algorithms,
+    which the step itself sets on a mesh of more than one slot."""
+    from opencv_facerecognizer_tpu_torch.models.embedder import (
+        FaceEmbedNet, augment_draws, draw_head)
+    from opencv_facerecognizer_tpu_torch.parallel import ShardedArcFaceStep, make_mesh
+
+    mesh = make_mesh(*layout, devices=devices)
+    dev = mesh.home.device
+    net = FaceEmbedNet(**HARD_NET, input_size=HARD_FACE,
+                       generator=torch.Generator().manual_seed(3)).to(dev)
+    step = ShardedArcFaceStep(mesh, net, draw_head(HARD_CLASSES, 256, 4), learning_rate=2e-3,
+                              augment=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(HARD_BATCH, *HARD_FACE, generator=gen, device=dev)
+    y = torch.randint(0, HARD_CLASSES, (HARD_BATCH,), generator=gen, device=dev)
+    first, last = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    prev, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, deterministic
+    try:
+        for i in range(1, HARD_STEPS + 1):
+            if i == HARD_TIME_FROM:
+                first.record()
+            step.step(x, y, augment_draws(gen, HARD_BATCH, *HARD_FACE))
+        last.record()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    ms = first.elapsed_time(last) / (HARD_STEPS - HARD_TIME_FROM + 1)
+    comm = mesh.comm
+    if comm is None:
+        return ms, None
+    for v in comm.stats.values():
+        v.clear()
+    comm.sync_timing = True
+    for _ in range(3):
+        step.step(x, y, augment_draws(gen, HARD_BATCH, *HARD_FACE))
+    comm.sync_timing = False
+    st = comm.stats
+    return ms, {name: dict(ms=st["seconds"][name] * 1e3 / n, bytes=st["bytes"][name] // n,
+                           calls_per_step=n / 3) for name, n in st["calls"].items()}
+
+
+def train_cards(rank: int, port: int, root: str) -> None:
+    """One process of two, two cards each, on ``nccl``: the sharded step
+    at each of TRAIN_LAYOUTS (``train_run``'s record), and the HARD
+    recipe's step there timed (``hard_step_ms``)."""
+    try:
+        from opencv_facerecognizer_tpu_torch.parallel.mesh import initialize_multihost
+
+        devices = [torch.device("cuda", 2 * rank + i) for i in range(2)]
+        torch.cuda.set_device(devices[0])
+        assert initialize_multihost(f"127.0.0.1:{port}", 2, rank) is True
+        assert torch.distributed.get_backend() == "nccl"
+        out = {}
+        for layout in TRAIN_LAYOUTS:
+            out[layout] = dict(run=train_run(layout, devices))
+            out[layout]["ms"], out[layout]["collectives"] = hard_step_ms(layout, devices)
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(root, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+
+
 def serving_nets(device, seed: int = 7):
     """The serving detector (a bias that fires on noise) and the serving
     embedder in bf16 on ``device``, weights from ``seed``:
@@ -324,9 +445,9 @@ def run_cards(rank: int, port: int, root: str) -> None:
 
 def probe_gloo(rank: int, port: int, root: str, op: str) -> None:
     """One process of two on ``cuda:0`` in a ``gloo`` group: ``op`` (the
-    mesh's name, ``"all_gather"`` or ``"send"``) on card tensors, its
-    result saved; a gloo ``send`` of a card tensor is expected to kill the
-    sender."""
+    mesh's name, ``"all_gather"``, ``"all_reduce"`` (a sum and a max) or
+    ``"send"``) on card tensors, its result saved; a gloo ``send`` of a
+    card tensor is expected to kill the sender."""
     import datetime
 
     try:
@@ -339,6 +460,11 @@ def probe_gloo(rank: int, port: int, root: str, op: str) -> None:
             out = torch.empty(8, 3, device="cuda:0")
             torch.distributed.all_gather_into_tensor(out, t)
             got = out.cpu()
+        elif op == "all_reduce":
+            total, top = t.clone(), t.clone()
+            torch.distributed.all_reduce(total)
+            torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+            got = torch.stack([total, top]).cpu()
         elif rank == 0:
             torch.distributed.send(t, 1)
             got = None
@@ -372,6 +498,8 @@ def run(rank: int, port: int, root: str, case: str) -> None:
         _mesh_cases(out)
         _gallery_cases(out, cfg["gallery"])
         _pipeline_cases(out, cfg)
+        for layout in TRAIN_LAYOUTS:
+            out[f"train/{layout[0]}x{layout[1]}"] = train_run(layout, SLOTS)
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
         torch.distributed.destroy_process_group()
     except BaseException:
