@@ -667,3 +667,78 @@ def test_sharded_training_phase_rehearses_on_the_cpu(monkeypatch):
     assert out["bf16_ms_per_step"] is None
     assert out["dryrun"]["lines"][0] == "[dryrun] mesh: dp=2 tp=2 on 4 devices"
     assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}
+
+
+def _explore_table(ms=0.25, mfu=0.01, **det_quality):
+    from opencv_facerecognizer_tpu_torch.apps import explore_perf
+
+    quality = {"recall": 1.0, "precision": 1.0, "mean_iou": 0.9, **det_quality}
+    return {"detector": {n: {"ms_per_batch32_fwd": ms, **quality}
+                         for n in explore_perf.DETECTOR_VARIANTS},
+            "embedder": {n: {"ms_per_256crops_fwd": 1.0, "mfu_vs_bf16_peak": mfu}
+                         for n in explore_perf.EMBEDDER_VARIANTS}}
+
+
+def test_exploration_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 20 at tiny sizes on the CPU (a detector trained one step and
+    no quality bars, one-crop embedder batches, a 3 x 4 face protocol in
+    2 folds recorded from a first run): a row for every variant with no
+    time off the card, the five candidates' rows, no kernel launched."""
+    import torch
+
+    from opencv_facerecognizer_tpu_torch.apps import explore_fisherfaces, explore_perf
+
+    for name, value in (("SCENE_SIZE", (32, 32)), ("FACE_SIZE_RANGE", (8, 16)),
+                        ("TRAIN_SCENES", (4, 7)), ("TEST_SCENES", (4, 1234)),
+                        ("DETECTOR_TRAIN", dict(steps=1, batch_size=4)), ("EMBEDDER_BATCH", 1)):
+        monkeypatch.setattr(explore_perf, name, value)
+    monkeypatch.setattr(explore_fisherfaces, "PROTOCOL", dict(
+        explore_fisherfaces.PROTOCOL, num_subjects=3, per_subject=4, size=(16, 16)))
+    monkeypatch.setattr(explore_fisherfaces, "FOLDS", 2)
+    cands = explore_fisherfaces.candidates()
+    monkeypatch.setattr(chip_smoke, "FISHER_RECORDED", {
+        name: explore_fisherfaces.run_candidate(name, cands[name], "cpu")["accuracy"]
+        for name in chip_smoke.FISHER_RECORDED})
+    monkeypatch.setattr(chip_smoke, "EXPLORE_DET_BARS", {})
+    out = chip_smoke.exploration_phase(torch.device("cpu"), "cpu")
+    table = out["explore_perf"]
+    assert list(table["detector"]) == list(explore_perf.DETECTOR_VARIANTS)
+    assert list(table["embedder"]) == list(explore_perf.EMBEDDER_VARIANTS)
+    for row in (*table["detector"].values(), *table["embedder"].values()):
+        assert row["invalid"] == "not timed off the card"
+    assert {n: r["accuracy"] for n, r in out["fisher"].items()} == chip_smoke.FISHER_RECORDED
+    assert out["launches"] == {"streaming_match": 0, "sepblock": 0, "nms": 0}
+
+
+@pytest.mark.parametrize("fault", ["det_ms", "emb_ms", "mfu", "recall", "precision_nan", "iou"])
+def test_exploration_gates_fail_on_a_faulty_table(fault):
+    chip_smoke.check_explore_table(_explore_table(mfu=chip_smoke.EXPLORE_MFU_MAX), timed=True)
+    table = _explore_table(**{"recall": dict(recall=0.94), "precision_nan":
+                              dict(precision=float("nan")), "iou": dict(mean_iou=0.79)}.get(
+                                  fault, {}))
+    name = next(iter(table["embedder"]))
+    if fault == "det_ms":
+        table["detector"][next(iter(table["detector"]))]["ms_per_batch32_fwd"] = None
+    elif fault == "emb_ms":
+        table["embedder"][name] = {"ms_per_256crops_fwd": None, "invalid": "under-resolved"}
+    elif fault == "mfu":
+        table["embedder"][name]["mfu_vs_bf16_peak"] = 1.06
+    with pytest.raises(AssertionError, match="exploration"):
+        chip_smoke.check_explore_table(table, timed=True)
+
+
+@pytest.mark.parametrize("name, off, ok", [
+    ("baseline_fisher_nn", 0.0, True), ("baseline_fisher_nn", 1 / 600, True),
+    ("baseline_fisher_nn", 1 / 300, False), ("lbp_l1brd", -1 / 300, False),
+    ("fisher_rbf_svm", -0.0367, True), ("fisher_rbf_svm", 0.07, False)])
+def test_fisher_gate_holds_each_candidate_to_its_record(name, off, ok):
+    """A face of a 60-face fold (1/600) passes, a face of a 30-face fold
+    (1/300) fails; the kernel SVM takes its roundoff band (C.34)."""
+    rows = {n: {"accuracy": round(v + (off if n == name else 0.0), 4)}
+            for n, v in chip_smoke.FISHER_RECORDED.items()}
+    if ok:
+        chip_smoke.check_fisher_rows(rows)
+    else:
+        with pytest.raises(AssertionError, match=name):
+            chip_smoke.check_fisher_rows(rows)
+

@@ -462,7 +462,9 @@ def test_training_entry_points_default_to_the_card_and_raise_without_one(monkeyp
 #: the accuracy tools: the seven rows, the oracle column, the embedder gate
 ACCURACY_TOOL_MODULES = ("opencv_facerecognizer_tpu_torch.apps.measure_accuracy",
                          "opencv_facerecognizer_tpu_torch.apps.oracle_parity",
-                         "opencv_facerecognizer_tpu_torch.apps.gate_embedder")
+                         "opencv_facerecognizer_tpu_torch.apps.gate_embedder",
+                         "opencv_facerecognizer_tpu_torch.apps.explore_perf",
+                         "opencv_facerecognizer_tpu_torch.apps.explore_fisherfaces")
 
 
 @pytest.mark.parametrize("mod", ACCURACY_TOOL_MODULES)
@@ -492,3 +494,19 @@ def test_accuracy_tools_default_to_the_card_and_raise_without_one(monkeypatch):
             main(argv)
     with pytest.raises(RuntimeError, match="cuda"):
         measure_accuracy.classic_kfold("eigenfaces", 2, 2, 2)
+
+
+def test_exploration_apps_default_to_the_card_and_raise_without_one(monkeypatch):
+    from opencv_facerecognizer_tpu_torch.apps import explore_fisherfaces, explore_perf
+
+    for fn in (explore_perf.detector_variants, explore_perf.embedder_variants,
+               explore_perf.embedder_net, explore_fisherfaces.run_candidate):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (explore_perf.detector_variants, explore_perf.embedder_variants,
+               explore_perf.main, explore_fisherfaces.main):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn([]) if fn.__name__ == "main" else fn()
+    with pytest.raises(RuntimeError, match="cuda"):
+        explore_fisherfaces.run_candidate("baseline_fisher_nn",
+                                          explore_fisherfaces.candidates()["baseline_fisher_nn"])
